@@ -1,0 +1,21 @@
+"""tpuflows_torch — the PyTorch/CUDA port of `tpuflows` for NVIDIA Hopper.
+
+The package mirrors `tpuflows`' layout module by module. It imports
+`torch`, numpy and the standard library only: nothing of JAX and nothing
+of the JAX package, which stays the reference the tests compare against.
+
+Conventions carried over from `tpuflows`:
+  - `forward` maps data -> base (x -> z), `inverse` base -> data;
+  - arrays are `(..., d)`, batch leading, features trailing;
+  - all math is float32. The entry points (`build_flow`,
+    `make_reverse_kl_trainer`, `NUTSDriver`, `elbo`, ...) take an explicit
+    `device=` that defaults to "cuda", and they switch TF32 off
+    (`torch.backends.cuda.matmul.allow_tf32 = False`,
+    `torch.backends.cudnn.allow_tf32 = False`), so a float32 matmul on the
+    card is a float32 matmul.
+
+What is ported so far is the flow-preconditioned NUTS path on Neal's
+funnel (the `ceiling` variant of `bench.py`); ROADMAP.md lists the rest.
+"""
+
+__version__ = "0.1.0"
