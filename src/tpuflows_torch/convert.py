@@ -1,26 +1,38 @@
 """Carry a flow across from the JAX package.
 
-`flow_from_jax_params` takes the leaves of a JAX `Chain(Standardize,
-AffineCoupling)` as numpy arrays (or anything `torch.as_tensor` accepts) and
-builds the port's modules that compute the same function. It imports
-nothing of JAX: the caller reads the leaves (`flow.transforms[0].loc`, ...,
-`flow.transforms[1].net.weights`) and passes them as arrays.
+The converters take a JAX flow's leaves as numpy arrays (or anything
+`torch.as_tensor` accepts) and its static fields as plain values, and build
+the port's modules that compute the same function. They import nothing of
+JAX: the caller reads the leaves and passes them.
+
+  * `flow_from_jax_params` — `Chain(Standardize, AffineCoupling)`, the
+    flow of the ceiling path;
+  * `flow_from_jax_modules` — any Chain of Standardize, AffineCoupling and
+    RQSCouplingBlock, one dict per module.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from tpuflows_torch.flows.affine import AffineCoupling, Standardize
 from tpuflows_torch.flows.core import Chain
+from tpuflows_torch.flows.coupling import RQSCouplingBlock
 from tpuflows_torch.flows.nets import MLP
+from tpuflows_torch.flows.rqs_ref import DEFAULT_RANGE
 from tpuflows_torch.util.device import f32_device
 
 
 def _t(a, device):
     return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def _mlp(spec, device):
+    return MLP([_t(w, device) for w in spec["weights"]],
+               [_t(b, device) for b in spec["biases"]],
+               activation=spec.get("activation", "silu"))
 
 
 def flow_from_jax_params(loc, log_scale, weights: Sequence,
@@ -36,3 +48,40 @@ def flow_from_jax_params(loc, log_scale, weights: Sequence,
               [_t(b, device) for b in biases])
     coupling = AffineCoupling(tuple(int(m) for m in mask), net, clamp=clamp)
     return Chain([std, coupling])
+
+
+def flow_from_jax_modules(modules: Sequence[Mapping],
+                          device="cuda") -> Chain:
+    """A Chain of the port's modules, one per dict, in chain order:
+
+      {"kind": "standardize", "loc", "log_scale"}
+      {"kind": "affine", "mask", "weights", "biases", "clamp",
+       "activation" (default "silu")}
+      {"kind": "rqs", "mask", "weights", "biases", "knots",
+       "range_limit" (default 4.0), "activation" (default "silu"),
+       "use_pallas" (default "auto")}
+
+    weights[i] is (d_in, d_out) and biases[i] (d_out,), as in
+    `tpuflows.flows.nets.MLP`; a spline conditioner's last layer keeps the
+    JAX package's d-major columns. Built on `device` (default "cuda"), with
+    TF32 switched off."""
+    device = f32_device(device)
+    out = []
+    for spec in modules:
+        kind = spec["kind"]
+        if kind == "standardize":
+            out.append(Standardize(_t(spec["loc"], device),
+                                   _t(spec["log_scale"], device)))
+        elif kind == "affine":
+            out.append(AffineCoupling(tuple(int(m) for m in spec["mask"]),
+                                      _mlp(spec, device),
+                                      clamp=spec["clamp"]))
+        elif kind == "rqs":
+            out.append(RQSCouplingBlock(
+                tuple(int(m) for m in spec["mask"]), _mlp(spec, device),
+                knots=spec["knots"],
+                range_limit=spec.get("range_limit", DEFAULT_RANGE),
+                use_pallas=spec.get("use_pallas", "auto")))
+        else:
+            raise ValueError(f"unknown module kind: {kind!r}")
+    return Chain(out)

@@ -1,14 +1,31 @@
 // K1 of tpuflows_torch: one whole multinomial-NUTS transition per chain.
 //
 // Replaces the Pallas kernel `make_fused_nuts_transition`
-// (src/tpuflows/kernels/nuts_pallas.py:303, pallas_call at :407) for flows
-// of the affine kind: Standardize + one AffineCoupling (any 0/1 mask, any
-// clamp) whose conditioner is an MLP d -> h1 -> h2 -> 2d with silu, over
-// Neal's funnel. It computes what `_transition_math` (nuts_pallas.py:83-300)
-// computes, under the same precomputed-randomness contract: momenta p0,
-// direction signs, acceptance uniforms and one uniform per potential leaf
-// come in as inputs, so the kernel is deterministic. The plain PyTorch
-// version is `transition_math_torch` in kernels/nuts_cuda.py.
+// (src/tpuflows/kernels/nuts_pallas.py:303, pallas_call at :407), built by
+// `fused_nuts_for_flow` (:924), over Neal's funnel. It computes what
+// `_transition_math` (nuts_pallas.py:83-300) computes, under the same
+// precomputed-randomness contract: momenta p0, direction signs, acceptance
+// uniforms and one uniform per potential leaf come in as inputs, so the
+// kernel is deterministic. The plain PyTorch version is
+// `transition_math_torch` in kernels/nuts_cuda.py.
+//
+// Two gradients of log p(f^-1(z)) + ladj, one kernel each, sharing the
+// tree code (nuts_tree_body.inc):
+//  * `nuts_transition_kernel`: the flow Standardize + one AffineCoupling
+//    (any 0/1 mask, any clamp) whose conditioner is an MLP d -> h1 -> h2
+//    -> 2d with silu (`logp_grad`, the ceiling path);
+//  * `nuts_chain_kernel`: any Chain of Standardize, AffineCoupling and
+//    RQSCouplingBlock modules with such MLPs, given as a module list
+//    (`chain_logp_grad`, the generic path's arqs flow). It follows
+//    `tile_logp_and_grad_streamed` (src/tpuflows/kernels/tile_flow.py:107):
+//    sweep 1 applies the inverse chain and keeps only each module's d-wide
+//    input in the warp's shared memory; sweep 2 walks back, recomputes each
+//    module's conditioner from its stored input and pulls the cotangent
+//    through the module with the spline pullback of rqs_math.cuh and the
+//    MLP backward. The module whose conditioner ran last in sweep 1 is
+//    pulled back first and is not recomputed. Spline conditioners come
+//    with p-major last layers (`permute_for_tiles`), so lane l reads
+//    parameter p of its dims at p d + l + 32 j, which it wrote itself.
 //
 // Design (the simple one; wgmma, TMA and a tiled MLP wait for later work):
 //  * One warp per chain, one warp per block. Nothing couples a chain to
@@ -26,16 +43,19 @@
 //  * The MLP reads its inputs from a per-warp shared-memory buffer guarded
 //    by __syncwarp(); its weights (and transposed copies for the backward
 //    pass, so that its reads coalesce too) are read from global memory with
-//    __ldg and stay resident in L2 (~82 k floats at d = 64, h = 128).
+//    __ldg and stay resident in L2 (~82 k floats for the affine flow at
+//    d = 64, h = 128; ~1.5 M floats for the arqs flow of the generic path).
+//    The per-warp scratch is dynamic shared memory sized by the launch.
 //  * The U-turn checkpoint pairs (2 x depth x d floats) live in registers,
 //    selected by unrolled compares against the slot (no dynamic indexing).
-//  * The gradient of log p(f^-1(z)) + ladj is written out by hand: funnel
-//    logp, Standardize inverse, coupling inverse with the tanh clamp, and
-//    the MLP backward through silu. No autograd.
+//  * The gradients are written out by hand: funnel logp, Standardize
+//    inverse, coupling inverse with the tanh clamp, spline inverse and its
+//    pullback, and the MLP backward through silu. No autograd.
 //
-// Bound on this card: operations. Each leapfrog costs one MLP forward and
-// one input-gradient backward, 2 x 2 x (d h1 + h1 h2 + 2 d h2) flops
-// (164 k at the bench shape), while a transition moves only q in and out
+// Bound on this card: operations. Each leapfrog costs one forward and one
+// input-gradient backward of every conditioner MLP, 2 x 2 x (d h1 + h1 h2 +
+// h2 n_out) flops each (164 k for the affine flow at the bench shape,
+// 3.05 M for the arqs flow), while a transition moves only q in and out
 // plus its random inputs (about 1 KB per chain). This kernel runs its
 // products on the float32 FMA pipes at one chain per warp, far from that
 // bound; PERF.md keeps its measured time beside the bound.
@@ -44,10 +64,12 @@
 #include <math.h>
 #include <stdint.h>
 
-// Built by kernels/nuts_cuda.py `build` as one translation unit per
-// template instantiation (-DNUTS_DPL=1..8, DPL = d / 32 dims per lane), all
-// compiled in parallel, plus one unit without NUTS_DPL that holds the C
-// entry point, linked into one shared library.
+#include "rqs_math.cuh"
+
+// Built by kernels/nuts_cuda.py (`LIBRARY`, kernels/cuda_build.py) as one
+// translation unit per template instantiation (-DNUTS_DPL=1..8, DPL = d /
+// 32 dims per lane), all compiled in parallel, plus one unit without
+// NUTS_DPL that holds the C entry points, linked into one shared library.
 
 namespace tpuflows_nuts {
 
@@ -69,8 +91,22 @@ struct Args {
                  //         turning, h0
 };
 
+// The module list of nuts_chain_kernel: kModInts ints per module (see the
+// module-list gradient), the widest hidden layer and conditioner output.
+struct ChainList {
+  const int* mods;
+  int n_mods, hmax, head;
+};
+
+constexpr int kMaxModules = 16;
+constexpr int kModInts = 8;
+enum ModuleKind { kStandardize = 0, kAffine = 1, kSpline = 2 };
+
 template <int DPL>
 cudaError_t launch(const Args& a, cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_chain(const Args& a, const ChainList& c,
+                         cudaStream_t stream);
 
 }  // namespace tpuflows_nuts
 
@@ -79,13 +115,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream);
 namespace {
 
 using tpuflows_nuts::Args;
+using tpuflows_nuts::ChainList;
 using tpuflows_nuts::kMaxDepth;
+using tpuflows_nuts::kModInts;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2Pi = 1.8378770664093453f;
 
 // The packed parameter buffer, in this order (kernels/nuts_cuda.py
-// `pack_affine_funnel` writes it): loc, log_scale, mask (d each);
+// `pack_flow` writes it): loc, log_scale, mask (d each);
 // W1 (d, h1), b1; W2 (h1, h2), b2; W3 (h2, 2d), b3; W1^T, W2^T, W3^T.
 struct Net {
   const float *loc, *log_scale, *mask;
@@ -296,181 +334,283 @@ __device__ __forceinline__ void copy(float (&dst)[DPL],
   for (int j = 0; j < DPL; ++j) dst[j] = src[j];
 }
 
+// ---------------------------------------------------------------------------
+// The module-list gradient (nuts_chain_kernel)
+// ---------------------------------------------------------------------------
+//
+// Module k of the chain (in the chain's forward order) is described by
+// mods[kModInts k + .]: kind, offset of its leaves in `params`, h1, h2,
+// knots (splines), and a float's bits: the clamp (affine) or the range B
+// (spline). Its leaves, as kernels/nuts_cuda.py `pack_flow` writes them:
+//   Standardize:  loc, log_scale (d each);
+//   coupling:     mask (d); W1 (d, h1), b1; W2 (h1, h2), b2; W3 (h2, n),
+//                 b3 (n); W1^T, W2^T, W3^T, with n = 2d (affine) or
+//                 (3K-1) d (spline, p-major columns p d + i).
+
+struct Mlp {
+  const float *mask, *w1, *b1, *w2, *b2, *w3, *b3, *w1t, *w2t, *w3t;
+  int h1, h2, n_out;
+};
+
+__device__ __forceinline__ Mlp mlp_at(const Args& a, const int* md) {
+  Mlp m;
+  const int d = a.d, h1 = md[2], h2 = md[3];
+  m.h1 = h1;
+  m.h2 = h2;
+  m.n_out = md[0] == tpuflows_nuts::kAffine ? 2 * d : (3 * md[4] - 1) * d;
+  const float* p = a.params + md[1];
+  m.mask = p;  p += d;
+  m.w1 = p;    p += d * h1;
+  m.b1 = p;    p += h1;
+  m.w2 = p;    p += h1 * h2;
+  m.b2 = p;    p += h2;
+  m.w3 = p;    p += h2 * m.n_out;
+  m.b3 = p;    p += m.n_out;
+  m.w1t = p;   p += h1 * d;
+  m.w2t = p;   p += h2 * h1;
+  m.w3t = p;
+  return m;
+}
+
+// the warp's scratch: each module's input (sweep 1), then the MLP buffers
+struct Scratch {
+  float *bounds, *xin, *a1, *v1, *a2, *v2, *head;
+};
+
+__device__ __forceinline__ Scratch scratch_at(const Args& a,
+                                              const ChainList& c, float* sm) {
+  Scratch s;
+  s.bounds = sm;
+  s.xin = s.bounds + c.n_mods * a.d;
+  s.a1 = s.xin + a.d;
+  s.v1 = s.a1 + c.hmax;
+  s.a2 = s.v1 + c.hmax;
+  s.v2 = s.a2 + c.hmax;
+  s.head = s.v2 + c.hmax;
+  return s;
+}
+
+// head = MLP(xin), keeping the pre-activations a1, a2 for the backward
+__device__ void mlp_forward(const Mlp& m, int d, const Scratch& s,
+                            int lane) {
+  __syncwarp();
+  matvec(m.w1, m.b1, s.xin, d, m.h1, s.a1, s.v1, lane);
+  __syncwarp();
+  matvec(m.w2, m.b2, s.v1, m.h1, m.h2, s.a2, s.v2, lane);
+  __syncwarp();
+  matvec(m.w3, m.b3, s.v2, m.h2, m.n_out, s.head, nullptr, lane);
+  __syncwarp();
+}
+
+// xin = d (head . MLP) / d input for the cotangent in head; v2 and v1
+// hold the hidden cotangents on the way
+__device__ void mlp_backward(const Mlp& m, int d, const Scratch& s,
+                             int lane) {
+  __syncwarp();
+  matvec(m.w3t, nullptr, s.head, m.n_out, m.h2, s.v2, nullptr, lane);
+  silu_backward(s.v2, s.a2, m.h2, lane);
+  __syncwarp();
+  matvec(m.w2t, nullptr, s.v2, m.h2, m.h1, s.v1, nullptr, lane);
+  silu_backward(s.v1, s.a1, m.h1, lane);
+  __syncwarp();
+  matvec(m.w1t, nullptr, s.v1, m.h1, d, s.xin, nullptr, lane);
+  __syncwarp();
+}
+
+// One module's inverse on the lane's dims, in place; returns the lane's
+// part of its ladj. Not inlined (nor module_vjp): with the tree state
+// live around the call, inlining both into the kernel cost spills and 30%
+// of the time (PERF.md).
+template <int DPL>
+__device__ __noinline__ float module_inverse(const Args& a, const int* md,
+                                const Scratch& s, float (&y)[DPL],
+                                int lane) {
+  const int d = a.d;
+  const float* p = a.params + md[1];
+  float ladj = 0.0f;
+  if (md[0] == tpuflows_nuts::kStandardize) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int i = lane + 32 * j;
+      const float ls = __ldg(p + d + i);
+      y[j] = y[j] * expf(ls) + __ldg(p + i);
+      ladj += ls;
+    }
+    return ladj;
+  }
+  const Mlp m = mlp_at(a, md);
+  float mk[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) {
+    const int i = lane + 32 * j;
+    mk[j] = __ldg(m.mask + i);
+    s.xin[i] = y[j] * mk[j];
+  }
+  mlp_forward(m, d, s, lane);
+  const float c = __int_as_float(md[5]);
+  if (md[0] == tpuflows_nuts::kAffine) {
+    // y' = m y + (1 - m) (y - shift) exp(-s), s = clamp tanh(raw / clamp)
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int i = lane + 32 * j;
+      const float om = 1.0f - mk[j];
+      const float sc = c * tanhf(s.head[d + i] / c);
+      y[j] = mk[j] * y[j] + om * ((y[j] - s.head[i]) * expf(-sc));
+      ladj -= om * sc;
+    }
+  } else {
+    // the spline on the transformed dims; pass-through dims keep y
+    const int K = md[4];
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      if (mk[j] == 0.0f) {
+        float x, l;
+        tpuflows_rqs::rqs_inverse(y[j], s.head + lane + 32 * j, d, K, c, x,
+                                  l);
+        y[j] = x;
+        ladj += l;
+      }
+    }
+  }
+  __syncwarp();
+  return ladj;
+}
+
+// Pulls g (the cotangent of a module's output) back to its input y_in
+// (ladj's cotangent is 1). Recomputes the conditioner unless `live` says
+// that its buffers still hold it.
+template <int DPL>
+__device__ __noinline__ void module_vjp(const Args& a, const int* md, const Scratch& s,
+                           const float* y_in, bool& live, float (&g)[DPL],
+                           int lane) {
+  const int d = a.d;
+  if (md[0] == tpuflows_nuts::kStandardize) {
+    const float* p = a.params + md[1];
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      g[j] *= expf(__ldg(p + d + lane + 32 * j));
+    return;
+  }
+  const Mlp m = mlp_at(a, md);
+  float y[DPL], mk[DPL], gd[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) {
+    const int i = lane + 32 * j;
+    y[j] = y_in[i];
+    mk[j] = __ldg(m.mask + i);
+  }
+  if (!live) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) s.xin[lane + 32 * j] = y[j] * mk[j];
+    mlp_forward(m, d, s, lane);
+  }
+  live = false;
+  const float c = __int_as_float(md[5]);
+  if (md[0] == tpuflows_nuts::kAffine) {
+    // the head's cotangent is written over the head, lane by lane
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int i = lane + 32 * j;
+      const float om = 1.0f - mk[j];
+      const float shift = s.head[i];
+      const float th = tanhf(s.head[d + i] / c);
+      const float e = expf(-(c * th));
+      const float yt = (y[j] - shift) * e;
+      const float gy = g[j];
+      s.head[i] = -om * gy * e;
+      s.head[d + i] = -om * (gy * yt + 1.0f) * (1.0f - th * th);
+      gd[j] = gy * (mk[j] + om * e);
+    }
+  } else {
+    const int K = md[4], P = 3 * K - 1;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      float* col = s.head + lane + 32 * j;
+      if (mk[j] == 0.0f) {
+        tpuflows_rqs::rqs_inverse_vjp(y[j], col, d, K, c, g[j], 1.0f, gd[j],
+                                      col, d);
+      } else {
+        gd[j] = g[j];
+        for (int q = 0; q < P; ++q) col[q * d] = 0.0f;
+      }
+    }
+  }
+  mlp_backward(m, d, s, lane);
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) g[j] = gd[j] + mk[j] * s.xin[lane + 32 * j];
+  __syncwarp();  // xin and head are written again by the next module
+}
+
+// funnel logp at x and its gradient
+template <int DPL>
+__device__ float funnel_logp_grad(const Args& a, const float (&x)[DPL],
+                                  float (&g)[DPL], int lane) {
+  const int d = a.d;
+  float sq = 0.0f;
+#pragma unroll
+  for (int j = 0; j < DPL; ++j)
+    if (lane + 32 * j != 0) sq += x[j] * x[j];
+  sq = warp_sum(sq);
+  const float v = __shfl_sync(kFull, x[0], 0);
+  const float sv = a.sigma_v;
+  const float k = (float)(d - 1);
+  const float env = expf(-v);
+  const float vs = v / sv;
+  const float lp_v = -0.5f * vs * vs - logf(sv) - 0.5f * kLog2Pi;
+  const float lp_rest = -0.5f * sq * env - 0.5f * k * v - 0.5f * k * kLog2Pi;
+  const float gv = -v / (sv * sv) + 0.5f * sq * env - 0.5f * k;
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) g[j] = (lane + 32 * j == 0) ? gv : -x[j] * env;
+  return lp_v + lp_rest;
+}
+
+// lp = log p(f^-1(z)) + ladj and g = d lp / dz through the module list.
+template <int DPL>
+__device__ float chain_logp_grad(const Args& a, const ChainList& c,
+                                 float* sm, const float (&z)[DPL],
+                                 float (&g)[DPL], int lane) {
+  const int d = a.d;
+  const Scratch s = scratch_at(a, c, sm);
+  float x[DPL];
+  float ladj = 0.0f;
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) x[j] = z[j];
+  // sweep 1: the inverse chain, last module first; keep each input
+  for (int k = c.n_mods - 1; k >= 0; --k) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
+    ladj += module_inverse<DPL>(a, c.mods + kModInts * k, s, x, lane);
+  }
+  const float lp = funnel_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
+  // sweep 2: first module first; its conditioner ran last in sweep 1
+  bool live = true;
+  for (int k = 0; k < c.n_mods; ++k)
+    module_vjp<DPL>(a, c.mods + kModInts * k, s, s.bounds + k * d, live, g,
+                    lane);
+  return lp;
+}
+
 template <int DPL>
 __global__ void __launch_bounds__(32) nuts_transition_kernel(Args a) {
   extern __shared__ float smem[];
   const int chain = blockIdx.x;
   const int lane = threadIdx.x;
   const Net t = unpack(a);
-  const int d = a.d, D = a.depth;
-  const float eps = __ldg(a.eps);
-  const float* dirs = a.dirs + (size_t)chain * D;
-  const float* u_acc = a.u_acc + (size_t)chain * D;
-  const float* u_take = a.u_take + ((size_t)chain << D);
-
-  float im[DPL], q0[DPL], p0[DPL], g0[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int i = lane + 32 * j;
-    im[j] = __ldg(a.inv_mass + i);
-    q0[j] = __ldg(a.q + (size_t)chain * d + i);
-    p0[j] = __ldg(a.p0 + (size_t)chain * d + i);
-  }
-  const float lp0 = logp_grad<DPL>(a, t, smem, q0, g0, lane);
-  const float h0 = -lp0 + kinetic<DPL>(p0, im);
-
-  // trajectory: left / right ends (q, p, lp, g), proposal, weight, rho
-  float zl_q[DPL], zl_p[DPL], zl_g[DPL], zr_q[DPL], zr_p[DPL], zr_g[DPL];
-  float q_prop[DPL], rho[DPL];
-  copy<DPL>(zl_q, q0); copy<DPL>(zl_p, p0); copy<DPL>(zl_g, g0);
-  copy<DPL>(zr_q, q0); copy<DPL>(zr_p, p0); copy<DPL>(zr_g, g0);
-  copy<DPL>(q_prop, q0); copy<DPL>(rho, p0);
-  float zl_lp = lp0, zr_lp = lp0, lp_prop = lp0;
-  float logw = 0.0f, sum_accept = 0.0f, n_steps = 0.0f, depth = 0.0f;
-  bool turning = false, diverging = false;
-
-  for (int k = 0; k < D && !(turning || diverging); ++k) {
-    const float dir = __ldg(dirs + k);
-    const bool fwd = dir > 0.0f;
-    const float eps_s = dir * eps;
-    const int n_leaves = 1 << k;
-    const float* ut = u_take + (n_leaves - 1);
-
-    // element-wise selects keep both ends in registers
-    float s_q[DPL], s_p[DPL], s_g[DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      s_q[j] = fwd ? zr_q[j] : zl_q[j];
-      s_p[j] = fwd ? zr_p[j] : zl_p[j];
-      s_g[j] = fwd ? zr_g[j] : zl_g[j];
-    }
-    float s_lp = fwd ? zr_lp : zl_lp;
-
-    // subtree state
-    float st_qp[DPL], st_rho[DPL];
-    copy<DPL>(st_qp, s_q);
-    float st_lpp = s_lp, st_logw = -INFINITY, st_acc = 0.0f, st_n = 0.0f;
-    bool st_turn = false, st_div = false;
-    float ck_p[kMaxDepth][DPL], ck_r[kMaxDepth][DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      st_rho[j] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kMaxDepth; ++i) ck_p[i][j] = ck_r[i][j] = 0.0f;
-    }
-
-    for (int leaf = 0; leaf < n_leaves && !(st_turn || st_div); ++leaf) {
-      float q_new[DPL], p_new[DPL], g_new[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        p_new[j] = s_p[j] + 0.5f * eps_s * s_g[j];  // half step
-        q_new[j] = s_q[j] + eps_s * p_new[j] * im[j];
-      }
-      const float lp_new = logp_grad<DPL>(a, t, smem, q_new, g_new, lane);
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) p_new[j] = p_new[j] + 0.5f * eps_s * g_new[j];
-      float dh = -lp_new + kinetic<DPL>(p_new, im) - h0;
-      if (!isfinite(dh)) dh = INFINITY;
-      const bool div_leaf = dh > a.max_delta_energy;
-      const float logw_leaf = div_leaf ? -INFINITY : -dh;
-      float accept = fminf(1.0f, expf(fminf(-dh, 0.0f)));
-      if (!isfinite(accept)) accept = 0.0f;
-      const float logw_new = logaddexp(st_logw, logw_leaf);
-      const float u = __ldg(ut + leaf);
-      // a divergent leaf may carry inf/nan; it never becomes a proposal
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        if (!isfinite(q_new[j])) q_new[j] = 0.0f;
-        if (!isfinite(p_new[j])) p_new[j] = 0.0f;
-        if (!isfinite(g_new[j])) g_new[j] = 0.0f;
-      }
-      if (logf(u) < logw_leaf - logw_new && !div_leaf) {
-        copy<DPL>(st_qp, q_new);
-        st_lpp = lp_new;
-      }
-      // checkpoint store: slot popcount(leaf), even leaves only
-      if ((leaf & 1) == 0) {
-        const int slot = __popc(leaf);
-#pragma unroll
-        for (int i = 0; i < kMaxDepth; ++i) {
-          if (i == slot) {
-#pragma unroll
-            for (int j = 0; j < DPL; ++j) {
-              ck_p[i][j] = p_new[j];
-              ck_r[i][j] = st_rho[j];
-            }
-          }
-        }
-      }
-      float rho_new[DPL];
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) rho_new[j] = st_rho[j] + p_new[j];
-      // U-turn over every complete subtree that ends at this leaf
-      const int nl = leaf + 1;
-      bool any_turn = false;
-      if ((nl & 1) == 0) {
-        const int pc = __popc(nl);
-        const int lo = pc - 1, hi = pc - 2 + (__ffs(nl) - 1);
-#pragma unroll
-        for (int i = 0; i < kMaxDepth; ++i) {
-          if (i >= lo && i <= hi) {
-            float rho_i[DPL];
-#pragma unroll
-            for (int j = 0; j < DPL; ++j) rho_i[j] = rho_new[j] - ck_r[i][j];
-            any_turn |= is_turning<DPL>(ck_p[i], p_new, rho_i, im);
-          }
-        }
-      }
-      st_turn = any_turn;
-      st_div = div_leaf;
-      st_logw = logw_new;
-      copy<DPL>(st_rho, rho_new);
-      st_acc += accept;
-      st_n += 1.0f;
-      copy<DPL>(s_q, q_new);
-      copy<DPL>(s_p, p_new);
-      copy<DPL>(s_g, g_new);
-      s_lp = lp_new;
-    }
-
-    const bool ok = !(st_turn || st_div);
-    if (ok && __ldg(u_acc + k) < fminf(1.0f, expf(st_logw - logw))) {
-      copy<DPL>(q_prop, st_qp);
-      lp_prop = st_lpp;
-    }
-    if (ok) {
-      if (fwd) {
-        copy<DPL>(zr_q, s_q); copy<DPL>(zr_p, s_p); copy<DPL>(zr_g, s_g);
-        zr_lp = s_lp;
-      } else {
-        copy<DPL>(zl_q, s_q); copy<DPL>(zl_p, s_p); copy<DPL>(zl_g, s_g);
-        zl_lp = s_lp;
-      }
-      logw = logaddexp(logw, st_logw);
-#pragma unroll
-      for (int j = 0; j < DPL; ++j) rho[j] += st_rho[j];
-      depth = (float)(k + 1);
-    }
-    turning = st_turn || (ok && is_turning<DPL>(zl_p, zr_p, rho, im));
-    diverging = st_div;
-    sum_accept += st_acc;
-    n_steps += st_n;
-  }
-
-#pragma unroll
-  for (int j = 0; j < DPL; ++j)
-    a.q_out[(size_t)chain * d + lane + 32 * j] = q_prop[j];
-  if (lane == 0) {
-    const int n = a.n;
-    a.info[chain] = lp_prop;
-    a.info[n + chain] = sum_accept;
-    a.info[2 * n + chain] = n_steps;
-    a.info[3 * n + chain] = depth;
-    a.info[4 * n + chain] = diverging ? 1.0f : 0.0f;
-    a.info[5 * n + chain] = turning ? 1.0f : 0.0f;
-    a.info[6 * n + chain] = h0;
-  }
+#define NUTS_LOGP_GRAD(z, g) logp_grad<DPL>(a, t, smem, z, g, lane)
+#include "nuts_tree_body.inc"
+#undef NUTS_LOGP_GRAD
 }
+
+template <int DPL>
+__global__ void __launch_bounds__(32) nuts_chain_kernel(Args a, ChainList c) {
+  extern __shared__ float smem[];
+  const int chain = blockIdx.x;
+  const int lane = threadIdx.x;
+#define NUTS_LOGP_GRAD(z, g) chain_logp_grad<DPL>(a, c, smem, z, g, lane)
+#include "nuts_tree_body.inc"
+#undef NUTS_LOGP_GRAD
+}
+
 
 }  // namespace
 
@@ -483,11 +623,28 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int DPL>
+cudaError_t launch_chain(const Args& a, const ChainList& c,
+                         cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head);
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_chain_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  nuts_chain_kernel<DPL><<<a.n, 32, smem, stream>>>(a, c);
+  return cudaGetLastError();
+}
+
 template cudaError_t launch<NUTS_DPL>(const Args&, cudaStream_t);
+template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
+                                           cudaStream_t);
 
 }  // namespace tpuflows_nuts
 
-#else  // the C entry point
+#else  // the C entry points
 
 namespace {
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
@@ -528,6 +685,49 @@ extern "C" int nuts_transition_f32(
     case 6: return (int)launch<6>(a, s);
     case 7: return (int)launch<7>(a, s);
     default: return (int)launch<8>(a, s);
+  }
+}
+
+// A module list (nuts_chain_kernel): `mods` is a device array of
+// n_mods * kModInts ints, hmax the widest hidden layer (0 without
+// couplings), head the widest conditioner output. Returns a cudaError_t.
+extern "C" int nuts_chain_transition_f32(
+    const void* q, const void* p0, const void* dirs, const void* u_acc,
+    const void* u_take, const void* eps, const void* inv_mass,
+    const void* params, const void* mods, int n_mods, int n, int d,
+    int hmax, int head, int depth, float sigma_v, float max_delta_energy,
+    void* q_out, void* info, void* stream) {
+  using namespace tpuflows_nuts;
+  if (n < 1 || !width_ok(d) || n_mods < 1 || n_mods > kMaxModules ||
+      (hmax != 0 && !width_ok(hmax)) || head < 0 || head % 32 != 0 ||
+      depth < 1 || depth > kMaxDepth)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.q = static_cast<const float*>(q);
+  a.p0 = static_cast<const float*>(p0);
+  a.dirs = static_cast<const float*>(dirs);
+  a.u_acc = static_cast<const float*>(u_acc);
+  a.u_take = static_cast<const float*>(u_take);
+  a.eps = static_cast<const float*>(eps);
+  a.inv_mass = static_cast<const float*>(inv_mass);
+  a.params = static_cast<const float*>(params);
+  a.n = n; a.d = d; a.h1 = 0; a.h2 = 0; a.depth = depth;
+  a.clamp = 0.0f; a.sigma_v = sigma_v; a.max_delta_energy = max_delta_energy;
+  a.q_out = static_cast<float*>(q_out);
+  a.info = static_cast<float*>(info);
+  ChainList c;
+  c.mods = static_cast<const int*>(mods);
+  c.n_mods = n_mods; c.hmax = hmax; c.head = head;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_chain<1>(a, c, s);
+    case 2: return (int)launch_chain<2>(a, c, s);
+    case 3: return (int)launch_chain<3>(a, c, s);
+    case 4: return (int)launch_chain<4>(a, c, s);
+    case 5: return (int)launch_chain<5>(a, c, s);
+    case 6: return (int)launch_chain<6>(a, c, s);
+    case 7: return (int)launch_chain<7>(a, c, s);
+    default: return (int)launch_chain<8>(a, c, s);
   }
 }
 

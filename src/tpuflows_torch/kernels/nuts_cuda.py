@@ -1,12 +1,14 @@
 """K1 on Hopper: the fused NUTS transition (port of
 `tpuflows/kernels/nuts_pallas.py`, `make_fused_nuts_transition` and
-`fused_nuts_for_flow` for affine flows).
+`fused_nuts_for_flow`).
 
 Three pieces:
   * `transition_math_torch` — the plain PyTorch version: a step-by-step port
     of `_transition_math` (one batched transition with masked lockstep over
-    the whole batch), whose gradient comes from `torch.autograd.grad` on the
-    port's own flow modules. It runs on any device;
+    the whole batch). Its gradient comes from `torch.autograd.grad` on the
+    port's own flow modules, or, for flows with spline couplings, from
+    `tile_flow.tile_logp_and_grad_streamed` on the p-major relayout, as in
+    the JAX package. It runs on any device;
   * `nuts_transition` — the wrapper. A CPU tensor goes to the plain
     version; a CUDA tensor goes to the hand-written kernel
     `csrc/nuts_transition.cu` (one warp per chain), or the wrapper raises.
@@ -17,26 +19,27 @@ Three pieces:
     direction signs, acceptance uniforms, one uniform per potential leaf)
     with a `torch.Generator` on the chains' device and calls the wrapper.
 
-The kernel is built with nvcc into `build/kernels/` at the repository root
-on first use (a plain C interface loaded with ctypes; rebuilt only when the
-source's hash changes). Nothing is compiled or loaded at import time.
+`pack_flow` checks a flow and packs its leaves for the kernel: Standardize
++ one AffineCoupling goes to `nuts_transition_kernel`, any other Chain of
+Standardize, AffineCoupling and RQSCouplingBlock modules to
+`nuts_chain_kernel` as a module list. The library is built with nvcc into
+`build/kernels/` at the repository root on first use (`cuda_build`);
+nothing is compiled or loaded at import time.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
-import time
-from pathlib import Path
+import struct
 from typing import Callable, NamedTuple
 
 import torch
 
 from tpuflows_torch.flows.affine import AffineCoupling, Standardize
 from tpuflows_torch.flows.core import Chain
+from tpuflows_torch.flows.coupling import RQSCouplingBlock
+from tpuflows_torch.kernels.cuda_build import CudaLibrary
+from tpuflows_torch.kernels.tile_flow import (p_major, permute_for_tiles,
+                                              tile_logp_and_grad_streamed)
 from tpuflows_torch.mcmc.nuts import NUTSInfo, _popcount32, _trailing_zeros32
 from tpuflows_torch.targets.funnel import NealsFunnel
 
@@ -45,136 +48,140 @@ LAUNCHES = 0
 
 MAX_DIM = 256
 MAX_DEPTH = 10
+MAX_MODULES = 16
+MOD_INTS = 8  # ints per module in the kernel's module list
+KIND = {Standardize: 0, AffineCoupling: 1, RQSCouplingBlock: 2}
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use (bytes)
 # energy error above which a leaf counts as divergent (the JAX kernel's
 # default)
 MAX_DELTA_ENERGY = 1000.0
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "nuts_transition.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
 # one translation unit per instantiation (d / 32 dims per lane) plus the
-# C entry point, compiled in parallel
+# C entry points, compiled in parallel
 _UNITS = [("entry", [])] + [(f"dpl{k}", [f"-DNUTS_DPL={k}"])
                              for k in range(1, MAX_DIM // 32 + 1)]
-_LIB = None
 
 
-class BuildInfo(NamedTuple):
-    path: str
-    seconds: float  # 0.0 when an existing build was reused
-    log: str  # nvcc / ptxas output (-Xptxas -v), empty when reused
-
-
-_BUILD_INFO: BuildInfo | None = None
-
-
-def _compile(nvcc: str, tmp: Path, out: Path) -> str:
-    """All units at once (one nvcc each), then one link; returns the
-    compilers' output."""
-    objs, procs = [], []
-    try:
-        for name, defs in _UNITS:
-            obj, log = tmp / f"{name}.o", tmp / f"{name}.log"
-            with open(log, "w") as f:
-                procs.append(subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, *defs, "-c", "-o", str(obj),
-                     str(_SRC)], stdout=f, stderr=subprocess.STDOUT))
-            objs.append(obj)
-        rcs = [p.wait() for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    log = "".join((tmp / f"{name}.log").read_text() for name, _ in _UNITS)
-    if any(rcs):
-        sys.stderr.write(log)
-        raise RuntimeError(f"nvcc failed (exit codes {rcs}) on {_SRC}")
-    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(out),
-                           *map(str, objs)], capture_output=True, text=True)
-    log += link.stdout + link.stderr
-    if link.returncode != 0:
-        sys.stderr.write(log)
-        raise RuntimeError(f"nvcc link failed ({link.returncode})")
-    return log
-
-
-def build() -> BuildInfo:
-    """Compile `csrc/nuts_transition.cu` for sm_90a with nvcc (once per
-    source hash) and load it with ctypes. nvcc's output goes to stderr."""
-    global _LIB, _BUILD_INFO
-    if _LIB is not None:
-        return _BUILD_INFO
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libnuts_transition_{tag}.so"
-    seconds, log = 0.0, ""
-    if not out.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA kernel of "
-                               "tpuflows_torch is built on the GPU machine")
-        tmp = _BUILD_DIR / f"tmp_{tag}_{os.getpid()}"
-        tmp.mkdir(parents=True, exist_ok=True)
-        t0 = time.perf_counter()
-        log = _compile(nvcc, tmp, tmp / out.name)
-        seconds = time.perf_counter() - t0
-        sys.stderr.write(log)
-        os.replace(tmp / out.name, out)
-        shutil.rmtree(tmp, ignore_errors=True)
-    lib = ctypes.CDLL(str(out))
+def _bind(lib):
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.nuts_transition_f32
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    _LIB = lib
-    _BUILD_INFO = BuildInfo(str(out), seconds, log)
-    return _BUILD_INFO
+    fn.argtypes = [p] * 8 + [i32] * 5 + [f32] * 3 + [p] * 3
+    fn.restype = i32
+    fn = lib.nuts_chain_transition_f32
+    fn.argtypes = [p] * 9 + [i32] * 6 + [f32] * 2 + [p] * 3
+    fn.restype = i32
 
 
-class AffineFunnel(NamedTuple):
-    """An affine flow over Neal's funnel, checked and packed for K1."""
+LIBRARY = CudaLibrary("nuts_transition", "nuts_transition.cu", _UNITS,
+                      ["nuts_tree_body.inc", "rqs_math.cuh"], _bind)
+
+
+def _float_bits(x: float) -> int:
+    return struct.unpack("<i", struct.pack("<f", float(x)))[0]
+
+
+class PackedFlow(NamedTuple):
+    """A flow over Neal's funnel, checked and packed for K1."""
 
     flow: Chain
     target: NealsFunnel
-    params: torch.Tensor  # packed, see csrc/nuts_transition.cu `Net`
+    params: torch.Tensor  # packed leaves, see csrc/nuts_transition.cu
+    mods: torch.Tensor  # (n_modules, MOD_INTS) int32: the module list
     d: int
-    h1: int
-    h2: int
+    h1: int  # widths and clamp of the first coupling (the ones
+    h2: int  # nuts_transition_kernel takes)
     clamp: float
+    hidden: tuple  # every coupling's hidden widths
+    hmax: int  # widest hidden layer
+    head: int  # widest conditioner output
+    affine: bool  # Standardize + one AffineCoupling: nuts_transition_kernel
+    flow_p: Chain | None  # p-major relayout (flows with splines)
 
 
-def pack_affine_funnel(flow: Chain, target: NealsFunnel) -> AffineFunnel:
-    """Check that `flow` is what K1 computes (Standardize + one
-    AffineCoupling with a 3-layer silu MLP, over a funnel of the flow's
-    width) and pack its leaves in the kernel's order, with transposed
-    weight copies for the backward pass."""
-    ts = list(flow.transforms) if isinstance(flow, Chain) else []
-    if (len(ts) != 2 or not isinstance(ts[0], Standardize)
-            or not isinstance(ts[1], AffineCoupling)):
-        raise ValueError("the fused NUTS kernel takes Chain([Standardize, "
-                         "AffineCoupling]); spline flows wait for the "
-                         "spline slice (ROADMAP.md)")
-    std, cp = ts
-    d = std.loc.numel()
-    ws, bs = list(cp.net.weights), list(cp.net.biases)
-    if len(ws) != 3 or cp.net.activation != "silu":
-        raise ValueError("the fused NUTS kernel takes a 3-layer silu MLP")
+def _unsupported(msg):
+    return ValueError(
+        "the fused NUTS kernel takes a Chain of Standardize, AffineCoupling "
+        f"and RQSCouplingBlock with 3-layer silu MLPs over a funnel of the "
+        f"flow's width: {msg}")
+
+
+def _coupling_leaves(t, d):
+    """(leaves, h1, h2, n_out) of a coupling, the spline's last layer
+    relaid out p-major; transposed weight copies for the backward."""
+    ws, bs = list(t.net.weights), list(t.net.biases)
+    if len(ws) != 3 or t.net.activation != "silu":
+        raise _unsupported("its conditioner must be a 3-layer silu MLP")
+    if len(t.mask) != d:
+        raise _unsupported(f"a mask of width {len(t.mask)} in a flow of "
+                           f"width {d}")
     h1, h2 = ws[0].shape[1], ws[1].shape[1]
+    spline = isinstance(t, RQSCouplingBlock)
+    n_out = (3 * t.knots - 1) * d if spline else 2 * d
     if (ws[0].shape != (d, h1) or ws[1].shape != (h1, h2)
-            or ws[2].shape != (h2, 2 * d)):
-        raise ValueError(f"MLP widths {[tuple(w.shape) for w in ws]} do not "
-                         f"match the flow width d={d}")
+            or ws[2].shape != (h2, n_out)):
+        raise _unsupported(f"MLP widths {[tuple(w.shape) for w in ws]} do "
+                           f"not match the flow width d={d}")
+    w3, b3 = ws[2], bs[2]
+    if spline:
+        w3, b3 = p_major(w3, d, 3 * t.knots - 1), p_major(b3, d,
+                                                         3 * t.knots - 1)
+    leaves = [t.mask_f, ws[0], bs[0], ws[1], bs[1], w3, b3, ws[0].t(),
+              ws[1].t(), w3.t()]
+    return leaves, h1, h2, n_out
+
+
+def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
+    """Check that K1 computes `flow` (a Chain of Standardize,
+    AffineCoupling and RQSCouplingBlock modules whose conditioners are
+    3-layer silu MLPs, over a funnel of the flow's width) and pack its
+    leaves in chain order: Standardize loc, log_scale; a coupling's mask,
+    W1, b1, W2, b2, W3, b3, W1^T, W2^T, W3^T, a spline's last layer in
+    p-major columns. For Standardize + one AffineCoupling that is the
+    layout of `nuts_transition_kernel`'s `Net`."""
+    ts = list(flow.transforms) if isinstance(flow, Chain) else []
+    if not 1 <= len(ts) <= MAX_MODULES:
+        raise _unsupported(f"{len(ts)} modules (1 to {MAX_MODULES})")
+    first = ts[0]
+    d = (first.loc.numel() if isinstance(first, Standardize)
+         else len(getattr(first, "mask", ())))
     if not isinstance(target, NealsFunnel) or target.dim != d:
-        raise ValueError("the fused NUTS kernel takes a NealsFunnel of the "
-                         "flow's width")
-    parts = [std.loc, std.log_scale, cp.mask_f, ws[0], bs[0], ws[1], bs[1],
-             ws[2], bs[2], ws[0].t(), ws[1].t(), ws[2].t()]
+        raise _unsupported("the target must be a NealsFunnel of the flow's "
+                           "width")
+    parts, rows, widths, off = [], [], [], 0
+    for t in ts:
+        kind = KIND.get(type(t))
+        if kind is None:
+            raise _unsupported(f"module {type(t).__name__}")
+        if kind == 0:
+            if t.loc.numel() != d:
+                raise _unsupported(f"a Standardize of width "
+                                   f"{t.loc.numel()} in a flow of width {d}")
+            leaves, row = [t.loc, t.log_scale], [0, off, 0, 0, 0, 0]
+        else:
+            leaves, h1, h2, n_out = _coupling_leaves(t, d)
+            spline = kind == 2
+            row = [kind, off, h1, h2, t.knots if spline else 0,
+                   _float_bits(t.range_limit if spline else t.clamp)]
+            widths.append((h1, h2, n_out, t.range_limit if spline
+                           else t.clamp))
+        parts += leaves
+        rows.append(row + [0] * (MOD_INTS - len(row)))
+        off += sum(x.numel() for x in leaves)
+    if off >= 2 ** 31:
+        raise _unsupported(f"{off} parameters (the kernel indexes them "
+                           f"with 32-bit ints)")
     with torch.no_grad():
         params = torch.cat([p.detach().float().reshape(-1) for p in parts])
-    return AffineFunnel(flow, target, params.contiguous(), d, h1, h2,
-                        cp.clamp)
+    mods = torch.tensor(rows, dtype=torch.int32, device=params.device)
+    h1, h2, _, clamp = widths[0] if widths else (0, 0, 0, 0.0)
+    has_spline = any(isinstance(t, RQSCouplingBlock) for t in ts)
+    affine = (len(ts) == 2 and isinstance(ts[0], Standardize)
+              and isinstance(ts[1], AffineCoupling))
+    hidden = tuple(h for w in widths for h in w[:2])
+    return PackedFlow(
+        flow, target, params.contiguous(), mods, d, h1, h2, clamp, hidden,
+        max(hidden, default=0),
+        max((w[2] for w in widths), default=0), affine,
+        permute_for_tiles(flow) if has_spline else None)
 
 
 def autograd_logp_grad(flow: Chain, log_density: Callable) -> Callable:
@@ -332,7 +339,7 @@ def _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
         raise ValueError(f"q must be (n, d), got {tuple(q.shape)}")
     n, d = q.shape
     if d != model.d:
-        raise ValueError(f"q has width {d}, the flow's MLP takes {model.d}")
+        raise ValueError(f"q has width {d}, the flow takes {model.d}")
     want = {"q": (n, d), "p0": (n, d), "dirs": (n, max_depth),
             "u_acc": (n, max_depth), "u_take": (n, 1 << max_depth),
             "eps": (), "inv_mass": (d,)}
@@ -348,51 +355,77 @@ def _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+def _smem_bytes(model: PackedFlow) -> int:
+    """Dynamic shared memory of one warp of `nuts_chain_kernel`."""
+    return 4 * ((model.mods.shape[0] + 1) * model.d + 4 * model.hmax
+                + model.head)
+
+
 def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth):
     global LAUNCHES
     n, d = q.shape
     if d > MAX_DIM or d % 32:
         raise ValueError(f"the kernel takes d % 32 == 0 and d <= {MAX_DIM},"
                          f" got d={d}")
-    for w in (model.h1, model.h2):
+    for w in model.hidden:
         if w > MAX_DIM or w % 32:
             raise ValueError(f"the kernel takes hidden widths % 32 == 0 and "
                              f"<= {MAX_DIM}, got {w}")
+    if not model.affine and _smem_bytes(model) > SMEM_LIMIT:
+        raise ValueError(f"the flow needs {_smem_bytes(model)} bytes of "
+                         f"shared memory per chain, over {SMEM_LIMIT}")
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
     for t in ins:
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
-    if model.params.device != q.device:
+    if model.params.device != q.device or model.mods.device != q.device:
         raise ValueError("the packed flow is on another device than q")
-    build()
+    lib = LIBRARY.load()
     q_out = torch.empty_like(q)
     info = torch.empty((7, n), device=q.device, dtype=torch.float32)
+    ptrs = [t.data_ptr() for t in ins]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _LIB.nuts_transition_f32(
-            *(t.data_ptr() for t in ins), n, d, model.h1, model.h2,
-            max_depth, model.clamp, model.target.sigma_v, MAX_DELTA_ENERGY,
-            q_out.data_ptr(), info.data_ptr(), stream)
+        if model.affine:
+            name = "nuts_transition_f32"
+            rc = lib.nuts_transition_f32(
+                *ptrs, n, d, model.h1, model.h2, max_depth, model.clamp,
+                model.target.sigma_v, MAX_DELTA_ENERGY, q_out.data_ptr(),
+                info.data_ptr(), stream)
+        else:
+            name = "nuts_chain_transition_f32"
+            rc = lib.nuts_chain_transition_f32(
+                *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
+                model.hmax, model.head, max_depth, model.target.sigma_v,
+                MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"nuts_transition_f32 launch failed: cudaError "
-                           f"{rc}")
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES += 1
     return (q_out, *info.unbind(0))
 
 
+def plain_logp_grad(model: PackedFlow) -> Callable:
+    """The plain version's gradient: the streamed per-block backward on
+    the p-major relayout for flows with splines (as the JAX package's
+    `fused_nuts_for_flow`), else autograd through the whole flow."""
+    if model.flow_p is not None:
+        return lambda z: tile_logp_and_grad_streamed(
+            model.flow_p, z, model.target.log_density)
+    return autograd_logp_grad(model.flow, model.target.log_density)
+
+
 def nuts_transition(q, p0, dirs, u_acc, u_take, eps, inv_mass,
-                    model: AffineFunnel, max_depth: int):
+                    model: PackedFlow, max_depth: int):
     """One NUTS transition of every chain, with the randomness given.
 
-    A CPU tensor runs `transition_math_torch` with the autograd gradient of
-    `model.flow`; a CUDA tensor launches K1. Same returns as
-    `transition_math_torch`."""
+    A CPU tensor runs `transition_math_torch` with `plain_logp_grad`; a
+    CUDA tensor launches K1. Same returns as `transition_math_torch`."""
     _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth)
     if q.device.type == "cpu":
-        logp_grad = autograd_logp_grad(model.flow, model.target.log_density)
         return transition_math_torch(q, p0, dirs, u_acc, u_take, eps,
-                                     inv_mass, logp_grad, max_depth)
+                                     inv_mass, plain_logp_grad(model),
+                                     max_depth)
     if q.device.type == "cuda":
         return _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                        max_depth)
@@ -426,7 +459,7 @@ class FusedNUTS:
     build it after the flow is trained."""
 
     def __init__(self, target: NealsFunnel, flow: Chain, max_depth: int = 8):
-        self.model = pack_affine_funnel(flow, target)
+        self.model = pack_flow(flow, target)
         self.max_depth = max_depth
 
     def __call__(self, generator, q, eps, inv_mass):

@@ -25,6 +25,8 @@ from tpuflows_torch.mcmc import flow_reparameterized, to_data_space
 from tpuflows_torch.targets import NealsFunnel
 from tpuflows_torch.util.shapes import leading_mask, mask_array
 
+from test_torch_coupling import carry as carry_modules
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 D, HIDDEN = 8, (16, 16)
 
@@ -180,15 +182,72 @@ def test_build_flow_matches_jax_structure(n_leading):
         x_t.numpy(), np.asarray(jf.inverse(jnp.asarray(z.numpy()))), **TOL)
 
 
-@pytest.mark.parametrize("kind,scheme", [("rqs", "leading"),
-                                         ("arqs", "leading"),
-                                         ("affine", "alternating"),
-                                         ("affine", "mixed")])
-def test_build_flow_refuses_what_waits(kind, scheme):
+@pytest.mark.parametrize("kind,scheme,use_pallas", [
+    ("rqs", "leading", "auto"), ("arqs", "leading", "auto"),
+    ("affine", "alternating", "auto"), ("affine", "mixed", "auto"),
+    ("rqs", "alternating", "fused")],
+    ids=["rqs-leading", "arqs-leading", "affine-alternating", "affine-mixed",
+         "rqs-fused"])
+def test_build_flow_refuses_what_waits(kind, scheme, use_pallas):
+    """The (kind, mask scheme) pairs that waited for the spline slice now
+    build, with the JAX package's structure (module kinds, masks, widths,
+    zero last layers) and, after carrying the JAX flow's leaves across,
+    its values (1e-5). What still waits is the fused block tier (K6/K7):
+    a flow built with use_pallas="fused" refuses to run, naming ROADMAP."""
+    x = _z(4, n=256)
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_flow(torch.zeros(8, 4), g, kind=kind, mask_scheme=scheme,
-                   device="cpu")
+    kw = dict(kind=kind, n_blocks=3, knots=4, hidden=HIDDEN,
+              mask_scheme=scheme, clamp=8.0)
+    tf = build_flow(torch.from_numpy(x), g, use_pallas=use_pallas,
+                    device="cpu", **kw)
+    if use_pallas == "fused":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf.inverse_and_ladj(torch.from_numpy(_z(5)))
+        return
+    jf = j_build_flow(jnp.asarray(x), jax.random.key(0), use_pallas=False,
+                      **kw)
+    assert [type(t).__name__ for t in tf.transforms] == [
+        type(t).__name__ for t in jf.transforms]
+    for tb, jb in zip(tf.transforms[1:], jf.transforms[1:]):
+        assert tb.mask == jb.mask
+        assert [tuple(w.shape) for w in tb.net.weights] == [
+            tuple(w.shape) for w in jb.net.weights]
+        assert float(tb.net.weights[-1].detach().abs().max()) == 0.0
+    # values: the JAX flow with random last layers, carried across
+    rng = np.random.default_rng(1)
+    jt = list(jf.transforms)
+    for i, t in enumerate(jt[1:], 1):
+        ws = list(t.net.weights)
+        ws[-1] = jnp.asarray(0.1 * rng.normal(size=ws[-1].shape), jnp.float32)
+        jt[i] = type(t)(**{**t.__dict__, "net": type(t.net)(
+            weights=tuple(ws), biases=t.net.biases)})
+    jf = JChain(transforms=tuple(jt))
+    tf = carry_modules(jf, use_pallas=False)
+    z = _z(6)
+    jx, jl = jf.inverse_and_ladj(jnp.asarray(z))
+    with torch.no_grad():
+        tx, tl = tf.inverse_and_ladj(torch.from_numpy(z))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+
+
+def test_build_flow_takes_a_module_list():
+    """`modules=`: ready bijectors are used as they are, callables are
+    called with (samples, generator), and nothing else is built."""
+    x = torch.from_numpy(_z(8, n=128))
+    ready = AffineCoupling.init(leading_mask(D), torch.Generator(),
+                                hidden=HIDDEN)
+    seen = []
+
+    def fitted(samples, generator):
+        seen.append((samples.shape, generator))
+        return Standardize.from_samples(samples)
+
+    g = torch.Generator().manual_seed(0)
+    tf = build_flow(x, g, modules=[fitted, ready], device="cpu")
+    assert len(tf) == 2 and tf.transforms[1] is ready
+    assert seen == [((128, D), g)]
+    torch.testing.assert_close(tf.transforms[0].loc.detach(), x.mean(0))
 
 
 def test_mask_helpers_match_jax():
@@ -196,6 +255,18 @@ def test_mask_helpers_match_jax():
         mask = mask or leading_mask(D)
         np.testing.assert_array_equal(mask_array(mask).numpy(),
                                       np.asarray(j_mask_array(mask)))
+
+
+@pytest.mark.parametrize("dim", [1, 4, 7, 64])
+@pytest.mark.parametrize("parity", [0, 1, 2])
+def test_alternating_and_block_masks_match_jax(dim, parity):
+    from tpuflows.util.shapes import alternating_mask as j_alt
+    from tpuflows.util.shapes import block_mask as j_block
+
+    from tpuflows_torch.util.shapes import alternating_mask, block_mask
+
+    assert alternating_mask(dim, parity) == j_alt(dim, parity)
+    assert block_mask(dim, parity) == j_block(dim, parity)
 
 
 def test_inverse_and_chain_order():

@@ -108,7 +108,7 @@ def jax_transition(jf, target, inp, eps, inv_mass, depth, fn=None):
 
 
 def torch_transition(tf, target, inp, eps, inv_mass, depth):
-    model = nuts_cuda.pack_affine_funnel(tf, target)
+    model = nuts_cuda.pack_flow(tf, target)
     out = nuts_cuda.nuts_transition(
         *(torch.from_numpy(inp[k]) for k in
           ("q", "p0", "dirs", "u_acc", "u_take")),
@@ -235,7 +235,7 @@ def test_cpu_wrapper_runs_plain_version_and_counts_no_launch():
 
 
 def _model():
-    return nuts_cuda.pack_affine_funnel(torch_flow(jax_flow(flow_leaves(0))),
+    return nuts_cuda.pack_flow(torch_flow(jax_flow(flow_leaves(0))),
                                         NealsFunnel(dim=D_MODEL))
 
 
@@ -261,14 +261,48 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_pack_rejects_other_flows_and_targets():
-    from tpuflows_torch.flows import Chain, Standardize
+    """What K1 does not compute is refused when the flow is packed: a
+    target of another width, a module of another kind, a conditioner that
+    is not a 3-layer MLP. (A Standardize-only chain packs since the
+    module-list kernel: `test_pack_takes_a_standardize_only_chain`.)"""
+    from tpuflows_torch.flows import AffineCoupling, Chain, Inverted, MLP
 
     tf = torch_flow(jax_flow(flow_leaves(0)))
     with pytest.raises(ValueError):
-        nuts_cuda.pack_affine_funnel(Chain([Standardize.identity(8)]),
-                                     NealsFunnel(dim=8))
+        nuts_cuda.pack_flow(tf, NealsFunnel(dim=16))
     with pytest.raises(ValueError):
-        nuts_cuda.pack_affine_funnel(tf, NealsFunnel(dim=16))
+        nuts_cuda.pack_flow(Chain([tf.transforms[0],
+                                   Inverted(tf.transforms[1])]),
+                            NealsFunnel(dim=D_MODEL))
+    g = torch.Generator().manual_seed(0)
+    deep = AffineCoupling(tf.transforms[1].mask,
+                          MLP.init((D_MODEL, 8, 8, 8, 2 * D_MODEL), g))
+    with pytest.raises(ValueError):
+        nuts_cuda.pack_flow(Chain([tf.transforms[0], deep]),
+                            NealsFunnel(dim=D_MODEL))
+
+
+def test_pack_takes_a_standardize_only_chain():
+    """A Chain of one Standardize is a module list for the kernel; on the
+    CPU its transition runs the plain version with the autograd
+    gradient."""
+    from tpuflows_torch.flows import Chain, Standardize
+
+    lv = flow_leaves(2)
+    flow = Chain([Standardize(torch.from_numpy(lv["loc"]),
+                              torch.from_numpy(lv["log_scale"]))])
+    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=D_MODEL))
+    assert not model.affine and model.flow_p is None
+    assert model.mods.tolist() == [[0, 0, 0, 0, 0, 0, 0, 0]]
+    torch.testing.assert_close(
+        model.params, torch.cat([flow.transforms[0].loc,
+                                 flow.transforms[0].log_scale]).detach())
+    inp = make_inputs(2)
+    out = nuts_cuda.nuts_transition(
+        *(torch.from_numpy(inp[k]) for k in ("q", "p0", "dirs", "u_acc",
+                                             "u_take")),
+        torch.tensor(0.3), torch.ones(D_MODEL), model, DEPTH)
+    assert torch.isfinite(out[0]).all() and (out[3] >= 1).all()
 
 
 def test_packed_layout_matches_kernel_order():

@@ -1,9 +1,17 @@
 """The whole slice on the CPU at a small size: `chip_smoke.main_path` (the
-path the chip run drives at full width) with d = 8, 64 chains and an MLP
-8-16-16-16: a 200-step reverse-KL/STL fit, 64 warmup steps and one draw
-window of 64, through the port's entry points. On the CPU every transition
-runs the plain version, so K1's launch counter stays 0. The funnel's v must
-pass the 3-MC-sigma moment gate against N(0, 9).
+path the chip run drives at full width), through the port's entry points.
+
+  * the ceiling variant with d = 8, 64 chains and an MLP 8-16-16-16: a
+    200-step reverse-KL/STL fit, 64 warmup steps and one draw window of
+    64; the funnel's v must pass the 3-MC-sigma moment gate against N(0, 9);
+  * the generic variant (the arqs flow, 3 x (affine + spline), mixed
+    masks) with d = 4, K = 4, MLPs 4-8-8-*, 32 chains, a 200-step fit, 32
+    warmup steps and one window of 32: the pipeline, its launch bookkeeping
+    and the fit's quality (at this size the gates need more draws than a
+    CPU test affords; the card runs them at full size).
+
+On the CPU every transition and every spline runs its plain version, so
+the launch counters of K1, K4 and K5 stay 0.
 """
 import math
 import subprocess
@@ -36,6 +44,23 @@ def test_slice_runs_end_to_end_on_the_cpu():
     assert torch.isfinite(warm_state.inv_mass).all()
 
 
+def test_generic_slice_runs_end_to_end_on_the_cpu():
+    torch.manual_seed(0)
+    res, flow, warm_state = chip_smoke.main_path(
+        "cpu", variant="generic", dim=4, n_chains=32, hidden=(8, 8),
+        train_steps=200, train_batch=256, num_warmup=32, window=32,
+        max_windows=1, ess_gate=50.0, knots=4)
+    assert res["modules"] == 7 and res["launches"] == 0
+    assert res["rqs_launches"] == res["rqs_launches_expected"] == {
+        "k4_forward": 0, "k4_inverse": 0, "k5_forward": 0, "k5_inverse": 0}
+    assert res["transitions"] == 64 and res["n_draws"] == 32
+    assert math.isfinite(res["final_elbo"]) and res["final_elbo"] > -0.5
+    assert sum(res["tree_depth_histogram"]) == 32 * 32
+    assert res["v_z_mean"] < 5.0 and res["v_z_var"] < 5.0, res
+    assert warm_state.q.shape == (32, 4)
+    assert torch.isfinite(warm_state.inv_mass).all()
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -43,6 +68,24 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("name,key", [
+    ("_ZN55_GLOBAL__N__bba1580c_18_nuts_transition_cu_1b91165b_19517nuts_"
+     "chain_kernelILi6EEEvN13tpuflows_nuts4ArgsENS0_9ChainListE",
+     "chain d/32=6"),
+    ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_grad_"
+     "kernelILb0EEEvPKfS2_S2_S2_PfS3_xif", "K5 forward"),
+    ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_eval_"
+     "kernelILb1EEEvPKfS2_PfS3_xif", "K4 inverse")])
+def test_ptxas_summary_names_every_kernel(name, key):
+    log = (f"ptxas info    : Compiling entry function '{name}' for "
+           "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 "
+           "bytes spill loads\nptxas info    : Used 48 registers, used 0 "
+           "barriers\n")
+    assert chip_smoke.ptxas_summary(log) == {key: {
+        "spill_stores": 0, "spill_loads": 0, "registers": 48,
+        "static_smem": 0}}
 
 
 def test_ptxas_summary_reads_nvcc_output():
@@ -69,7 +112,8 @@ def test_driver_warmup_schedules(schedule, adapt_mass):
 
     g = torch.Generator().manual_seed(1)
     target = NealsFunnel(dim=4, sigma_v=1.0)
-    flow = build_flow(torch.randn(256, 4, generator=g), g, hidden=(8, 8),
+    flow = build_flow(torch.randn(256, 4, generator=g), g, kind="affine",
+                      n_blocks=1, hidden=(8, 8), mask_scheme="leading",
                       clamp=8.0, device="cpu")
     driver = NUTSDriver(fused_nuts_for_flow(target, flow, max_depth=3),
                         adapt_mass=adapt_mass, warmup_schedule=schedule)

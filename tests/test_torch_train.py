@@ -209,3 +209,103 @@ def test_elbo_and_vi_sample_match_jax_on_the_same_noise():
     np.testing.assert_allclose(x.numpy(),
                                np.asarray(jf.inverse(jnp.asarray(z.numpy()))),
                                **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the arqs spline flow of the generic path
+# ---------------------------------------------------------------------------
+def _arqs(seed, tier):
+    from test_torch_coupling import carry, jax_arqs_flow
+
+    jf = jax_arqs_flow(seed, d=D, n_blocks=2, knots=4, hidden=HIDDEN)
+    return jf, carry(jf, use_pallas=tier)
+
+
+def test_stl_steps_on_an_arqs_flow_match_jax_trainer():
+    """Three steps of each package's STL trainer from the same arqs flow
+    (oracle spline tier on both sides), the port fed the noise the JAX
+    trainer draws: the same losses and the same new leaves to 1e-5."""
+    jf, tf = _arqs(6, False)
+    jt, tt = JFunnel(dim=D), NealsFunnel(dim=D)
+    key, nsteps = jax.random.key(1), 3
+    tx = optax.chain(optax.clip_by_global_norm(10.0), optax.adam(
+        optax.cosine_decay_schedule(1e-2, 10, alpha=0.03)))
+    res = j_trainer(jt.log_density, D, tx, batch_size=64, stl=True)(
+        key, jf, nsteps)
+    opt = ClipAdamCosine(lr=1e-2, decay_steps=10, alpha=0.03)
+    params = list(tf.parameters())
+    state = opt.init(params)
+    for i, k in enumerate(jax.random.split(key, nsteps)):
+        z = np.array(jax.random.normal(k, (64, D), jnp.float32))
+        loss = reverse_kl_stl_loss(tf, tt.log_density, torch.from_numpy(z))
+        state = opt.update(params, torch.autograd.grad(loss, params), state)
+        np.testing.assert_allclose(float(loss.detach()),
+                                   float(res.loss_hist[i]), **TOL)
+    leaves = jax.tree_util.tree_leaves(res.result)
+    assert len(leaves) == len(params)
+    for tp_, jp_ in zip(params, leaves):
+        np.testing.assert_allclose(tp_.detach().numpy(), np.asarray(jp_),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("tier", [False, "auto"])
+def test_stl_gradients_on_an_arqs_flow_match_jax(tier):
+    """The STL loss and its gradient on every leaf; the K4/K5 tier runs
+    their plain version on the CPU, against the JAX oracle to the JAX
+    package's spline bar (atol 1e-4)."""
+    jf, tf = _arqs(7, tier)
+    z = np.random.default_rng(70).normal(size=(128, D)).astype(np.float32)
+    jt, tt = JFunnel(dim=D), NealsFunnel(dim=D)
+    j_loss, j_grads = jax.value_and_grad(_stl_loss_jax)(
+        jf, jnp.asarray(z), jt.log_density)
+    t_loss = reverse_kl_stl_loss(tf, tt.log_density, torch.from_numpy(z))
+    params = list(tf.parameters())
+    t_grads = torch.autograd.grad(t_loss, params)
+    tol = TOL if tier is False else dict(rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(float(t_loss.detach()), float(j_loss), **tol)
+    for tg, jg in zip(t_grads, jax.tree_util.tree_leaves(j_grads)):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **tol)
+
+
+def test_stl_forward_pass_conditioners_get_no_gradient(monkeypatch):
+    """The STL loss evaluates log q(x) with the flow's parameters detached
+    (`functional_call`): every conditioner the forward pass runs, the
+    spline blocks' included, computes with weights that need no gradient
+    (the gradient still flows through x into its masked input), while the
+    inverse pass's weights need one. And the gradient equals that of the
+    loss with log q taken through a frozen copy of the flow."""
+    import copy
+
+    from tpuflows_torch.flows import MLP, AffineCoupling, RQSCouplingBlock
+    from tpuflows_torch.targets import std_normal_logpdf
+
+    _, tf = _arqs(8, "auto")
+    seen = []
+    forward = MLP.forward
+
+    def spy(self, x):
+        seen.append((self.weights[-1].shape[1] > 2 * D,
+                     all(w.requires_grad for w in self.weights)))
+        return forward(self, x)
+
+    monkeypatch.setattr(MLP, "forward", spy)
+    tt = NealsFunnel(dim=D)
+    z = torch.from_numpy(np.random.default_rng(80).normal(
+        size=(64, D)).astype(np.float32))
+    params = list(tf.parameters())
+    grads = torch.autograd.grad(reverse_kl_stl_loss(tf, tt.log_density, z),
+                                params)
+    n_mlp = sum(isinstance(t, (AffineCoupling, RQSCouplingBlock))
+                for t in tf.transforms)
+    # the inverse pass (weights live), then the forward pass (detached),
+    # for the affine and the spline conditioners alike
+    assert [g for _, g in seen] == [True] * n_mlp + [False] * n_mlp
+    assert sum(spline for spline, _ in seen) == 4
+    monkeypatch.setattr(MLP, "forward", forward)
+    frozen = copy.deepcopy(tf).requires_grad_(False)
+    x, _ = tf.inverse_and_ladj(z)
+    z_sg, ladj_fwd = frozen.forward_and_ladj(x)
+    loss = -torch.mean(tt.log_density(x)
+                       - (std_normal_logpdf(z_sg) + ladj_fwd))
+    for a, b in zip(grads, torch.autograd.grad(loss, params)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
