@@ -6,8 +6,9 @@
 Phases, one JSON line each on stdout with its wall time in seconds:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every kernel with nvcc, all units in parallel: K1
-               (csrc/nuts_transition.cu) and K4/K5 (csrc/rqs_spline.cu),
-               and ptxas' registers, shared memory and spills per kernel;
+               (csrc/nuts_transition.cu), K4/K5 (csrc/rqs_spline.cu) and
+               K6/K7 (csrc/coupling_block.cu), and ptxas' registers, shared
+               memory and spills per kernel;
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
                pullbacks) against their plain PyTorch versions at the fit's
                shape (1024 x 64, K = 8) and three others (d = 8, 96, 256;
@@ -65,11 +66,30 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                K1's must equal the transitions, K4's and K5's 6 per fit step
                (3 spline blocks, inverse and forward) plus the final ELBO's
                and the data-space mapping's inverses;
-  9. timing_generic — K4 and K5 at the fit's shape, and K1 at the generic
+  9. timing_generic — K4 and K5 at the fit's shape (also replayed from a
+               CUDA graph, the device's time alone), and K1 at the generic
                path's post-warmup state, with CUDA events, beside their
                bounds and their plain versions' times. K1 is held to K1's
                bar there, with q's bar raised to twice the spread of two
                plain versions on the same inputs (`time_kernel`).
+ 10. coupling_vs_plain — K6 (the whole spline coupling block) and K7 (its
+               pullback) against their plain PyTorch versions, both
+               directions, on z, ladj, dx and every weight's and bias's
+               cotangent: the fit's shape (1024 x 64, hidden 128 x 128,
+               K = 8) under each mixed mask, a ragged batch of 37, d = 256
+               (a 3 MB last layer, streamed), and two rows off the main
+               path (tanh and relu conditioners, one and three hidden
+               layers); last layers 0.1 N(0, 1) and 0.01 x He. The bar is
+               K4/K5's (`judge`, refereed by float64), at the quantile
+               `block_quantile`; K7 must repeat itself to the bit;
+ 11. main_path_generic_fused — the generic variant with every spline block
+               on the fused tier (use_pallas="fused"), under the same
+               gates; K6's and K7's launch counts must equal the counts the
+               path implies and K4/K5 must launch 0 times;
+ 12. timing_coupling — K6 and K7 with CUDA events at the fit's shape and at
+               d = 256 (also replayed from a CUDA graph), beside their
+               bounds and plain versions, and the same block's times on the
+               K4/K5 tier.
 Then the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
@@ -141,9 +161,13 @@ def _kernel_key(name):
         return f"d/32={t.group(1)}"
     if "nuts_chain_kernel" in name and t:
         return f"chain d/32={t.group(1)}"
-    for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5")):
+    for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
+                        ("coupling_fwd_kernel", "K6"),
+                        ("coupling_bwd_kernel", "K7 pass 1")):
         if kern in name:
             return f"{label} {'inverse' if 'ILb1E' in name else 'forward'}"
+    if "weight_grad_kernel" in name:
+        return "K7 pass 2"
     return name
 
 
@@ -190,6 +214,35 @@ def timed(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps, out
 
 
+def graph_ms(fn, reps=20, replays=10):
+    """Mean ms of fn() on the device alone: `reps` calls captured in one
+    CUDA graph, replayed `replays` times between CUDA events. `timed`
+    launches from the host, and a kernel shorter than its wrapper's host
+    work (checks, ctypes, allocation) is timed at the host's pace."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 # ---------------------------------------------------------------------------
 # K4 / K5
 # ---------------------------------------------------------------------------
@@ -220,7 +273,7 @@ def _units(a, b):
     return (a - b).abs() / (RQS_ATOL + RQS_RTOL * b.abs())
 
 
-def judge(kern, plain, oracle, exact):
+def judge(kern, plain, oracle, exact, quantile=0.999):
     """The spline kernels' bar on one output, refereed by `exact`, the
     plain version in float64. Two float32 evaluations of the same
     function, `plain` (the tile math) and `oracle` (`flows/rqs_ref.py`),
@@ -228,9 +281,9 @@ def judge(kern, plain, oracle, exact):
     draw (very narrow or flat bins) miss the JAX package's bar in every
     float32 evaluation, some by thousands of bars, so the largest error is
     noise. The kernel must be as accurate as they are: its count of
-    elements beyond the bar of float64 and its 99.9th-percentile error (in
-    units of the bar) may exceed the worse plain version's by at most 25%
-    (plus one element, plus 0.1 bar)."""
+    elements beyond the bar of float64 and its `quantile` error (in units
+    of the bar; the 99.9th percentile for K4/K5) may exceed the worse
+    plain version's by at most 25% (plus one element, plus 0.1 bar)."""
     import torch
 
     exact = exact.float()
@@ -238,16 +291,16 @@ def judge(kern, plain, oracle, exact):
             for k, t in (("kernel", kern), ("plain", plain),
                          ("oracle", oracle))}
     miss = {k: int((v > 1.0).sum()) for k, v in errs.items()}
-    q999 = {k: float(torch.quantile(v, 0.999)) for k, v in errs.items()}
+    q = {k: float(torch.quantile(v, quantile)) for k, v in errs.items()}
     worst_miss = max(miss["plain"], miss["oracle"])
-    worst_q = max(q999["plain"], q999["oracle"])
+    worst_q = max(q["plain"], q["oracle"])
     return {"max_abs": float((kern - plain).abs().max()),
             "beyond_bar_of_plain": int((~_within(kern, plain)).sum()),
-            "beyond_bar_of_f64": miss, "q999_bars": q999,
+            "beyond_bar_of_f64": miss, "quantile": quantile, "q_bars": q,
             "max_bars": {k: float(v.max()) for k, v in errs.items()},
             "passed": bool(torch.isfinite(kern).all()
                            and miss["kernel"] <= 1.25 * worst_miss + 1
-                           and q999["kernel"] <= 1.25 * worst_q + 0.1)}
+                           and q["kernel"] <= 1.25 * worst_q + 0.1)}
 
 
 def oracle_eval(x, raw, inverse):
@@ -314,7 +367,8 @@ def rqs_bytes_ops(n_el, K):
 
 
 def time_rqs(device, n_reps=200, plain_reps=20):
-    """K4 and K5 at the fit's shape, forward and inverse, with CUDA events,
+    """K4 and K5 at the fit's shape, forward and inverse, with CUDA events
+    (launched from the host, and replayed from a CUDA graph: `graph_ms`),
     beside their bounds and the plain versions."""
     from tpuflows_torch.kernels import rqs_cuda
 
@@ -337,13 +391,308 @@ def time_rqs(device, n_reps=200, plain_reps=20):
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = ops / PEAK_F32_FLOPS * 1e3
             out[f"{kname}_{direction}"] = {
-                "ms": ms, "plain_ms": plain_ms,
+                "ms": ms, "device_ms": graph_ms(kern), "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": ops,
                 "max_abs_err": max(float((a - b).abs().max())
                                    for a, b in zip(res, ref))}
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7
+# ---------------------------------------------------------------------------
+# (rows, d, hidden, knots, mask, head, activation): the fit's shape under
+# each of the mixed masks, a ragged batch, d = 256 (where the JAX package's
+# own "auto" picks this tier; its last layer, 128 x 5888 floats, is
+# streamed), and two rows off the main path: the other activations, one
+# and three hidden layers, other knots, and spline dims that fill no whole
+# chunk (16 of 32) or end in a partial one (48). head: the last layer's
+# weights, "n0.1" = 0.1 N(0, 1) (the JAX tests'), "he0.01" = 0.01 x the He
+# scale (SPLINE_HEAD, as the gated spline rows of K1); other weights He,
+# biases 0.1 N(0, 1).
+COUPLING_SHAPES = [
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0", "n0.1", "silu"),
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating1", "n0.1", "silu"),
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "block0", "n0.1", "silu"),
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "block1", "n0.1", "silu"),
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0", "he0.01", "silu"),
+    (37, DIM, HIDDEN, KNOTS, "alternating1", "n0.1", "silu"),
+    (TRAIN_BATCH, 256, HIDDEN, KNOTS, "alternating0", "n0.1", "silu"),
+    (TRAIN_BATCH, 256, HIDDEN, KNOTS, "block1", "he0.01", "silu"),
+    (300, 32, (64,), 4, "alternating0", "n0.1", "tanh"),
+    (513, 96, (96, 48, 80), 12, "block0", "he0.01", "relu")]
+COUPLING_PARAMS = ("w0", "b0", "w1", "b1", "w2", "b2")
+
+
+def param_names(n_params):
+    """w0, b0, w1, b1, ... for a conditioner's flat parameters."""
+    return tuple(f"{'wb'[j % 2]}{j // 2}" for j in range(n_params))
+
+
+def coupling_mask(name, d):
+    from tpuflows_torch.util.shapes import alternating_mask, block_mask
+
+    kind, i = name[:-1], int(name[-1])
+    return alternating_mask(d, i) if kind == "alternating" else \
+        block_mask(d, i)
+
+
+def coupling_inputs(device, n, d, hidden, K, head, seed):
+    """(x, flat p-major params, gz, gladj), drawn on `device`: x ~ 2 N(0,
+    1) (the JAX test's spread; some of it beyond B = 4), He hidden
+    weights, the last layer's weights as `head` says, biases 0.1 N(0, 1),
+    cotangents N(0, 1)."""
+    import torch
+    from tpuflows_torch.kernels.tile_flow import p_major
+
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    P = 3 * K - 1
+    sizes = (d, *hidden, P * d)
+    params = []
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        w = randn(a, b)
+        if i < len(hidden):
+            w = math.sqrt(2.0 / a) * w
+        elif head == "n0.1":
+            w = 0.1 * w
+        else:
+            w = 0.01 * math.sqrt(2.0 / a) * w
+        bias = 0.1 * randn(b)
+        if i == len(hidden):  # drawn d-major, as a module holds them
+            w, bias = p_major(w, d, P), p_major(bias, d, P)
+        params += [w.contiguous(), bias.reshape(1, -1).contiguous()]
+    return 2.0 * randn(n, d), tuple(params), randn(n, d), randn(n)
+
+
+def oracle_block(x, params, mask, K, inverse, activation="silu"):
+    """The block through the oracle spline (`flows/rqs_ref.py`) on the
+    same flat p-major parameters: a float32 evaluation independent of the
+    tile math. Returns (z, ladj (T,))."""
+    import torch
+    from tpuflows_torch.flows import rqs_ref
+    from tpuflows_torch.flows.nets import _ACTIVATIONS
+
+    act = _ACTIVATIONS[activation]
+    T, d = x.shape
+    ws, bs = params[0::2], params[1::2]
+    h = x * mask
+    for w, b in zip(ws[:-1], bs[:-1]):
+        h = act(h @ w + b)
+    raw = (h @ ws[-1] + bs[-1]).reshape(T, 3 * K - 1, d).transpose(1, 2)
+    fn = rqs_ref.rqs_inverse_from_raw if inverse else \
+        rqs_ref.rqs_forward_from_raw
+    y, ladj_el = fn(x, raw, 4.0)
+    z = mask * x + (1.0 - mask) * y
+    return z, torch.sum((1.0 - mask) * ladj_el, dim=-1)
+
+
+def oracle_block_vjp(x, params, mask, K, inverse, gz, gl, activation):
+    import torch
+
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        pg = [p.detach().requires_grad_(True) for p in params]
+        out = oracle_block(xg, pg, mask, K, inverse, activation)
+        return torch.autograd.grad(out, (xg, *pg), (gz, gl))
+
+
+def block_quantile(n):
+    """The error quantile `judge` compares for an output of n values: the
+    99.9th percentile, or the 10th-largest error where that is lower (the
+    median at most). A bias's cotangent or a per-row ladj has only
+    10^2-10^3 values, and there the 99.9th percentile is the largest
+    error, which is noise (`judge`)."""
+    return max(0.5, min(0.999, 1.0 - 10.0 / n))
+
+
+def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
+    """K6 and K7 against their plain versions, both directions, on z, ladj,
+    dx and every weight's and bias's cotangent, refereed by the plain
+    version in float64 (`judge`, the spline kernels' bar, at the quantile
+    `block_quantile`). Both plain versions take their conditioner from
+    PyTorch's matmul, so they share its rounding; the kernels sum their own
+    products and round differently, which the bar's comparison against
+    float64 allows for. K7 runs twice and must repeat itself to the bit
+    (its sums have a fixed order), and its dx without the weights' pass
+    must equal its dx with it."""
+    import torch
+    from tpuflows_torch.kernels import coupling_cuda as cc
+
+    rows = []
+    for n, d, hidden, K, mask_name, head, act in shapes:
+        mask_t = coupling_mask(mask_name, d)
+        x, params, gz, gl = coupling_inputs(device, n, d, hidden, K, head,
+                                            seed=n + d + K)
+        m32 = torch.tensor(mask_t, dtype=torch.float32, device=device)
+        f64 = [t.double() for t in (x, *params, gz, gl)]
+        x64, p64, gz64, gl64 = f64[0], tuple(f64[1:-2]), f64[-2], f64[-1]
+        for inverse in (False, True):
+            spec = cc.BlockSpec(mask_t, K, 4.0, act, inverse)
+            kz = cc.block_eval(x, params, spec)
+            kdx, kdp = cc.block_grad(x, params, spec, gz, gl)
+            rdx, rdp = cc.block_grad(x, params, spec, gz, gl)
+            odx, _ = cc.block_grad(x, params, spec, gz, gl,
+                                   need_params=False)
+            pz = cc.plain_block(x, params, m32, K, 4.0, act, inverse)
+            pdx, pdp = cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
+                                          act, inverse)
+            oz = oracle_block(x, params, m32, K, inverse, act)
+            odx2, *odp = oracle_block_vjp(x, params, m32, K, inverse, gz, gl,
+                                          act)
+            ez = cc.plain_block(x64, p64, m32.double(), K, 4.0, act, inverse)
+            edx, edp = cc.plain_block_vjp(x64, p64, m32.double(), gz64,
+                                          gl64, K, 4.0, act, inverse)
+            row = {"n": n, "d": d, "hidden": list(hidden), "knots": K,
+                   "mask": mask_name, "head": head, "activation": act,
+                   "direction": "inverse" if inverse else "forward"}
+            outs = [("z", kz[0], pz[0], oz[0], ez[0]),
+                    ("ladj", kz[1], pz[1], oz[1], ez[1]),
+                    ("dx", kdx, pdx, odx2, edx)]
+            outs += [(name, k, p, o, e) for name, k, p, o, e in zip(
+                param_names(len(params)), kdp, pdp, odp, edp)]
+            for name, k, p, o, e in outs:
+                row[name] = judge(k, p, o, e, block_quantile(k.numel()))
+            row["repeats_bitwise"] = bool(
+                torch.equal(kdx, rdx) and torch.equal(kdx, odx)
+                and all(torch.equal(a, b) for a, b in zip(kdp, rdp)))
+            row["passed"] = row["repeats_bitwise"] and all(
+                row[name]["passed"] for name, *_ in outs)
+            rows.append(row)
+    return rows
+
+
+def coupling_work(n, d, hidden, K, nt):
+    """(K6 ops, K6 bytes, K7 ops, K7 bytes, K7 pass-1 ops, pass-1 bytes)
+    of a block on n rows with nt spline dims. The work the function needs:
+    the conditioner's products over the hidden layers and over the spline
+    dims' P nt columns of the last layer (a pass-through dim's columns
+    reach nothing), 2 operations per multiply-add, and the spline's
+    arithmetic counted as in `rqs_bytes_ops`; K7 recomputes the
+    conditioner, pulls back through each layer (2 products) and, for the
+    weights, forms H^T G (one more). Bytes: each input read once (x, the
+    cotangents, the weights it needs) and each output written once (z and
+    ladj; dx and, for K7, the whole of every cotangent of the weights)."""
+    P = 3 * K - 1
+    widths = (d, *hidden)
+    mac = sum(a * b for a, b in zip(widths[:-1], widths[1:])) \
+        + hidden[-1] * P * nt
+    k4_ops = 25 * K + 30
+    spline = n * nt * k4_ops
+    spline_vjp = n * nt * (2 * k4_ops + 12 * K + 60)
+    need = mac + sum(hidden) + P * nt  # weights and biases read
+    full = sum(a * b + b for a, b in zip((*widths,), (*hidden, P * d)))
+    k6_ops = 2.0 * n * mac + spline
+    k6_bytes = 4.0 * (n * d + need + d + n * d + n)
+    k7a_ops = 4.0 * n * mac + spline_vjp
+    k7a_bytes = 4.0 * (2 * n * d + n + need + d + n * d)
+    return (k6_ops, k6_bytes, k7a_ops + 2.0 * n * mac,
+            k7a_bytes + 4.0 * full, k7a_ops, k7a_bytes)
+
+
+def _bound(ops, nbytes):
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# (rows, d, hidden, knots, mask): the fit's shape and d = 256
+COUPLING_TIMING_SHAPES = [(TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0"),
+                          (TRAIN_BATCH, 256, HIDDEN, KNOTS, "alternating0")]
+
+
+def time_coupling(device, shapes=COUPLING_TIMING_SHAPES, n_reps=200,
+                  plain_reps=20):
+    """K6 and K7 with CUDA events at the fit's shape and at d = 256, both
+    directions, launched from the host (`timed`) and replayed from a CUDA
+    graph (`graph_ms`, the device alone), beside their bounds and their
+    plain versions. K7 is timed
+    as the fit runs it: with the weights' pass in the inverse direction
+    (the sample path, whose weights train) and without it in the forward
+    direction (the STL loss's detached pass); the other variant is timed
+    too. Beside them, the same block on the K4/K5 tier (torch.matmul
+    conditioner + K4/K5) and on this tier through autograd, forward alone
+    and forward + backward with every cotangent: a comparison of tiers,
+    not a library call (no single PyTorch call computes a block)."""
+    import torch
+    from tpuflows_torch.flows import MLP, RQSCouplingBlock
+    from tpuflows_torch.kernels import coupling_cuda as cc
+
+    rows = []
+    for n, d, hidden, K, mask_name in shapes:
+        mask_t = coupling_mask(mask_name, d)
+        nt = sum(1 for m in mask_t if m == 0)
+        x, params, gz, gl = coupling_inputs(device, n, d, hidden, K, "n0.1",
+                                            seed=n + d + K)
+        m32 = torch.tensor(mask_t, dtype=torch.float32, device=device)
+        k6_ops, k6_bytes, k7_ops, k7_bytes, k7a_ops, k7a_bytes = \
+            coupling_work(n, d, hidden, K, nt)
+        row = {"n": n, "d": d, "hidden": list(hidden), "knots": K,
+               "mask": mask_name, "spline_dims": nt}
+        for inverse in (False, True):
+            direction = "inverse" if inverse else "forward"
+            spec = cc.BlockSpec(mask_t, K, 4.0, "silu", inverse)
+            fit_params = inverse  # what the fit runs
+            cases = (
+                ("k6", k6_ops, k6_bytes,
+                 lambda: cc.block_eval(x, params, spec),
+                 lambda: cc.plain_block(x, params, m32, K, 4.0, "silu",
+                                        inverse)),
+                ("k7", *((k7_ops, k7_bytes) if fit_params
+                         else (k7a_ops, k7a_bytes)),
+                 lambda: cc.block_grad(x, params, spec, gz, gl,
+                                       need_params=fit_params),
+                 lambda: cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
+                                            "silu", inverse)))
+            for kname, ops, nbytes, kern, plain in cases:
+                ms, _ = timed(kern, n_reps)
+                plain_ms, _ = timed(plain, plain_reps)
+                bound_ms, bound_by = _bound(ops, nbytes)
+                row[f"{kname}_{direction}"] = {
+                    "ms": ms, "device_ms": graph_ms(kern),
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+                    "with_weight_pass": kname == "k7" and fit_params}
+            other_ms, _ = timed(lambda: cc.block_grad(
+                x, params, spec, gz, gl, need_params=not fit_params), n_reps)
+            row[f"k7_{direction}"]["other_variant_ms"] = other_ms
+            # the same block on both tiers, through the module
+            ws = list(params[0::2])
+            bs = [b.reshape(-1) for b in params[1::2]]
+            P = 3 * K - 1
+            ws[-1] = ws[-1].reshape(-1, P, d).transpose(1, 2).reshape(
+                -1, d * P)
+            bs[-1] = bs[-1].reshape(P, d).t().reshape(-1)
+            net = MLP([w.contiguous() for w in ws],
+                      [b.contiguous() for b in bs])
+            tiers = {}
+            for tier in (True, "fused"):
+                blk = RQSCouplingBlock(mask_t, net, knots=K,
+                                       use_pallas=tier)
+                f = blk.inverse_and_ladj if inverse else blk.forward_and_ladj
+
+                def ev(f=f):
+                    with torch.no_grad():
+                        return f(x)
+
+                def ev_grad(f=f):
+                    xx = x.detach().requires_grad_(True)
+                    z, ladj = f(xx)
+                    return torch.autograd.grad(
+                        (z, ladj), (xx, *net.parameters()), (gz, gl))
+
+                tiers["k4k5" if tier is True else "fused"] = {
+                    "eval_ms": timed(ev, n_reps // 4)[0],
+                    "eval_grad_ms": timed(ev_grad, n_reps // 4)[0]}
+            row[f"tiers_{direction}"] = tiers
+        rows.append(row)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -583,16 +932,18 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
               hidden=HIDDEN, train_steps=TRAIN_STEPS,
               train_batch=TRAIN_BATCH, num_warmup=NUM_WARMUP,
               window=DRAW_WINDOW, max_windows=MAX_WINDOWS,
-              ess_gate=ESS_GATE, knots=KNOTS, n_blocks=GENERIC_BLOCKS):
+              ess_gate=ESS_GATE, knots=KNOTS, n_blocks=GENERIC_BLOCKS,
+              use_pallas="auto"):
     """Fit, warmup and gated draw windows through the port's entry points,
     for bench.py's `ceiling` variant (Standardize + one leading-mask affine
-    coupling) or its `generic` variant (the arqs flow). Returns (result
-    dict, trained flow, post-warmup NUTSState)."""
+    coupling) or its `generic` variant (the arqs flow, its spline blocks on
+    the tier `use_pallas`: "auto" is K4/K5, "fused" K6/K7). Returns
+    (result dict, trained flow, post-warmup NUTSState)."""
     import torch
     from tpuflows_torch.diagnostics import effective_sample_size, split_rhat
     from tpuflows_torch.flows import (ClipAdamCosine, RQSCouplingBlock,
                                       build_flow, make_reverse_kl_trainer)
-    from tpuflows_torch.kernels import nuts_cuda, rqs_cuda
+    from tpuflows_torch.kernels import coupling_cuda, nuts_cuda, rqs_cuda
     from tpuflows_torch.mcmc import NUTSDriver, to_data_space
     from tpuflows_torch.mcmc.preconditioned import _CHUNK
     from tpuflows_torch.targets import NealsFunnel
@@ -610,11 +961,12 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
     target = NealsFunnel(dim=dim)
     nuts_cuda.LAUNCHES = 0
     rqs_cuda.reset_launches()
+    coupling_cuda.reset_launches()
     init = torch.randn((1024, dim), generator=gen(1), device=device)
     if variant == "generic":
         flow = build_flow(init, gen(2), kind="arqs", n_blocks=n_blocks,
                           knots=knots, hidden=hidden, mask_scheme="mixed",
-                          clamp=CLAMP, use_pallas="auto", device=device)
+                          clamp=CLAMP, use_pallas=use_pallas, device=device)
     elif variant == "ceiling":
         flow = build_flow(init, gen(2), kind="affine", n_blocks=1,
                           hidden=hidden, mask_scheme="leading", clamp=CLAMP,
@@ -632,6 +984,7 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
     sync()
     train_time = time.perf_counter() - t
     fit_launches = dict(rqs_cuda.LAUNCHES)
+    fit_coupling = dict(coupling_cuda.LAUNCHES)
     final_elbo = float(elbo(gen(7), flow, target.log_density, dim,
                             device=device))
 
@@ -679,15 +1032,26 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
     div = torch.cat([i.diverging.reshape(-1) for i in infos]).float().mean()
     steps = torch.cat([i.num_steps.reshape(-1) for i in infos]).float()
     depths = torch.cat([i.tree_depth.reshape(-1) for i in infos]).long()
-    # K4 / K5 on the card: every fit step runs each spline block's inverse
-    # and forward (K4) and both pullbacks (K5); the ELBO and each
-    # data-space mapping call run the inverses
+    # On the card every fit step runs each spline block's inverse (the
+    # sample path) and forward (the STL loss's log q) and both pullbacks;
+    # the ELBO and each data-space mapping call run the inverses. On the
+    # K4/K5 tier that is one K4 and one K5 launch each. On the fused tier
+    # it is one K6 launch each; K7 launches pass 1 for both pullbacks and
+    # pass 2 (the weights' cotangents) for the inverse's only, since the
+    # forward pass's weights are detached.
     inverse_calls = 1 + sum(-(-r // _CHUNK) for r in mapped_rows)
     per = n_rqs if on_card else 0
-    expected = {"k4_forward": per * train_steps,
-                "k4_inverse": per * (train_steps + inverse_calls),
-                "k5_forward": per * train_steps,
-                "k5_inverse": per * train_steps}
+    fused = use_pallas == "fused"
+    per_rqs, per_fused = (0, per) if fused else (per, 0)
+    expected = {"k4_forward": per_rqs * train_steps,
+                "k4_inverse": per_rqs * (train_steps + inverse_calls),
+                "k5_forward": per_rqs * train_steps,
+                "k5_inverse": per_rqs * train_steps}
+    expected_coupling = {
+        "k6_forward": per_fused * train_steps,
+        "k6_inverse": per_fused * (train_steps + inverse_calls),
+        "k7_forward": per_fused * train_steps,
+        "k7_inverse": 2 * per_fused * train_steps}
     out = {
         "variant": variant, "modules": len(flow.transforms),
         "train_steps": train_steps, "train_time_s": train_time,
@@ -706,7 +1070,10 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
         "launches": launches, "transitions": transitions,
         "rqs_launches": dict(rqs_cuda.LAUNCHES),
         "rqs_launches_fit": fit_launches,
-        "rqs_launches_expected": expected,
+        "rqs_launches_expected": expected, "use_pallas": use_pallas,
+        "coupling_launches": dict(coupling_cuda.LAUNCHES),
+        "coupling_launches_fit": fit_coupling,
+        "coupling_launches_expected": expected_coupling,
     }
     return out, flow, warm_state
 
@@ -724,6 +1091,10 @@ def check_main_path(res):
         raise RuntimeError(f"{res['variant']}: K4/K5 launched "
                            f"{res['rqs_launches']}, the path implies "
                            f"{res['rqs_launches_expected']}")
+    if res["coupling_launches"] != res["coupling_launches_expected"]:
+        raise RuntimeError(f"{res['variant']}: K6/K7 launched "
+                           f"{res['coupling_launches']}, the path implies "
+                           f"{res['coupling_launches_expected']}")
     if res["v_z_mean"] > 5.0 or res["v_z_var"] > 5.0:
         raise RuntimeError(f"{res['variant']}: v's draws fail the moment "
                            f"check: {res}")
@@ -872,7 +1243,8 @@ def main(argv=None):
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from tpuflows_torch.kernels import cuda_build, nuts_cuda, rqs_cuda
+    from tpuflows_torch.kernels import (coupling_cuda, cuda_build, nuts_cuda,
+                                        rqs_cuda)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -883,7 +1255,8 @@ def main(argv=None):
     device = "cuda"
 
     t = time.perf_counter()
-    infos = cuda_build.build(nuts_cuda.LIBRARY, rqs_cuda.LIBRARY)
+    infos = cuda_build.build(nuts_cuda.LIBRARY, rqs_cuda.LIBRARY,
+                             coupling_cuda.LIBRARY)
     emit("build", t,
          nvcc_seconds=max(i.seconds for i in infos.values()),
          libraries=[i.path for i in infos.values()],
@@ -954,6 +1327,27 @@ def main(argv=None):
                            "version at the generic path's state: "
                            f"{gtim['vs_plain_at_state']}")
 
+    t = time.perf_counter()
+    block_rows = coupling_vs_plain(device)
+    emit("coupling_vs_plain", t, rows=block_rows,
+         bar={"atol": RQS_ATOL, "rtol": RQS_RTOL,
+              "quantile": "block_quantile"})
+    bad = [r for r in block_rows if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"K6/K7 disagree with their plain versions: "
+                           f"{bad}")
+
+    t = time.perf_counter()
+    fres, _, _ = main_path(device, variant="generic", use_pallas="fused")
+    emit("main_path_generic_fused", t, **fres)
+    check_main_path(fres)
+
+    t = time.perf_counter()
+    block_tim = time_coupling(device)
+    emit("timing_coupling", t, rows=block_tim,
+         fit_step_launches={k: v // TRAIN_STEPS for k, v in
+                            fres["coupling_launches_fit"].items()})
+
     k1 = "src/tpuflows/kernels/nuts_pallas.py:407"
     kernels = [{
         "name": "nuts_transition (affine)", "route": "cuda",
@@ -988,6 +1382,28 @@ def main(argv=None):
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    fit_block = block_tim[0]
+    for key, name, replaces in (
+            ("k6_forward", "coupling_block forward (K6)", ":185"),
+            ("k6_inverse", "coupling_block inverse (K6)", ":185"),
+            ("k7_forward", "coupling_block pullback, forward (K7)", ":215"),
+            ("k7_inverse", "coupling_block pullback, inverse (K7)", ":215")):
+        r = fit_block[key]
+        row = next(x for x in block_rows if x["n"] == fit_block["n"]
+                   and x["d"] == fit_block["d"]
+                   and x["mask"] == fit_block["mask"]
+                   and x["head"] == "n0.1" and x["direction"] in key)
+        errs = (("z", "ladj") if key.startswith("k6")
+                else ("dx", *COUPLING_PARAMS))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/tpuflows_torch/csrc/coupling_block.cu",
+            "replaces": "src/tpuflows/kernels/coupling_pallas.py" + replaces,
+            "launches": fres["coupling_launches"][key],
+            "max_abs_err": max(row[e]["max_abs"] for e in errs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     print(json.dumps({"total_seconds": time.perf_counter() - T0}),
           flush=True)
     print(smi, flush=True)

@@ -9,14 +9,19 @@ and the mask selects the transformed ones.
 The `use_pallas` field keeps the JAX package's values, mapped to this
 port's tiers:
   * False      — the plain PyTorch oracle (`flows/rqs_ref.py`);
-  * True       — K4/K5 (`kernels/rqs_cuda.py`): a CUDA tensor launches the
-                 kernels or raises, a CPU tensor runs their plain version;
-  * "auto"     — the same as True. The JAX package's "auto" picks XLA or
-                 its fused block kernel from timings taken on a TPU, which
-                 mean nothing on this card, and the fused tier is not
-                 ported yet;
-  * "fused"    — the whole-block kernels K6/K7, not ported yet: raises
-                 NotImplementedError (ROADMAP.md, Queue 2).
+  * True       — K4/K5 (`kernels/rqs_cuda.py`): the conditioner in torch,
+                 then the elementwise spline kernels;
+  * "fused"    — K6/K7 (`kernels/coupling_cuda.py`): the whole block, the
+                 conditioner included, in one kernel and its pullback;
+  * "auto"     — the same as True on a batch. The JAX package's "auto"
+                 picks its fused tier at d % 128 == 0 from timings taken
+                 on a TPU, which mean nothing on this card; PERF.md records
+                 both tiers' times on the H100, and the choice waits for a
+                 PR that reads them.
+For the kernel tiers a CUDA tensor launches the kernels or raises, and a
+CPU tensor runs their plain version in its own dtype. As in the JAX
+package, a single vector (x.ndim == 1) under "auto" or "fused" takes the
+oracle.
 """
 from __future__ import annotations
 
@@ -30,10 +35,6 @@ from tpuflows_torch.util.shapes import alternating_mask, mask_array
 
 
 def _spline_fns(use_pallas):
-    if use_pallas == "fused":
-        raise NotImplementedError(
-            'use_pallas="fused" (the whole-block kernels K6/K7) is not '
-            "ported yet (ROADMAP.md, Queue 2)")
     if use_pallas is False:
         return rqs_ref.rqs_forward_from_raw, rqs_ref.rqs_inverse_from_raw
     from tpuflows_torch.kernels import rqs_cuda
@@ -62,13 +63,34 @@ class RQSCouplingBlock(Bijector):
         self.register_buffer("mask_f", mask_array(self.mask, device=device),
                              persistent=False)
 
+    def _kernel_choice(self, x):
+        """The tier for input x: a single vector under "auto" or "fused"
+        takes the oracle (False), as in the JAX package; a batch under
+        "auto" takes K4/K5 (True)."""
+        if x.dim() < 2:
+            return False if self.use_pallas in ("auto", "fused") \
+                else self.use_pallas
+        if self.use_pallas == "auto":
+            return True
+        return self.use_pallas
+
     def _raw_params(self, masked_input):
         d = len(self.mask)
         h = self.net(masked_input)
         return h.reshape(*h.shape[:-1], d, 3 * self.knots - 1)
 
+    def _fused(self, x, inverse):
+        from tpuflows_torch.kernels import coupling_cuda
+
+        fn = (coupling_cuda.fused_coupling_inverse if inverse
+              else coupling_cuda.fused_coupling_forward)
+        return fn(x, self.net, self.mask, self.knots, self.range_limit)
+
     def forward_and_ladj(self, x):
-        fwd, _ = _spline_fns(self.use_pallas)
+        kernel = self._kernel_choice(x)
+        if kernel == "fused":
+            return self._fused(x, inverse=False)
+        fwd, _ = _spline_fns(kernel)
         b = self.mask_f
         raw = self._raw_params(x * b)
         y, ladj_el = fwd(x, raw, self.range_limit)
@@ -77,7 +99,10 @@ class RQSCouplingBlock(Bijector):
         return z, ladj
 
     def inverse_and_ladj(self, z):
-        _, inv = _spline_fns(self.use_pallas)
+        kernel = self._kernel_choice(z)
+        if kernel == "fused":
+            return self._fused(z, inverse=True)
+        _, inv = _spline_fns(kernel)
         b = self.mask_f
         raw = self._raw_params(z * b)  # pass dims unchanged: z*b == x*b
         x_t, ladj_el = inv(z, raw, self.range_limit)

@@ -190,23 +190,36 @@ def plain_grad(x, raw, gy, gl, range_limit=DEFAULT_RANGE, inverse=False):
 # The kernels and their wrappers
 # ---------------------------------------------------------------------------
 def _check(x, raw, *cots):
+    """Shapes, devices and dtypes of a call, for the plain version and the
+    kernels alike (one floating dtype for all); returns K."""
     K = _knots_of(raw)
     if K > MAX_KNOTS:
         raise ValueError(f"the kernels take at most {MAX_KNOTS} knots")
     if tuple(raw.shape[:-1]) != tuple(x.shape):
         raise ValueError(f"raw {tuple(raw.shape)} does not match x "
                          f"{tuple(x.shape)}")
+    if not x.dtype.is_floating_point:
+        raise TypeError(f"the spline takes floating tensors, got {x.dtype}")
     for t in (x, raw, *cots):
-        if t.dtype != torch.float32:
-            raise TypeError(f"the spline kernels take float32, got "
-                            f"{t.dtype}")
         if t.device != x.device:
             raise ValueError(f"a tensor is on {t.device}, x on {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"a tensor is {t.dtype}, x {x.dtype}")
     for t in cots:
         if t.shape != x.shape:
             raise ValueError(f"cotangent {tuple(t.shape)} does not match x "
                              f"{tuple(x.shape)}")
     return K
+
+
+def _check_kernel(name, *ts):
+    """What the kernels take besides: float32, contiguous."""
+    for t in ts:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the spline kernels take float32, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
 
 
 def _stream(t):
@@ -221,9 +234,7 @@ def _launched(rc, name, key):
 
 def _launch_eval(x, raw, range_limit, inverse):
     K = _check(x, raw)
-    for t in (x, raw):
-        if not t.is_contiguous():
-            raise ValueError("K4 takes contiguous tensors")
+    _check_kernel("K4", x, raw)
     lib = LIBRARY.load()
     y = torch.empty_like(x)
     ladj = torch.empty_like(x)
@@ -238,9 +249,7 @@ def _launch_eval(x, raw, range_limit, inverse):
 
 def _launch_grad(x, raw, gy, gl, range_limit, inverse):
     K = _check(x, raw, gy, gl)
-    for t in (x, raw, gy, gl):
-        if not t.is_contiguous():
-            raise ValueError("K5 takes contiguous tensors")
+    _check_kernel("K5", x, raw, gy, gl)
     lib = LIBRARY.load()
     dx = torch.empty_like(x)
     draw = torch.empty_like(raw)
@@ -256,7 +265,7 @@ def _launch_grad(x, raw, gy, gl, range_limit, inverse):
 
 def spline_eval(x, raw, range_limit=DEFAULT_RANGE, inverse=False):
     """(y, ladj) of the forward or inverse spline: the plain version for a
-    CPU tensor, K4 for a CUDA tensor."""
+    CPU tensor (in its dtype), K4 for a CUDA float32 tensor."""
     if x.device.type == "cpu":
         _check(x, raw)
         return plain_eval(x, raw, range_limit, inverse)
@@ -267,7 +276,7 @@ def spline_eval(x, raw, range_limit=DEFAULT_RANGE, inverse=False):
 
 def spline_grad(x, raw, gy, gl, range_limit=DEFAULT_RANGE, inverse=False):
     """(dx, draw) of the spline's pullback: the plain version for a CPU
-    tensor, K5 for a CUDA tensor."""
+    tensor (in its dtype), K5 for a CUDA float32 tensor."""
     if x.device.type == "cpu":
         _check(x, raw, gy, gl)
         return plain_grad(x, raw, gy, gl, range_limit, inverse)

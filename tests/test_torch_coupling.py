@@ -9,7 +9,8 @@ flow_from_jax_modules`:
     draws, to the JAX package's own bar for its spline (jnp.allclose,
     atol 1e-4): the same float32 formulas, but knots that differ in the
     last bit move x in the flattest bins by up to ~5e-5, as far as either
-    side is from a float64 evaluation; "fused" raises, naming ROADMAP;
+    side is from a float64 evaluation; "fused" resolves to its tier
+    (tests/test_torch_coupling_fused.py holds it to the JAX package);
   * `rqs_coupling_module` and `RQSCouplingBlock.init`: structure;
   * the converter on the committed engine-found flow
     (docs/artifacts/adaptive_generic_flow.{npz,tree}, 11 modules, read
@@ -159,10 +160,16 @@ def test_block_kernel_tier_matches_jax_pallas(tier):
 
 
 def test_fused_tier_refuses_naming_the_roadmap():
+    """The fused tier was refused until K6/K7 were ported; now "fused"
+    resolves to that tier on a batch and runs (its parity with the JAX
+    package is tests/test_torch_coupling_fused.py's); an unknown tier is
+    still refused."""
     blk = carry(JChain(transforms=(jax_arqs_flow(0, n_blocks=1)
                                    .transforms[2],)), use_pallas="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blk.forward_and_ladj(torch.zeros(4, 8))
+    t = blk.transforms[0]
+    assert t._kernel_choice(torch.zeros(4, 8)) == "fused"
+    z, ladj = blk.forward_and_ladj(torch.zeros(4, 8))
+    assert z.shape == (4, 8) and ladj.shape == (4,)
     with pytest.raises(ValueError):
         RQSCouplingBlock(blk.transforms[0].mask, blk.transforms[0].net,
                          use_pallas="xla")

@@ -8,10 +8,12 @@ path the chip run drives at full width), through the port's entry points.
     masks) with d = 4, K = 4, MLPs 4-8-8-*, 32 chains, a 200-step fit, 32
     warmup steps and one window of 32: the pipeline, its launch bookkeeping
     and the fit's quality (at this size the gates need more draws than a
-    CPU test affords; the card runs them at full size).
+    CPU test affords; the card runs them at full size); and the same on
+    the fused spline tier with a 150-step fit;
+  * the chip run's K6/K7 comparison and its bound arithmetic.
 
 On the CPU every transition and every spline runs its plain version, so
-the launch counters of K1, K4 and K5 stay 0.
+the launch counters of K1, K4, K5, K6 and K7 stay 0.
 """
 import math
 import subprocess
@@ -61,6 +63,65 @@ def test_generic_slice_runs_end_to_end_on_the_cpu():
     assert torch.isfinite(warm_state.inv_mass).all()
 
 
+def test_generic_fused_slice_runs_end_to_end_on_the_cpu():
+    """The generic variant with every spline block on the fused tier
+    (use_pallas="fused", K6/K7 on the card; their plain version here): the
+    same pipeline and fit quality, and the launch bookkeeping of both
+    spline tiers stays 0 on the CPU."""
+    torch.manual_seed(0)
+    res, flow, warm_state = chip_smoke.main_path(
+        "cpu", variant="generic", dim=4, n_chains=32, hidden=(8, 8),
+        train_steps=150, train_batch=256, num_warmup=32, window=32,
+        max_windows=1, ess_gate=50.0, knots=4, use_pallas="fused")
+    assert res["modules"] == 7 and res["launches"] == 0
+    assert res["use_pallas"] == "fused"
+    assert all(t.use_pallas == "fused" for t in flow.transforms[2::2])
+    zero6 = {"k6_forward": 0, "k6_inverse": 0, "k7_forward": 0,
+             "k7_inverse": 0}
+    assert res["coupling_launches"] == res["coupling_launches_expected"] \
+        == res["coupling_launches_fit"] == zero6
+    assert res["rqs_launches"] == res["rqs_launches_expected"] == {
+        "k4_forward": 0, "k4_inverse": 0, "k5_forward": 0, "k5_inverse": 0}
+    assert res["transitions"] == 64 and res["n_draws"] == 32
+    assert math.isfinite(res["final_elbo"]) and res["final_elbo"] > -0.5
+    assert res["v_z_mean"] < 5.0 and res["v_z_var"] < 5.0, res
+    assert warm_state.q.shape == (32, 4)
+
+
+def test_coupling_comparison_runs_on_the_cpu():
+    """The chip run's K6/K7 comparison, on the CPU at two small shapes:
+    both sides are the plain version here, so this checks the comparison's
+    own code (masks, heads, the float64 referee, every cotangent, the
+    bitwise repeat) and the bar's bookkeeping."""
+    rows = chip_smoke.coupling_vs_plain(
+        "cpu", shapes=[(37, 8, (16, 12), 4, "alternating1", "n0.1", "silu"),
+                       (20, 6, (8,), 5, "block0", "he0.01", "tanh")])
+    assert [(r["n"], r["direction"]) for r in rows] == [
+        (37, "forward"), (37, "inverse"), (20, "forward"), (20, "inverse")]
+    assert all(r["passed"] and r["repeats_bitwise"] for r in rows)
+    assert all(r[k]["max_abs"] == 0.0 for r in rows[:2]
+               for k in ("z", "ladj", "dx", *chip_smoke.COUPLING_PARAMS))
+    assert "w1" in rows[2] and "w2" not in rows[2]
+    assert rows[0]["w2"]["quantile"] == chip_smoke.block_quantile(12 * 88)
+    assert chip_smoke.param_names(4) == ("w0", "b0", "w1", "b1")
+
+
+def test_coupling_work_counts_the_spline_dims_only():
+    """K6's bound at the fit's shape: 2 flops per multiply-add of the
+    hidden layers and of the spline dims' 23 x 32 last-layer columns, plus
+    the spline; K7 recomputes (x1), pulls back (x2) and, with the weights'
+    pass, forms H^T G (x3)."""
+    k6_ops, k6_bytes, k7_ops, _, k7a_ops, _ = chip_smoke.coupling_work(
+        1024, 64, (128, 128), 8, 32)
+    mac = 64 * 128 + 128 * 128 + 128 * 23 * 32
+    spline = 1024 * 32 * (25 * 8 + 30)
+    assert k6_ops == 2 * 1024 * mac + spline
+    assert k7a_ops == 4 * 1024 * mac + 1024 * 32 * (2 * 230 + 12 * 8 + 60)
+    assert k7_ops == k7a_ops + 2 * 1024 * mac
+    assert k6_bytes == 4 * (2 * 1024 * 64 + 1024 + 64
+                            + mac + 256 + 23 * 32)
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -77,7 +138,14 @@ def test_chip_smoke_refuses_to_run_without_a_card():
     ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_grad_"
      "kernelILb0EEEvPKfS2_S2_S2_PfS3_xif", "K5 forward"),
     ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_eval_"
-     "kernelILb1EEEvPKfS2_PfS3_xif", "K4 inverse")])
+     "kernelILb1EEEvPKfS2_PfS3_xif", "K4 inverse"),
+    ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed619coupling_"
+     "fwd_kernelILb1EEEvNS_6LayersENS_5BlockEPfS3_", "K6 inverse"),
+    ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed619coupling_"
+     "bwd_kernelILb0EEEvNS_6LayersENS_5BlockENS_7ScratchEPKfS5_Pf",
+     "K7 pass 1 forward"),
+    ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed618weight_"
+     "grad_kernelENS_10WeightGradE", "K7 pass 2")])
 def test_ptxas_summary_names_every_kernel(name, key):
     log = (f"ptxas info    : Compiling entry function '{name}' for "
            "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 "
