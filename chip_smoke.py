@@ -6,9 +6,9 @@
 Phases, one JSON line each on stdout with its wall time in seconds:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every kernel with nvcc, all units in parallel: K1
-               (csrc/nuts_transition.cu), K4/K5 (csrc/rqs_spline.cu) and
-               K6/K7 (csrc/coupling_block.cu), and ptxas' registers, shared
-               memory and spills per kernel;
+               (csrc/nuts_transition.cu), K4/K5 (csrc/rqs_spline.cu),
+               K6/K7 (csrc/coupling_block.cu) and K3 (csrc/fused_logp.cu),
+               and ptxas' registers, shared memory and spills per kernel;
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
                pullbacks) against their plain PyTorch versions at the fit's
                shape (1024 x 64, K = 8) and three others (d = 8, 96, 256;
@@ -90,6 +90,33 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                d = 256 (also replayed from a CUDA graph), beside their
                bounds and plain versions, and the same block's times on the
                K4/K5 tier.
+ 13. fused_logp_vs_plain — K3 (the latent log density and its gradient,
+               one launch per batch of rows) against its plain version on
+               lp and g under K4/K5's bar (`judge`, refereed by float64):
+               the ceiling shape (1024 x 64, a random non-zero head), the
+               generic arqs shape (0.01 x He heads), a ragged batch of 37,
+               affine and spline flows at d = 32 and 256 (K = 16 there),
+               and both paths' trained flows at their post-warmup states;
+ 14. main_path_portable, main_path_portable_generic — flow-preconditioned
+               NUTS through the portable route, `NUTSDriver(log p~,
+               max_depth=6, logp_and_grad=K3)`, on the trained flows of
+               phases 6 and 8 (no new fit), under the same gates. K3's
+               launch count must equal the gradient calls the transitions
+               counted, K1's stays 0, K4 launches only for the data-space
+               mapping; ms per transition and the lockstep leaf steps per
+               transition are printed;
+ 15. portable_vs_k1 — one portable transition (the host-driven lockstep
+               loop with K3) against one K1 transition on the same
+               randomness at each post-warmup state, under K1's bar (q's
+               bar at the generic state as in phase 9);
+ 16. hmc_vs_plain — `make_hmc_kernel`'s transition (10 leapfrogs) with K3
+               against the same with K3's plain version at the ceiling
+               post-warmup state: at most 5 of 1024 accept decisions
+               flipped, q within 2.3e-4 on the rest;
+ 17. timing_fused_logp — K3 at both post-warmup states with CUDA events
+               (also replayed from a CUDA graph), beside its bound, its
+               plain version and its launches on the portable path; and a
+               portable transition's time beside K1's on the same inputs.
 Then the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
@@ -161,6 +188,10 @@ def _kernel_key(name):
         return f"d/32={t.group(1)}"
     if "nuts_chain_kernel" in name and t:
         return f"chain d/32={t.group(1)}"
+    if "fused_logp_affine_kernel" in name and t:
+        return f"K3 d/32={t.group(1)}"
+    if "fused_logp_chain_kernel" in name and t:
+        return f"K3 chain d/32={t.group(1)}"
     for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
@@ -928,6 +959,80 @@ def moment_z(x, true_mean, true_var):
     return z_mean, z_var, mean, var
 
 
+def nuts_gated(device, sampler, flow, target, variant, n_chains, num_warmup,
+               window, max_windows, ess_gate):
+    """Warmup, then gated draw windows: windows of `window` draws until
+    max split-R-hat < RHAT_GATE and min ESS >= `ess_gate` on data-space
+    draws, at most `max_windows`. Returns (result dict, post-warmup
+    NUTSState, rows mapped to data space per window)."""
+    import torch
+    from tpuflows_torch.diagnostics import effective_sample_size, split_rhat
+    from tpuflows_torch.mcmc import to_data_space
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    dim = target.dim
+    q0 = torch.randn((n_chains, dim), generator=gen(4), device=device)
+    t = time.perf_counter()
+    state = sampler.warmup(gen(5), q0, num_warmup)
+    sync()
+    warm_time = time.perf_counter() - t
+    warm_state = state
+
+    draw_time = 0.0
+    zs, infos = [], []
+    converged = False
+    mapped_rows = []
+    g_draw = gen(6)
+    for w in range(max_windows):
+        t = time.perf_counter()
+        state, z, info = sampler.draws(g_draw, state, window)
+        sync()
+        draw_time += time.perf_counter() - t
+        zs.append(z)
+        infos.append(info)
+        x = to_data_space(flow, torch.cat(zs))
+        mapped_rows.append(x.shape[0] * n_chains)
+        min_ess = float(effective_sample_size(x).min())
+        max_rhat = float(split_rhat(x).max())
+        print(json.dumps({"variant": variant, "window": w,
+                          "draws": int(x.shape[0]), "min_ess": min_ess,
+                          "max_rhat": max_rhat}),
+              file=sys.stderr, flush=True)
+        if max_rhat < RHAT_GATE and min_ess >= ess_gate:
+            converged = True
+            break
+    transitions = num_warmup + window * len(zs)
+    if not bool(torch.isfinite(x).all()) or x.shape != (
+            window * len(zs), n_chains, dim):
+        raise RuntimeError(f"draws are not finite or have shape "
+                           f"{tuple(x.shape)}")
+    z_mean, z_var, v_mean, v_var = moment_z(x[..., 0], 0.0,
+                                            target.sigma_v ** 2)
+    div = torch.cat([i.diverging.reshape(-1) for i in infos]).float().mean()
+    steps = torch.cat([i.num_steps.reshape(-1) for i in infos]).float()
+    depths = torch.cat([i.tree_depth.reshape(-1) for i in infos]).long()
+    return {
+        "warmup_time_s": warm_time, "draw_time_s": draw_time,
+        "windows": len(zs), "n_draws": int(x.shape[0]),
+        "min_ess": min_ess, "max_rhat": max_rhat, "converged": converged,
+        "v_mean": v_mean, "v_var": v_var, "v_z_mean": z_mean,
+        "v_z_var": z_var, "divergence_rate": float(div),
+        "mean_leapfrogs_per_draw": float(steps.mean()),
+        "tree_depth_histogram": torch.bincount(
+            depths, minlength=MAX_DEPTH + 1).tolist(),
+        "step_size": float(state.step_size),
+        "transitions": transitions,
+    }, warm_state, mapped_rows
+
+
 def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
               hidden=HIDDEN, train_steps=TRAIN_STEPS,
               train_batch=TRAIN_BATCH, num_warmup=NUM_WARMUP,
@@ -940,11 +1045,10 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
     the tier `use_pallas`: "auto" is K4/K5, "fused" K6/K7). Returns
     (result dict, trained flow, post-warmup NUTSState)."""
     import torch
-    from tpuflows_torch.diagnostics import effective_sample_size, split_rhat
     from tpuflows_torch.flows import (ClipAdamCosine, RQSCouplingBlock,
                                       build_flow, make_reverse_kl_trainer)
     from tpuflows_torch.kernels import coupling_cuda, nuts_cuda, rqs_cuda
-    from tpuflows_torch.mcmc import NUTSDriver, to_data_space
+    from tpuflows_torch.mcmc import NUTSDriver
     from tpuflows_torch.mcmc.preconditioned import _CHUNK
     from tpuflows_torch.targets import NealsFunnel
     from tpuflows_torch.vi import elbo
@@ -990,48 +1094,11 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
 
     transition = nuts_cuda.fused_nuts_for_flow(target, flow,
                                                max_depth=MAX_DEPTH)
-    driver = NUTSDriver(transition=transition)
-    q0 = torch.randn((n_chains, dim), generator=gen(4), device=device)
-    t = time.perf_counter()
-    state = driver.warmup(gen(5), q0, num_warmup)
-    sync()
-    warm_time = time.perf_counter() - t
-    warm_state = state
-
-    draw_time = 0.0
-    zs, infos = [], []
-    converged = False
-    mapped_rows = []
-    g_draw = gen(6)
-    for w in range(max_windows):
-        t = time.perf_counter()
-        state, z, info = driver.draws(g_draw, state, window)
-        sync()
-        draw_time += time.perf_counter() - t
-        zs.append(z)
-        infos.append(info)
-        x = to_data_space(flow, torch.cat(zs))
-        mapped_rows.append(x.shape[0] * n_chains)
-        min_ess = float(effective_sample_size(x).min())
-        max_rhat = float(split_rhat(x).max())
-        print(json.dumps({"variant": variant, "window": w,
-                          "draws": int(x.shape[0]), "min_ess": min_ess,
-                          "max_rhat": max_rhat}),
-              file=sys.stderr, flush=True)
-        if max_rhat < RHAT_GATE and min_ess >= ess_gate:
-            converged = True
-            break
+    sampler = NUTSDriver(transition=transition)
+    gated, warm_state, mapped_rows = nuts_gated(
+        device, sampler, flow, target, variant, n_chains, num_warmup, window,
+        max_windows, ess_gate)
     launches = nuts_cuda.LAUNCHES
-    transitions = num_warmup + window * len(zs)
-    if not bool(torch.isfinite(x).all()) or x.shape != (
-            window * len(zs), n_chains, dim):
-        raise RuntimeError(f"draws are not finite or have shape "
-                           f"{tuple(x.shape)}")
-    z_mean, z_var, v_mean, v_var = moment_z(x[..., 0], 0.0,
-                                            target.sigma_v ** 2)
-    div = torch.cat([i.diverging.reshape(-1) for i in infos]).float().mean()
-    steps = torch.cat([i.num_steps.reshape(-1) for i in infos]).float()
-    depths = torch.cat([i.tree_depth.reshape(-1) for i in infos]).long()
     # On the card every fit step runs each spline block's inverse (the
     # sample path) and forward (the STL loss's log q) and both pullbacks;
     # the ELBO and each data-space mapping call run the inverses. On the
@@ -1057,17 +1124,7 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
         "train_steps": train_steps, "train_time_s": train_time,
         "train_ms_per_step": 1e3 * train_time / max(train_steps, 1),
         "train_final_loss": float(res.loss_hist[-1]),
-        "final_elbo": final_elbo,
-        "warmup_time_s": warm_time, "draw_time_s": draw_time,
-        "windows": len(zs), "n_draws": int(x.shape[0]),
-        "min_ess": min_ess, "max_rhat": max_rhat, "converged": converged,
-        "v_mean": v_mean, "v_var": v_var, "v_z_mean": z_mean,
-        "v_z_var": z_var, "divergence_rate": float(div),
-        "mean_leapfrogs_per_draw": float(steps.mean()),
-        "tree_depth_histogram": torch.bincount(
-            depths, minlength=MAX_DEPTH + 1).tolist(),
-        "step_size": float(state.step_size),
-        "launches": launches, "transitions": transitions,
+        "final_elbo": final_elbo, **gated, "launches": launches,
         "rqs_launches": dict(rqs_cuda.LAUNCHES),
         "rqs_launches_fit": fit_launches,
         "rqs_launches_expected": expected, "use_pallas": use_pallas,
@@ -1101,17 +1158,25 @@ def check_main_path(res):
 
 
 def mlp_flops(model):
-    """Flops of one latent gradient's MLPs: a forward and an
-    input-gradient backward of every conditioner, 2 x 2 x (d h1 + h1 h2 +
-    h2 n_out) each."""
-    d = model.d
+    """Flops one latent gradient needs in its MLPs: every conditioner's
+    forward and input-gradient backward, 2 x 2 x (n_in h1 + h1 h2 + h2
+    n_out) each. n_in counts the mask's pass-through dims only (the
+    conditioner sees z * mask, so the other rows of W1 multiply zeros and
+    their input gradient is dropped); n_out counts the head columns of the
+    transformed dims only (2 per dim affine, 3K - 1 per dim spline), the
+    only ones that reach lp or g."""
+    from tpuflows_torch.flows import RQSCouplingBlock, Standardize
+
     total = 0
-    for row in model.mods.tolist():
-        kind, _, h1, h2, K = row[:5]
-        if kind == 0:
+    for t in model.flow.transforms:
+        if isinstance(t, Standardize):
             continue
-        n_out = 2 * d if kind == 1 else (3 * K - 1) * d
-        total += 4 * (d * h1 + h1 * h2 + h2 * n_out)
+        h1, h2 = t.net.weights[0].shape[1], t.net.weights[1].shape[1]
+        n_in = sum(t.mask)
+        per_dim = (3 * t.knots - 1 if isinstance(t, RQSCouplingBlock)
+                   else 2)
+        n_out = per_dim * (len(t.mask) - n_in)
+        total += 4 * (n_in * h1 + h1 * h2 + h2 * n_out)
     return total
 
 
@@ -1189,6 +1254,248 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# K3 and the portable samplers
+# ---------------------------------------------------------------------------
+# (label, flow, rows, z scale) of K3's comparison: the ceiling shape with a
+# random non-zero head, the generic arqs shape with 0.01 x He heads, the
+# other instantiations d = 32 and d = 256 (K = 16 there: 54 KB of shared
+# memory per warp), affine and spline, and a ragged batch. Flows are drawn
+# from seeds; the post-warmup states are added by `main`.
+def fused_logp_rows(device):
+    rows = [("ceiling", bench_flow_with_random_head(device, 2), TRAIN_BATCH),
+            ("generic", spline_flow_with_random_heads(device, 74),
+             TRAIN_BATCH),
+            ("generic ragged", spline_flow_with_random_heads(device, 74), 37)]
+    for d, h1, h2 in ((32, 32, 64), (256, 128, 256)):
+        mask = tuple(j % 2 for j in range(d))
+        rows.append((f"affine d={d}", random_flow(device, d + h1, d,
+                                                  (h1, h2), mask), 256))
+    for d, hidden, K, nb in ((32, (32, 64), 4, 2), (256, (64, 128), 16, 1)):
+        rows.append((f"spline d={d} K={K}", spline_flow_with_random_heads(
+            device, 10 + d, dim=d, hidden=hidden, knots=K, n_blocks=nb),
+            256))
+    return [(label, flow, n, None) for label, flow, n in rows]
+
+
+def fused_logp_vs_plain(device, rows):
+    """K3 against its plain version (`FusedLatentLogpAndGrad.plain`) on lp
+    and g, under the spline kernels' bar (`judge`): a second float32
+    evaluation is autograd through the whole flow on the CPU, and the
+    referee the same in float64. `rows`: (label, flow, n, z) with z None
+    for z ~ N(0, 1) drawn from a seed."""
+    import copy
+
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+    from tpuflows_torch.targets import NealsFunnel
+
+    out = []
+    for i, (label, flow, n, z) in enumerate(rows):
+        d = flow.transforms[0].loc.numel()
+        target = NealsFunnel(dim=d)
+        hook = fused_latent_logp_and_grad(target, flow)
+        if z is None:
+            g = torch.Generator(device=device).manual_seed(30 + i)
+            z = torch.randn((n, d), generator=g, device=device)
+        z = z.contiguous()
+        kern = hook(z)
+        plain = hook.plain(z)
+        cpu32 = copy.deepcopy(flow).cpu()
+        oracle = nuts_cuda.autograd_logp_grad(cpu32, target.log_density)(
+            z.cpu())
+        exact = nuts_cuda.autograd_logp_grad(
+            cpu32.double(), target.log_density)(z.cpu().double())
+        row = {"label": label, "n": int(z.shape[0]), "d": d,
+               "modules": len(flow.transforms)}
+        for j, name in enumerate(("lp", "g")):
+            k = kern[j].reshape(plain[j].shape)
+            o, e = (t[j].reshape(plain[j].shape).to(z.device)
+                    for t in (oracle, exact))
+            row[name] = judge(k, plain[j], o, e, block_quantile(k.numel()))
+        row["passed"] = row["lp"]["passed"] and row["g"]["passed"]
+        out.append(row)
+    return out
+
+
+def main_path_portable(device, variant, flow, n_chains=N_CHAINS,
+                       num_warmup=NUM_WARMUP, window=DRAW_WINDOW,
+                       max_windows=MAX_WINDOWS, ess_gate=ESS_GATE):
+    """Flow-preconditioned NUTS through the portable route:
+    `NUTSDriver(log p~, max_depth, logp_and_grad=K3)` on a trained flow of
+    `main_path`, under the main paths' gates. The launch counts are set to
+    0 before: K3's must equal the hook calls the transitions counted (0 on
+    the CPU), K1's stays 0, and K4/K5 (spline flows on the K4/K5 tier)
+    launch only the data-space mapping's inverses."""
+    import torch
+    from tpuflows_torch.flows import RQSCouplingBlock
+    from tpuflows_torch.kernels import (coupling_cuda, fused_logp_cuda,
+                                        nuts_cuda, rqs_cuda)
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+    from tpuflows_torch.mcmc import NUTSDriver, flow_reparameterized
+    from tpuflows_torch.mcmc.preconditioned import _CHUNK
+    from tpuflows_torch.targets import NealsFunnel
+
+    on_card = torch.device(device).type == "cuda"
+    dim = flow.transforms[0].loc.numel()
+    target = NealsFunnel(dim=dim)
+    n_rqs = sum(isinstance(t, RQSCouplingBlock) for t in flow.transforms)
+    nuts_cuda.LAUNCHES = 0
+    fused_logp_cuda.reset_launches()
+    rqs_cuda.reset_launches()
+    coupling_cuda.reset_launches()
+    hook = fused_latent_logp_and_grad(target, flow)
+    sampler = NUTSDriver(flow_reparameterized(target.log_density, flow),
+                        max_depth=MAX_DEPTH, logp_and_grad=hook)
+    gated, _, mapped_rows = nuts_gated(
+        device, sampler, flow, target, f"{variant} portable", n_chains,
+        num_warmup, window, max_windows, ess_gate)
+    calls = sampler.transition.grad_calls
+    n = gated["transitions"]
+    seconds = gated["warmup_time_s"] + gated["draw_time_s"]
+    inverse_calls = sum(-(-r // _CHUNK) for r in mapped_rows)
+    k4_tier = any(isinstance(t, RQSCouplingBlock) and t.use_pallas != "fused"
+                  for t in flow.transforms)
+    per = n_rqs if on_card and k4_tier else 0
+    return {
+        "variant": variant, "hook": "K3 fused_latent_logp_and_grad",
+        **gated, "ms_per_transition": 1e3 * seconds / n,
+        "hook_calls": calls,
+        "leaf_steps_per_transition": (calls - n) / n,
+        "k3_launches": fused_logp_cuda.LAUNCHES,
+        "k3_launches_expected": calls if on_card else 0,
+        "k1_launches": nuts_cuda.LAUNCHES,
+        "rqs_launches": dict(rqs_cuda.LAUNCHES),
+        "rqs_launches_expected": {"k4_forward": 0,
+                                  "k4_inverse": per * inverse_calls,
+                                  "k5_forward": 0, "k5_inverse": 0},
+        "coupling_launches": dict(coupling_cuda.LAUNCHES),
+    }
+
+
+def check_portable(res):
+    name = f"{res['variant']} portable"
+    if not res["converged"]:
+        raise RuntimeError(f"{name}: convergence gate failed: max "
+                           f"split-R-hat {res['max_rhat']}, min ESS "
+                           f"{res['min_ess']}")
+    if res["k3_launches"] != res["k3_launches_expected"]:
+        raise RuntimeError(f"{name}: K3 launched {res['k3_launches']} "
+                           f"times, the transitions called the hook "
+                           f"{res['hook_calls']} times")
+    if res["k1_launches"] != 0:
+        raise RuntimeError(f"{name}: K1 launched {res['k1_launches']} "
+                           f"times")
+    if res["rqs_launches"] != res["rqs_launches_expected"] or any(
+            res["coupling_launches"].values()):
+        raise RuntimeError(f"{name}: K4/K5 launched {res['rqs_launches']} "
+                           f"(expected {res['rqs_launches_expected']}), "
+                           f"K6/K7 {res['coupling_launches']}")
+    if res["v_z_mean"] > 5.0 or res["v_z_var"] > 5.0:
+        raise RuntimeError(f"{name}: v's draws fail the moment check: "
+                           f"{res}")
+
+
+def portable_vs_k1(flow, state, dq_bar, cpu_randomness=False):
+    """One portable transition (`nuts_transition_math` with K3 as its
+    gradient, the host-driven lockstep loop) against one K1 transition on
+    the same inputs and randomness (`state_inputs`), under K1's bar with
+    `dq_bar` for q."""
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+    from tpuflows_torch.mcmc.nuts import nuts_transition_math
+    from tpuflows_torch.targets import NealsFunnel
+
+    target = NealsFunnel(dim=state.q.shape[1])
+    model = nuts_cuda.pack_flow(flow, target)
+    hook = fused_latent_logp_and_grad(target, flow)
+    q, eps, im, *rnd = state_inputs(state, cpu_randomness=cpu_randomness)
+    k1 = nuts_cuda.nuts_transition(q, *rnd, eps, im, model, MAX_DEPTH)
+    port = nuts_transition_math(q, *rnd, eps, im, hook, MAX_DEPTH)
+    res = compare(k1, port, dq_bar)
+    res["dq_bar"] = dq_bar
+    return res
+
+
+HMC_LEAPFROGS = 10
+
+
+def hmc_vs_plain(flow, state, seed=9):
+    """`make_hmc_kernel`'s transition with K3 as its gradient against the
+    same transition with K3's plain version, on the same momenta and
+    uniforms: at most MAX_FLIPS of 1024 chains with another accept
+    decision, q within MAX_DQ on the rest."""
+    import torch
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+    from tpuflows_torch.mcmc.hmc import hmc_transition_math
+    from tpuflows_torch.targets import NealsFunnel
+
+    hook = fused_latent_logp_and_grad(NealsFunnel(dim=state.q.shape[1]),
+                                      flow)
+    q, eps, im = state.q.contiguous(), state.step_size, state.inv_mass
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    p0 = torch.randn(q.shape, generator=g, device=q.device) / torch.sqrt(im)
+    u = torch.rand(q.shape[0], generator=g, device=q.device)
+    kq, kinfo = hmc_transition_math(q, p0, u, eps, im, hook, HMC_LEAPFROGS)
+    pq, pinfo = hmc_transition_math(q, p0, u, eps, im, hook.plain,
+                                    HMC_LEAPFROGS)
+    flip = kinfo.accepted != pinfo.accepted
+    agree = ~flip
+    dq = (kq - pq).abs().amax(dim=1)
+    n = int(q.shape[0])
+    res = {"chains": n, "leapfrogs": HMC_LEAPFROGS, "flips": int(flip.sum()),
+           "accept_rate": float(pinfo.accepted.float().mean()),
+           "max_dq": float(dq[agree].max()) if bool(agree.any())
+           else float("nan"),
+           "max_dlogp": float((kinfo.logp - pinfo.logp).abs()[agree].max())
+           if bool(agree.any()) else float("nan")}
+    res["passed"] = bool(res["flips"] <= max(1, n * MAX_FLIPS // 1024)
+                         and res["max_dq"] <= MAX_DQ
+                         and bool(torch.isfinite(kq).all()))
+    return res
+
+
+def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
+                    trans_reps=5, cpu_randomness=False):
+    """K3 at a post-warmup state (z = the chains' q) with CUDA events,
+    launched from the host and replayed from a CUDA graph (`graph_ms`),
+    beside its bound and its plain version; and one portable transition
+    (the host-driven lockstep loop with K3) on the inputs `time_kernel`
+    timed K1 on, beside that time `k1_ms`."""
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+    from tpuflows_torch.mcmc.nuts import nuts_transition_math
+    from tpuflows_torch.targets import NealsFunnel
+
+    target = NealsFunnel(dim=state.q.shape[1])
+    hook = fused_latent_logp_and_grad(target, flow)
+    model = hook.model
+    z = state.q.contiguous()
+    n, d = z.shape
+    ms, _ = timed(lambda: hook(z), n_reps)
+    plain_ms, _ = timed(lambda: hook.plain(z), plain_reps)
+    # the work: each row's MLPs, forward and input-gradient backward; the
+    # bytes: z in, lp and g out, the flow's parameters and masks once
+    flops = float(n * mlp_flops(model))
+    flow_floats = (sum(p.numel() for p in flow.parameters())
+                   + d * sum(1 for t in flow.transforms
+                             if hasattr(t, "mask")))
+    nbytes = 4.0 * (n * d + flow_floats + n + n * d)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    q, eps, im, *rnd = state_inputs(state, cpu_randomness=cpu_randomness)
+    port_ms, _ = timed(lambda: nuts_transition_math(
+        q, *rnd, eps, im, hook, MAX_DEPTH), trans_reps, warmup=1)
+    return {"n": n, "d": d, "ms": ms, "device_ms": graph_ms(lambda: hook(z)),
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+            "portable_transition_ms": port_ms, "k1_transition_ms": k1_ms}
+
+
 def flow_specs(flow):
     """A flow's modules as `convert.flow_from_jax_modules` dicts (numpy
     leaves and static fields), for the JAX package on the CPU."""
@@ -1243,8 +1550,8 @@ def main(argv=None):
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from tpuflows_torch.kernels import (coupling_cuda, cuda_build, nuts_cuda,
-                                        rqs_cuda)
+    from tpuflows_torch.kernels import (coupling_cuda, cuda_build,
+                                        fused_logp_cuda, nuts_cuda, rqs_cuda)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1256,7 +1563,7 @@ def main(argv=None):
 
     t = time.perf_counter()
     infos = cuda_build.build(nuts_cuda.LIBRARY, rqs_cuda.LIBRARY,
-                             coupling_cuda.LIBRARY)
+                             coupling_cuda.LIBRARY, fused_logp_cuda.LIBRARY)
     emit("build", t,
          nvcc_seconds=max(i.seconds for i in infos.values()),
          libraries=[i.path for i in infos.values()],
@@ -1348,6 +1655,55 @@ def main(argv=None):
          fit_step_launches={k: v // TRAIN_STEPS for k, v in
                             fres["coupling_launches_fit"].items()})
 
+    t = time.perf_counter()
+    k3_rows = fused_logp_vs_plain(device, fused_logp_rows(device) + [
+        ("ceiling post-warmup state", flow, N_CHAINS, warm_state.q),
+        ("generic post-warmup state", gflow, N_CHAINS, gstate.q)])
+    emit("fused_logp_vs_plain", t, rows=k3_rows,
+         bar={"atol": RQS_ATOL, "rtol": RQS_RTOL,
+              "quantile": "block_quantile"})
+    bad = [r for r in k3_rows if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"K3 disagrees with its plain version: {bad}")
+
+    portable = {}
+    for variant, vflow, phase in ((("ceiling", flow, "main_path_portable"),
+                                   ("generic", gflow,
+                                    "main_path_portable_generic"))):
+        t = time.perf_counter()
+        portable[variant] = main_path_portable(device, variant, vflow)
+        emit(phase, t, **portable[variant])
+        check_portable(portable[variant])
+
+    t = time.perf_counter()
+    vs_k1 = {"ceiling": portable_vs_k1(flow, warm_state, tim["dq_bar"]),
+             "generic": portable_vs_k1(gflow, gstate, gtim["dq_bar"],
+                                       cpu_randomness=True)}
+    emit("portable_vs_k1", t, **vs_k1,
+         bar={"flips": MAX_FLIPS, "denergy": MAX_DENERGY})
+    bad = {k: v for k, v in vs_k1.items() if not v["passed"]}
+    if bad:
+        raise RuntimeError(f"the portable transition through K3 disagrees "
+                           f"with K1: {bad}")
+
+    t = time.perf_counter()
+    hmc = hmc_vs_plain(flow, warm_state)
+    emit("hmc_vs_plain", t, **hmc,
+         bar={"flips": MAX_FLIPS, "dq": MAX_DQ})
+    if not hmc["passed"]:
+        raise RuntimeError(f"HMC through K3 disagrees with its plain "
+                           f"version: {hmc}")
+
+    t = time.perf_counter()
+    k3_tim = {"ceiling": time_fused_logp(flow, warm_state, tim["ms"]),
+              "generic": time_fused_logp(gflow, gstate, gtim["ms"],
+                                         n_reps=20, plain_reps=3,
+                                         trans_reps=2, cpu_randomness=True)}
+    for variant, r in k3_tim.items():
+        r["launches_main_path"] = portable[variant]["k3_launches"]
+        r["library_ms"] = None
+    emit("timing_fused_logp", t, **k3_tim)
+
     k1 = "src/tpuflows/kernels/nuts_pallas.py:407"
     kernels = [{
         "name": "nuts_transition (affine)", "route": "cuda",
@@ -1401,6 +1757,19 @@ def main(argv=None):
             "replaces": "src/tpuflows/kernels/coupling_pallas.py" + replaces,
             "launches": fres["coupling_launches"][key],
             "max_abs_err": max(row[e]["max_abs"] for e in errs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    for variant, name in (("ceiling", "fused_logp (affine)"),
+                          ("generic", "fused_logp (module list, spline)")):
+        r = k3_tim[variant]
+        row = next(x for x in k3_rows if x["label"] == variant)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/tpuflows_torch/csrc/fused_logp.cu",
+            "replaces": "src/tpuflows/kernels/fused_logp.py:140",
+            "launches": portable[variant]["k3_launches"],
+            "max_abs_err": max(row[e]["max_abs"] for e in ("lp", "g")),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})

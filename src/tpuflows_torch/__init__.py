@@ -14,8 +14,11 @@ Conventions carried over from `tpuflows`:
     `torch.backends.cudnn.allow_tf32 = False`), so a float32 matmul on the
     card is a float32 matmul.
 
-What is ported so far is the flow-preconditioned NUTS path on Neal's
-funnel (the `ceiling` variant of `bench.py`); ROADMAP.md lists the rest.
+What is ported so far: the flow core, the affine and spline couplings,
+the reverse-KL/STL fit, Neal's funnel, ESS / R-hat, and NUTS and HMC, both
+the portable samplers (`mcmc`) and the fused NUTS transition, with the
+CUDA kernels K1 and K3-K7 (`kernels`); it runs both variants of
+`bench.py`. ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

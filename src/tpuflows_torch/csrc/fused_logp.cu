@@ -1,0 +1,221 @@
+// K3 of tpuflows_torch: the fused latent log density and its gradient.
+//
+// Replaces the Pallas kernel of `make_fused_logp_and_grad`
+// (src/tpuflows/kernels/fused_logp.py:73, pallas_call at :140), built by
+// `fused_latent_logp_and_grad` (:188). For each row z of an (n, d) float32
+// batch it computes
+//   lp = log p(f^-1(z)) + ladj(z)   and   g = d lp / dz
+// through a flow over Neal's funnel, in one launch: the flow inverse, the
+// ladj, the target's log density and the whole pullback, with no
+// intermediate leaving the chip. It is the `logp_and_grad` hook of the
+// portable NUTS and HMC (mcmc/nuts.py, mcmc/hmc.py); the plain PyTorch
+// version is `nuts_cuda.plain_logp_grad` (autograd through the flow, or the
+// streamed per-block backward on the p-major relayout for flows with
+// splines), called by kernels/fused_logp_cuda.py on CPU tensors.
+//
+// The JAX kernel traces any log density into its tile body; a kernel
+// written by hand cannot, so this one takes what K1 takes (latent_grad.cuh,
+// where the gradient lives): Standardize + one AffineCoupling
+// (`fused_logp_affine_kernel`, `logp_grad`) or a module list of
+// Standardize, AffineCoupling and RQSCouplingBlock modules
+// (`fused_logp_chain_kernel`, `chain_logp_grad`), with 3-layer silu MLPs.
+//
+// Design (the simple one): one warp per row, one warp per block, the
+// gradient device code of K1 unchanged, so K3 computes the gradient K1
+// computes inside its trajectory. The warp's scratch is dynamic shared
+// memory: 6 d + 3 h1 + 3 h2 floats for the affine flow, (n_mods + 1) d +
+// 4 hmax + head for a module list (54 KB at d = 256, K = 16: above 48 KB
+// the launch opts in).
+//
+// Bound on this card: operations. A row costs one forward and one
+// input-gradient backward of every conditioner MLP, 2 x 2 x (d h1 + h1 h2
+// + h2 n_out) flops each: 164 k for the ceiling flow (0.17 GFLOP per 1024
+// rows, 2.5 us at 67 TFLOP/s float32) and 3.05 M for the generic arqs flow
+// (3.1 GFLOP, 47 us). Its bytes (z in, lp and g out, the weights once,
+// 0.8-6.5 MB) take under 2 us at 3.35 TB/s. One warp per row runs the
+// products on the float32 FMA pipes with every weight read from L2 for
+// each row, far from that bound, as K1 is; tiles of rows sharing their
+// weight reads (in shared memory, on the tensor cores) are later work.
+// PERF.md keeps its measured time beside the bound.
+
+#include "latent_grad.cuh"
+
+// Built by kernels/fused_logp_cuda.py (`LIBRARY`, kernels/cuda_build.py)
+// as one translation unit per instantiation (-DLATENT_DPL=1..8, DPL = d /
+// 32 dims per lane), all compiled in parallel, plus one unit without
+// LATENT_DPL that holds the C entry points, linked into one library.
+
+namespace tpuflows_logp {
+
+using tpuflows_nuts::Args;
+using tpuflows_nuts::ChainList;
+
+template <int DPL>
+cudaError_t launch_affine(const Args& a, cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_chain(const Args& a, const ChainList& c,
+                         cudaStream_t stream);
+
+}  // namespace tpuflows_logp
+
+#ifdef LATENT_DPL
+
+namespace {
+
+// z (row `row` of a.q) into the lane's registers
+template <int DPL>
+__device__ __forceinline__ void load_row(const Args& a, int row, int lane,
+                                         float (&z)[DPL]) {
+#pragma unroll
+  for (int j = 0; j < DPL; ++j)
+    z[j] = __ldg(a.q + (size_t)row * a.d + lane + 32 * j);
+}
+
+// g to row `row` of a.q_out, lp to a.info[row]
+template <int DPL>
+__device__ __forceinline__ void store_row(const Args& a, int row, int lane,
+                                          float lp, const float (&g)[DPL]) {
+#pragma unroll
+  for (int j = 0; j < DPL; ++j)
+    a.q_out[(size_t)row * a.d + lane + 32 * j] = g[j];
+  if (lane == 0) a.info[row] = lp;
+}
+
+template <int DPL>
+__global__ void __launch_bounds__(32) fused_logp_affine_kernel(Args a) {
+  extern __shared__ float smem[];
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x;
+  const Net t = unpack(a);
+  float z[DPL], g[DPL];
+  load_row<DPL>(a, row, lane, z);
+  const float lp = logp_grad<DPL>(a, t, smem, z, g, lane);
+  store_row<DPL>(a, row, lane, lp, g);
+}
+
+template <int DPL>
+__global__ void __launch_bounds__(32) fused_logp_chain_kernel(Args a,
+                                                              ChainList c) {
+  extern __shared__ float smem[];
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x;
+  float z[DPL], g[DPL];
+  load_row<DPL>(a, row, lane, z);
+  const float lp = chain_logp_grad<DPL>(a, c, smem, z, g, lane);
+  store_row<DPL>(a, row, lane, lp, g);
+}
+
+}  // namespace
+
+namespace tpuflows_logp {
+
+template <int DPL>
+cudaError_t launch_affine(const Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (6 * a.d + 3 * a.h1 + 3 * a.h2);
+  fused_logp_affine_kernel<DPL><<<a.n, 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DPL>
+cudaError_t launch_chain(const Args& a, const ChainList& c,
+                         cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head);
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_logp_chain_kernel<DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  fused_logp_chain_kernel<DPL><<<a.n, 32, smem, stream>>>(a, c);
+  return cudaGetLastError();
+}
+
+template cudaError_t launch_affine<LATENT_DPL>(const Args&, cudaStream_t);
+template cudaError_t launch_chain<LATENT_DPL>(const Args&, const ChainList&,
+                                             cudaStream_t);
+
+}  // namespace tpuflows_logp
+
+#else  // the C entry points
+
+namespace {
+
+bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+
+tpuflows_nuts::Args rows_args(const void* z, const void* params, int n,
+                              int d, float sigma_v, void* lp, void* g) {
+  tpuflows_nuts::Args a = {};
+  a.q = static_cast<const float*>(z);
+  a.params = static_cast<const float*>(params);
+  a.n = n;
+  a.d = d;
+  a.sigma_v = sigma_v;
+  a.q_out = static_cast<float*>(g);
+  a.info = static_cast<float*>(lp);
+  return a;
+}
+
+}  // namespace
+
+// lp (n,) and g (n, d) of z (n, d) through Standardize + one affine
+// coupling with an MLP d -> h1 -> h2 -> 2d, its leaves packed as
+// latent_grad.cuh's `Net` says. Returns a cudaError_t (0 = launched).
+// Shapes are checked again here; the Python wrapper checks device, dtype
+// and contiguity before calling.
+extern "C" int fused_logp_affine_f32(const void* z, const void* params,
+                                     int n, int d, int h1, int h2,
+                                     float clamp, float sigma_v, void* lp,
+                                     void* g, void* stream) {
+  using namespace tpuflows_logp;
+  if (n < 1 || !width_ok(d) || !width_ok(h1) || !width_ok(h2))
+    return (int)cudaErrorInvalidValue;
+  Args a = rows_args(z, params, n, d, sigma_v, lp, g);
+  a.h1 = h1;
+  a.h2 = h2;
+  a.clamp = clamp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_affine<1>(a, s);
+    case 2: return (int)launch_affine<2>(a, s);
+    case 3: return (int)launch_affine<3>(a, s);
+    case 4: return (int)launch_affine<4>(a, s);
+    case 5: return (int)launch_affine<5>(a, s);
+    case 6: return (int)launch_affine<6>(a, s);
+    case 7: return (int)launch_affine<7>(a, s);
+    default: return (int)launch_affine<8>(a, s);
+  }
+}
+
+// The same through a module list: `mods` is a device array of n_mods *
+// kModInts ints, hmax the widest hidden layer (0 without couplings), head
+// the widest conditioner output. Returns a cudaError_t.
+extern "C" int fused_logp_chain_f32(const void* z, const void* params,
+                                    const void* mods, int n_mods, int n,
+                                    int d, int hmax, int head, float sigma_v,
+                                    void* lp, void* g, void* stream) {
+  using namespace tpuflows_logp;
+  if (n < 1 || !width_ok(d) || n_mods < 1 ||
+      n_mods > tpuflows_nuts::kMaxModules ||
+      (hmax != 0 && !width_ok(hmax)) || head < 0 || head % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  Args a = rows_args(z, params, n, d, sigma_v, lp, g);
+  ChainList c;
+  c.mods = static_cast<const int*>(mods);
+  c.n_mods = n_mods;
+  c.hmax = hmax;
+  c.head = head;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_chain<1>(a, c, s);
+    case 2: return (int)launch_chain<2>(a, c, s);
+    case 3: return (int)launch_chain<3>(a, c, s);
+    case 4: return (int)launch_chain<4>(a, c, s);
+    case 5: return (int)launch_chain<5>(a, c, s);
+    case 6: return (int)launch_chain<6>(a, c, s);
+    case 7: return (int)launch_chain<7>(a, c, s);
+    default: return (int)launch_chain<8>(a, c, s);
+  }
+}
+
+#endif  // LATENT_DPL

@@ -3,8 +3,8 @@
 // evaluation with exact log-derivative, and the pullback of each, written
 // out by hand.
 //
-// Shared by K4/K5 (rqs_spline.cu) and by K1's spline branch
-// (nuts_transition.cu). It computes what the Pallas tile math of
+// Shared by K4/K5 (rqs_spline.cu), K6/K7 (coupling_block.cu) and the
+// latent gradient of K1 and K3 (latent_grad.cuh). It computes what the Pallas tile math of
 // src/tpuflows/kernels/rqs_pallas.py computes: `_normalize_tiles` (:53),
 // `_select_bin_params` (:96), `_fwd_tile_math` (:118), `_inv_tile_math`
 // (:136), and what `jax.vjp` of those functions returns. The plain PyTorch

@@ -3,12 +3,14 @@
 `fused_nuts_for_flow`).
 
 Three pieces:
-  * `transition_math_torch` — the plain PyTorch version: a step-by-step port
-    of `_transition_math` (one batched transition with masked lockstep over
-    the whole batch). Its gradient comes from `torch.autograd.grad` on the
-    port's own flow modules, or, for flows with spline couplings, from
-    `tile_flow.tile_logp_and_grad_streamed` on the p-major relayout, as in
-    the JAX package. It runs on any device;
+  * `transition_math_torch` — the plain PyTorch version: the portable
+    NUTS transition `mcmc.nuts.nuts_transition_math` (a step-by-step port
+    of `_transition_math`, one batched transition with masked lockstep over
+    the whole batch) with a divergent leaf's non-finite values zeroed, as
+    the kernel does. Its gradient (`plain_logp_grad`) comes from
+    `torch.autograd.grad` on the port's own flow modules, or, for flows
+    with spline couplings, from `tile_flow.tile_logp_and_grad_streamed` on
+    the p-major relayout, as in the JAX package. It runs on any device;
   * `nuts_transition` — the wrapper. A CPU tensor goes to the plain
     version; a CUDA tensor goes to the hand-written kernel
     `csrc/nuts_transition.cu` (one warp per chain), or the wrapper raises.
@@ -17,7 +19,8 @@ Three pieces:
   * `FusedNUTS` / `fused_nuts_for_flow` — the batched transition that
     `NUTSDriver(transition=...)` calls: it draws the randomness (momenta,
     direction signs, acceptance uniforms, one uniform per potential leaf)
-    with a `torch.Generator` on the chains' device and calls the wrapper.
+    with a `torch.Generator` on the chains' device (`draw_randomness`) and
+    calls the wrapper.
 
 `pack_flow` checks a flow and packs its leaves for the kernel: Standardize
 + one AffineCoupling goes to `nuts_transition_kernel`, any other Chain of
@@ -40,7 +43,10 @@ from tpuflows_torch.flows.coupling import RQSCouplingBlock
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
 from tpuflows_torch.kernels.tile_flow import (p_major, permute_for_tiles,
                                               tile_logp_and_grad_streamed)
-from tpuflows_torch.mcmc.nuts import NUTSInfo, _popcount32, _trailing_zeros32
+from tpuflows_torch.mcmc.hmc import value_and_grad
+from tpuflows_torch.mcmc.nuts import (draw_randomness, nuts_info,
+                                      nuts_transition_math)
+from tpuflows_torch.mcmc.preconditioned import flow_reparameterized
 from tpuflows_torch.targets.funnel import NealsFunnel
 
 # kernel launches since the last reset (the main path's proof of use)
@@ -72,7 +78,8 @@ def _bind(lib):
 
 
 LIBRARY = CudaLibrary("nuts_transition", "nuts_transition.cu", _UNITS,
-                      ["nuts_tree_body.inc", "rqs_math.cuh"], _bind)
+                      ["latent_grad.cuh", "nuts_tree_body.inc",
+                       "rqs_math.cuh"], _bind)
 
 
 def _float_bits(x: float) -> int:
@@ -187,147 +194,26 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
 def autograd_logp_grad(flow: Chain, log_density: Callable) -> Callable:
     """z (T, d) -> (lp (T, 1), d lp / dz (T, d)) for
     lp = log_density(f^-1(z)) + ladj, by torch.autograd."""
+    value_grad = value_and_grad(flow_reparameterized(log_density, flow))
 
     def logp_grad(z):
-        with torch.enable_grad():
-            z = z.detach().requires_grad_(True)
-            x, ladj = flow.inverse_and_ladj(z)
-            lp = log_density(x) + ladj
-            (g,) = torch.autograd.grad(lp.sum(), z)
-        return lp.detach()[:, None], g
+        lp, g = value_grad(z)
+        return lp[:, None], g
 
     return logp_grad
 
 
 def transition_math_torch(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                           logp_grad, max_depth):
-    """One batched NUTS transition on (n, d) chains: `_transition_math` of
-    the JAX package, step by step, with exact selects in place of its
-    arithmetic blends.
+    """K1's plain version: `mcmc.nuts.nuts_transition_math` (the JAX
+    package's `_transition_math`, step by step, with exact selects) with
+    the non-finite values of a divergent leaf zeroed, as the kernel does.
 
-    q/p0: (n, d); dirs/u_acc: (n, max_depth); u_take: (n, 2^max_depth);
-    eps: 0-d; inv_mass: (d,); logp_grad: (n, d) -> ((n, 1), (n, d)).
-    Returns (q_new, lp_new, sum_accept, n_steps, depth, diverging,
-    turning, h0): q_new (n, d), the rest (n,) float32."""
-    D = max_depth
-    inf = float("inf")
-
-    def kin(p):
-        return 0.5 * torch.sum(p * p * inv_mass, -1, keepdim=True)
-
-    def is_turning(p_left, p_right, rho):
-        v = rho * inv_mass
-        return ((torch.sum(v * p_left, -1, keepdim=True) <= 0.0)
-                | (torch.sum(v * p_right, -1, keepdim=True) <= 0.0))
-
-    def where(m, a, b):
-        return torch.where(m, a, b)
-
-    def finite_or_zero(x):
-        return where(torch.isfinite(x), x, torch.zeros_like(x))
-
-    lp0, g0 = logp_grad(q)
-    h0 = -lp0 + kin(p0)
-    zeros1 = torch.zeros_like(lp0)
-    false1 = torch.zeros_like(lp0, dtype=torch.bool)
-    zl = (q, p0, lp0, g0)
-    zr = (q, p0, lp0, g0)
-    q_prop, lp_prop = q, lp0
-    logw, rho = zeros1, p0
-    turning, diverging = false1, false1
-    sum_accept, n_steps, depth = zeros1, zeros1, zeros1
-    col = 0
-    for k in range(D):
-        active = ~(turning | diverging)
-        if not bool(active.any()):
-            break
-        direction = dirs[:, k:k + 1]
-        fwd = direction > 0.0
-        s_q, s_p, s_lp, s_g = (where(fwd, r, l) for r, l in zip(zr, zl))
-        eps_s = direction * eps
-        n_leaves = 1 << k
-
-        # subtree: up to n_leaves leapfrogs, masked lockstep over the batch
-        st_qp, st_lpp = s_q, s_lp
-        st_logw = torch.full_like(lp0, -inf)
-        st_rho = torch.zeros_like(s_p)
-        st_turn, st_div = false1, false1
-        st_acc, st_n = zeros1, zeros1
-        ck_p = [torch.zeros_like(s_p) for _ in range(D)]
-        ck_r = [torch.zeros_like(s_p) for _ in range(D)]
-        for leaf in range(n_leaves):
-            msk = active & ~(st_turn | st_div)
-            if not bool(msk.any()):
-                break
-            p_half = s_p + 0.5 * eps_s * s_g
-            q_new = s_q + eps_s * p_half * inv_mass
-            lp_new, g_new = logp_grad(q_new)
-            p_new = p_half + 0.5 * eps_s * g_new
-            dh = -lp_new + kin(p_new) - h0
-            dh = where(torch.isfinite(dh), dh, torch.full_like(dh, inf))
-            div_leaf = dh > MAX_DELTA_ENERGY
-            logw_leaf = where(div_leaf, torch.full_like(dh, -inf), -dh)
-            accept = torch.clamp(torch.exp(torch.clamp(-dh, max=0.0)),
-                                 max=1.0)
-            accept = finite_or_zero(accept)
-            logw_new = torch.logaddexp(st_logw, logw_leaf)
-            u = u_take[:, col + leaf:col + leaf + 1]
-            # divergent leaves may carry inf; they never become proposals
-            q_new = finite_or_zero(q_new)
-            p_new = finite_or_zero(p_new)
-            g_new = finite_or_zero(g_new)
-            take = msk & (torch.log(u) < logw_leaf - logw_new) & ~div_leaf
-            st_qp = where(take, q_new, st_qp)
-            st_lpp = where(take, lp_new, st_lpp)
-
-            # checkpoint store: slot = popcount(leaf), even leaves only
-            if leaf % 2 == 0:
-                slot = _popcount32(leaf)
-                ck_p[slot] = where(msk, p_new, ck_p[slot])
-                ck_r[slot] = where(msk, st_rho, ck_r[slot])
-            rho_new = st_rho + p_new
-
-            # U-turn over the complete subtrees that end at this leaf
-            nl = leaf + 1
-            any_turn = false1
-            if nl % 2 == 0:
-                pc = _popcount32(nl)
-                for i in range(pc - 1, pc - 1 + _trailing_zeros32(nl)):
-                    any_turn = any_turn | is_turning(ck_p[i], p_new,
-                                                     rho_new - ck_r[i])
-            st_turn = st_turn | (msk & any_turn)
-            st_div = st_div | (msk & div_leaf)
-            st_logw = where(msk, logw_new, st_logw)
-            st_rho = where(msk, rho_new, st_rho)
-            st_acc = st_acc + where(msk, accept, zeros1)
-            st_n = st_n + msk.to(st_n.dtype)
-            s_q = where(msk, q_new, s_q)
-            s_p = where(msk, p_new, s_p)
-            s_lp = where(msk, lp_new, s_lp)
-            s_g = where(msk, g_new, s_g)
-        col += n_leaves
-
-        ok = active & ~(st_turn | st_div)
-        acc_p = torch.clamp(torch.exp(st_logw - logw), max=1.0)
-        take = ok & (u_acc[:, k:k + 1] < acc_p)
-        q_prop = where(take, st_qp, q_prop)
-        lp_prop = where(take, st_lpp, lp_prop)
-        e = (s_q, s_p, s_lp, s_g)
-        zr = tuple(where(ok & fwd, a, b) for a, b in zip(e, zr))
-        zl = tuple(where(ok & ~fwd, a, b) for a, b in zip(e, zl))
-        logw = where(ok, torch.logaddexp(logw, st_logw), logw)
-        rho = where(ok, rho + st_rho, rho)
-        turn_comb = is_turning(zl[1], zr[1], rho)
-        turning = where(active, st_turn | (ok & turn_comb), turning)
-        diverging = where(active, st_div, diverging)
-        sum_accept = sum_accept + where(active, st_acc, zeros1)
-        n_steps = n_steps + where(active, st_n, zeros1)
-        depth = where(ok, torch.full_like(depth, k + 1.0), depth)
-
-    f32 = torch.float32
-    return (q_prop, lp_prop[:, 0], sum_accept[:, 0], n_steps[:, 0],
-            depth[:, 0], diverging[:, 0].to(f32), turning[:, 0].to(f32),
-            h0[:, 0])
+    logp_grad: (n, d) -> ((n, 1), (n, d)). Same returns as
+    `nuts_transition_math`."""
+    return nuts_transition_math(q, p0, dirs, u_acc, u_take, eps, inv_mass,
+                                logp_grad, max_depth, MAX_DELTA_ENERGY,
+                                zero_nonfinite=True)
 
 
 def _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
@@ -355,25 +241,32 @@ def _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _smem_bytes(model: PackedFlow) -> int:
-    """Dynamic shared memory of one warp of `nuts_chain_kernel`."""
+def smem_bytes(model: PackedFlow) -> int:
+    """Dynamic shared memory of one warp of `nuts_chain_kernel` (and of
+    K3's `fused_logp_chain_kernel`)."""
     return 4 * ((model.mods.shape[0] + 1) * model.d + 4 * model.hmax
                 + model.head)
+
+
+def check_widths(model: PackedFlow):
+    """Raises unless the warp-per-row device code (K1's, and K3's, which
+    shares its gradient) takes the packed flow's widths."""
+    if model.d > MAX_DIM or model.d % 32:
+        raise ValueError(f"the kernel takes d % 32 == 0 and d <= {MAX_DIM},"
+                         f" got d={model.d}")
+    for w in model.hidden:
+        if w > MAX_DIM or w % 32:
+            raise ValueError(f"the kernel takes hidden widths % 32 == 0 and "
+                             f"<= {MAX_DIM}, got {w}")
+    if not model.affine and smem_bytes(model) > SMEM_LIMIT:
+        raise ValueError(f"the flow needs {smem_bytes(model)} bytes of "
+                         f"shared memory per chain, over {SMEM_LIMIT}")
 
 
 def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth):
     global LAUNCHES
     n, d = q.shape
-    if d > MAX_DIM or d % 32:
-        raise ValueError(f"the kernel takes d % 32 == 0 and d <= {MAX_DIM},"
-                         f" got d={d}")
-    for w in model.hidden:
-        if w > MAX_DIM or w % 32:
-            raise ValueError(f"the kernel takes hidden widths % 32 == 0 and "
-                             f"<= {MAX_DIM}, got {w}")
-    if not model.affine and _smem_bytes(model) > SMEM_LIMIT:
-        raise ValueError(f"the flow needs {_smem_bytes(model)} bytes of "
-                         f"shared memory per chain, over {SMEM_LIMIT}")
+    check_widths(model)
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
     for t in ins:
         if not t.is_contiguous():
@@ -432,24 +325,6 @@ def nuts_transition(q, p0, dirs, u_acc, u_take, eps, inv_mass,
     raise ValueError(f"no NUTS transition for device {q.device}")
 
 
-def draw_randomness(generator: torch.Generator, n: int, d: int,
-                    max_depth: int, inv_mass: torch.Tensor):
-    """(p0, dirs, u_acc, u_take) for n chains: momenta ~ N(0, M), direction
-    signs +-1, one acceptance uniform per doubling, one uniform per
-    potential leaf — drawn on `inv_mass`'s device, which must be the
-    generator's."""
-    dev = inv_mass.device
-    p0 = torch.randn((n, d), generator=generator, device=dev)
-    p0 = p0 / torch.sqrt(inv_mass)
-    dirs = torch.where(
-        torch.rand((n, max_depth), generator=generator, device=dev) < 0.5,
-        1.0, -1.0)
-    u_acc = torch.rand((n, max_depth), generator=generator, device=dev)
-    u_take = torch.rand((n, 1 << max_depth), generator=generator,
-                        device=dev)
-    return p0, dirs, u_acc, u_take
-
-
 class FusedNUTS:
     """Batched flow-preconditioned NUTS transition for
     `NUTSDriver(transition=...)`: `(generator, q, eps, inv_mass) ->
@@ -470,16 +345,7 @@ class FusedNUTS:
         q_prop, lp, sum_acc, n_steps, depth, div, turn, h0 = nuts_transition(
             q, p0, dirs, u_acc, u_take, eps, inv_mass, self.model,
             self.max_depth)
-        info = NUTSInfo(
-            accept_prob=sum_acc / torch.clamp(n_steps, min=1.0),
-            num_steps=n_steps.to(torch.int32),
-            tree_depth=depth.to(torch.int32),
-            diverging=div > 0.5,
-            turning=turn > 0.5,
-            energy=h0,
-            logp=lp,
-        )
-        return q_prop, info
+        return q_prop, nuts_info(lp, sum_acc, n_steps, depth, div, turn, h0)
 
 
 def fused_nuts_for_flow(target: NealsFunnel, flow: Chain,

@@ -5,7 +5,7 @@ of `tpuflows/kernels/tile_flow.py`).
 the d-major columns j (3K-1) + p to p-major columns p d + j, so spline
 parameter p of all dims is one contiguous (T, d) slice. These functions are
 the plain version of K1's spline gradient, and the map of what its device
-code does (`csrc/nuts_transition.cu`, `chain_logp_grad`): the inverse chain
+code does (`csrc/latent_grad.cuh`, `chain_logp_grad`): the inverse chain
 block by block, and the gradient of log p(f^-1(z)) + ladj by a per-block
 rematerialised backward.
 """

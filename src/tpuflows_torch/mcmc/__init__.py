@@ -1,4 +1,6 @@
-from tpuflows_torch.mcmc.nuts import NUTSInfo
+from tpuflows_torch.mcmc.hmc import (HMCInfo, PhasePoint, energy, kinetic,
+                                     leapfrog, make_hmc_kernel)
+from tpuflows_torch.mcmc.nuts import NUTSInfo, make_nuts_kernel
 from tpuflows_torch.mcmc.dual_averaging import (
     DualAveragingState,
     WelfordState,
@@ -10,14 +12,19 @@ from tpuflows_torch.mcmc.dual_averaging import (
     welford_update_batch,
     welford_variance,
 )
-from tpuflows_torch.mcmc.sample import NUTSDriver, NUTSState, stan_window_closes
+from tpuflows_torch.mcmc.sample import (MCMCResult, NUTSDriver, NUTSState,
+                                        nuts_draws, nuts_warmup, run_nuts,
+                                        stan_window_closes)
 from tpuflows_torch.mcmc.preconditioned import flow_reparameterized, to_data_space
 
 __all__ = [
-    "NUTSInfo",
+    "HMCInfo", "PhasePoint", "energy", "kinetic", "leapfrog",
+    "make_hmc_kernel",
+    "NUTSInfo", "make_nuts_kernel",
     "DualAveragingState", "WelfordState", "da_init", "da_step_size",
     "da_update", "welford_init", "welford_merge", "welford_update_batch",
     "welford_variance",
-    "NUTSDriver", "NUTSState", "stan_window_closes",
+    "MCMCResult", "NUTSDriver", "NUTSState", "nuts_draws", "nuts_warmup",
+    "run_nuts", "stan_window_closes",
     "flow_reparameterized", "to_data_space",
 ]

@@ -1,21 +1,31 @@
-"""NUTS warmup and draw driver (port of `NUTSDriver` and
-`stan_window_closes` from `tpuflows/mcmc/sample.py`).
+"""NUTS warmup and draw driver (port of `tpuflows/mcmc/sample.py`:
+`NUTSDriver`, `run_nuts`, `nuts_warmup`, `nuts_draws`,
+`stan_window_closes`).
 
 The JAX driver runs warmup and draws as jitted scans. Here they are host
-loops that launch one batched transition per step; the step size, the
-dual-averaging and Welford states and the draws stay on the device, so a
-step reads nothing back to the host. Warmup schedule (Stan-like, over
-num_warmup steps):
+loops that call one batched transition per step; the step size, the
+dual-averaging and Welford states and the draws stay on the device, so the
+driver itself reads nothing back to the host (the portable transition
+reads one flag per doubling and per leaf step; K1 none). Warmup schedule
+(Stan-like, over num_warmup steps):
   [0, 15%)        step size only
   [15%, 75%)      step size + Welford accumulation
   at 75%          metric <- regularized Welford variance; DA re-centred
   [75%, 100%)     step size under the final metric
-Final eps = averaged dual-averaging iterate.
+Final eps = averaged dual-averaging iterate. `warmup_schedule="stan"`
+closes doubling windows instead (`stan_window_closes`).
 
-Only the pooled step size and a batched `transition` are ported;
-`make_nuts_kernel` (the JAX driver's default transition), `run_nuts`,
-per-chain step sizes and the streaming window path wait (ROADMAP.md,
-Queue 1 item 4).
+The transition is the portable `make_nuts_kernel` on `log_density` (its
+gradient by autograd, or by a `logp_and_grad=` hook such as K3), or a
+natively batched `transition=` (K1, `kernels.nuts_cuda.fused_nuts_for_flow`)
+with one pooled step size. Step sizes are pooled by default; with
+`per_chain_step_size=True` every dual-averaging leaf is (n_chains,) and the
+accept statistic is not pooled.
+
+Left out of the port: `jit` and `chunk_size` (eager PyTorch compiles
+nothing and runs no device program whose length needs bounding),
+`axis_name` (waits for `dist/`, ROADMAP Queue 1 item 11) and
+`window_transition=` (waits for K2, ROADMAP Queue 2).
 """
 from __future__ import annotations
 
@@ -32,15 +42,22 @@ from tpuflows_torch.mcmc.dual_averaging import (
     welford_update_batch,
     welford_variance,
 )
-from tpuflows_torch.mcmc.nuts import NUTSInfo
+from tpuflows_torch.mcmc.nuts import NUTSInfo, make_nuts_kernel
 
 
 class NUTSState(NamedTuple):
     """Chain state after warmup; pass to `NUTSDriver.draws` to continue."""
 
     q: torch.Tensor  # (n_chains, d)
-    step_size: torch.Tensor  # 0-d, pooled
+    step_size: torch.Tensor  # 0-d (pooled) or (n_chains,)
     inv_mass: torch.Tensor  # (d,)
+
+
+class MCMCResult(NamedTuple):
+    samples: torch.Tensor  # (num_samples, n_chains, d)
+    info: NUTSInfo  # stacked per-draw info, (num_samples, n_chains) fields
+    step_size: torch.Tensor
+    inv_mass: torch.Tensor
 
 
 def stan_window_closes(num_warmup: int, init_frac: float = 0.15,
@@ -67,18 +84,36 @@ class NUTSDriver:
     """Reusable NUTS runner: warm up once, then draw windows that continue
     the same chains.
 
-    `transition(generator, q, eps, inv_mass) -> (q_new, NUTSInfo)` is a
-    natively batched transition (`kernels.nuts_cuda.fused_nuts_for_flow`);
-    it draws its own randomness from `generator` and takes one pooled 0-d
-    `eps`."""
+    By default each step runs `make_nuts_kernel(log_density, max_depth,
+    logp_and_grad=logp_and_grad)`. `transition(generator, q, eps,
+    inv_mass) -> (q_new, NUTSInfo)` replaces it with a natively batched
+    transition (`kernels.nuts_cuda.fused_nuts_for_flow`) that draws its
+    own randomness from `generator` and takes one pooled 0-d `eps`, so it
+    refuses `per_chain_step_size`. `log_density` is required unless
+    `transition` is given."""
 
-    def __init__(self, transition: Callable, target_accept: float = 0.8,
-                 adapt_mass: bool = True, warmup_schedule: str = "single"):
+    def __init__(self, log_density: Callable | None = None,
+                 max_depth: int = 8, target_accept: float = 0.8,
+                 adapt_mass: bool = True, per_chain_step_size: bool = False,
+                 warmup_schedule: str = "single",
+                 logp_and_grad: Callable | None = None,
+                 transition: Callable | None = None):
+        if transition is not None:
+            if per_chain_step_size:
+                raise ValueError("transition= (batched kernel) requires "
+                                 "pooled step size")
+        elif log_density is None:
+            raise ValueError("NUTSDriver needs log_density unless "
+                             "transition= is given")
+        else:
+            transition = make_nuts_kernel(log_density, max_depth=max_depth,
+                                          logp_and_grad=logp_and_grad)
         if warmup_schedule not in ("single", "stan"):
             raise ValueError(f"unknown warmup_schedule: {warmup_schedule!r}")
         self.transition = transition
         self.target_accept = target_accept
         self.adapt_mass = adapt_mass
+        self.per_chain_step_size = per_chain_step_size
         self.warmup_schedule = warmup_schedule
 
     def warmup(self, generator: torch.Generator,
@@ -88,7 +123,7 @@ class NUTSDriver:
             raise ValueError("init_positions must be (n_chains, d)")
         q = init_positions
         dev = q.device
-        d = q.shape[-1]
+        n, d = q.shape
         if self.warmup_schedule == "stan":
             closes, w_start, w_end = stan_window_closes(num_warmup)
         else:
@@ -96,14 +131,17 @@ class NUTSDriver:
             w_end = int(0.75 * num_warmup)
             closes = np.zeros(max(num_warmup, 1), dtype=bool)
             closes[w_end] = True
-        da = da_init(torch.tensor(initial_step_size, device=dev))
+        eps0 = torch.full((n,) if self.per_chain_step_size else (),
+                          initial_step_size, device=dev)
+        da = da_init(eps0)
         wf = welford_init(d, device=dev)
         inv_mass = torch.ones(d, device=dev)
         for step in range(num_warmup):
             q, info = self.transition(generator, q, da_step_size(da),
                                       inv_mass)
-            da = da_update(da, torch.mean(info.accept_prob),
-                           target_accept=self.target_accept)
+            accept = (info.accept_prob if self.per_chain_step_size
+                      else torch.mean(info.accept_prob))
+            da = da_update(da, accept, target_accept=self.target_accept)
             if w_start <= step < w_end:
                 wf = welford_update_batch(wf, q)
             if self.adapt_mass and closes[step]:
@@ -129,3 +167,66 @@ class NUTSDriver:
         info = NUTSInfo(*(torch.stack(f) for f in zip(*infos)))
         return (NUTSState(q=q, step_size=state.step_size,
                           inv_mass=state.inv_mass), samples, info)
+
+
+def run_nuts(generator: torch.Generator, log_density: Callable,
+             init_positions: torch.Tensor, num_warmup: int = 500,
+             num_samples: int = 500, initial_step_size: float = 0.1,
+             max_depth: int = 8, target_accept: float = 0.8,
+             adapt_mass: bool = True, per_chain_step_size: bool = False,
+             warmup_schedule: str = "single",
+             transition: Callable | None = None) -> MCMCResult:
+    """Warmup, then `num_samples` draws of every chain, from one generator.
+
+    Step sizes are pooled by default: the chains run in lockstep, so one
+    chain adapting to a tiny step would force deep trees on the whole
+    batch. `per_chain_step_size=True` gives each chain its own dual
+    averaging, for chains that start in different curvature regimes.
+    `transition=` takes a natively batched transition (pooled step size
+    only). With `num_warmup=0` the draws use `initial_step_size` and the
+    unit metric."""
+    if init_positions.ndim != 2:
+        raise ValueError("init_positions must be (n_chains, d)")
+    driver = NUTSDriver(log_density, max_depth=max_depth,
+                        target_accept=target_accept, adapt_mass=adapt_mass,
+                        per_chain_step_size=per_chain_step_size,
+                        warmup_schedule=warmup_schedule,
+                        transition=transition)
+    if num_warmup > 0:
+        state = driver.warmup(generator, init_positions, num_warmup,
+                              initial_step_size=initial_step_size)
+    else:
+        n, d = init_positions.shape
+        dev = init_positions.device
+        state = NUTSState(
+            q=init_positions,
+            step_size=torch.full((n,) if per_chain_step_size else (),
+                                 initial_step_size, device=dev),
+            inv_mass=torch.ones(d, device=dev))
+    state, samples, info = driver.draws(generator, state, num_samples)
+    return MCMCResult(samples=samples, info=info, step_size=state.step_size,
+                      inv_mass=state.inv_mass)
+
+
+def nuts_warmup(generator: torch.Generator, log_density: Callable,
+                init_positions: torch.Tensor, num_warmup: int = 500,
+                initial_step_size: float = 0.1, max_depth: int = 8,
+                target_accept: float = 0.8, adapt_mass: bool = True,
+                per_chain_step_size: bool = False) -> NUTSState:
+    """Warmup adaptation only; returns the state to draw from. One-shot
+    convenience over `NUTSDriver` (pooled step size by default, see
+    `run_nuts`)."""
+    driver = NUTSDriver(log_density, max_depth=max_depth,
+                        target_accept=target_accept, adapt_mass=adapt_mass,
+                        per_chain_step_size=per_chain_step_size)
+    return driver.warmup(generator, init_positions, num_warmup,
+                         initial_step_size=initial_step_size)
+
+
+def nuts_draws(generator: torch.Generator, log_density: Callable,
+               state: NUTSState, num_samples: int, max_depth: int = 8):
+    """Draw `num_samples` from `state`; returns (new_state, samples, info).
+    Call again to extend the run: each call continues the same chains."""
+    driver = NUTSDriver(log_density, max_depth=max_depth,
+                        per_chain_step_size=bool(state.step_size.ndim))
+    return driver.draws(generator, state, num_samples)

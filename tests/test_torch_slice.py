@@ -10,10 +10,14 @@ path the chip run drives at full width), through the port's entry points.
     and the fit's quality (at this size the gates need more draws than a
     CPU test affords; the card runs them at full size); and the same on
     the fused spline tier with a 150-step fit;
-  * the chip run's K6/K7 comparison and its bound arithmetic.
+  * the chip run's K6/K7 comparison and its bound arithmetic;
+  * the portable route on the trained ceiling and generic flows:
+    `main_path_portable` (NUTSDriver with K3 as its `logp_and_grad`)
+    under the same gates, and the chip run's K3, portable-vs-K1 and HMC
+    comparisons, where both sides are plain versions.
 
 On the CPU every transition and every spline runs its plain version, so
-the launch counters of K1, K4, K5, K6 and K7 stay 0.
+the launch counters of K1, K3, K4, K5, K6 and K7 stay 0.
 """
 import math
 import subprocess
@@ -88,6 +92,56 @@ def test_generic_fused_slice_runs_end_to_end_on_the_cpu():
     assert warm_state.q.shape == (32, 4)
 
 
+def test_portable_slice_runs_end_to_end_on_the_cpu():
+    """The ceiling fit of the first test, then NUTS through the portable
+    route with K3's hook (its plain version here): the gates, the hook's
+    call count, no K1 launch; and the chip run's comparisons at the
+    post-warmup state, where kernel and plain are the same code."""
+    torch.manual_seed(0)
+    _, flow, warm_state = chip_smoke.main_path(
+        "cpu", dim=8, n_chains=64, hidden=(16, 16), train_steps=200,
+        train_batch=256, num_warmup=64, window=64, max_windows=1,
+        ess_gate=100.0)
+    res = chip_smoke.main_path_portable(
+        "cpu", "ceiling", flow, n_chains=64, num_warmup=64, window=64,
+        max_windows=1, ess_gate=100.0)
+    chip_smoke.check_portable(res)
+    assert res["transitions"] == 128 and res["n_draws"] == 64
+    assert res["k3_launches"] == res["k3_launches_expected"] == 0
+    assert res["k1_launches"] == 0
+    assert res["hook_calls"] >= 2 * res["transitions"]
+    assert res["leaf_steps_per_transition"] >= res["mean_leapfrogs_per_draw"]
+    rows = chip_smoke.fused_logp_vs_plain("cpu", [
+        ("ceiling", flow, 37, None), ("state", flow, 64, warm_state.q)])
+    assert all(r["passed"] and r["g"]["max_abs"] == 0.0 for r in rows)
+    vs_k1 = chip_smoke.portable_vs_k1(flow, warm_state, chip_smoke.MAX_DQ)
+    assert vs_k1["passed"] and vs_k1["flips"] == 0
+    hmc = chip_smoke.hmc_vs_plain(flow, warm_state)
+    assert hmc["passed"] and hmc["flips"] == 0
+    assert 0.0 < hmc["accept_rate"] < 1.0
+
+
+def test_generic_portable_slice_runs_on_the_cpu():
+    """The generic variant's fit (as in the second test), then the
+    portable route on its spline flow: the pipeline and its launch
+    bookkeeping (at this size the gates need more draws than a CPU test
+    affords, as for the generic main path)."""
+    torch.manual_seed(0)
+    _, flow, _ = chip_smoke.main_path(
+        "cpu", variant="generic", dim=4, n_chains=32, hidden=(8, 8),
+        train_steps=200, train_batch=256, num_warmup=32, window=32,
+        max_windows=1, ess_gate=50.0, knots=4)
+    res = chip_smoke.main_path_portable(
+        "cpu", "generic", flow, n_chains=32, num_warmup=32, window=32,
+        max_windows=1, ess_gate=50.0)
+    assert res["k3_launches"] == res["k1_launches"] == 0
+    assert res["rqs_launches"] == res["rqs_launches_expected"] == {
+        "k4_forward": 0, "k4_inverse": 0, "k5_forward": 0, "k5_inverse": 0}
+    assert res["transitions"] == 64 and res["n_draws"] == 32
+    assert sum(res["tree_depth_histogram"]) == 32 * 32
+    assert res["v_z_mean"] < 5.0 and res["v_z_var"] < 5.0, res
+
+
 def test_coupling_comparison_runs_on_the_cpu():
     """The chip run's K6/K7 comparison, on the CPU at two small shapes:
     both sides are the plain version here, so this checks the comparison's
@@ -122,6 +176,30 @@ def test_coupling_work_counts_the_spline_dims_only():
                             + mac + 256 + 23 * 32)
 
 
+@pytest.mark.parametrize("kind,scheme,per_row", [
+    # leading mask: 1 pass-through input, 7 transformed dims x 2 outputs
+    ("affine", "leading", 4 * (1 * 16 + 16 * 16 + 16 * 2 * 7)),
+    # mixed masks, 4 of 8 dims on each side; an arqs block is an affine
+    # coupling and a spline coupling (3K - 1 = 11 outputs per dim)
+    ("arqs", "mixed", 2 * 4 * (4 * 16 + 16 * 16 + 16 * 2 * 4)
+     + 2 * 4 * (4 * 16 + 16 * 16 + 16 * 11 * 4)),
+])
+def test_mlp_flops_counts_the_live_inputs_and_outputs_only(kind, scheme,
+                                                          per_row):
+    """K1's and K3's bound: W1 over the mask's pass-through dims, W3 over
+    the head columns of the transformed dims, forward and back."""
+    from tpuflows_torch.flows import build_flow
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.targets import NealsFunnel
+
+    g = torch.Generator().manual_seed(0)
+    flow = build_flow(torch.randn(64, 8, generator=g), g, kind=kind,
+                      n_blocks=2 if kind == "arqs" else 1, knots=4,
+                      hidden=(16, 16), mask_scheme=scheme, device="cpu")
+    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=8))
+    assert chip_smoke.mlp_flops(model) == per_row
+
+
 def test_chip_smoke_refuses_to_run_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
@@ -145,7 +223,12 @@ def test_chip_smoke_refuses_to_run_without_a_card():
      "bwd_kernelILb0EEEvNS_6LayersENS_5BlockENS_7ScratchEPKfS5_Pf",
      "K7 pass 1 forward"),
     ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed618weight_"
-     "grad_kernelENS_10WeightGradE", "K7 pass 2")])
+     "grad_kernelENS_10WeightGradE", "K7 pass 2"),
+    ("_ZN46_GLOBAL__N__0e4d4b43_13_fused_logp_cu_9a1b2c3d24fused_logp_"
+     "affine_kernelILi2EEEvN13tpuflows_nuts4ArgsE", "K3 d/32=2"),
+    ("_ZN46_GLOBAL__N__0e4d4b43_13_fused_logp_cu_9a1b2c3d23fused_logp_"
+     "chain_kernelILi8EEEvN13tpuflows_nuts4ArgsENS0_9ChainListE",
+     "K3 chain d/32=8")])
 def test_ptxas_summary_names_every_kernel(name, key):
     log = (f"ptxas info    : Compiling entry function '{name}' for "
            "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 "
@@ -183,7 +266,8 @@ def test_driver_warmup_schedules(schedule, adapt_mass):
     flow = build_flow(torch.randn(256, 4, generator=g), g, kind="affine",
                       n_blocks=1, hidden=(8, 8), mask_scheme="leading",
                       clamp=8.0, device="cpu")
-    driver = NUTSDriver(fused_nuts_for_flow(target, flow, max_depth=3),
+    driver = NUTSDriver(transition=fused_nuts_for_flow(target, flow,
+                                                       max_depth=3),
                         adapt_mass=adapt_mass, warmup_schedule=schedule)
     state = driver.warmup(g, torch.randn(16, 4, generator=g), 60)
     assert torch.isfinite(state.q).all() and float(state.step_size) > 0
@@ -199,7 +283,7 @@ def test_driver_refuses_an_unknown_schedule():
     from tpuflows_torch.mcmc import NUTSDriver
 
     with pytest.raises(ValueError):
-        NUTSDriver(lambda *a: None, warmup_schedule="doubling")
+        NUTSDriver(transition=lambda *a: None, warmup_schedule="doubling")
 
 
 def test_kernel_shape_sweep_runs_on_the_cpu():

@@ -2,7 +2,7 @@
 
 The funnel's log density and its autograd gradient against the JAX
 package (to 1e-5 relative), and the hand-written gradient formulas of K1
-(`csrc/nuts_transition.cu`, `logp_grad`) as a plain-torch mirror of the
+(`csrc/latent_grad.cuh`, `logp_grad`) as a plain-torch mirror of the
 kernel's arithmetic, line by line, against torch.autograd (to 1e-5): a
 formula error shows here before the card ever runs the kernel.
 """
