@@ -7,8 +7,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every kernel with nvcc, all units in parallel: K1
                (csrc/nuts_transition.cu), K4/K5 (csrc/rqs_spline.cu),
-               K6/K7 (csrc/coupling_block.cu) and K3 (csrc/fused_logp.cu),
-               and ptxas' registers, shared memory and spills per kernel;
+               K6/K7 (csrc/coupling_block.cu), K3 (csrc/fused_logp.cu) and
+               K2 (csrc/nuts_window.cu), and ptxas' registers, shared
+               memory and spills per kernel;
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
                pullbacks) against their plain PyTorch versions at the fit's
                shape (1024 x 64, K = 8) and three others (d = 8, 96, 256;
@@ -117,6 +118,44 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                (also replayed from a CUDA graph), beside its bound, its
                plain version and its launches on the portable path; and a
                portable transition's time beside K1's on the same inputs.
+ 18. window_vs_plain — K2 (a window of S transitions per chain in one
+               launch), held slot by slot: slot s of its window against
+               one transition from K2's own draw of slot s - 1 on slot s's
+               randomness, by K1, by the plain window (`window_math_torch`
+               one slot per call) and by K1's plain version, so that no
+               rounding difference carries from slot to slot: the bench
+               widths (1024 chains, d = 64, depth 6, unit metric, S = 32),
+               the seeded arqs flow of phase 5 (S = 4, to bound the plain
+               versions' time), both kernels at d = 32 and d = 256, all at
+               eps 0.1, and both trained flows at their post-warmup states
+               (S = 32). K1's bar in every slot (a chain flips if it
+               differs in leapfrog count, depth, divergence or U-turn, or
+               its draw by more than 1e-3, at most 5 of 1024 may; on the
+               others energy within 0.012 and q within 2.3e-4), each of
+               the three raised to twice the widest spread of two plain
+               versions on the same slots where that is larger (the
+               plain window against K1's plain version, and on spline
+               flows K1's plain version with the streamed against the
+               autograd gradient: `window_bar`); flips and
+               max |dq| per slot are printed, the slots whose energies
+               equal K1's to the bit, whether K2 equals K1 to the bit, and
+               whether K2 meets K1's bar itself. At the post-warmup states
+               the plain window also runs the whole window (timed for
+               phase 20), and how far the free-running windows part is
+               printed;
+ 19. main_path_window, main_path_window_generic — bench.py's window path
+               (TPUFLOWS_BENCH_WINDOW=1) on the trained flows of phases 6
+               and 8: `NUTSDriver(transition=K1, window_transition=K2)`,
+               warmup through K1, draws through K2 in windows of S = 32,
+               under the same gates. The launch counts are set to 0
+               before: K1's must equal the warmup steps (none in the
+               draws), K2's the draws / 32, K4 launches only for the
+               data-space mapping; ms per transition of warmup and draws;
+ 20. timing_window — K2 per launch at both post-warmup states with CUDA
+               events (also replayed from a CUDA graph), per transition
+               beside K1's (phases 7 and 9), beside its bound (one latent
+               gradient per chain per window plus one per leapfrog) and its
+               plain version's time (phase 18).
 Then the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
@@ -150,6 +189,14 @@ GENERIC_BLOCKS = 3
 MAX_FLIPS = 5
 MAX_DENERGY = 0.012
 MAX_DQ = 2.3e-4
+# transitions per K2 launch on the window path (bench.py's window=32)
+WINDOW_SLOTS = 32
+# the seeded flows' step size in the K2 comparison: at K1's eps 0.3 about
+# half (bench) and three quarters (spline) of the chains diverge in one
+# transition from N(0, 1) starts (the divergent counts of phases 4-5), and
+# after a divergent slot the window machine's blends cancel through the
+# divergent leaf's position (PERF.md, Findings)
+WINDOW_EPS = 0.1
 # spline-kernel bar: jnp.allclose(atol=1e-4) of tests/test_pallas.py,
 # with jnp.allclose's default rtol
 RQS_ATOL = 1e-4
@@ -158,6 +205,8 @@ RQS_RTOL = 1e-5
 # of the He scale (biases 0.1); SPLINE_CHAOS is the informative row's
 SPLINE_HEAD = 0.01
 SPLINE_CHAOS = 0.3
+# the moment check on v's draws: MOMENT_SIGMA Monte-Carlo standard errors
+MOMENT_SIGMA = 5.0
 # published float32 (non-tensor-core) rate and memory rate of one H100 SXM
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -192,6 +241,10 @@ def _kernel_key(name):
         return f"K3 d/32={t.group(1)}"
     if "fused_logp_chain_kernel" in name and t:
         return f"K3 chain d/32={t.group(1)}"
+    if "nuts_window_kernel" in name and t:
+        return f"K2 d/32={t.group(1)}"
+    if "nuts_window_chain_kernel" in name and t:
+        return f"K2 chain d/32={t.group(1)}"
     for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
@@ -941,32 +994,16 @@ def kernel_vs_plain_spline(device, shapes=SPLINE_SHAPES,
     return rows
 
 
-def moment_z(x, true_mean, true_var):
-    """z-scores of the mean and variance of draws x (n, m) of one scalar,
-    with ESS-based standard errors (as tpuflows' moment_gate)."""
-    from tpuflows_torch.diagnostics import effective_sample_size
-
-    xs = x[..., None]
-    nm = x.numel()
-    ess = float(effective_sample_size(xs)[0].clamp(2.0, nm))
-    ess_v = float(effective_sample_size(xs * xs)[0].clamp(2.0, nm))
-    flat = x.reshape(-1).double()
-    mean, var = float(flat.mean()), float(flat.var(correction=0))
-    m4 = float(((flat - mean) ** 4).mean())
-    z_mean = abs(mean - true_mean) / math.sqrt(true_var / ess)
-    z_var = abs(var - true_var) / math.sqrt(
-        max(m4 - var * var, 2.0 * true_var ** 2) / ess_v)
-    return z_mean, z_var, mean, var
-
-
 def nuts_gated(device, sampler, flow, target, variant, n_chains, num_warmup,
                window, max_windows, ess_gate):
     """Warmup, then gated draw windows: windows of `window` draws until
     max split-R-hat < RHAT_GATE and min ESS >= `ess_gate` on data-space
-    draws, at most `max_windows`. Returns (result dict, post-warmup
-    NUTSState, rows mapped to data space per window)."""
+    draws, at most `max_windows`; and the port's `moment_gate` on v's
+    draws against N(0, sigma_v^2) at MOMENT_SIGMA. Returns (result dict,
+    post-warmup NUTSState, rows mapped to data space per window)."""
     import torch
-    from tpuflows_torch.diagnostics import effective_sample_size, split_rhat
+    from tpuflows_torch.diagnostics import (effective_sample_size,
+                                            moment_gate, split_rhat)
     from tpuflows_torch.mcmc import to_data_space
 
     on_card = torch.device(device).type == "cuda"
@@ -1014,8 +1051,9 @@ def nuts_gated(device, sampler, flow, target, variant, n_chains, num_warmup,
             window * len(zs), n_chains, dim):
         raise RuntimeError(f"draws are not finite or have shape "
                            f"{tuple(x.shape)}")
-    z_mean, z_var, v_mean, v_var = moment_z(x[..., 0], 0.0,
-                                            target.sigma_v ** 2)
+    moments = moment_gate(x[..., :1], [0.0], [target.sigma_v ** 2],
+                          n_sigma=MOMENT_SIGMA)
+    v = x[..., 0]
     div = torch.cat([i.diverging.reshape(-1) for i in infos]).float().mean()
     steps = torch.cat([i.num_steps.reshape(-1) for i in infos]).float()
     depths = torch.cat([i.tree_depth.reshape(-1) for i in infos]).long()
@@ -1023,8 +1061,11 @@ def nuts_gated(device, sampler, flow, target, variant, n_chains, num_warmup,
         "warmup_time_s": warm_time, "draw_time_s": draw_time,
         "windows": len(zs), "n_draws": int(x.shape[0]),
         "min_ess": min_ess, "max_rhat": max_rhat, "converged": converged,
-        "v_mean": v_mean, "v_var": v_var, "v_z_mean": z_mean,
-        "v_z_var": z_var, "divergence_rate": float(div),
+        "v_mean": float(v.mean()), "v_var": float(v.var(correction=0)),
+        "v_z_mean": moments.max_sigma_mean,
+        "v_z_var": moments.max_sigma_var,
+        "moment_check_passed": moments.passed,
+        "divergence_rate": float(div),
         "mean_leapfrogs_per_draw": float(steps.mean()),
         "tree_depth_histogram": torch.bincount(
             depths, minlength=MAX_DEPTH + 1).tolist(),
@@ -1152,7 +1193,7 @@ def check_main_path(res):
         raise RuntimeError(f"{res['variant']}: K6/K7 launched "
                            f"{res['coupling_launches']}, the path implies "
                            f"{res['coupling_launches_expected']}")
-    if res["v_z_mean"] > 5.0 or res["v_z_var"] > 5.0:
+    if not res["moment_check_passed"]:
         raise RuntimeError(f"{res['variant']}: v's draws fail the moment "
                            f"check: {res}")
 
@@ -1394,7 +1435,7 @@ def check_portable(res):
         raise RuntimeError(f"{name}: K4/K5 launched {res['rqs_launches']} "
                            f"(expected {res['rqs_launches_expected']}), "
                            f"K6/K7 {res['coupling_launches']}")
-    if res["v_z_mean"] > 5.0 or res["v_z_var"] > 5.0:
+    if not res["moment_check_passed"]:
         raise RuntimeError(f"{name}: v's draws fail the moment check: "
                            f"{res}")
 
@@ -1496,6 +1537,343 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
             "portable_transition_ms": port_ms, "k1_transition_ms": k1_ms}
 
 
+# ---------------------------------------------------------------------------
+# K2: the streaming draw window
+# ---------------------------------------------------------------------------
+def window_randomness(device, n, d, window, depth, inv_mass, seed):
+    """A window's randomness (`draw_window_randomness`), drawn on the CPU
+    from `seed` and moved to `device`."""
+    import torch
+    from tpuflows_torch.mcmc.nuts import draw_window_randomness
+
+    g = torch.Generator().manual_seed(seed)
+    rnd = draw_window_randomness(g, n, d, window, depth, inv_mass.cpu())
+    return [t.to(device) for t in rnd]
+
+
+def compare_window(ref, kern, max_dq=MAX_DQ, max_denergy=MAX_DENERGY,
+                   max_flips=None):
+    """K1's bar on every slot of a window (`nuts_window`'s returns) whose
+    reference `ref` ran each slot from `kern`'s own previous draw
+    (`chain_slots(..., starts=kern[0])`): each slot is then one transition
+    from the same state on the same randomness, judged on its own, and
+    rounding differences cannot carry from slot to slot. In a slot a chain
+    flips if it differs in leapfrog count, depth, divergence or U-turn, or
+    if its draw differs by more than 1e-3 (a flipped proposal, as
+    `compare` counts them); at most `max_flips` chains may flip in any
+    slot (K1's 5 of 1024 by default), and on every other (slot, chain)
+    the energy agrees to `max_denergy` and the draw to `max_dq`. Also: the
+    flips and the largest |dq| per slot, the share of (slot, chain) pairs
+    the maxima cover, the slots whose energies are equal to the bit (a
+    slot's energy is -lp + kinetic energy at its start, so this shows
+    whether the lp carried from the previous slot equals the reference's
+    lp there), and whether the two windows are equal to the bit."""
+    import torch
+
+    dq = (ref[0] - kern[0]).abs().amax(dim=2)  # (S, n)
+    decided = torch.zeros_like(ref[1], dtype=torch.bool)
+    for i in (3, 4, 5, 6):
+        decided |= ref[i] != kern[i]
+    flip = decided | (dq > 1e-3)
+    agree = ~flip
+    S, n = ref[1].shape
+
+    def worst(x):
+        return float(x[agree].max()) if bool(agree.any()) \
+            else float("nan")
+
+    res = {"chains": n, "window": S,
+           "flips_per_slot": flip.sum(dim=1).tolist(),
+           "flips_by_q_only": int((flip & ~decided).sum()),
+           "chains_with_a_flip": int(flip.any(dim=0).sum()),
+           "divergent_transitions": int((ref[5] > 0.5).sum()),
+           "max_dq_per_slot": [float(r[m].max()) if bool(m.any())
+                               else float("nan")
+                               for r, m in zip(dq, agree)],
+           "max_dq": worst(dq),
+           "covers": float(agree.float().mean()),
+           "max_denergy": worst((ref[7] - kern[7]).abs()),
+           "max_dlogp": worst((ref[1] - kern[1]).abs()),
+           "energy_equal_per_slot": [bool(torch.equal(a, b))
+                                     for a, b in zip(ref[7], kern[7])],
+           "bitwise": all(torch.equal(a, b) for a, b in zip(ref, kern))}
+    res["flips"] = max(res["flips_per_slot"])
+    if max_flips is None:
+        max_flips = max(1, n * MAX_FLIPS // 1024)
+    res["passed"] = bool(res["flips"] <= max_flips
+                         and not res["max_denergy"] > max_denergy
+                         and not res["max_dq"] > max_dq)
+    return res
+
+
+def window_bar(spreads, n):
+    """The bar of a slot-by-slot K2 comparison from the spread of plain
+    versions on the same slots (`spreads`: `compare_window` results of
+    pairs of plain versions): K1's bar, or twice the widest spread where
+    that is larger, for the flips in a slot, the energy and q (the rule of
+    K1's bar at the generic state, PERF.md)."""
+    def twice(key):
+        vals = [r[key] for r in spreads if not math.isnan(r[key])]
+        return 2.0 * max(vals, default=0.0)
+
+    return {"max_flips": max(max(1, n * MAX_FLIPS // 1024),
+                             int(twice("flips"))),
+            "max_denergy": max(MAX_DENERGY, twice("max_denergy")),
+            "max_dq": max(MAX_DQ, twice("max_dq"))}
+
+
+def window_rows(device):
+    """(label, flow, q, inv_mass, eps, depth, window, seed) of the K2
+    comparison on seeded flows: the bench widths (phase 4's flow) at
+    S = 32, the seeded arqs flow of phase 5 at S = 4, and both kernels at
+    d = 32 and d = 256, all at eps WINDOW_EPS; the post-warmup states are
+    added by `main`."""
+    import torch
+
+    def start(n, d, seed, unit):
+        g = torch.Generator().manual_seed(seed)
+        q = torch.randn((n, d), generator=g)
+        im = torch.ones(d) if unit else 0.5 + torch.rand(d, generator=g)
+        return q.to(device), im.to(device)
+
+    rows = [("bench", bench_flow_with_random_head(device, 2),
+             *start(N_CHAINS, DIM, 3, True), WINDOW_EPS, MAX_DEPTH,
+             WINDOW_SLOTS, 31),
+            ("spline bench", spline_flow_with_random_heads(device, 10 + DIM),
+             *start(N_CHAINS, DIM, 20 + DIM, True), WINDOW_EPS, MAX_DEPTH, 4,
+             32)]
+    for d, h1, h2, depth, eps, n, S in ((32, 32, 64, 5, 0.1, 256, 16),
+                                        (256, 128, 256, 4, 0.1, 128, 8)):
+        mask = tuple(j % 2 for j in range(d))
+        rows.append((f"affine d={d}", random_flow(device, d + h1, d,
+                                                  (h1, h2), mask),
+                     *start(n, d, 40 + d, False), eps, depth, S, 41 + d))
+    for d, hidden, K, nb, depth, eps, n, S in (
+            (32, (32, 64), 4, 2, 5, 0.1, 256, 8),
+            (256, (64, 128), 16, 1, 4, 0.1, 128, 4)):
+        rows.append((f"spline d={d} K={K}", spline_flow_with_random_heads(
+            device, 10 + d, dim=d, hidden=hidden, knots=K, n_blocks=nb),
+            *start(n, d, 50 + d, False), eps, depth, S, 51 + d))
+    return rows
+
+
+def window_vs_plain(device, rows, full_plain=False):
+    """K2, held slot by slot: each slot s of its window against one
+    transition from K2's own draw of slot s - 1 on slot s's columns
+    (`chain_slots(..., starts=...)`), by K1, by the plain window
+    (`window_math_torch`, one slot per call) and by K1's plain version
+    (`transition_math_torch`), under `compare_window` with `window_bar`:
+    K1's bar in every slot, or twice the widest spread of two plain
+    versions on the same slots where that is larger (the plain window
+    against K1's plain version and, on spline flows, K1's plain version
+    against the same with the whole flow's autograd gradient, as K1's bar
+    at the generic state). Whether K2 meets K1's bar itself against its
+    plain version is printed too, and how far K1 itself is from the plain
+    window on the same slots (not gated: K1 has its own phases). With
+    `full_plain` the plain window also
+    runs the whole window from q (its time is the plain version's time in
+    `timing_window`), and how far the two free-running windows part, slot
+    by slot, is printed (not gated). Each call is timed once with CUDA
+    events on the card."""
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+    from tpuflows_torch.targets import NealsFunnel
+
+    on_card = torch.device(device).type == "cuda"
+
+    def once(fn):
+        if on_card:
+            return timed(fn, 1, warmup=0)
+        t = time.perf_counter()
+        out = fn()
+        return 1e3 * (time.perf_counter() - t), out
+
+    out = []
+    for label, flow, q, im, eps, depth, S, seed in rows:
+        n, d = q.shape
+        model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=d))
+        rnd = window_randomness(device, n, d, S, depth, im, seed)
+        e = torch.as_tensor(eps, dtype=torch.float32, device=device)
+        logp_grad = nuts_cuda.plain_logp_grad(model)
+        kernel_ms, kern = once(lambda: nw.nuts_window(
+            q, *rnd, e, im, model, depth, S))
+        for t in kern:
+            if not bool(torch.isfinite(t).all()):
+                raise RuntimeError(f"K2 returned non-finite values ({label})")
+
+        def one_slot(z, *r):
+            # the plain window of one slot, its accept statistic summed
+            # again as the per-transition calls return it
+            w = nw.window_math_torch(z, *r, e, im, logp_grad, 1, depth)
+            w = [x[0] for x in w]
+            w[2] = w[2] * torch.clamp(w[3], min=1.0)
+            return w
+
+        def slots(step):
+            return nw.chain_slots(step, q, *rnd, S, depth, starts=kern[0])
+
+        k1 = slots(lambda z, *r: nuts_cuda.nuts_transition(
+            z, *r, e, im, model, depth))
+        plain_ms, plain = once(lambda: slots(one_slot))
+        transition = slots(lambda z, *r: nuts_cuda.transition_math_torch(
+            z, *r, e, im, logp_grad, depth))
+        spreads = {"plain_spread": compare_window(
+            transition, plain, math.inf, math.inf, math.inf)}
+        if model.flow_p is not None:  # the whole flow's autograd gradient
+            other = slots(lambda z, *r: nuts_cuda.transition_math_torch(
+                z, *r, e, im, nuts_cuda.autograd_logp_grad(
+                    flow, model.target.log_density), depth))
+            spreads["autograd_spread"] = compare_window(
+                transition, other, math.inf, math.inf, math.inf)
+        bar = window_bar(list(spreads.values()), n)
+        vs_plain = compare_window(plain, kern, **bar)
+        vs_plain["passed_at_k1_bar"] = compare_window(plain, kern)["passed"]
+        row = {"label": label, "n": n, "d": d, "window": S, "max_depth": depth,
+               "eps": float(eps), "bar": bar, "vs_plain": vs_plain,
+               "vs_transition": compare_window(transition, kern, **bar),
+               "vs_k1": compare_window(k1, kern, **bar),
+               "k1_vs_plain": compare_window(plain, k1, math.inf, math.inf,
+                                             math.inf),
+               **spreads, "kernel_ms": kernel_ms,
+               "plain_slots_ms": plain_ms,
+               "depth_histogram": torch.bincount(
+                   kern[4].long().flatten(), minlength=depth + 1).tolist(),
+               "divergent_transitions": int(kern[5].sum())}
+        if full_plain:
+            row["plain_window_ms"], free = once(lambda: nw.window_math_torch(
+                q, *rnd, e, im, logp_grad, S, depth))
+            row["free_running_vs_plain"] = compare_window(
+                free, kern, math.inf, math.inf, math.inf)
+        row["bitwise_k1"] = row["vs_k1"]["bitwise"]
+        row["passed"] = all(row[k]["passed"] for k in
+                            ("vs_plain", "vs_transition", "vs_k1"))
+        out.append(row)
+    return out
+
+
+def main_path_window(device, variant, flow, n_chains=N_CHAINS,
+                     num_warmup=NUM_WARMUP, window=DRAW_WINDOW,
+                     max_windows=MAX_WINDOWS, ess_gate=ESS_GATE,
+                     slots=WINDOW_SLOTS):
+    """bench.py's window path on a trained flow of `main_path`:
+    `NUTSDriver(transition=K1, window_transition=K2)`, warmup through K1
+    and draws through K2 in windows of `slots` transitions, under the main
+    paths' gates. The launch counts are set to 0 before: K1's must equal
+    the warmup steps, K2's the draws / `slots` (0 on the CPU), and K4/K5
+    (spline flows on the K4/K5 tier) launch only the data-space mapping's
+    inverses."""
+    import torch
+    from tpuflows_torch.flows import RQSCouplingBlock
+    from tpuflows_torch.kernels import (coupling_cuda, nuts_cuda,
+                                        nuts_window_cuda, rqs_cuda)
+    from tpuflows_torch.mcmc import NUTSDriver
+    from tpuflows_torch.mcmc.preconditioned import _CHUNK
+    from tpuflows_torch.targets import NealsFunnel
+
+    on_card = torch.device(device).type == "cuda"
+    dim = flow.transforms[0].loc.numel()
+    target = NealsFunnel(dim=dim)
+    nuts_cuda.LAUNCHES = 0
+    nuts_window_cuda.LAUNCHES = 0
+    rqs_cuda.reset_launches()
+    coupling_cuda.reset_launches()
+    sampler = NUTSDriver(
+        transition=nuts_cuda.fused_nuts_for_flow(target, flow,
+                                                 max_depth=MAX_DEPTH),
+        window_transition=nuts_window_cuda.fused_nuts_window_for_flow(
+            target, flow, window=slots, max_depth=MAX_DEPTH))
+    gated, _, mapped_rows = nuts_gated(
+        device, sampler, flow, target, f"{variant} window", n_chains,
+        num_warmup, window, max_windows, ess_gate)
+    inverse_calls = sum(-(-r // _CHUNK) for r in mapped_rows)
+    k4_tier = any(isinstance(t, RQSCouplingBlock) and t.use_pallas != "fused"
+                  for t in flow.transforms)
+    n_rqs = sum(isinstance(t, RQSCouplingBlock) for t in flow.transforms)
+    per = n_rqs if on_card and k4_tier else 0
+    return {
+        "variant": variant, "window_slots": slots, **gated,
+        "warmup_ms_per_transition": 1e3 * gated["warmup_time_s"]
+        / num_warmup,
+        "draw_ms_per_transition": 1e3 * gated["draw_time_s"]
+        / gated["n_draws"],
+        "k1_launches": nuts_cuda.LAUNCHES,
+        "k1_launches_expected": num_warmup if on_card else 0,
+        "k2_launches": nuts_window_cuda.LAUNCHES,
+        "k2_launches_expected": gated["n_draws"] // slots if on_card else 0,
+        "rqs_launches": dict(rqs_cuda.LAUNCHES),
+        "rqs_launches_expected": {"k4_forward": 0,
+                                  "k4_inverse": per * inverse_calls,
+                                  "k5_forward": 0, "k5_inverse": 0},
+        "coupling_launches": dict(coupling_cuda.LAUNCHES),
+    }
+
+
+def check_window(res):
+    name = f"{res['variant']} window"
+    if not res["converged"]:
+        raise RuntimeError(f"{name}: convergence gate failed: max "
+                           f"split-R-hat {res['max_rhat']}, min ESS "
+                           f"{res['min_ess']}")
+    for k in ("k1", "k2"):
+        if res[f"{k}_launches"] != res[f"{k}_launches_expected"]:
+            raise RuntimeError(f"{name}: {k.upper()} launched "
+                               f"{res[f'{k}_launches']} times, the path "
+                               f"implies {res[f'{k}_launches_expected']}")
+    if res["rqs_launches"] != res["rqs_launches_expected"] or any(
+            res["coupling_launches"].values()):
+        raise RuntimeError(f"{name}: K4/K5 launched {res['rqs_launches']} "
+                           f"(expected {res['rqs_launches_expected']}), "
+                           f"K6/K7 {res['coupling_launches']}")
+    if not res["moment_check_passed"]:
+        raise RuntimeError(f"{name}: v's draws fail the moment check: "
+                           f"{res}")
+
+
+def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
+                graph_reps=5, graph_replays=2, seed=8):
+    """K2 at a main path's post-warmup state with CUDA events, launched
+    from the host and replayed from a CUDA graph (`graph_ms`), on the
+    randomness of its `window_vs_plain` row; per transition beside K1's
+    time there (`k1_ms`, from `time_kernel`), beside the bound of the work
+    and the plain version's time (`plain_ms`, from `window_vs_plain`).
+    The work: one latent gradient per chain at the window's start and one
+    per leapfrog, each the MLPs' forward and input-gradient backward
+    (`mlp_flops`); the bytes: q, the window's randomness, the flow's
+    parameters and masks in, the draws and the info out."""
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+    from tpuflows_torch.targets import NealsFunnel
+
+    q, eps, im = state.q.contiguous(), state.step_size, state.inv_mass
+    n, d = q.shape
+    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=d))
+    rnd = window_randomness(q.device, n, d, slots, MAX_DEPTH, im, seed)
+
+    def fn():
+        return nw.nuts_window(q, *rnd, eps, im, model, MAX_DEPTH, slots)
+
+    ms, out = timed(fn, n_reps, warmup=1)
+    gradients = float(out[3].sum()) + n
+    flops = gradients * mlp_flops(model)
+    flow_floats = (sum(p.numel() for p in flow.parameters())
+                   + d * sum(1 for t in flow.transforms
+                             if hasattr(t, "mask")))
+    D = MAX_DEPTH
+    nbytes = 4.0 * (n * d + n * slots * (d + 2 * D + (1 << D)) + 1 + d
+                    + flow_floats + slots * n * d + 7 * slots * n)
+    bound_ms, bound_by = _bound(flops, nbytes)
+    return {"n": n, "d": d, "window": slots, "ms": ms,
+            "device_ms": graph_ms(fn, reps=graph_reps,
+                                  replays=graph_replays),
+            "ms_per_transition": ms / slots,
+            "k1_ms_per_transition": k1_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": nbytes, "gradients": gradients,
+            "leapfrogs_per_transition": (gradients - n) / (n * slots),
+            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+
+
 def flow_specs(flow):
     """A flow's modules as `convert.flow_from_jax_modules` dicts (numpy
     leaves and static fields), for the JAX package on the CPU."""
@@ -1551,7 +1929,8 @@ def main(argv=None):
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from tpuflows_torch.kernels import (coupling_cuda, cuda_build,
-                                        fused_logp_cuda, nuts_cuda, rqs_cuda)
+                                        fused_logp_cuda, nuts_cuda,
+                                        nuts_window_cuda, rqs_cuda)
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -1563,7 +1942,8 @@ def main(argv=None):
 
     t = time.perf_counter()
     infos = cuda_build.build(nuts_cuda.LIBRARY, rqs_cuda.LIBRARY,
-                             coupling_cuda.LIBRARY, fused_logp_cuda.LIBRARY)
+                             coupling_cuda.LIBRARY, fused_logp_cuda.LIBRARY,
+                             nuts_window_cuda.LIBRARY)
     emit("build", t,
          nvcc_seconds=max(i.seconds for i in infos.values()),
          libraries=[i.path for i in infos.values()],
@@ -1704,6 +2084,46 @@ def main(argv=None):
         r["library_ms"] = None
     emit("timing_fused_logp", t, **k3_tim)
 
+    t = time.perf_counter()
+    win_rows = window_vs_plain(device, window_rows(device)) + \
+        window_vs_plain(device, [
+            (f"{variant} post-warmup state", vflow, st.q.contiguous(),
+             st.inv_mass, st.step_size, MAX_DEPTH, WINDOW_SLOTS, 8)
+            for variant, vflow, st in (("ceiling", flow, warm_state),
+                                       ("generic", gflow, gstate))],
+            full_plain=True)
+    emit("window_vs_plain", t, rows=win_rows,
+         bar={"flips": MAX_FLIPS, "denergy": MAX_DENERGY, "dq": MAX_DQ,
+              "rule": "window_bar: per slot, each slot from K2's own "
+                      "previous draw; the larger of these and twice the "
+                      "spread of the two plain versions, per row"})
+    bad = [r for r in win_rows if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"K2 disagrees with its plain version or with "
+                           f"K1, slot by slot: {bad}")
+
+    window_paths = {}
+    for variant, vflow, phase in (("ceiling", flow, "main_path_window"),
+                                  ("generic", gflow,
+                                   "main_path_window_generic")):
+        t = time.perf_counter()
+        window_paths[variant] = main_path_window(device, variant, vflow)
+        emit(phase, t, **window_paths[variant])
+        check_window(window_paths[variant])
+
+    t = time.perf_counter()
+    plain_at = {r["label"].split()[0]: r["plain_window_ms"]
+                for r in win_rows if "plain_window_ms" in r}
+    k2_tim = {"ceiling": time_window(flow, warm_state, tim["ms"],
+                                     plain_at["ceiling"]),
+              "generic": time_window(gflow, gstate, gtim["ms"],
+                                     plain_at["generic"], n_reps=3,
+                                     graph_reps=2, graph_replays=1)}
+    for variant, r in k2_tim.items():
+        r["launches_main_path"] = window_paths[variant]["k2_launches"]
+        r["library_ms"] = None
+    emit("timing_window", t, **k2_tim)
+
     k1 = "src/tpuflows/kernels/nuts_pallas.py:407"
     kernels = [{
         "name": "nuts_transition (affine)", "route": "cuda",
@@ -1773,6 +2193,21 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    for variant, name, label in (
+            ("ceiling", "nuts_window (affine)", "bench"),
+            ("generic", "nuts_window (module list, spline)",
+             "spline bench")):
+        r = k2_tim[variant]
+        row = next(x for x in win_rows if x["label"] == label)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/tpuflows_torch/csrc/nuts_window.cu",
+            "replaces": "src/tpuflows/kernels/nuts_pallas.py:831",
+            "launches": window_paths[variant]["k2_launches"],
+            "max_abs_err": row["vs_plain"]["max_dq"],
+            "max_abs_err_covers": row["vs_plain"]["covers"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"total_seconds": time.perf_counter() - T0}),
           flush=True)
     print(smi, flush=True)

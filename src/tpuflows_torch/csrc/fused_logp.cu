@@ -28,12 +28,14 @@
 // the launch opts in).
 //
 // Bound on this card: operations. A row costs one forward and one
-// input-gradient backward of every conditioner MLP, 2 x 2 x (d h1 + h1 h2
-// + h2 n_out) flops each: 164 k for the ceiling flow (0.17 GFLOP per 1024
-// rows, 2.5 us at 67 TFLOP/s float32) and 3.05 M for the generic arqs flow
-// (3.1 GFLOP, 47 us). Its bytes (z in, lp and g out, the weights once,
-// 0.8-6.5 MB) take under 2 us at 3.35 TB/s. One warp per row runs the
-// products on the float32 FMA pipes with every weight read from L2 for
+// input-gradient backward of every conditioner MLP, counted over the work
+// that reaches lp or g (`chip_smoke.mlp_flops`: W1 over the mask's
+// pass-through inputs, W3 over the transformed dims' head columns): 0.1306
+// MFLOP for the ceiling flow (0.134 GFLOP per 1024 rows, 2.00 us at 67
+// TFLOP/s float32) and 1.720 MFLOP for the generic arqs flow (1.76 GFLOP,
+// 26.3 us). Its bytes (z in, lp and g out, the flow's parameters and masks
+// once, 0.69-3.6 MB) take 0.2-1.1 us at 3.35 TB/s. One warp per row runs
+// the products on the float32 FMA pipes with every weight read from L2 for
 // each row, far from that bound, as K1 is; tiles of rows sharing their
 // weight reads (in shared memory, on the tensor cores) are later work.
 // PERF.md keeps its measured time beside the bound.

@@ -36,13 +36,18 @@
 //  * A divergent leaf's non-finite q, p and g are zeroed (the plain
 //    version, `transition_math_torch`, does the same).
 //
-// Bound on this card: operations. Each leapfrog costs one forward and one
-// input-gradient backward of every conditioner MLP, 2 x 2 x (d h1 + h1 h2 +
-// h2 n_out) flops each (164 k for the affine flow at the bench shape,
-// 3.05 M for the arqs flow), while a transition moves only q in and out
-// plus its random inputs (about 1 KB per chain). This kernel runs its
-// products on the float32 FMA pipes at one chain per warp, far from that
-// bound; PERF.md keeps its measured time beside the bound.
+// Bound on this card: operations. Each leapfrog costs one latent gradient:
+// one forward and one input-gradient backward of every conditioner MLP,
+// counted over the work that reaches lp or g (`chip_smoke.mlp_flops`): W1
+// over the mask's pass-through inputs (the conditioner sees z * mask), W3
+// over the transformed dims' head columns. That is 0.1306 MFLOP for the
+// affine flow at the bench shape and 1.720 MFLOP for the generic arqs flow;
+// at the trained post-warmup states a transition of 1024 chains takes about
+// 8,190 gradients, 1.07 / 14.09 GFLOP, 0.0160 / 0.210 ms at 67 TFLOP/s
+// float32, while it moves only q in and out plus its random inputs (about
+// 1 KB per chain). This kernel runs its products on the float32 FMA pipes
+// at one chain per warp, far from that bound; PERF.md keeps its measured
+// time beside the bound.
 
 #include "latent_grad.cuh"
 
@@ -69,43 +74,7 @@ namespace {
 
 using tpuflows_nuts::kMaxDepth;
 
-__device__ __forceinline__ float logaddexp(float a, float b) {
-  const float delta = a - b;
-  if (isnan(delta)) return a + b;  // both -inf
-  return fmaxf(a, b) + log1pf(expf(-fabsf(delta)));
-}
-
-template <int DPL>
-__device__ __forceinline__ float kinetic(const float (&p)[DPL],
-                                         const float (&im)[DPL]) {
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) s += p[j] * p[j] * im[j];
-  return 0.5f * warp_sum(s);
-}
-
-// generalized U-turn: rho . M^-1 p <= 0 at either end
-template <int DPL>
-__device__ __forceinline__ bool is_turning(const float (&pl)[DPL],
-                                           const float (&pr)[DPL],
-                                           const float (&rho)[DPL],
-                                           const float (&im)[DPL]) {
-  float sl = 0.0f, sr = 0.0f;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const float v = rho[j] * im[j];
-    sl += v * pl[j];
-    sr += v * pr[j];
-  }
-  return warp_sum(sl) <= 0.0f || warp_sum(sr) <= 0.0f;
-}
-
-template <int DPL>
-__device__ __forceinline__ void copy(float (&dst)[DPL],
-                                     const float (&src)[DPL]) {
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) dst[j] = src[j];
-}
+#include "nuts_tree.cuh"
 
 template <int DPL>
 __global__ void __launch_bounds__(32) nuts_transition_kernel(Args a) {

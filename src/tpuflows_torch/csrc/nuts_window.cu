@@ -1,0 +1,299 @@
+// K2 of tpuflows_torch: a window of S sequential multinomial-NUTS
+// transitions per chain in one launch.
+//
+// Replaces the Pallas kernel `make_fused_nuts_window`
+// (src/tpuflows/kernels/nuts_pallas.py:744, pallas_call at :831), built by
+// `fused_nuts_window_for_flow` (:883), over Neal's funnel. It computes the S
+// transitions that `_window_math` (nuts_pallas.py:463-741) computes, under
+// the same precomputed-randomness contract: per chain, slot s takes its
+// momenta from p0c columns s d .., its direction signs and acceptance
+// uniforms from dirs / u_acc columns s D .. and its leaf uniforms from
+// u_take columns s 2^D .. (D = depth), and starts where slot s - 1's
+// proposal ended. The plain PyTorch version is `window_math_torch` in
+// kernels/nuts_window_cuda.py.
+//
+// Design (the simple one; wgmma, TMA and a tiled MLP wait for later work).
+// `_window_math` is a tick machine because on a TPU a tile of chains runs
+// in lockstep; K1 already runs one warp per chain with no lockstep
+// (nuts_transition.cu), so this kernel does not carry the ticks over:
+//  * One warp per chain, one warp per block, loops over the S slots
+//    (`window_slots`). Each slot runs K1's tree code (nuts_tree_body.inc,
+//    the same tokens, with its hooks set to the slot's columns) and writes
+//    its draw to row (s, chain) of the slot-major (S, n, d) output and its
+//    7 info values to info[:, s, chain] ((7, S, n)).
+//  * Between slots the warp keeps the proposal's q, lp and g in registers:
+//    the tree code keeps q_prop and lp_prop, and the hooks carry the
+//    proposal's gradient beside them (st_gp for a subtree, g_prop for the
+//    transition). A window computes the gradient at its start point once;
+//    every later slot starts from the carried lp and g, which are the
+//    gradient code's own output at that point. The affine window equals S
+//    chained K1 launches on the slot columns bit for bit. The module-list
+//    window equals K1 in slot 0; a later slot, held against one K1 launch
+//    from the window's own previous draw, has K1's energy to the bit (so
+//    the carried lp is K1's) and a draw that differs at rounding level.
+//    The only other state a slot starts from is the carried g, so that g
+//    differs from K1's at rounding level: the leaf's call of the gradient
+//    (inlined into the tree code, apart from its per-module functions) and
+//    K1's call at its start point round it differently, while their lp
+//    agree (chip_smoke.py, window_vs_plain; no SASS compared).
+//    Both differ from `_window_math` at rounding level only: that machine
+//    sums the accept statistic per leaf and writes its state through
+//    masked blends b + m (a - b).
+//  * Both of K1's gradients (latent_grad.cuh, unchanged): the affine flow
+//    (`nuts_window_kernel`) and the module list (`nuts_window_chain_kernel`),
+//    with K1's dynamic shared memory per warp.
+//
+// Bound on this card: operations, as K1: one latent gradient per leapfrog
+// plus one per chain per window at its start (`chip_smoke.mlp_flops` per
+// gradient: 0.1306 MFLOP for the affine flow at the bench shape, 1.720
+// MFLOP for the generic arqs flow), at 67 TFLOP/s float32. The bytes (q in,
+// S slots of randomness, about 5.4 KB per chain per slot at d = 64 and
+// D = 6, and S draws out) take a few microseconds at 3.35 TB/s. The
+// products run on the float32 FMA pipes at one chain per warp, far from
+// that bound; PERF.md keeps the measured time beside the bound.
+
+#include "latent_grad.cuh"
+
+// Built by kernels/nuts_window_cuda.py (`LIBRARY`, kernels/cuda_build.py)
+// as one translation unit per instantiation (-DNUTS_DPL=1..8, DPL = d / 32
+// dims per lane), all compiled in parallel, plus one unit without
+// NUTS_DPL that holds the C entry points, linked into one shared library.
+
+namespace tpuflows_window {
+
+using tpuflows_nuts::Args;
+using tpuflows_nuts::ChainList;
+
+constexpr int kMaxDepth = 10;
+
+template <int DPL>
+cudaError_t launch(const Args& a, int window, cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
+                         cudaStream_t stream);
+
+}  // namespace tpuflows_window
+
+#ifdef NUTS_DPL
+
+namespace {
+
+using tpuflows_window::kMaxDepth;
+
+#include "nuts_tree.cuh"
+
+// lp and g at a slot's start point: the previous slot's proposal, carried
+template <int DPL>
+__device__ __forceinline__ float carried(const float (&g_cur)[DPL],
+                                         float lp_cur, float (&g)[DPL]) {
+  copy<DPL>(g, g_cur);
+  return lp_cur;
+}
+
+// The window of chain `chain`: `a.p0` is p0c (n, S d), `a.dirs` and
+// `a.u_acc` (n, S D), `a.u_take` (n, S 2^D), `a.q_out` the draws (S, n, d)
+// and `a.info` (7, S, n); `grad(z, g)` is the latent gradient.
+template <int DPL, class Grad>
+__device__ __forceinline__ void window_slots(const Args& a, int window,
+                                             int chain, int lane,
+                                             const Grad& grad) {
+#define NUTS_LOGP_GRAD(z, g) grad(z, g)
+  float q_cur[DPL], g_cur[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j)
+    q_cur[j] = __ldg(a.q + (size_t)chain * a.d + lane + 32 * j);
+  float lp_cur = NUTS_LOGP_GRAD(q_cur, g_cur);
+  for (int w = 0; w < window; ++w) {
+    // the proposal's gradient: the subtree's (st_gp) and the transition's
+    float st_gp[DPL], g_prop[DPL];
+    copy<DPL>(st_gp, g_cur);
+    copy<DPL>(g_prop, g_cur);
+#define NUTS_ROW (chain * window + w)
+#define NUTS_Q0(j, i) q_cur[j]
+#define NUTS_LOGP_GRAD0(z, g) carried<DPL>(g_cur, lp_cur, g)
+#define NUTS_TAKE_LEAF copy<DPL>(st_gp, g_new);
+#define NUTS_TAKE_SUBTREE copy<DPL>(g_prop, st_gp);
+#define NUTS_OUT_ROW (w * a.n + chain)
+#define NUTS_INFO_STRIDE (window * a.n)
+#include "nuts_tree_body.inc"
+    copy<DPL>(q_cur, q_prop);
+    copy<DPL>(g_cur, g_prop);
+    lp_cur = lp_prop;
+  }
+#undef NUTS_LOGP_GRAD
+}
+
+template <int DPL>
+struct AffineGrad {  // Standardize + one AffineCoupling (`logp_grad`)
+  const Args& a;
+  const Net& t;
+  float* smem;
+  int lane;
+  __device__ __forceinline__ float operator()(const float (&z)[DPL],
+                                              float (&g)[DPL]) const {
+    return logp_grad<DPL>(a, t, smem, z, g, lane);
+  }
+};
+
+template <int DPL>
+struct ChainGrad {  // a module list (`chain_logp_grad`)
+  const Args& a;
+  const ChainList& c;
+  float* smem;
+  int lane;
+  __device__ __forceinline__ float operator()(const float (&z)[DPL],
+                                              float (&g)[DPL]) const {
+    return chain_logp_grad<DPL>(a, c, smem, z, g, lane);
+  }
+};
+
+template <int DPL>
+__global__ void __launch_bounds__(32) nuts_window_kernel(Args a,
+                                                         int window) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  const Net t = unpack(a);
+  window_slots<DPL>(a, window, blockIdx.x, lane,
+                    AffineGrad<DPL>{a, t, smem, lane});
+}
+
+template <int DPL>
+__global__ void __launch_bounds__(32) nuts_window_chain_kernel(Args a,
+                                                               ChainList c,
+                                                               int window) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x;
+  window_slots<DPL>(a, window, blockIdx.x, lane,
+                    ChainGrad<DPL>{a, c, smem, lane});
+}
+
+}  // namespace
+
+namespace tpuflows_window {
+
+template <int DPL>
+cudaError_t launch(const Args& a, int window, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (6 * a.d + 3 * a.h1 + 3 * a.h2);
+  nuts_window_kernel<DPL><<<a.n, 32, smem, stream>>>(a, window);
+  return cudaGetLastError();
+}
+
+template <int DPL>
+cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
+                         cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head);
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_window_chain_kernel<DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  nuts_window_chain_kernel<DPL><<<a.n, 32, smem, stream>>>(a, c, window);
+  return cudaGetLastError();
+}
+
+template cudaError_t launch<NUTS_DPL>(const Args&, int, cudaStream_t);
+template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
+                                           int, cudaStream_t);
+
+}  // namespace tpuflows_window
+
+#else  // the C entry points
+
+namespace {
+
+bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+
+// Args of a window launch; the shapes are checked by the caller.
+tpuflows_nuts::Args window_args(const void* q, const void* p0c,
+                                const void* dirs, const void* u_acc,
+                                const void* u_take, const void* eps,
+                                const void* inv_mass, const void* params,
+                                int n, int d, int depth, float sigma_v,
+                                float max_delta_energy, void* draws,
+                                void* info) {
+  tpuflows_nuts::Args a;
+  a.q = static_cast<const float*>(q);
+  a.p0 = static_cast<const float*>(p0c);
+  a.dirs = static_cast<const float*>(dirs);
+  a.u_acc = static_cast<const float*>(u_acc);
+  a.u_take = static_cast<const float*>(u_take);
+  a.eps = static_cast<const float*>(eps);
+  a.inv_mass = static_cast<const float*>(inv_mass);
+  a.params = static_cast<const float*>(params);
+  a.n = n; a.d = d; a.h1 = 0; a.h2 = 0; a.depth = depth;
+  a.clamp = 0.0f; a.sigma_v = sigma_v; a.max_delta_energy = max_delta_energy;
+  a.q_out = static_cast<float*>(draws);
+  a.info = static_cast<float*>(info);
+  return a;
+}
+
+}  // namespace
+
+// The affine flow (nuts_window_kernel): Standardize + one AffineCoupling,
+// leaves packed as K1's `Net`. draws (window, n, d), info (7, window, n):
+// lp, sum_accept, n_steps, depth, diverging, turning, h0 of every slot.
+// Returns a cudaError_t (0 = launched). Shapes are checked again here; the
+// Python wrapper checks device, dtype and contiguity before calling.
+extern "C" int nuts_window_f32(
+    const void* q, const void* p0c, const void* dirs, const void* u_acc,
+    const void* u_take, const void* eps, const void* inv_mass,
+    const void* params, int n, int d, int h1, int h2, int depth, int window,
+    float clamp, float sigma_v, float max_delta_energy, void* draws,
+    void* info, void* stream) {
+  using namespace tpuflows_window;
+  if (n < 1 || !width_ok(d) || !width_ok(h1) || !width_ok(h2) || depth < 1 ||
+      depth > kMaxDepth || window < 1 || (long long)n * window > (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass, params, n,
+                       d, depth, sigma_v, max_delta_energy, draws, info);
+  a.h1 = h1; a.h2 = h2; a.clamp = clamp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch<1>(a, window, s);
+    case 2: return (int)launch<2>(a, window, s);
+    case 3: return (int)launch<3>(a, window, s);
+    case 4: return (int)launch<4>(a, window, s);
+    case 5: return (int)launch<5>(a, window, s);
+    case 6: return (int)launch<6>(a, window, s);
+    case 7: return (int)launch<7>(a, window, s);
+    default: return (int)launch<8>(a, window, s);
+  }
+}
+
+// A module list (nuts_window_chain_kernel), as K1's
+// nuts_chain_transition_f32 takes it. Returns a cudaError_t.
+extern "C" int nuts_chain_window_f32(
+    const void* q, const void* p0c, const void* dirs, const void* u_acc,
+    const void* u_take, const void* eps, const void* inv_mass,
+    const void* params, const void* mods, int n_mods, int n, int d,
+    int hmax, int head, int depth, int window, float sigma_v,
+    float max_delta_energy, void* draws, void* info, void* stream) {
+  using namespace tpuflows_window;
+  if (n < 1 || !width_ok(d) || n_mods < 1 ||
+      n_mods > tpuflows_nuts::kMaxModules ||
+      (hmax != 0 && !width_ok(hmax)) || head < 0 || head % 32 != 0 ||
+      depth < 1 || depth > kMaxDepth || window < 1 ||
+      (long long)n * window > (1 << 30))
+    return (int)cudaErrorInvalidValue;
+  const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
+                             params, n, d, depth, sigma_v, max_delta_energy,
+                             draws, info);
+  ChainList c;
+  c.mods = static_cast<const int*>(mods);
+  c.n_mods = n_mods; c.hmax = hmax; c.head = head;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_chain<1>(a, c, window, s);
+    case 2: return (int)launch_chain<2>(a, c, window, s);
+    case 3: return (int)launch_chain<3>(a, c, window, s);
+    case 4: return (int)launch_chain<4>(a, c, window, s);
+    case 5: return (int)launch_chain<5>(a, c, window, s);
+    case 6: return (int)launch_chain<6>(a, c, window, s);
+    case 7: return (int)launch_chain<7>(a, c, window, s);
+    default: return (int)launch_chain<8>(a, c, window, s);
+  }
+}
+
+#endif  // NUTS_DPL

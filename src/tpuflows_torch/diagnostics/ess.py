@@ -3,7 +3,8 @@
 Cross-chain ESS (Stan / Vehtari et al. 2021): FFT autocovariances over the
 draw axis for all (chain, dim) series at once, the multi-chain (W, B)
 variance decomposition, and Geyer's initial monotone positive sequence,
-written branch-free.
+written branch-free. `importance_weight_ess` is the Kish ESS of importance
+weights (SMC and the adaptive loop's stopping rule).
 """
 from __future__ import annotations
 
@@ -49,3 +50,16 @@ def effective_sample_size(samples: torch.Tensor) -> torch.Tensor:
     tau = torch.clamp(tau, min=1.0 / math.log10(float(n * m) + 10.0))
     return (n * m) / tau
 
+
+
+def importance_weight_ess(log_weights: torch.Tensor, axis=None):
+    """Kish ESS of (log) importance weights: (sum w)^2 / sum w^2, over all
+    entries (`axis=None`) or along `axis`."""
+    if axis is None:
+        w = torch.exp(log_weights - torch.max(log_weights))
+        s1, s2 = torch.sum(w), torch.sum(w * w)
+    else:
+        lw = log_weights - torch.amax(log_weights, dim=axis, keepdim=True)
+        w = torch.exp(lw)
+        s1, s2 = torch.sum(w, dim=axis), torch.sum(w * w, dim=axis)
+    return s1 * s1 / s2

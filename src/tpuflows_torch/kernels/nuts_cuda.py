@@ -78,8 +78,8 @@ def _bind(lib):
 
 
 LIBRARY = CudaLibrary("nuts_transition", "nuts_transition.cu", _UNITS,
-                      ["latent_grad.cuh", "nuts_tree_body.inc",
-                       "rqs_math.cuh"], _bind)
+                      ["latent_grad.cuh", "nuts_tree.cuh",
+                       "nuts_tree_body.inc", "rqs_math.cuh"], _bind)
 
 
 def _float_bits(x: float) -> int:
@@ -216,21 +216,30 @@ def transition_math_torch(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                                 zero_nonfinite=True)
 
 
-def _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
-                  max_depth):
+def check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
+                  max_depth, window=1, out=None):
+    """Shapes, dtypes and devices of K1's inputs, and of K2's for a
+    window of `window` slots: then p0, dirs, u_acc and u_take are `window`
+    times as wide (slot-major in each row) and the draws go to `out`
+    (window, n, d) when it is given."""
     if not 1 <= max_depth <= MAX_DEPTH:
         raise ValueError(f"max_depth must be in [1, {MAX_DEPTH}], got "
                          f"{max_depth}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if q.ndim != 2:
         raise ValueError(f"q must be (n, d), got {tuple(q.shape)}")
     n, d = q.shape
     if d != model.d:
         raise ValueError(f"q has width {d}, the flow takes {model.d}")
-    want = {"q": (n, d), "p0": (n, d), "dirs": (n, max_depth),
-            "u_acc": (n, max_depth), "u_take": (n, 1 << max_depth),
-            "eps": (), "inv_mass": (d,)}
+    S, D = window, max_depth
+    want = {"q": (n, d), "p0": (n, S * d), "dirs": (n, S * D),
+            "u_acc": (n, S * D), "u_take": (n, S << D), "eps": (),
+            "inv_mass": (d,)}
     got = {"q": q, "p0": p0, "dirs": dirs, "u_acc": u_acc,
            "u_take": u_take, "eps": eps, "inv_mass": inv_mass}
+    if out is not None:
+        got["out"], want["out"] = out, (S, n, d)
     for name, t in got.items():
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got "
@@ -239,6 +248,18 @@ def _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def check_launch(q, tensors, model: PackedFlow):
+    """Raises unless the kernel takes the packed flow's widths, every one
+    of `tensors` is contiguous and the packed flow is on q's device (K1's
+    and K2's launches)."""
+    check_widths(model)
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("the kernel takes contiguous tensors")
+    if model.params.device != q.device or model.mods.device != q.device:
+        raise ValueError("the packed flow is on another device than q")
 
 
 def smem_bytes(model: PackedFlow) -> int:
@@ -266,13 +287,8 @@ def check_widths(model: PackedFlow):
 def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth):
     global LAUNCHES
     n, d = q.shape
-    check_widths(model)
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
-    for t in ins:
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors")
-    if model.params.device != q.device or model.mods.device != q.device:
-        raise ValueError("the packed flow is on another device than q")
+    check_launch(q, ins, model)
     lib = LIBRARY.load()
     q_out = torch.empty_like(q)
     info = torch.empty((7, n), device=q.device, dtype=torch.float32)
@@ -313,7 +329,7 @@ def nuts_transition(q, p0, dirs, u_acc, u_take, eps, inv_mass,
 
     A CPU tensor runs `transition_math_torch` with `plain_logp_grad`; a
     CUDA tensor launches K1. Same returns as `transition_math_torch`."""
-    _check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
+    check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth)
     if q.device.type == "cpu":
         return transition_math_torch(q, p0, dirs, u_acc, u_take, eps,

@@ -234,6 +234,31 @@ def draw_randomness(generator: torch.Generator, n: int, d: int,
     return p0, dirs, u_acc, u_take
 
 
+def draw_window_randomness(generator: torch.Generator, n: int, d: int,
+                           window: int, max_depth: int,
+                           inv_mass: torch.Tensor):
+    """(p0c, dirs, u_acc, u_take) for `window` sequential transitions of n
+    chains, in the layout of the JAX package's window kernel
+    (`make_fused_nuts_window`): slot-major inside each chain's row, so
+    slot s owns p0c columns s d .. (s + 1) d - 1, dirs and u_acc columns
+    s D .. (s + 1) D - 1 and u_take columns s 2^D .. (s + 1) 2^D - 1
+    (D = max_depth). p0c (n, window d) is already scaled to N(0, M); as in
+    the JAX package the momenta are `normal * (1 / sqrt(inv_mass))`, which
+    rounds differently from `draw_randomness`'s `normal / sqrt(inv_mass)`.
+    Drawn on `inv_mass`'s device, which must be the generator's."""
+    dev = inv_mass.device
+    D, L = max_depth, 1 << max_depth
+    inv_sqrt = 1.0 / torch.sqrt(inv_mass)
+    p0c = (torch.randn((n, window, d), generator=generator, device=dev)
+           * inv_sqrt).reshape(n, window * d)
+    dirs = torch.where(
+        torch.rand((n, window * D), generator=generator, device=dev) < 0.5,
+        1.0, -1.0)
+    u_acc = torch.rand((n, window * D), generator=generator, device=dev)
+    u_take = torch.rand((n, window * L), generator=generator, device=dev)
+    return p0c, dirs, u_acc, u_take
+
+
 class NUTSKernel:
     """`transition(generator, q (n, d), eps, inv_mass) -> (q_new,
     NUTSInfo)`, the batched transition `make_nuts_kernel` returns.

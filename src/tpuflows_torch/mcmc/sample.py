@@ -22,10 +22,17 @@ with one pooled step size. Step sizes are pooled by default; with
 `per_chain_step_size=True` every dual-averaging leaf is (n_chains,) and the
 accept statistic is not pooled.
 
+`window_transition=` (K2,
+`kernels.nuts_window_cuda.fused_nuts_window_for_flow`) takes over the draw
+phase: each call runs a window of S transitions of every chain and writes
+its draws straight into the run's output, and the next call continues from
+the last draw. Warmup keeps the per-transition path, since dual averaging
+pools the accept statistic between transitions. The draws come from
+another random stream than the per-transition path's.
+
 Left out of the port: `jit` and `chunk_size` (eager PyTorch compiles
-nothing and runs no device program whose length needs bounding),
-`axis_name` (waits for `dist/`, ROADMAP Queue 1 item 11) and
-`window_transition=` (waits for K2, ROADMAP Queue 2).
+nothing and runs no device program whose length needs bounding) and
+`axis_name` (waits for `dist/`, ROADMAP Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -90,14 +97,30 @@ class NUTSDriver:
     transition (`kernels.nuts_cuda.fused_nuts_for_flow`) that draws its
     own randomness from `generator` and takes one pooled 0-d `eps`, so it
     refuses `per_chain_step_size`. `log_density` is required unless
-    `transition` is given."""
+    `transition` is given.
+
+    `window_transition(generator, q, eps, inv_mass, out) -> (draws (S, n,
+    d), NUTSInfo with (S, n) fields)`, S its `.window`, writes S draws of
+    every chain into `out` (S, n, d) per call
+    (`kernels.nuts_window_cuda.fused_nuts_window_for_flow`); when given,
+    `draws` runs through it and `num_samples` must be a multiple of S.
+    Pooled step size only."""
 
     def __init__(self, log_density: Callable | None = None,
                  max_depth: int = 8, target_accept: float = 0.8,
                  adapt_mass: bool = True, per_chain_step_size: bool = False,
                  warmup_schedule: str = "single",
                  logp_and_grad: Callable | None = None,
-                 transition: Callable | None = None):
+                 transition: Callable | None = None,
+                 window_transition: Callable | None = None):
+        if window_transition is not None:
+            if per_chain_step_size:
+                raise ValueError("window_transition= (batched kernel) "
+                                 "requires pooled step size")
+            if getattr(window_transition, "window", None) is None:
+                raise ValueError("window_transition must expose its window "
+                                 "size as a `.window` attribute "
+                                 "(fused_nuts_window_for_flow does)")
         if transition is not None:
             if per_chain_step_size:
                 raise ValueError("transition= (batched kernel) requires "
@@ -111,6 +134,7 @@ class NUTSDriver:
         if warmup_schedule not in ("single", "stan"):
             raise ValueError(f"unknown warmup_schedule: {warmup_schedule!r}")
         self.transition = transition
+        self.window_transition = window_transition
         self.target_accept = target_accept
         self.adapt_mass = adapt_mass
         self.per_chain_step_size = per_chain_step_size
@@ -159,6 +183,20 @@ class NUTSDriver:
         n, d = q.shape
         samples = torch.empty((num_samples, n, d), device=q.device)
         infos = []
+        if self.window_transition is not None:
+            S = self.window_transition.window
+            if num_samples % S:
+                raise ValueError(f"num_samples={num_samples} must be a "
+                                 f"multiple of the window size {S}")
+            for lo in range(0, num_samples, S):
+                draws, info = self.window_transition(
+                    generator, q, state.step_size, state.inv_mass,
+                    out=samples[lo:lo + S])
+                q = draws[-1]
+                infos.append(info)
+            info = NUTSInfo(*(torch.cat(f) for f in zip(*infos)))
+            return (NUTSState(q=q, step_size=state.step_size,
+                              inv_mass=state.inv_mass), samples, info)
         for s in range(num_samples):
             q, info = self.transition(generator, q, state.step_size,
                                       state.inv_mass)

@@ -14,10 +14,14 @@ path the chip run drives at full width), through the port's entry points.
   * the portable route on the trained ceiling and generic flows:
     `main_path_portable` (NUTSDriver with K3 as its `logp_and_grad`)
     under the same gates, and the chip run's K3, portable-vs-K1 and HMC
-    comparisons, where both sides are plain versions.
+    comparisons, where both sides are plain versions;
+  * the window path on the trained ceiling flow: `main_path_window`
+    (warmup through K1's plain version, draws through K2's in windows of
+    16) under the same gates, and the chip run's K2 comparison, where the
+    kernel's side is the plain version too.
 
 On the CPU every transition and every spline runs its plain version, so
-the launch counters of K1, K3, K4, K5, K6 and K7 stay 0.
+the launch counters of K1, K2, K3, K4, K5, K6 and K7 stay 0.
 """
 import math
 import subprocess
@@ -119,6 +123,94 @@ def test_portable_slice_runs_end_to_end_on_the_cpu():
     hmc = chip_smoke.hmc_vs_plain(flow, warm_state)
     assert hmc["passed"] and hmc["flips"] == 0
     assert 0.0 < hmc["accept_rate"] < 1.0
+
+
+def test_window_slice_runs_end_to_end_on_the_cpu():
+    """The ceiling fit of the first test, then bench.py's window path:
+    warmup through K1's plain version, draws through K2's (windows of 16
+    transitions), under the gates with up to 3 draw windows of 64 (one
+    window's R-hat over 64 chains spreads from seed to seed on the
+    per-transition path as well); and the chip run's K2 comparison at the
+    post-warmup state, slot by slot from the window's own draws: the
+    window against itself one slot per call and against K1's plain version
+    (the same decisions in every slot, the energy at slot 0 equal to the
+    bit, at most K1's bar of one chain in a slot with another proposal:
+    the window writes its draws through blends b + m (a - b), so a carried
+    lp belongs to a point one rounding away from the draw, and a
+    multinomial choice on a knife edge can part), and "K1" (on the CPU its
+    plain version) against the latter."""
+    torch.manual_seed(0)
+    _, flow, warm_state = chip_smoke.main_path(
+        "cpu", dim=8, n_chains=64, hidden=(16, 16), train_steps=200,
+        train_batch=256, num_warmup=64, window=64, max_windows=1,
+        ess_gate=100.0)
+    res = chip_smoke.main_path_window(
+        "cpu", "ceiling", flow, n_chains=64, num_warmup=64, window=64,
+        max_windows=3, ess_gate=100.0, slots=16)
+    chip_smoke.check_window(res)
+    assert res["k1_launches"] == res["k2_launches"] == 0
+    assert res["n_draws"] == 64 * res["windows"]
+    assert res["transitions"] == 64 + res["n_draws"]
+    assert res["v_z_mean"] < 3.0 and res["v_z_var"] < 3.0, res
+    assert res["draw_ms_per_transition"] > 0
+    st = warm_state
+    rows = chip_smoke.window_vs_plain("cpu", [
+        ("state", flow, st.q.contiguous(), st.inv_mass, st.step_size, 5, 4,
+         8)], full_plain=True)
+    r = rows[0]
+    assert r["passed"] and r["vs_plain"]["passed_at_k1_bar"]
+    for key in ("vs_plain", "vs_transition", "plain_spread"):
+        assert r[key]["flips"] <= 1, key
+        assert r[key]["flips_by_q_only"] == sum(r[key]["flips_per_slot"])
+        assert r[key]["energy_equal_per_slot"][0], key
+    # on the CPU "K1" is K1's plain version
+    assert r["vs_k1"] == r["vs_transition"]
+    # the whole plain window is the window itself
+    assert r["free_running_vs_plain"]["bitwise"]
+    assert r["plain_window_ms"] > 0 and r["plain_slots_ms"] > 0
+    assert r["bar"]["max_dq"] >= chip_smoke.MAX_DQ
+    assert r["bar"]["max_denergy"] >= chip_smoke.MAX_DENERGY
+    assert sum(r["depth_histogram"]) == 4 * 64
+
+
+def test_window_comparison_counts_chains_and_slots():
+    """`compare_window` judges each slot on its own: a chain flips in a
+    slot when it takes another decision there or ends more than 1e-3
+    away; at most K1's bar of chains may flip in any slot; q and energy
+    are judged on the (slot, chain) pairs that do not flip. `window_bar`
+    widens K1's bar to twice the widest spread of plain versions."""
+    S, n, d = 3, 8, 2
+    a = [torch.zeros(S, n, d)] + [torch.zeros(S, n) for _ in range(7)]
+    b = [t.clone() for t in a]
+    b[3][2, 5] = 1.0  # chain 5 takes another leapfrog count in slot 2
+    b[0][2, 5] = 9.0  # ... and ends elsewhere: not judged
+    b[0][1, 6, 1] = 0.5  # chain 6 parts in slot 1 with the same decisions
+    b[0][2, 6, 1] = 2e-4  # ... and is judged again in slot 2
+    b[0][1, 1, 0] = 1e-4  # chain 1: within the bar
+    a[5][0, 6] = 1.0  # chain 6 diverged in slot 0 (in both)
+    b[5][0, 6] = 1.0
+    res = chip_smoke.compare_window(a, b)
+    assert res["flips_per_slot"] == [0, 1, 1] and res["flips"] == 1
+    assert res["chains_with_a_flip"] == 2 and res["flips_by_q_only"] == 1
+    assert res["divergent_transitions"] == 1
+    assert res["max_dq"] == pytest.approx(2e-4)
+    assert res["max_dq_per_slot"][1] == pytest.approx(1e-4)
+    assert res["covers"] == pytest.approx(22 / 24)
+    assert res["energy_equal_per_slot"] == [True, True, True]
+    assert res["passed"]  # 1 flip of 8 chains in a slot: K1's bar
+    b[3][1, 2] = 1.0  # a second chain flips in slot 1
+    res = chip_smoke.compare_window(a, b)
+    assert res["flips"] == 2 and not res["passed"]
+    bar = chip_smoke.window_bar([{**res, "max_denergy": float("nan")},
+                                 {**res, "flips": 0}], n)
+    assert bar["max_flips"] == 4
+    assert bar["max_dq"] == pytest.approx(4e-4)  # twice the spread's
+    assert bar["max_denergy"] == chip_smoke.MAX_DENERGY
+    assert chip_smoke.compare_window(a, b, **bar)["passed"]
+    assert not res["bitwise"]
+    b[7][0, 2] = 0.1  # an energy beyond the bar on a chain that agrees
+    res = chip_smoke.compare_window(a, b, **bar)
+    assert not res["passed"] and not res["energy_equal_per_slot"][0]
 
 
 def test_generic_portable_slice_runs_on_the_cpu():
@@ -228,7 +320,12 @@ def test_chip_smoke_refuses_to_run_without_a_card():
      "affine_kernelILi2EEEvN13tpuflows_nuts4ArgsE", "K3 d/32=2"),
     ("_ZN46_GLOBAL__N__0e4d4b43_13_fused_logp_cu_9a1b2c3d23fused_logp_"
      "chain_kernelILi8EEEvN13tpuflows_nuts4ArgsENS0_9ChainListE",
-     "K3 chain d/32=8")])
+     "K3 chain d/32=8"),
+    ("_ZN46_GLOBAL__N__1f2e3d4c_14_nuts_window_cu_5a6b7c8d18nuts_window_"
+     "kernelILi2EEEvN13tpuflows_nuts4ArgsEi", "K2 d/32=2"),
+    ("_ZN46_GLOBAL__N__1f2e3d4c_14_nuts_window_cu_5a6b7c8d24nuts_window_"
+     "chain_kernelILi5EEEvN13tpuflows_nuts4ArgsENS0_9ChainListEi",
+     "K2 chain d/32=5")])
 def test_ptxas_summary_names_every_kernel(name, key):
     log = (f"ptxas info    : Compiling entry function '{name}' for "
            "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 "
