@@ -72,7 +72,11 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                path's post-warmup state, with CUDA events, beside their
                bounds and their plain versions' times. K1 is held to K1's
                bar there, with q's bar raised to twice the spread of two
-               plain versions on the same inputs (`time_kernel`).
+               plain versions on the same inputs (`time_kernel`). The tile
+               kernel is timed at each R, launched from the host and
+               replayed from a CUDA graph, beside the per-warp kernel
+               (`warp_ms`), with the tile lockstep's efficiency (useful
+               gradients over the gradients the lockstep computes);
  10. coupling_vs_plain — K6 (the whole spline coupling block) and K7 (its
                pullback) against their plain PyTorch versions, both
                directions, on z, ladj, dx and every weight's and bias's
@@ -98,6 +102,22 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                generic arqs shape (0.01 x He heads), a ragged batch of 37,
                affine and spline flows at d = 32 and 256 (K = 16 there),
                and both paths' trained flows at their post-warmup states;
+ 13b. tile_vs_warp — K1's and K3's module-list kernels, which run on the
+               tile gradient (csrc/tile_grad.cuh: one block of R warps per
+               tile of R rows that share every weight read), against the
+               per-warp module-list kernels they replaced, kept built as
+               the oracle: every row of phase 5 and the generic
+               post-warmup state for K1, every module-list row of phase 13
+               and the generic post-warmup state for K3, and both on a
+               flow whose row leaves no room for the 96 KB weight ring
+               (d = 256, K = 64: R = 1 on a smaller ring), at R = 4 and 8
+               where the tile fits, and the wrappers' default R. Every
+               element of every output must equal the per-warp kernel's
+               in value (the tile kernels skip products with a zero
+               factor, which can change only a zero's sign, counted apart
+               as zero_signs); the count of differing elements, the
+               largest difference and, for K1, flips, max dq and the tile
+               lockstep's efficiency are printed per R;
  14. main_path_portable, main_path_portable_generic — flow-preconditioned
                NUTS through the portable route, `NUTSDriver(log p~,
                max_depth=6, logp_and_grad=K3)`, on the trained flows of
@@ -116,8 +136,10 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                flipped, q within 2.3e-4 on the rest;
  17. timing_fused_logp — K3 at both post-warmup states with CUDA events
                (also replayed from a CUDA graph), beside its bound, its
-               plain version and its launches on the portable path; and a
-               portable transition's time beside K1's on the same inputs.
+               plain version and its launches on the portable path, the
+               module list's tile kernel at each R beside the per-warp
+               kernel (`warp_ms`); and a portable transition's time beside
+               K1's on the same inputs.
  18. window_vs_plain — K2 (a window of S transitions per chain in one
                launch), held slot by slot: slot s of its window against
                one transition from K2's own draw of slot s - 1 on slot s's
@@ -156,7 +178,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                beside K1's (phases 7 and 9), beside its bound (one latent
                gradient per chain per window plus one per leapfrog) and its
                plain version's time (phase 18).
-Then the card's nvidia-smi line, the kernels' JSON line and, last,
+Then the card's nvidia-smi line, the kernels' JSON line (the module-list
+rows of K1 and K3 with the tile kernel's times and `earlier_ms`, the
+per-warp kernel's in the same run) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
 """
@@ -237,10 +261,14 @@ def _kernel_key(name):
         return f"d/32={t.group(1)}"
     if "nuts_chain_kernel" in name and t:
         return f"chain d/32={t.group(1)}"
+    if "nuts_chain_tile_kernel" in name and t:
+        return f"chain tile d/32={t.group(1)}"
     if "fused_logp_affine_kernel" in name and t:
         return f"K3 d/32={t.group(1)}"
     if "fused_logp_chain_kernel" in name and t:
         return f"K3 chain d/32={t.group(1)}"
+    if "fused_logp_tile_kernel" in name and t:
+        return f"K3 tile d/32={t.group(1)}"
     if "nuts_window_kernel" in name and t:
         return f"K2 d/32={t.group(1)}"
     if "nuts_window_chain_kernel" in name and t:
@@ -1241,7 +1269,8 @@ def state_inputs(state, seed=8, cpu_randomness=False, depth=MAX_DEPTH):
     return (q, eps, im, *rnd)
 
 
-def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False):
+def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False,
+                graph_reps=4, graph_replays=2):
     """K1 and its plain version at a main path's post-warmup state, timed
     with CUDA events on the same inputs, and the bound of the work; the two
     are held to K1's bar. For a flow with splines the spread of two plain
@@ -1250,7 +1279,11 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False):
     bar and twice that spread: at the generic path's state float32
     reordering alone moves q by more than K1's bar, and the largest q
     difference of two such float32 evaluations over 1024 chains varies by
-    up to twice from one pair to another (PERF.md, Findings)."""
+    up to twice from one pair to another (PERF.md, Findings). For a module
+    list the tile kernel is also timed at each R of TILE_ROWS that fits,
+    launched from the host and replayed from a CUDA graph, beside the
+    per-warp kernel (`tile_and_warp_times`), with the tile lockstep's
+    efficiency at each R (`lockstep_efficiency`)."""
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
 
@@ -1292,6 +1325,17 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False):
                      2.0 * out["plain_vs_plain_at_state"]["max_dq"])
     out["dq_bar"] = max_dq
     out["vs_plain_at_state"] = compare(plain, kern, max_dq)
+    if not model.affine:
+        out.update(tile_and_warp_times(
+            model, lambda R: nuts_cuda._launch(
+                q, *rnd, eps, im, model, MAX_DEPTH, rows=R),
+            lambda: nuts_cuda.chain_transition_warp(
+                q, *rnd, eps, im, model, MAX_DEPTH), TILE_ROWS,
+            n_reps, graph_reps=graph_reps, graph_replays=graph_replays))
+        for R, r in out["tile"].items():
+            r["lockstep_efficiency"] = lockstep_efficiency(kern[3], R)
+        out["lockstep_efficiency"] = out["tile"][out["rows"]][
+            "lockstep_efficiency"]
     return out
 
 
@@ -1507,7 +1551,10 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
     launched from the host and replayed from a CUDA graph (`graph_ms`),
     beside its bound and its plain version; and one portable transition
     (the host-driven lockstep loop with K3) on the inputs `time_kernel`
-    timed K1 on, beside that time `k1_ms`."""
+    timed K1 on, beside that time `k1_ms`. For a module list the tile
+    kernel is also timed at each R of TILE_ROWS that fits, beside the
+    per-warp kernel (`tile_and_warp_times`)."""
+    from tpuflows_torch.kernels import fused_logp_cuda
     from tpuflows_torch.kernels.fused_logp_cuda import (
         fused_latent_logp_and_grad)
     from tpuflows_torch.mcmc.nuts import nuts_transition_math
@@ -1531,10 +1578,205 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
     q, eps, im, *rnd = state_inputs(state, cpu_randomness=cpu_randomness)
     port_ms, _ = timed(lambda: nuts_transition_math(
         q, *rnd, eps, im, hook, MAX_DEPTH), trans_reps, warmup=1)
-    return {"n": n, "d": d, "ms": ms, "device_ms": graph_ms(lambda: hook(z)),
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-            "portable_transition_ms": port_ms, "k1_transition_ms": k1_ms}
+    out = {"n": n, "d": d, "ms": ms, "device_ms": graph_ms(lambda: hook(z)),
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+           "portable_transition_ms": port_ms, "k1_transition_ms": k1_ms}
+    if not model.affine:
+        out.update(tile_and_warp_times(
+            model, lambda R: fused_logp_cuda._launch(z, model, rows=R),
+            lambda: fused_logp_cuda.chain_logp_grad_warp(z, model),
+            TILE_ROWS, n_reps))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The tile gradient: K1's and K3's module-list kernels against the per-warp
+# kernels they replaced
+# ---------------------------------------------------------------------------
+# tile rows R measured where the tile fits in SMEM_LIMIT (both kernels take
+# at most nuts_cuda.MAX_TILE_ROWS: 8 warps of up to 255 registers)
+TILE_ROWS = (4, 8)
+# (d, hidden, knots, blocks, max_depth, eps, chains) of tile_vs_warp's row
+# whose 201,728 bytes of scratch a row leave no room for the 96 KB weight
+# ring: R = 1, on a ring of 3 x 10 KB (`nuts_cuda.ring_stage_floats`)
+SMALL_RING_SHAPE = (256, (64, 128), 64, 1, 4, 0.1, 128)
+K1_OUTS = ("q", "lp", "sum_accept", "n_steps", "depth", "diverging",
+           "turning", "h0")
+
+
+def fitting_rows(model, candidates):
+    """The tile rows of `candidates` whose tile fits in a block with a
+    weight ring (`nuts_cuda.ring_stage_floats`), and the wrappers' default
+    (`nuts_cuda.tile_rows`)."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    return sorted({r for r in candidates
+                   if nuts_cuda.ring_stage_floats(model, r) > 0}
+                  | {nuts_cuda.tile_rows(model)})
+
+
+def value_diff(a, b):
+    """(elements of a and b that differ in value, NaN counting as equal to
+    NaN; elements equal in value whose bits differ, which can only be a
+    zero's sign; the largest |a - b|). The tile kernels leave out products
+    with a zero factor and terms multiplied by zero (csrc/tile_grad.cuh),
+    which can change only the sign of a zero."""
+    import torch
+
+    a, b = a.contiguous(), b.contiguous()
+    nan = torch.isnan(a) & torch.isnan(b)
+    same = (a == b) | nan
+    bits = a.view(torch.int32) != b.view(torch.int32)
+    gap = (a.double() - b.double()).abs()[~nan]
+    return (int((~same).sum()), int((same & bits).sum()),
+            float(gap.max()) if gap.numel() else 0.0)
+
+
+def lockstep_efficiency(n_steps, rows):
+    """Useful latent gradients (one per chain at its start, one per
+    leapfrog) over the row gradients a tile lockstep of `rows` chains
+    computes for the same transition (`nuts_cuda.lockstep_gradients`)."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    useful = float(n_steps.sum()) + n_steps.numel()
+    return useful / (rows * nuts_cuda.lockstep_gradients(n_steps, rows))
+
+
+def tile_and_warp_times(model, tile_fn, warp_fn, candidates, n_reps,
+                        graph_reps=20, graph_replays=10):
+    """A module-list kernel's tile version at each R of `candidates` that
+    fits (`tile_fn(R)`) and its per-warp version (`warp_fn()`), each
+    launched from the host (`timed`) and replayed from a CUDA graph
+    (`graph_ms`), on the same inputs, in turns: warp, tiles, warp."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    def both(fn):
+        return {"ms": timed(fn, n_reps)[0],
+                "device_ms": graph_ms(fn, reps=graph_reps,
+                                      replays=graph_replays)}
+
+    first = both(warp_fn)
+    tile = {R: both(lambda R=R: tile_fn(R))
+            for R in fitting_rows(model, candidates)}
+    last = both(warp_fn)
+    rows = nuts_cuda.tile_rows(model)
+    warp = {k: 0.5 * (first[k] + last[k]) for k in first}
+    return {"rows": rows, "tile": tile, "warp_ms": warp["ms"],
+            "warp_device_ms": warp["device_ms"], "warp_runs": [first, last],
+            "tile_device_ms": tile[rows]["device_ms"],
+            "speedup_device": warp["device_ms"] / tile[rows]["device_ms"]}
+
+
+def k1_tile_vs_warp(flow, q, im, rnd, eps, depth):
+    """K1's tile kernel (`nuts_cuda._launch(..., rows=R)`) at each R of
+    TILE_ROWS that fits against the per-warp module-list kernel on the
+    same inputs: per R, the elements of the eight outputs whose bits
+    differ (expected 0) and the largest difference, K1's flips and max dq
+    between the two (`compare`), and the tile lockstep's efficiency."""
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.targets import NealsFunnel
+
+    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=q.shape[1]))
+    warp = nuts_cuda.chain_transition_warp(q, *rnd, eps, im, model, depth)
+    out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
+           "default_rows": nuts_cuda.tile_rows(model), "rows": {}}
+    for R in fitting_rows(model, TILE_ROWS):
+        tile = nuts_cuda._launch(q, *rnd, eps, im, model, depth, rows=R)
+        diffs = {k: value_diff(t, w)
+                 for k, t, w in zip(K1_OUTS, tile, warp)}
+        c = compare(warp, tile)
+        out["rows"][R] = {
+            "differ": sum(v[0] for v in diffs.values()),
+            "zero_signs": sum(v[1] for v in diffs.values()),
+            "max_abs": max(v[2] for v in diffs.values()),
+            "differ_by_output": {k: v[0] for k, v in diffs.items()},
+            "flips": c["flips"], "max_dq": c["max_dq"],
+            "lockstep_efficiency": lockstep_efficiency(warp[3], R),
+            "ring_stage_floats": nuts_cuda.ring_stage_floats(model, R)}
+    return out
+
+
+def k3_tile_vs_warp(flow, z):
+    """K3's tile kernel (`fused_logp_cuda._launch(z, model, rows=R)`) at
+    each R of TILE_ROWS that fits against the per-warp module-list kernel
+    on the same z: per R, the elements of lp and g whose bits differ
+    (expected 0) and the largest difference."""
+    from tpuflows_torch.kernels import fused_logp_cuda, nuts_cuda
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+    from tpuflows_torch.targets import NealsFunnel
+
+    hook = fused_latent_logp_and_grad(NealsFunnel(dim=z.shape[1]), flow)
+    warp = fused_logp_cuda.chain_logp_grad_warp(z, hook.model)
+    out = {"n": int(z.shape[0]), "d": int(z.shape[1]),
+           "default_rows": nuts_cuda.tile_rows(hook.model), "rows": {}}
+    for R in fitting_rows(hook.model, TILE_ROWS):
+        tile = fused_logp_cuda._launch(z, hook.model, rows=R)
+        diffs = {k: value_diff(t, w)
+                 for k, t, w in zip(("lp", "g"), tile, warp)}
+        out["rows"][R] = {
+            "differ": sum(v[0] for v in diffs.values()),
+            "zero_signs": sum(v[1] for v in diffs.values()),
+            "max_abs": max(v[2] for v in diffs.values()),
+            "differ_by_output": {k: v[0] for k, v in diffs.items()},
+            "ring_stage_floats": nuts_cuda.ring_stage_floats(hook.model,
+                                                             R)}
+    return out
+
+
+def tile_vs_warp(device, k1_states=(), k3_states=()):
+    """Phase tile_vs_warp: K1 on every module-list row of
+    `kernel_vs_plain_spline` (its flows and inputs, rebuilt from their
+    seeds) and on `k1_states` ((label, flow, NUTSState)); K3 on every
+    module-list row of `fused_logp_rows` (z ~ N(0, 1) from a seed) and on
+    `k3_states` ((label, flow, z)); both on SMALL_RING_SHAPE (q ~ N(0, 1)
+    as `kernel_vs_plain_spline` draws it). Every row passes when the tile
+    kernel equals the per-warp kernel in value at every R measured."""
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.targets import NealsFunnel
+
+    rows = []
+    for d, hidden, K, nb, depth, eps, n, unit, head in (
+            *SPLINE_SHAPES, SPLINE_CHAOS_SHAPE):
+        flow = spline_flow_with_random_heads(device, 10 + d, dim=d,
+                                             hidden=hidden, knots=K,
+                                             n_blocks=nb, head=head)
+        q, im, *rnd = spline_inputs(device, n, d, depth, 20 + d, unit)
+        res = k1_tile_vs_warp(flow, q, im, rnd,
+                              torch.tensor(eps, device=device), depth)
+        rows.append({"kernel": "K1", "label": f"spline d={d} K={K} "
+                     f"head={head}", **res})
+    for label, flow, state in k1_states:
+        q, eps, im, *rnd = state_inputs(state, cpu_randomness=True)
+        rows.append({"kernel": "K1", "label": label,
+                     **k1_tile_vs_warp(flow, q, im, rnd, eps, MAX_DEPTH)})
+    for i, (label, flow, n, _) in enumerate(fused_logp_rows(device)):
+        d = flow.transforms[0].loc.numel()
+        if nuts_cuda.pack_flow(flow, NealsFunnel(dim=d)).affine:
+            continue
+        g = torch.Generator(device=device).manual_seed(30 + i)
+        z = torch.randn((n, d), generator=g, device=device)
+        rows.append({"kernel": "K3", "label": label,
+                     **k3_tile_vs_warp(flow, z)})
+    for label, flow, z in k3_states:
+        rows.append({"kernel": "K3", "label": label,
+                     **k3_tile_vs_warp(flow, z.contiguous())})
+    d, hidden, K, nb, depth, eps, n = SMALL_RING_SHAPE
+    flow = spline_flow_with_random_heads(device, 10 + K, dim=d,
+                                         hidden=hidden, knots=K,
+                                         n_blocks=nb)
+    q, im, *rnd = spline_inputs(device, n, d, depth, 20 + K, False)
+    label = f"spline d={d} K={K}, small ring"
+    rows.append({"kernel": "K1", "label": label, **k1_tile_vs_warp(
+        flow, q, im, rnd, torch.tensor(eps, device=device), depth)})
+    rows.append({"kernel": "K3", "label": label,
+                 **k3_tile_vs_warp(flow, q)})
+    for r in rows:
+        r["passed"] = bool(r["rows"]) and all(
+            x["differ"] == 0 for x in r["rows"].values())
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2046,6 +2288,19 @@ def main(argv=None):
     if bad:
         raise RuntimeError(f"K3 disagrees with its plain version: {bad}")
 
+    t = time.perf_counter()
+    tile_rows = tile_vs_warp(
+        device, k1_states=[("generic post-warmup state", gflow, gstate)],
+        k3_states=[("generic post-warmup state", gflow, gstate.q)])
+    emit("tile_vs_warp", t, rows=tile_rows,
+         bar="every element of every output equal in value to the "
+             "per-warp kernel's at every R measured (a zero's sign may "
+             "differ: zero_signs)")
+    bad = [r for r in tile_rows if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"a tile kernel differs from the per-warp "
+                           f"kernel: {bad}")
+
     portable = {}
     for variant, vflow, phase in ((("ceiling", flow, "main_path_portable"),
                                    ("generic", gflow,
@@ -2137,6 +2392,9 @@ def main(argv=None):
         "source": "src/tpuflows_torch/csrc/nuts_transition.cu",
         "replaces": k1, "launches": gres["launches"],
         "max_abs_err": spline_rows[0]["max_dq"], "ms": gtim["ms"],
+        "device_ms": gtim["tile_device_ms"], "rows": gtim["rows"],
+        "earlier_ms": gtim["warp_ms"],
+        "earlier_device_ms": gtim["warp_device_ms"],
         "plain_ms": gtim["plain_ms"], "bound_ms": gtim["bound_ms"],
         "bound_by": gtim["bound_by"], "library_ms": None,
     }]
@@ -2193,6 +2451,11 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+        if "warp_ms" in r:  # the module list: tile and per-warp times
+            kernels[-1].update(
+                device_ms=r["tile_device_ms"], rows=r["rows"],
+                earlier_ms=r["warp_ms"],
+                earlier_device_ms=r["warp_device_ms"])
     for variant, name, label in (
             ("ceiling", "nuts_window (affine)", "bench"),
             ("generic", "nuts_window (module list, spline)",

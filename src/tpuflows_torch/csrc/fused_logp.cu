@@ -20,12 +20,26 @@
 // Standardize, AffineCoupling and RQSCouplingBlock modules
 // (`fused_logp_chain_kernel`, `chain_logp_grad`), with 3-layer silu MLPs.
 //
-// Design (the simple one): one warp per row, one warp per block, the
-// gradient device code of K1 unchanged, so K3 computes the gradient K1
-// computes inside its trajectory. The warp's scratch is dynamic shared
-// memory: 6 d + 3 h1 + 3 h2 floats for the affine flow, (n_mods + 1) d +
-// 4 hmax + head for a module list (54 KB at d = 256, K = 16: above 48 KB
-// the launch opts in).
+// Design. The affine kernel (`fused_logp_affine_kernel`) is one warp per
+// row, one warp per block, with K1's gradient device code unchanged
+// (`logp_grad`), its scratch 6 d + 3 h1 + 3 h2 floats of dynamic shared
+// memory. The module-list kernel (`fused_logp_tile_kernel`) runs the tile
+// gradient of tile_grad.cuh: one block of R warps per tile of R rows,
+// every weight read once per tile (through a cp.async ring in shared
+// memory) and used for all R rows, warp b owning row b with
+// latent_grad.cuh's per-row code; R (`nuts_cuda.tile_rows`, 8 at the
+// generic flow) comes from the host, and the block's dynamic shared
+// memory is R rows of (n_mods + 1) d + 4 hmax + head floats and the 96 KB
+// ring (176 KB at the generic flow; less where one row leaves less room,
+// tile_grad.cuh `tile_ring_stage`). Rows past n in the last tile compute
+// on a copy of row n - 1 and store nothing. Its lp and g equal the
+// per-warp module-list kernel's in value (the same per-row code, the same
+// order of every sum; the compact layers it reads can change only a
+// zero's sign). The per-warp kernel (`fused_logp_chain_kernel`, entry
+// point `fused_logp_chain_warp_f32`) stays built only as chip_smoke.py's
+// oracle and yardstick for the tile kernel; no wrapper calls it, and it
+// goes when K2 moves to the tile gradient and `chain_logp_grad` loses its
+// last user.
 //
 // Bound on this card: operations. A row costs one forward and one
 // input-gradient backward of every conditioner MLP, counted over the work
@@ -34,13 +48,14 @@
 // MFLOP for the ceiling flow (0.134 GFLOP per 1024 rows, 2.00 us at 67
 // TFLOP/s float32) and 1.720 MFLOP for the generic arqs flow (1.76 GFLOP,
 // 26.3 us). Its bytes (z in, lp and g out, the flow's parameters and masks
-// once, 0.69-3.6 MB) take 0.2-1.1 us at 3.35 TB/s. One warp per row runs
-// the products on the float32 FMA pipes with every weight read from L2 for
-// each row, far from that bound, as K1 is; tiles of rows sharing their
-// weight reads (in shared memory, on the tensor cores) are later work.
-// PERF.md keeps its measured time beside the bound.
+// once, 0.69-3.6 MB) take 0.2-1.1 us at 3.35 TB/s. One warp per row reads
+// every weight from L2 for each row (~9 MB per row of the generic flow,
+// tile_grad.cuh), so the affine kernel stays far from that bound; the
+// tile kernel reads them once per R rows. Both stay in float32 on the FMA
+// pipes (tile_grad.cuh says why). PERF.md keeps the measured times beside
+// the bound.
 
-#include "latent_grad.cuh"
+#include "tile_grad.cuh"
 
 // Built by kernels/fused_logp_cuda.py (`LIBRARY`, kernels/cuda_build.py)
 // as one translation unit per instantiation (-DLATENT_DPL=1..8, DPL = d /
@@ -57,6 +72,9 @@ cudaError_t launch_affine(const Args& a, cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
+                        cudaStream_t stream);
 
 }  // namespace tpuflows_logp
 
@@ -107,6 +125,22 @@ __global__ void __launch_bounds__(32) fused_logp_chain_kernel(Args a,
   store_row<DPL>(a, row, lane, lp, g);
 }
 
+// One tile of `rows` rows per block, warp b on row blockIdx.x rows + b.
+template <int DPL>
+__global__ void __launch_bounds__(32 * kMaxTileRows)
+    fused_logp_tile_kernel(Args a, ChainList c, int rows) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * rows + warp;
+  float z[DPL], g[DPL];
+  load_row<DPL>(a, min(row, a.n - 1), lane, z);
+  const float lp = tile_chain_logp_grad<DPL>(a, c, smem, rows, z, g, lane,
+                                             warp);
+  if (row < a.n) store_row<DPL>(a, row, lane, lp, g);
+}
+
 }  // namespace
 
 namespace tpuflows_logp {
@@ -133,9 +167,29 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
   return cudaGetLastError();
 }
 
+template <int DPL>
+cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
+                        cudaStream_t stream) {
+  const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(rows, row);
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_logp_tile_kernel<DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.n + rows - 1) / rows;
+  fused_logp_tile_kernel<DPL><<<blocks, 32 * rows, smem, stream>>>(a, c,
+                                                                   rows);
+  return cudaGetLastError();
+}
+
 template cudaError_t launch_affine<LATENT_DPL>(const Args&, cudaStream_t);
 template cudaError_t launch_chain<LATENT_DPL>(const Args&, const ChainList&,
                                              cudaStream_t);
+template cudaError_t launch_tile<LATENT_DPL>(const Args&, const ChainList&,
+                                            int, cudaStream_t);
 
 }  // namespace tpuflows_logp
 
@@ -189,24 +243,68 @@ extern "C" int fused_logp_affine_f32(const void* z, const void* params,
   }
 }
 
-// The same through a module list: `mods` is a device array of n_mods *
-// kModInts ints, hmax the widest hidden layer (0 without couplings), head
-// the widest conditioner output. Returns a cudaError_t.
-extern "C" int fused_logp_chain_f32(const void* z, const void* params,
-                                    const void* mods, int n_mods, int n,
-                                    int d, int hmax, int head, float sigma_v,
-                                    void* lp, void* g, void* stream) {
-  using namespace tpuflows_logp;
-  if (n < 1 || !width_ok(d) || n_mods < 1 ||
-      n_mods > tpuflows_nuts::kMaxModules ||
-      (hmax != 0 && !width_ok(hmax)) || head < 0 || head % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  Args a = rows_args(z, params, n, d, sigma_v, lp, g);
-  ChainList c;
+namespace {
+
+bool chain_ok(int n, int d, int n_mods, int hmax, int head) {
+  return n >= 1 && width_ok(d) && n_mods >= 1 &&
+         n_mods <= tpuflows_nuts::kMaxModules &&
+         (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0;
+}
+
+tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
+                                    int head) {
+  tpuflows_nuts::ChainList c;
   c.mods = static_cast<const int*>(mods);
   c.n_mods = n_mods;
   c.hmax = hmax;
   c.head = head;
+  return c;
+}
+
+}  // namespace
+
+// The same through a module list, on tiles of `rows` rows (a power of two
+// up to kMaxTileRows, tile_grad.cuh) that share every weight read
+// (`fused_logp_tile_kernel`): `mods` is a device array of n_mods *
+// kModInts ints, hmax the widest hidden layer (0 without couplings), head
+// the widest conditioner output. Refused where the tile's rows leave no
+// room for a weight ring (`tile_ring_stage`). Returns a cudaError_t.
+extern "C" int fused_logp_chain_f32(const void* z, const void* params,
+                                    const void* mods, int n_mods, int n,
+                                    int d, int hmax, int head, float sigma_v,
+                                    void* lp, void* g, int rows,
+                                    void* stream) {
+  using namespace tpuflows_logp;
+  if (!chain_ok(n, d, n_mods, hmax, head) || rows < 1 ||
+      rows > kMaxTileRows || (rows & (rows - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a = rows_args(z, params, n, d, sigma_v, lp, g);
+  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_tile<1>(a, c, rows, s);
+    case 2: return (int)launch_tile<2>(a, c, rows, s);
+    case 3: return (int)launch_tile<3>(a, c, rows, s);
+    case 4: return (int)launch_tile<4>(a, c, rows, s);
+    case 5: return (int)launch_tile<5>(a, c, rows, s);
+    case 6: return (int)launch_tile<6>(a, c, rows, s);
+    case 7: return (int)launch_tile<7>(a, c, rows, s);
+    default: return (int)launch_tile<8>(a, c, rows, s);
+  }
+}
+
+// The per-warp module-list kernel (`fused_logp_chain_kernel`), one row
+// per block: chip_smoke.py's oracle and yardstick for the tile kernel, on
+// no path. Same arguments as fused_logp_chain_f32 without rows.
+extern "C" int fused_logp_chain_warp_f32(const void* z, const void* params,
+                                         const void* mods, int n_mods,
+                                         int n, int d, int hmax, int head,
+                                         float sigma_v, void* lp, void* g,
+                                         void* stream) {
+  using namespace tpuflows_logp;
+  if (!chain_ok(n, d, n_mods, hmax, head)) return (int)cudaErrorInvalidValue;
+  const Args a = rows_args(z, params, n, d, sigma_v, lp, g);
+  const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_chain<1>(a, c, s);

@@ -1,14 +1,17 @@
-// The latent log density and its gradient, one warp per row, shared by
-// K1 (nuts_transition.cu: the leapfrog gradient inside a NUTS transition)
-// and K3 (fused_logp.cu: the gradient alone, for the portable samplers):
+// The latent log density and its gradient, one warp per row:
 //   lp = log p(f^-1(z)) + ladj(z) and g = d lp / dz
 // over Neal's funnel, for two kinds of flow:
 //  * `logp_grad`: Standardize + one AffineCoupling (any 0/1 mask, any
 //    clamp) whose conditioner is an MLP d -> h1 -> h2 -> 2d with silu, its
-//    leaves packed as `Net` says (the ceiling path);
+//    leaves packed as `Net` says (the ceiling path): K1's affine kernel
+//    (nuts_transition.cu), K3's (fused_logp.cu) and K2's
+//    (nuts_window.cu);
 //  * `chain_logp_grad`: any Chain of Standardize, AffineCoupling and
 //    RQSCouplingBlock modules with such MLPs, given as a module list
-//    (`ChainList`, the generic path's arqs flow). It follows
+//    (`ChainList`, the generic path's arqs flow): K2's module-list kernel,
+//    and the per-warp module-list kernels of K1 and K3, which no path
+//    runs any more and which stay built as chip_smoke.py's oracle for the
+//    tile gradient until K2 moves to it. It follows
 //    `tile_logp_and_grad_streamed` (src/tpuflows/kernels/tile_flow.py:107):
 //    sweep 1 applies the inverse chain and keeps only each module's d-wide
 //    input in the warp's shared memory; sweep 2 walks back, recomputes each
@@ -18,6 +21,9 @@
 //    pulled back first and is not recomputed. Spline conditioners come
 //    with p-major last layers (`permute_for_tiles`), so lane l reads
 //    parameter p of its dims at p d + l + 32 j, which it wrote itself.
+// K1's and K3's module-list kernels run the tile gradient of
+// tile_grad.cuh instead: the same per-row code and order of sums, with
+// the MLP products shared over a tile of rows.
 //
 // Lane layout: lane l holds dims l + 32 j (j < DPL = d / 32) of every
 // d-vector in registers, and units l + 32 k of every hidden vector. Dot
@@ -26,9 +32,21 @@
 // The MLP reads its inputs from a per-warp shared-memory buffer guarded by
 // __syncwarp(); its weights (and transposed copies for the backward pass,
 // so that its reads coalesce too) are read from global memory with __ldg
-// and stay resident in L2. The gradients are written out by hand: funnel
-// logp, Standardize inverse, coupling inverse with the tanh clamp, spline
-// inverse and its pullback, and the MLP backward through silu. No
+// for each row and stay resident in L2. That is what bounds this design:
+// at the generic arqs flow's widths (d = 64; three affine conditioners 64
+// -> 128 -> 128 -> 128, ~41 k forward weights each, three spline
+// conditioners 64 -> 128 -> 128 -> 1472, ~213 k each) one row's gradient
+// reads the forward weights in sweep 1, again in sweep 2's recomputation
+// (all but the first module pulled back) and the transposed copies in the
+// backward pass: ~2.2 M floats, ~9 MB per row, ~9 GB for 1,024 rows, which
+// at K3's 1.98 ms is ~4.6 TB/s of L2 reads, about what the H100's L2
+// delivers, while the FMAs alone would take 26 us; 32-thread blocks leave
+// ~7.8 warps per SM to hide L2 latency. The products stay in float32 on the
+// FMA pipes: the bars against the plain versions (q within 2.3e-4, at most
+// 5 flips of 1,024) leave no room for TF32 rounding, and wgmma takes
+// float32 operands only as TF32. The gradients are written out by hand:
+// funnel logp, Standardize inverse, coupling inverse with the tanh clamp,
+// spline inverse and its pullback, and the MLP backward through silu. No
 // autograd.
 //
 // These functions moved here from nuts_transition.cu unchanged, so K1

@@ -9,28 +9,47 @@
 // kernel is deterministic. The plain PyTorch version is
 // `transition_math_torch` in kernels/nuts_cuda.py.
 //
-// Two gradients of log p(f^-1(z)) + ladj, one kernel each, sharing the
-// tree code (nuts_tree_body.inc); the gradients themselves live in
-// latent_grad.cuh, which K3 (fused_logp.cu) shares:
+// Three kernels share the tree code (nuts_tree_body.inc); the gradients
+// of log p(f^-1(z)) + ladj live in latent_grad.cuh and tile_grad.cuh,
+// which K3 (fused_logp.cu) shares:
 //  * `nuts_transition_kernel`: the flow Standardize + one AffineCoupling
-//    with a silu MLP d -> h1 -> h2 -> 2d (`logp_grad`, the ceiling path);
-//  * `nuts_chain_kernel`: any Chain of Standardize, AffineCoupling and
-//    RQSCouplingBlock modules with such MLPs, given as a module list
-//    (`chain_logp_grad`, the generic path's arqs flow).
+//    with a silu MLP d -> h1 -> h2 -> 2d (`logp_grad`, the ceiling path),
+//    one warp per chain;
+//  * `nuts_chain_tile_kernel`: any Chain of Standardize, AffineCoupling
+//    and RQSCouplingBlock modules with such MLPs, given as a module list
+//    (the generic path's arqs flow), on tiles of R chains whose gradients
+//    share every weight read (`tile_chain_logp_grad`);
+//  * `nuts_chain_kernel`: the same module list one warp per chain
+//    (`chain_logp_grad`), entry point `nuts_chain_transition_warp_f32`:
+//    kept only as chip_smoke.py's oracle and yardstick for the tile
+//    kernel, on no path; it goes when K2 moves to the tile gradient and
+//    `chain_logp_grad` loses its last user.
 //
-// Design (the simple one; wgmma, TMA and a tiled MLP wait for later work):
-//  * One warp per chain, one warp per block. Nothing couples a chain to
-//    its tile-mates in `_transition_math`: a stopped chain is frozen by the
-//    masked blends, and the subtree loop ends early only when every chain
-//    of the tile is done, so the u_take column of leaf j in doubling k is
-//    always 2^k - 1 + j. No tile lockstep is kept, and there is no
-//    __syncthreads() anywhere.
-//  * Lane layout and the MLP as latent_grad.cuh says. Both loops are
-//    bounded: at most `depth` doublings and at most 2^k leaves in doubling
-//    k. The weights stay resident in L2 (~82 k floats for the affine flow
-//    at d = 64, h = 128; ~1.5 M floats for the arqs flow of the generic
-//    path). The per-warp scratch is dynamic shared memory sized by the
-//    launch.
+// Design:
+//  * One warp per chain; each chain's tree state stays in its warp's
+//    registers. Nothing couples a chain to its tile-mates in
+//    `_transition_math`: a stopped chain is frozen by the masked blends,
+//    and the subtree loop ends early only when every chain of the tile is
+//    done, so the u_take column of leaf j in doubling k is always 2^k - 1
+//    + j (tests/test_torch_nuts.py::test_chains_are_independent, and
+//    tests/test_torch_tile_grad.py for module lists).
+//  * The affine kernel and the per-warp module-list kernel are one warp
+//    per block and keep no lockstep. The tile kernel is one block of R
+//    warps (R from `nuts_cuda.tile_rows`, 8 at the generic flow), and
+//    every warp must call the tile gradient the same number of times, so
+//    both loops run while any chain of the tile is active (the tile
+//    lockstep of `_transition_math`, at tile R instead of 256): their
+//    conditions go through __syncthreads_or, a stopped chain's warp takes
+//    part in the gradient at its own last point and changes none of its
+//    state (nuts_tree_body.inc's hooks, whose empty defaults leave the
+//    other kernels' tokens as they were). Chains past n in the last tile
+//    repeat chain n - 1, so they lengthen no loop, and store nothing.
+//  * Lane layout and the per-row math as latent_grad.cuh says. Both loops
+//    are bounded: at most `depth` doublings and at most 2^k leaves in
+//    doubling k. The weights stay resident in L2 (~82 k floats for the
+//    affine flow at d = 64, h = 128; ~1.5 M floats for the arqs flow of
+//    the generic path). The scratch is dynamic shared memory sized by the
+//    launch (R rows of it for the tile kernel: ~80 KB at the generic flow).
 //  * The U-turn checkpoint pairs (2 x depth x d floats) live in registers,
 //    selected by unrolled compares against the slot (no dynamic indexing).
 //  * A divergent leaf's non-finite q, p and g are zeroed (the plain
@@ -45,11 +64,14 @@
 // at the trained post-warmup states a transition of 1024 chains takes about
 // 8,190 gradients, 1.07 / 14.09 GFLOP, 0.0160 / 0.210 ms at 67 TFLOP/s
 // float32, while it moves only q in and out plus its random inputs (about
-// 1 KB per chain). This kernel runs its products on the float32 FMA pipes
-// at one chain per warp, far from that bound; PERF.md keeps its measured
-// time beside the bound.
+// 1 KB per chain). The affine kernel reads every weight from L2 for each
+// chain's leapfrog, far from that bound; the tile kernel reads them once
+// per R chains, and does the gradients its lockstep adds (chains that wait
+// for their tile-mates). Both run in float32 on the FMA pipes
+// (tile_grad.cuh says why). PERF.md keeps the measured times beside the
+// bound.
 
-#include "latent_grad.cuh"
+#include "tile_grad.cuh"
 
 // Built by kernels/nuts_cuda.py (`LIBRARY`, kernels/cuda_build.py) as one
 // translation unit per template instantiation (-DNUTS_DPL=1..8, DPL = d /
@@ -65,6 +87,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
+                        cudaStream_t stream);
 
 }  // namespace tpuflows_nuts
 
@@ -97,6 +122,35 @@ __global__ void __launch_bounds__(32) nuts_chain_kernel(Args a, ChainList c) {
 #undef NUTS_LOGP_GRAD
 }
 
+// One tile of `rows` chains per block, warp b on chain blockIdx.x rows +
+// b, its two loops in tile lockstep (nuts_tree_body.inc's hooks).
+template <int DPL>
+__global__ void __launch_bounds__(32 * kMaxTileRows)
+    nuts_chain_tile_kernel(Args a, ChainList c, int rows) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * rows + warp;
+  const int chain = min(row, a.n - 1);
+#define NUTS_LOGP_GRAD(z, g) \
+  tile_chain_logp_grad<DPL>(a, c, smem, rows, z, g, lane, warp)
+#define NUTS_DOUBLING_ON(go) __syncthreads_or(go)
+#define NUTS_LEAF_ON(go) __syncthreads_or(go)
+#define NUTS_SUBTREE_TURN0 turning
+#define NUTS_SUBTREE_DIV0 diverging
+#define NUTS_LEAF_BEGIN const bool leaf_on = !(st_turn || st_div);
+#define NUTS_LEAF_GRAD(z, g)                                              \
+  tile_chain_logp_grad_at<DPL>(a, c, smem, rows, leaf_on, z, s_q, g, lane, \
+                               warp)
+#define NUTS_LEAF_SKIP \
+  if (!leaf_on) continue;
+#define NUTS_BEFORE_STORE \
+  if (row >= a.n) return;
+#include "nuts_tree_body.inc"
+#undef NUTS_LOGP_GRAD
+}
+
 
 }  // namespace
 
@@ -124,9 +178,29 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
   return cudaGetLastError();
 }
 
+template <int DPL>
+cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
+                        cudaStream_t stream) {
+  const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(rows, row);
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_chain_tile_kernel<DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.n + rows - 1) / rows;
+  nuts_chain_tile_kernel<DPL><<<blocks, 32 * rows, smem, stream>>>(a, c,
+                                                                   rows);
+  return cudaGetLastError();
+}
+
 template cudaError_t launch<NUTS_DPL>(const Args&, cudaStream_t);
 template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
                                            cudaStream_t);
+template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
+                                          int, cudaStream_t);
 
 }  // namespace tpuflows_nuts
 
@@ -174,21 +248,23 @@ extern "C" int nuts_transition_f32(
   }
 }
 
-// A module list (nuts_chain_kernel): `mods` is a device array of
-// n_mods * kModInts ints, hmax the widest hidden layer (0 without
-// couplings), head the widest conditioner output. Returns a cudaError_t.
-extern "C" int nuts_chain_transition_f32(
-    const void* q, const void* p0, const void* dirs, const void* u_acc,
-    const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, const void* mods, int n_mods, int n, int d,
-    int hmax, int head, int depth, float sigma_v, float max_delta_energy,
-    void* q_out, void* info, void* stream) {
+namespace {
+
+bool chain_ok(int n, int d, int n_mods, int hmax, int head, int depth) {
   using namespace tpuflows_nuts;
-  if (n < 1 || !width_ok(d) || n_mods < 1 || n_mods > kMaxModules ||
-      (hmax != 0 && !width_ok(hmax)) || head < 0 || head % 32 != 0 ||
-      depth < 1 || depth > kMaxDepth)
-    return (int)cudaErrorInvalidValue;
-  Args a;
+  return n >= 1 && width_ok(d) && n_mods >= 1 && n_mods <= kMaxModules &&
+         (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0 &&
+         depth >= 1 && depth <= kMaxDepth;
+}
+
+tpuflows_nuts::Args chain_args(const void* q, const void* p0,
+                               const void* dirs, const void* u_acc,
+                               const void* u_take, const void* eps,
+                               const void* inv_mass, const void* params,
+                               int n, int d, int depth, float sigma_v,
+                               float max_delta_energy, void* q_out,
+                               void* info) {
+  tpuflows_nuts::Args a;
   a.q = static_cast<const float*>(q);
   a.p0 = static_cast<const float*>(p0);
   a.dirs = static_cast<const float*>(dirs);
@@ -201,9 +277,68 @@ extern "C" int nuts_chain_transition_f32(
   a.clamp = 0.0f; a.sigma_v = sigma_v; a.max_delta_energy = max_delta_energy;
   a.q_out = static_cast<float*>(q_out);
   a.info = static_cast<float*>(info);
-  ChainList c;
+  return a;
+}
+
+tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
+                                    int head) {
+  tpuflows_nuts::ChainList c;
   c.mods = static_cast<const int*>(mods);
   c.n_mods = n_mods; c.hmax = hmax; c.head = head;
+  return c;
+}
+
+}  // namespace
+
+// A module list on tiles of `rows` chains (a power of two up to
+// kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
+// (nuts_chain_tile_kernel): `mods` is a device array of n_mods * kModInts
+// ints, hmax the widest hidden layer (0 without couplings), head the
+// widest conditioner output. Refused where the tile's rows leave no room
+// for a weight ring (`tile_ring_stage`). Returns a cudaError_t.
+extern "C" int nuts_chain_transition_f32(
+    const void* q, const void* p0, const void* dirs, const void* u_acc,
+    const void* u_take, const void* eps, const void* inv_mass,
+    const void* params, const void* mods, int n_mods, int n, int d,
+    int hmax, int head, int depth, float sigma_v, float max_delta_energy,
+    void* q_out, void* info, int rows, void* stream) {
+  using namespace tpuflows_nuts;
+  if (!chain_ok(n, d, n_mods, hmax, head, depth) || rows < 1 ||
+      rows > kMaxTileRows || (rows & (rows - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
+                            params, n, d, depth, sigma_v, max_delta_energy,
+                            q_out, info);
+  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_tile<1>(a, c, rows, s);
+    case 2: return (int)launch_tile<2>(a, c, rows, s);
+    case 3: return (int)launch_tile<3>(a, c, rows, s);
+    case 4: return (int)launch_tile<4>(a, c, rows, s);
+    case 5: return (int)launch_tile<5>(a, c, rows, s);
+    case 6: return (int)launch_tile<6>(a, c, rows, s);
+    case 7: return (int)launch_tile<7>(a, c, rows, s);
+    default: return (int)launch_tile<8>(a, c, rows, s);
+  }
+}
+
+// The per-warp module-list kernel (nuts_chain_kernel), one chain per
+// block: chip_smoke.py's oracle and yardstick for the tile kernel, on no
+// path. Same arguments as nuts_chain_transition_f32 without rows.
+extern "C" int nuts_chain_transition_warp_f32(
+    const void* q, const void* p0, const void* dirs, const void* u_acc,
+    const void* u_take, const void* eps, const void* inv_mass,
+    const void* params, const void* mods, int n_mods, int n, int d,
+    int hmax, int head, int depth, float sigma_v, float max_delta_energy,
+    void* q_out, void* info, void* stream) {
+  using namespace tpuflows_nuts;
+  if (!chain_ok(n, d, n_mods, hmax, head, depth))
+    return (int)cudaErrorInvalidValue;
+  const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
+                            params, n, d, depth, sigma_v, max_delta_energy,
+                            q_out, info);
+  const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_chain<1>(a, c, s);

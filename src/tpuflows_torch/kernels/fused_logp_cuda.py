@@ -13,7 +13,11 @@ g (n, d)) with
     relayout for flows with splines), the counterpart of the JAX kernel's
     `_reference`;
   * the kernel, `csrc/fused_logp.cu`, is one warp per row with K1's
-    gradient device code (`csrc/latent_grad.cuh`);
+    gradient device code (`csrc/latent_grad.cuh`) for the affine flow, and
+    for a module list one block per tile of `nuts_cuda.tile_rows(model)`
+    rows that share every weight read (`csrc/tile_grad.cuh`);
+    `chain_logp_grad_warp` runs the per-warp module-list kernel, on no
+    path: `chip_smoke.py`'s oracle and yardstick for the tile kernel;
   * the wrapper (`FusedLatentLogpAndGrad.__call__`): a CPU tensor runs the
     plain version; a CUDA tensor launches the kernel, or the wrapper
     raises. `LAUNCHES` counts the kernel's launches.
@@ -59,19 +63,27 @@ def _bind(lib):
     fn.argtypes = [p, p] + [i32] * 4 + [f32] * 2 + [p] * 3
     fn.restype = i32
     fn = lib.fused_logp_chain_f32
+    fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 2 + [i32, p]
+    fn.restype = i32
+    fn = lib.fused_logp_chain_warp_f32
     fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 3
     fn.restype = i32
 
 
 LIBRARY = CudaLibrary("fused_logp", "fused_logp.cu", _UNITS,
-                      ["latent_grad.cuh", "rqs_math.cuh"], _bind)
+                      ["latent_grad.cuh", "tile_grad.cuh", "rqs_math.cuh"],
+                      _bind)
 
 
-def _launch(z, model: nuts_cuda.PackedFlow):
+def _launch(z, model: nuts_cuda.PackedFlow, rows=None):
+    """K3 on the card; a module list on tiles of `rows` rows (the
+    wrapper's `nuts_cuda.tile_rows(model)`; `chip_smoke.py` times other
+    R)."""
     global LAUNCHES
-    nuts_cuda.check_widths(model)
-    if model.params.device != z.device or model.mods.device != z.device:
-        raise ValueError("the packed flow is on another device than z")
+    _check(z, model)
+    if not model.affine:
+        rows = nuts_cuda.tile_rows(model) if rows is None else rows
+        nuts_cuda.check_tile(model, rows)
     n, d = z.shape
     lib = LIBRARY.load()
     lp = torch.empty(n, device=z.device, dtype=torch.float32)
@@ -90,10 +102,41 @@ def _launch(z, model: nuts_cuda.PackedFlow):
                 z.data_ptr(), model.params.data_ptr(),
                 model.mods.data_ptr(), model.mods.shape[0], n, d,
                 model.hmax, model.head, model.target.sigma_v, lp.data_ptr(),
-                g.data_ptr(), stream)
+                g.data_ptr(), rows, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES += 1
+    return lp, g
+
+
+def _check(z, model: nuts_cuda.PackedFlow):
+    nuts_cuda.check_widths(model)
+    if model.params.device != z.device or model.mods.device != z.device:
+        raise ValueError("the packed flow is on another device than z")
+
+
+def chain_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
+    """The per-warp module-list kernel (`fused_logp_chain_kernel`) on a
+    contiguous float32 CUDA z: `chip_smoke.py`'s oracle and yardstick for
+    the tile kernel, which must equal it in value. On no path, and not
+    counted in LAUNCHES."""
+    if model.affine or z.device.type != "cuda" or not z.is_contiguous():
+        raise ValueError("the per-warp module-list kernel takes a module "
+                         "list and a contiguous CUDA z")
+    _check(z, model)
+    n, d = z.shape
+    lib = LIBRARY.load()
+    lp = torch.empty(n, device=z.device, dtype=torch.float32)
+    g = torch.empty_like(z)
+    with torch.cuda.device(z.device):
+        rc = lib.fused_logp_chain_warp_f32(
+            z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
+            model.mods.shape[0], n, d, model.hmax, model.head,
+            model.target.sigma_v, lp.data_ptr(), g.data_ptr(),
+            torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_logp_chain_warp_f32 launch failed: "
+                           f"cudaError {rc}")
     return lp, g
 
 

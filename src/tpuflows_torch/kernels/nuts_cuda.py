@@ -13,9 +13,10 @@ Three pieces:
     the p-major relayout, as in the JAX package. It runs on any device;
   * `nuts_transition` — the wrapper. A CPU tensor goes to the plain
     version; a CUDA tensor goes to the hand-written kernel
-    `csrc/nuts_transition.cu` (one warp per chain), or the wrapper raises.
-    There is no fallback from one to the other. `LAUNCHES` counts the
-    kernel's launches;
+    `csrc/nuts_transition.cu` (one warp per chain; a module list on tiles
+    of `tile_rows(model)` chains in lockstep, `csrc/tile_grad.cuh`), or the
+    wrapper raises. There is no fallback from one to the other. `LAUNCHES`
+    counts the kernel's launches;
   * `FusedNUTS` / `fused_nuts_for_flow` — the batched transition that
     `NUTSDriver(transition=...)` calls: it draws the randomness (momenta,
     direction signs, acceptance uniforms, one uniform per potential leaf)
@@ -25,7 +26,10 @@ Three pieces:
 `pack_flow` checks a flow and packs its leaves for the kernel: Standardize
 + one AffineCoupling goes to `nuts_transition_kernel`, any other Chain of
 Standardize, AffineCoupling and RQSCouplingBlock modules to
-`nuts_chain_kernel` as a module list. The library is built with nvcc into
+`nuts_chain_tile_kernel` as a module list. `chain_transition_warp` runs
+the per-warp module-list kernel (`nuts_chain_kernel`), which is on no
+path: it is `chip_smoke.py`'s oracle and yardstick for the tile kernel
+until K2 moves to the tile gradient. The library is built with nvcc into
 `build/kernels/` at the repository root on first use (`cuda_build`);
 nothing is compiled or loaded at import time.
 """
@@ -58,6 +62,13 @@ MAX_MODULES = 16
 MOD_INTS = 8  # ints per module in the kernel's module list
 KIND = {Standardize: 0, AffineCoupling: 1, RQSCouplingBlock: 2}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use (bytes)
+# the most rows (chains) of a tile of the module-list kernels: 8 warps of
+# K1's up to 255 registers a thread fill the SM's 65,536
+MAX_TILE_ROWS = 8
+# a tile's weight ring (csrc/tile_grad.cuh kRingStages, kRingStageFloats):
+# 3 stages of 32 KB, smaller only where one row leaves less room
+RING_STAGES = 3
+RING_STAGE_FLOATS = 8192
 # energy error above which a leaf counts as divergent (the JAX kernel's
 # default)
 MAX_DELTA_ENERGY = 1000.0
@@ -73,12 +84,15 @@ def _bind(lib):
     fn.argtypes = [p] * 8 + [i32] * 5 + [f32] * 3 + [p] * 3
     fn.restype = i32
     fn = lib.nuts_chain_transition_f32
+    fn.argtypes = [p] * 9 + [i32] * 6 + [f32] * 2 + [p] * 2 + [i32, p]
+    fn.restype = i32
+    fn = lib.nuts_chain_transition_warp_f32
     fn.argtypes = [p] * 9 + [i32] * 6 + [f32] * 2 + [p] * 3
     fn.restype = i32
 
 
 LIBRARY = CudaLibrary("nuts_transition", "nuts_transition.cu", _UNITS,
-                      ["latent_grad.cuh", "nuts_tree.cuh",
+                      ["latent_grad.cuh", "tile_grad.cuh", "nuts_tree.cuh",
                        "nuts_tree_body.inc", "rqs_math.cuh"], _bind)
 
 
@@ -136,6 +150,38 @@ def _coupling_leaves(t, d):
     return leaves, h1, h2, n_out
 
 
+def _pad32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def _compact_leaves(t, d, w3, b3):
+    """The tile kernels' copies of a coupling's first and last layers,
+    without the work that cannot reach lp or g (the conditioner sees
+    z * mask; only the transformed dims' head parameters are used): W1's
+    rows and W1^T's columns of the pass-through dims in dim order, and
+    W3's columns, b3's entries and W3^T's rows of the transformed dims'
+    head parameters, p-major over those dims (column p n_t + t for the
+    t-th transformed dim; w3, b3 come p-major over all d dims). Each
+    compact width is padded with zeros to a multiple of 32. Returns
+    (leaves, number of pass-through dims)."""
+    dev = w3.device
+    mask = torch.as_tensor(t.mask, device=dev).bool()
+    keep = torch.nonzero(mask).flatten()
+    moved = torch.nonzero(~mask).flatten()
+    n_p, n_t = keep.numel(), moved.numel()
+    n_param = w3.shape[1] // d
+    cols = (torch.arange(n_param, device=dev)[:, None] * d
+            + moved[None, :]).reshape(-1)
+    w1 = t.net.weights[0].detach().float()
+    w1c = torch.zeros((_pad32(n_p), w1.shape[1]), device=dev)
+    w1c[:n_p] = w1[keep]
+    w3c = torch.zeros((w3.shape[0], _pad32(n_param * n_t)), device=dev)
+    w3c[:, :cols.numel()] = w3.detach().float()[:, cols]
+    b3c = torch.zeros(w3c.shape[1], device=dev)
+    b3c[:cols.numel()] = b3.detach().float()[cols]
+    return [w1c, w1c.t(), w3c, b3c, w3c.t()], n_p
+
+
 def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     """Check that K1 computes `flow` (a Chain of Standardize,
     AffineCoupling and RQSCouplingBlock modules whose conditioners are
@@ -143,7 +189,11 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     leaves in chain order: Standardize loc, log_scale; a coupling's mask,
     W1, b1, W2, b2, W3, b3, W1^T, W2^T, W3^T, a spline's last layer in
     p-major columns. For Standardize + one AffineCoupling that is the
-    layout of `nuts_transition_kernel`'s `Net`."""
+    layout of `nuts_transition_kernel`'s `Net`. For any other chain each
+    coupling's leaves are followed by the tile kernels' compact copies of
+    its first and last layers (`_compact_leaves`), at the offset its row
+    of the module list holds in column 6, with the number of pass-through
+    dims in column 7; the per-warp kernels read neither."""
     ts = list(flow.transforms) if isinstance(flow, Chain) else []
     if not 1 <= len(ts) <= MAX_MODULES:
         raise _unsupported(f"{len(ts)} modules (1 to {MAX_MODULES})")
@@ -153,6 +203,8 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     if not isinstance(target, NealsFunnel) or target.dim != d:
         raise _unsupported("the target must be a NealsFunnel of the flow's "
                            "width")
+    affine = (len(ts) == 2 and isinstance(ts[0], Standardize)
+              and isinstance(ts[1], AffineCoupling))
     parts, rows, widths, off = [], [], [], 0
     for t in ts:
         kind = KIND.get(type(t))
@@ -168,6 +220,11 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
             spline = kind == 2
             row = [kind, off, h1, h2, t.knots if spline else 0,
                    _float_bits(t.range_limit if spline else t.clamp)]
+            if not affine:
+                compact, n_pass = _compact_leaves(t, d, leaves[5],
+                                                  leaves[6])
+                row += [off + sum(x.numel() for x in leaves), n_pass]
+                leaves = leaves + compact
             widths.append((h1, h2, n_out, t.range_limit if spline
                            else t.clamp))
         parts += leaves
@@ -181,8 +238,6 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     mods = torch.tensor(rows, dtype=torch.int32, device=params.device)
     h1, h2, _, clamp = widths[0] if widths else (0, 0, 0, 0.0)
     has_spline = any(isinstance(t, RQSCouplingBlock) for t in ts)
-    affine = (len(ts) == 2 and isinstance(ts[0], Standardize)
-              and isinstance(ts[1], AffineCoupling))
     hidden = tuple(h for w in widths for h in w[:2])
     return PackedFlow(
         flow, target, params.contiguous(), mods, d, h1, h2, clamp, hidden,
@@ -263,10 +318,82 @@ def check_launch(q, tensors, model: PackedFlow):
 
 
 def smem_bytes(model: PackedFlow) -> int:
-    """Dynamic shared memory of one warp of `nuts_chain_kernel` (and of
-    K3's `fused_logp_chain_kernel`)."""
+    """Dynamic shared memory of one row of the module-list kernels (one
+    warp of `nuts_chain_kernel` and K3's `fused_logp_chain_kernel`, one
+    row of a tile of `nuts_chain_tile_kernel` and `fused_logp_tile_kernel`)."""
     return 4 * ((model.mods.shape[0] + 1) * model.d + 4 * model.hmax
                 + model.head)
+
+
+def ring_stage_floats(model: PackedFlow, rows: int) -> int:
+    """Floats of one stage of the weight ring of a tile of `rows` rows
+    (csrc/tile_grad.cuh `tile_ring_stage`): RING_STAGE_FLOATS, or, where
+    that does not fit in SMEM_LIMIT beside the rows, the most that does in
+    a multiple of 256 rows floats (a chunk of at least 4 rows of the
+    widest panel); 0 where not even that fits."""
+    room = (SMEM_LIMIT - rows * smem_bytes(model)) // 4
+    stage = min(RING_STAGE_FLOATS, max(room, 0) // RING_STAGES)
+    return stage - stage % (256 * rows)
+
+
+def tile_smem_bytes(model: PackedFlow, rows: int) -> int:
+    """Dynamic shared memory of a tile of `rows` rows of the tile kernels:
+    each row's scratch and the weight ring (csrc/tile_grad.cuh
+    `tile_smem_bytes`)."""
+    return rows * smem_bytes(model) + 4 * RING_STAGES * ring_stage_floats(
+        model, rows)
+
+
+def tile_rows(model: PackedFlow) -> int:
+    """Rows R of a tile of the module-list kernels (K1's and K3's), which
+    share every weight read over their R rows: the largest power of two up
+    to MAX_TILE_ROWS whose R rows of scratch leave room for the whole 96
+    KB weight ring in SMEM_LIMIT. 8 at the generic arqs flow (~10 KB a
+    row), 2 at d = 256, K = 16 (~54 KB a row); 1, with a smaller ring,
+    where one row leaves less room (d = 256, K > 40)."""
+    rows = 1
+    while (rows * 2 <= MAX_TILE_ROWS
+           and ring_stage_floats(model, 2 * rows) == RING_STAGE_FLOATS):
+        rows *= 2
+    return rows
+
+
+def check_tile(model: PackedFlow, rows: int):
+    """Raises unless a tile of `rows` rows of the module-list tile kernels
+    fits in a block: the rows' scratch and a weight ring of at least one
+    chunk a stage (`ring_stage_floats`)."""
+    if not 1 <= rows <= MAX_TILE_ROWS or rows & (rows - 1):
+        raise ValueError(f"tile rows must be a power of two up to "
+                         f"{MAX_TILE_ROWS}, got {rows}")
+    if ring_stage_floats(model, rows) == 0:
+        raise ValueError(
+            f"a tile of {rows} rows needs {rows * smem_bytes(model)} bytes "
+            f"of shared memory and a weight ring of at least "
+            f"{4 * RING_STAGES * 256 * rows} bytes, over {SMEM_LIMIT}")
+
+
+def lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
+    """Latent gradients a tile lockstep of `rows` chains computes for one
+    transition with these leapfrog counts (info's n_steps, chains in tile
+    order), counted per tile, not per row: one at the start point, then in
+    doubling i the most leaves of any chain of the tile, where a chain's
+    doubling i has min(2^i, max(0, n_steps - (2^i - 1))) leaves. With
+    one tile of the whole batch this is the number of gradient calls of
+    `transition_math_torch`; with rows = 1 it is sum(n_steps) + n. A
+    ragged last tile counts as a whole one."""
+    steps = n_steps.detach().to("cpu", torch.int64).reshape(-1)
+    n = steps.numel()
+    pad = (-n) % rows
+    if pad:  # padding chains repeat the last one, as the kernel's do
+        steps = torch.cat([steps, steps[-1:].expand(pad)])
+    tiles = steps.reshape(-1, rows)
+    calls = tiles.shape[0]
+    i = 0
+    while bool((tiles >= (1 << i)).any()):  # some chain reached doubling i
+        leaves = torch.clamp(tiles - ((1 << i) - 1), 0, 1 << i)
+        calls += int(leaves.amax(dim=1).sum())
+        i += 1
+    return calls
 
 
 def check_widths(model: PackedFlow):
@@ -284,11 +411,17 @@ def check_widths(model: PackedFlow):
                          f"shared memory per chain, over {SMEM_LIMIT}")
 
 
-def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth):
+def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
+            rows=None):
+    """K1 on the card; a module list on tiles of `rows` chains (the
+    wrapper's `tile_rows(model)`; `chip_smoke.py` times other R)."""
     global LAUNCHES
     n, d = q.shape
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
     check_launch(q, ins, model)
+    if not model.affine:
+        rows = tile_rows(model) if rows is None else rows
+        check_tile(model, rows)
     lib = LIBRARY.load()
     q_out = torch.empty_like(q)
     info = torch.empty((7, n), device=q.device, dtype=torch.float32)
@@ -306,10 +439,41 @@ def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth):
             rc = lib.nuts_chain_transition_f32(
                 *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
                 model.hmax, model.head, max_depth, model.target.sigma_v,
-                MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr(), stream)
+                MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr(), rows,
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     LAUNCHES += 1
+    return (q_out, *info.unbind(0))
+
+
+def chain_transition_warp(q, p0, dirs, u_acc, u_take, eps, inv_mass,
+                          model: PackedFlow, max_depth: int):
+    """The per-warp module-list kernel (`nuts_chain_kernel`) on CUDA
+    tensors: `chip_smoke.py`'s oracle and yardstick for the tile kernel,
+    which must equal it in value. On no path, and not counted in
+    LAUNCHES. Same returns as `nuts_transition`."""
+    if model.affine or q.device.type != "cuda":
+        raise ValueError("the per-warp module-list kernel takes a module "
+                         "list on CUDA tensors")
+    check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
+                 max_depth)
+    n, d = q.shape
+    ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
+    check_launch(q, ins, model)
+    lib = LIBRARY.load()
+    q_out = torch.empty_like(q)
+    info = torch.empty((7, n), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        rc = lib.nuts_chain_transition_warp_f32(
+            *[t.data_ptr() for t in ins], model.mods.data_ptr(),
+            model.mods.shape[0], n, d, model.hmax, model.head, max_depth,
+            model.target.sigma_v, MAX_DELTA_ENERGY, q_out.data_ptr(),
+            info.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nuts_chain_transition_warp_f32 launch failed: "
+                           f"cudaError {rc}")
     return (q_out, *info.unbind(0))
 
 
@@ -328,7 +492,8 @@ def nuts_transition(q, p0, dirs, u_acc, u_take, eps, inv_mass,
     """One NUTS transition of every chain, with the randomness given.
 
     A CPU tensor runs `transition_math_torch` with `plain_logp_grad`; a
-    CUDA tensor launches K1. Same returns as `transition_math_torch`."""
+    CUDA tensor launches K1, a module list on tiles of `tile_rows(model)`
+    chains. Same returns as `transition_math_torch`."""
     check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth)
     if q.device.type == "cpu":
