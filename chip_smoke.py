@@ -102,22 +102,25 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                generic arqs shape (0.01 x He heads), a ragged batch of 37,
                affine and spline flows at d = 32 and 256 (K = 16 there),
                and both paths' trained flows at their post-warmup states;
- 13b. tile_vs_warp — K1's and K3's module-list kernels, which run on the
-               tile gradient (csrc/tile_grad.cuh: one block of R warps per
-               tile of R rows that share every weight read), against the
-               per-warp module-list kernels they replaced, kept built as
-               the oracle: every row of phase 5 and the generic
-               post-warmup state for K1, every module-list row of phase 13
-               and the generic post-warmup state for K3, and both on a
-               flow whose row leaves no room for the 96 KB weight ring
+ 13b. tile_vs_warp — K1's, K3's and K2's module-list kernels, which run
+               on the tile gradient (csrc/tile_grad.cuh: one block of R
+               warps per tile of R rows that share every weight read),
+               against the per-warp module-list kernels they replaced,
+               kept built as the oracle: every row of phase 5 and the
+               generic post-warmup state for K1, every module-list row of
+               phase 13 and the generic post-warmup state for K3, every
+               module-list row of phase 18 (its seeded windows), the first
+               of them at 1,003 chains (a ragged last tile) and the
+               generic post-warmup state (S = 32) for K2, and all three on
+               a flow whose row leaves no room for the 96 KB weight ring
                (d = 256, K = 64: R = 1 on a smaller ring), at R = 4 and 8
                where the tile fits, and the wrappers' default R. Every
                element of every output must equal the per-warp kernel's
                in value (the tile kernels skip products with a zero
                factor, which can change only a zero's sign, counted apart
                as zero_signs); the count of differing elements, the
-               largest difference and, for K1, flips, max dq and the tile
-               lockstep's efficiency are printed per R;
+               largest difference, the tile lockstep's efficiency and, for
+               K1, flips and max dq are printed per R;
  14. main_path_portable, main_path_portable_generic — flow-preconditioned
                NUTS through the portable route, `NUTSDriver(log p~,
                max_depth=6, logp_and_grad=K3)`, on the trained flows of
@@ -160,8 +163,10 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                flows K1's plain version with the streamed against the
                autograd gradient: `window_bar`); flips and
                max |dq| per slot are printed, the slots whose energies
-               equal K1's to the bit, whether K2 equals K1 to the bit, and
-               whether K2 meets K1's bar itself. At the post-warmup states
+               equal K1's to the bit, the elements in which K2 differs from
+               the chained K1 launches in bits (`bitwise_k1`: on module
+               lists both are tile kernels), and whether K2 meets K1's bar
+               itself. At the post-warmup states
                the plain window also runs the whole window (timed for
                phase 20), and how far the free-running windows part is
                printed;
@@ -177,9 +182,11 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                events (also replayed from a CUDA graph), per transition
                beside K1's (phases 7 and 9), beside its bound (one latent
                gradient per chain per window plus one per leapfrog) and its
-               plain version's time (phase 18).
+               plain version's time (phase 18); on the module list the tile
+               kernel at each R beside the per-warp kernel (`warp_ms`) and
+               the lockstep's efficiency, as phase 9 times K1.
 Then the card's nvidia-smi line, the kernels' JSON line (the module-list
-rows of K1 and K3 with the tile kernel's times and `earlier_ms`, the
+rows of K1, K3 and K2 with the tile kernel's times and `earlier_ms`, the
 per-warp kernel's in the same run) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
@@ -273,6 +280,8 @@ def _kernel_key(name):
         return f"K2 d/32={t.group(1)}"
     if "nuts_window_chain_kernel" in name and t:
         return f"K2 chain d/32={t.group(1)}"
+    if "nuts_window_tile_kernel" in name and t:
+        return f"K2 tile d/32={t.group(1)}"
     for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
@@ -1603,6 +1612,11 @@ TILE_ROWS = (4, 8)
 SMALL_RING_SHAPE = (256, (64, 128), 64, 1, 4, 0.1, 128)
 K1_OUTS = ("q", "lp", "sum_accept", "n_steps", "depth", "diverging",
            "turning", "h0")
+K2_OUTS = ("draws", "lp", "accept", "n_steps", "depth", "diverging",
+           "turning", "h0")
+# chains of tile_vs_warp's ragged K2 row: a last tile of 3 chains at R = 4
+# and 8, whose padding rows must stay in every slot's barriers
+RAGGED_CHAINS = 1003
 
 
 def fitting_rows(model, candidates):
@@ -1636,11 +1650,16 @@ def value_diff(a, b):
 def lockstep_efficiency(n_steps, rows):
     """Useful latent gradients (one per chain at its start, one per
     leapfrog) over the row gradients a tile lockstep of `rows` chains
-    computes for the same transition (`nuts_cuda.lockstep_gradients`)."""
-    from tpuflows_torch.kernels import nuts_cuda
+    computes for the same transition (n_steps (n,):
+    `nuts_cuda.lockstep_gradients`) or window (n_steps (S, n), one
+    gradient per chain at the window's start:
+    `nuts_window_cuda.window_lockstep_gradients`)."""
+    from tpuflows_torch.kernels import nuts_cuda, nuts_window_cuda
 
-    useful = float(n_steps.sum()) + n_steps.numel()
-    return useful / (rows * nuts_cuda.lockstep_gradients(n_steps, rows))
+    count = (nuts_window_cuda.window_lockstep_gradients if n_steps.ndim == 2
+             else nuts_cuda.lockstep_gradients)
+    useful = float(n_steps.sum()) + n_steps.shape[-1]
+    return useful / (rows * count(n_steps, rows))
 
 
 def tile_and_warp_times(model, tile_fn, warp_fn, candidates, n_reps,
@@ -1725,14 +1744,50 @@ def k3_tile_vs_warp(flow, z):
     return out
 
 
-def tile_vs_warp(device, k1_states=(), k3_states=()):
+def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window):
+    """K2's tile kernel (`nuts_window_cuda._launch(..., rows=R)`) at each R
+    of TILE_ROWS that fits against the per-warp module-list window
+    (`chain_window_warp`) on the same inputs: per R, the elements of the
+    draws and the seven info outputs that differ in value (expected 0),
+    the largest difference, and the tile lockstep's efficiency over the
+    window."""
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+    from tpuflows_torch.targets import NealsFunnel
+
+    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=q.shape[1]))
+    warp = nw.chain_window_warp(q, *rnd, eps, im, model, depth, window)
+    out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
+           "window": window, "default_rows": nuts_cuda.tile_rows(model),
+           "rows": {}}
+    for R in fitting_rows(model, TILE_ROWS):
+        tile = nw._launch(q, *rnd, eps, im, model, depth, window, None,
+                          rows=R)
+        diffs = {k: value_diff(t, w)
+                 for k, t, w in zip(K2_OUTS, tile, warp)}
+        out["rows"][R] = {
+            "differ": sum(v[0] for v in diffs.values()),
+            "zero_signs": sum(v[1] for v in diffs.values()),
+            "max_abs": max(v[2] for v in diffs.values()),
+            "differ_by_output": {k: v[0] for k, v in diffs.items()},
+            "lockstep_efficiency": lockstep_efficiency(warp[3], R),
+            "ring_stage_floats": nuts_cuda.ring_stage_floats(model, R)}
+    return out
+
+
+def tile_vs_warp(device, k1_states=(), k3_states=(), k2_states=()):
     """Phase tile_vs_warp: K1 on every module-list row of
     `kernel_vs_plain_spline` (its flows and inputs, rebuilt from their
     seeds) and on `k1_states` ((label, flow, NUTSState)); K3 on every
     module-list row of `fused_logp_rows` (z ~ N(0, 1) from a seed) and on
-    `k3_states` ((label, flow, z)); both on SMALL_RING_SHAPE (q ~ N(0, 1)
-    as `kernel_vs_plain_spline` draws it). Every row passes when the tile
-    kernel equals the per-warp kernel in value at every R measured."""
+    `k3_states` ((label, flow, z)); K2 on every module-list row of
+    `window_rows` (its flows, starts and window randomness), on the
+    first of them at a chain count that no tile divides (RAGGED_CHAINS),
+    and on `k2_states` ((label, flow, NUTSState), windows of
+    WINDOW_SLOTS on the randomness of its `window_vs_plain` row); all
+    three on SMALL_RING_SHAPE (q ~ N(0, 1) as `kernel_vs_plain_spline`
+    draws it; K2 on a window of 4). Every row passes when the tile kernel
+    equals the per-warp kernel in value at every R measured."""
     import torch
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
@@ -1773,6 +1828,24 @@ def tile_vs_warp(device, k1_states=(), k3_states=()):
         flow, q, im, rnd, torch.tensor(eps, device=device), depth)})
     rows.append({"kernel": "K3", "label": label,
                  **k3_tile_vs_warp(flow, q)})
+    rnd = window_randomness(device, n, d, 4, depth, im, 20 + K)
+    rows.append({"kernel": "K2", "label": label, **k2_tile_vs_warp(
+        flow, q, im, rnd, torch.tensor(eps, device=device), depth, 4)})
+    spline = [r for r in window_rows(device) if r[0].startswith("spline")]
+    label, flow, q, im, eps, depth, S, seed = spline[0]
+    ragged = (f"{label}, {RAGGED_CHAINS} chains", flow,
+              q[:RAGGED_CHAINS].contiguous(), im, eps, depth, S, seed)
+    for label, flow, q, im, eps, depth, S, seed in (*spline, ragged):
+        n, d = q.shape
+        rnd = window_randomness(device, n, d, S, depth, im, seed)
+        rows.append({"kernel": "K2", "label": label, **k2_tile_vs_warp(
+            flow, q, im, rnd, torch.tensor(eps, device=device), depth, S)})
+    for label, flow, state in k2_states:
+        q, im = state.q.contiguous(), state.inv_mass
+        rnd = window_randomness(device, *q.shape, WINDOW_SLOTS, MAX_DEPTH,
+                                im, 8)
+        rows.append({"kernel": "K2", "label": label, **k2_tile_vs_warp(
+            flow, q, im, rnd, state.step_size, MAX_DEPTH, WINDOW_SLOTS)})
     for r in rows:
         r["passed"] = bool(r["rows"]) and all(
             x["differ"] == 0 for x in r["rows"].values())
@@ -1987,7 +2060,10 @@ def window_vs_plain(device, rows, full_plain=False):
                 q, *rnd, e, im, logp_grad, S, depth))
             row["free_running_vs_plain"] = compare_window(
                 free, kern, math.inf, math.inf, math.inf)
-        row["bitwise_k1"] = row["vs_k1"]["bitwise"]
+        bits = {k: value_diff(a, b) for k, a, b in zip(K2_OUTS, kern, k1)}
+        row["bitwise_k1"] = sum(v[0] + v[1] for v in bits.values())
+        row["bitwise_k1_by_output"] = {k: v[0] + v[1]
+                                       for k, v in bits.items()}
         row["passed"] = all(row[k]["passed"] for k in
                             ("vs_plain", "vs_transition", "vs_k1"))
         out.append(row)
@@ -2004,7 +2080,8 @@ def main_path_window(device, variant, flow, n_chains=N_CHAINS,
     paths' gates. The launch counts are set to 0 before: K1's must equal
     the warmup steps, K2's the draws / `slots` (0 on the CPU), and K4/K5
     (spline flows on the K4/K5 tier) launch only the data-space mapping's
-    inverses."""
+    inverses. `k2_tile_rows` is the R of K2's tile kernel on a module list
+    (None for the affine flow's kernel)."""
     import torch
     from tpuflows_torch.flows import RQSCouplingBlock
     from tpuflows_torch.kernels import (coupling_cuda, nuts_cuda,
@@ -2020,11 +2097,12 @@ def main_path_window(device, variant, flow, n_chains=N_CHAINS,
     nuts_window_cuda.LAUNCHES = 0
     rqs_cuda.reset_launches()
     coupling_cuda.reset_launches()
+    window_transition = nuts_window_cuda.fused_nuts_window_for_flow(
+        target, flow, window=slots, max_depth=MAX_DEPTH)
     sampler = NUTSDriver(
         transition=nuts_cuda.fused_nuts_for_flow(target, flow,
                                                  max_depth=MAX_DEPTH),
-        window_transition=nuts_window_cuda.fused_nuts_window_for_flow(
-            target, flow, window=slots, max_depth=MAX_DEPTH))
+        window_transition=window_transition)
     gated, _, mapped_rows = nuts_gated(
         device, sampler, flow, target, f"{variant} window", n_chains,
         num_warmup, window, max_windows, ess_gate)
@@ -2043,6 +2121,7 @@ def main_path_window(device, variant, flow, n_chains=N_CHAINS,
         "k1_launches_expected": num_warmup if on_card else 0,
         "k2_launches": nuts_window_cuda.LAUNCHES,
         "k2_launches_expected": gated["n_draws"] // slots if on_card else 0,
+        "k2_tile_rows": nuts_cuda.launch_rows(window_transition.model),
         "rqs_launches": dict(rqs_cuda.LAUNCHES),
         "rqs_launches_expected": {"k4_forward": 0,
                                   "k4_inverse": per * inverse_calls,
@@ -2096,7 +2175,8 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
         return nw.nuts_window(q, *rnd, eps, im, model, MAX_DEPTH, slots)
 
     ms, out = timed(fn, n_reps, warmup=1)
-    gradients = float(out[3].sum()) + n
+    steps = out[3]
+    gradients = float(steps.sum()) + n
     flops = gradients * mlp_flops(model)
     flow_floats = (sum(p.numel() for p in flow.parameters())
                    + d * sum(1 for t in flow.transforms
@@ -2105,15 +2185,27 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
     nbytes = 4.0 * (n * d + n * slots * (d + 2 * D + (1 << D)) + 1 + d
                     + flow_floats + slots * n * d + 7 * slots * n)
     bound_ms, bound_by = _bound(flops, nbytes)
-    return {"n": n, "d": d, "window": slots, "ms": ms,
-            "device_ms": graph_ms(fn, reps=graph_reps,
-                                  replays=graph_replays),
-            "ms_per_transition": ms / slots,
-            "k1_ms_per_transition": k1_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-            "bytes": nbytes, "gradients": gradients,
-            "leapfrogs_per_transition": (gradients - n) / (n * slots),
-            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    res = {"n": n, "d": d, "window": slots, "ms": ms,
+           "device_ms": graph_ms(fn, reps=graph_reps,
+                                 replays=graph_replays),
+           "ms_per_transition": ms / slots,
+           "k1_ms_per_transition": k1_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+           "bytes": nbytes, "gradients": gradients,
+           "leapfrogs_per_transition": (gradients - n) / (n * slots),
+           "achieved_tflops": flops / (ms * 1e-3) / 1e12}
+    if not model.affine:
+        res.update(tile_and_warp_times(
+            model, lambda R: nw._launch(q, *rnd, eps, im, model, MAX_DEPTH,
+                                        slots, None, rows=R),
+            lambda: nw.chain_window_warp(q, *rnd, eps, im, model,
+                                         MAX_DEPTH, slots), TILE_ROWS,
+            n_reps, graph_reps=graph_reps, graph_replays=graph_replays))
+        for R, r in res["tile"].items():
+            r["lockstep_efficiency"] = lockstep_efficiency(steps, R)
+        res["lockstep_efficiency"] = res["tile"][res["rows"]][
+            "lockstep_efficiency"]
+    return res
 
 
 def flow_specs(flow):
@@ -2291,7 +2383,8 @@ def main(argv=None):
     t = time.perf_counter()
     tile_rows = tile_vs_warp(
         device, k1_states=[("generic post-warmup state", gflow, gstate)],
-        k3_states=[("generic post-warmup state", gflow, gstate.q)])
+        k3_states=[("generic post-warmup state", gflow, gstate.q)],
+        k2_states=[("generic post-warmup state", gflow, gstate)])
     emit("tile_vs_warp", t, rows=tile_rows,
          bar="every element of every output equal in value to the "
              "per-warp kernel's at every R measured (a zero's sign may "
@@ -2471,6 +2564,11 @@ def main(argv=None):
             "max_abs_err_covers": row["vs_plain"]["covers"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+        if "warp_ms" in r:  # the module list: tile and per-warp times
+            kernels[-1].update(
+                device_ms=r["tile_device_ms"], rows=r["rows"],
+                earlier_ms=r["warp_ms"],
+                earlier_device_ms=r["warp_device_ms"])
     print(json.dumps({"total_seconds": time.perf_counter() - T0}),
           flush=True)
     print(smi, flush=True)

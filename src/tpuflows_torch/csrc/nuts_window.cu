@@ -12,36 +12,49 @@
 // proposal ended. The plain PyTorch version is `window_math_torch` in
 // kernels/nuts_window_cuda.py.
 //
-// Design (the simple one; wgmma, TMA and a tiled MLP wait for later work).
-// `_window_math` is a tick machine because on a TPU a tile of chains runs
-// in lockstep; K1 already runs one warp per chain with no lockstep
-// (nuts_transition.cu), so this kernel does not carry the ticks over:
-//  * One warp per chain, one warp per block, loops over the S slots
-//    (`window_slots`). Each slot runs K1's tree code (nuts_tree_body.inc,
-//    the same tokens, with its hooks set to the slot's columns) and writes
-//    its draw to row (s, chain) of the slot-major (S, n, d) output and its
-//    7 info values to info[:, s, chain] ((7, S, n)).
-//  * Between slots the warp keeps the proposal's q, lp and g in registers:
+// Design. `_window_math` is a tick machine because on a TPU a tile of
+// chains runs in lockstep; K2 runs K1's tree code once per slot instead:
+//  * A block loops over the S slots. Each slot runs K1's tree code
+//    (nuts_tree_body.inc, the same tokens, with its hooks set to the
+//    slot's columns) and writes its draw to row (s, chain) of the
+//    slot-major (S, n, d) output and its 7 info values to info[:, s,
+//    chain] ((7, S, n)).
+//  * Between slots a chain keeps the proposal's q, lp and g in registers:
 //    the tree code keeps q_prop and lp_prop, and the hooks carry the
 //    proposal's gradient beside them (st_gp for a subtree, g_prop for the
 //    transition). A window computes the gradient at its start point once;
 //    every later slot starts from the carried lp and g, which are the
-//    gradient code's own output at that point. The affine window equals S
-//    chained K1 launches on the slot columns bit for bit. The module-list
-//    window equals K1 in slot 0; a later slot, held against one K1 launch
-//    from the window's own previous draw, has K1's energy to the bit (so
-//    the carried lp is K1's) and a draw that differs at rounding level.
-//    The only other state a slot starts from is the carried g, so that g
-//    differs from K1's at rounding level: the leaf's call of the gradient
-//    (inlined into the tree code, apart from its per-module functions) and
-//    K1's call at its start point round it differently, while their lp
-//    agree (chip_smoke.py, window_vs_plain; no SASS compared).
-//    Both differ from `_window_math` at rounding level only: that machine
-//    sums the accept statistic per leaf and writes its state through
-//    masked blends b + m (a - b).
-//  * Both of K1's gradients (latent_grad.cuh, unchanged): the affine flow
-//    (`nuts_window_kernel`) and the module list (`nuts_window_chain_kernel`),
-//    with K1's dynamic shared memory per warp.
+//    gradient code's own output at that point.
+//  * Three kernels. `nuts_window_kernel`: the affine flow (`logp_grad` of
+//    latent_grad.cuh), one warp per chain, no lockstep; it equals S
+//    chained K1 launches on the slot columns bit for bit.
+//    `nuts_window_tile_kernel`: a module list (the generic path's arqs
+//    flow) on tiles of R chains, one block of R warps (R from
+//    `nuts_cuda.tile_rows`, 8 at the generic flow), every latent gradient
+//    through the tile gradient (tile_grad.cuh `tile_chain_logp_grad`), so
+//    that each weight is read from L2 once per tile. In every slot the
+//    tile runs K1's tile lockstep (the hooks of `nuts_chain_tile_kernel`:
+//    both loops run while any chain of the tile is active, a stopped
+//    chain joins the gradients at its last point); the window's start
+//    gradient is one call that every warp makes, and later slots make
+//    none, uniformly over the tile. Chains past n in the last tile repeat
+//    chain n - 1 and skip the store, but stay in the slot loop: they must
+//    take part in every barrier of the tile's later slots.
+//    `nuts_window_chain_kernel`: the same module list one warp per chain
+//    (latent_grad.cuh `chain_logp_grad`), entry point
+//    `nuts_chain_window_warp_f32`: kept only as chip_smoke.py's oracle
+//    and yardstick for the tile kernel, on no path.
+//  * Rounding. The per-warp module-list window equals K1's per-warp
+//    kernel in slot 0; a later slot, held against one K1 launch from the
+//    window's own previous draw, has K1's energy to the bit (so the
+//    carried lp is K1's) and a draw that differs at rounding level, since
+//    the g it starts from is the leaf call's (inlined into the tree code,
+//    apart from its per-module functions), not K1's call at its start
+//    point (chip_smoke.py, window_vs_plain). Whether the tile window
+//    equals chained K1 tile launches to the bit is printed per row
+//    (`bitwise_k1`). Every window differs from `_window_math` at rounding
+//    level only: that machine sums the accept statistic per leaf and
+//    writes its state through masked blends b + m (a - b).
 //
 // Bound on this card: operations, as K1: one latent gradient per leapfrog
 // plus one per chain per window at its start (`chip_smoke.mlp_flops` per
@@ -49,10 +62,11 @@
 // MFLOP for the generic arqs flow), at 67 TFLOP/s float32. The bytes (q in,
 // S slots of randomness, about 5.4 KB per chain per slot at d = 64 and
 // D = 6, and S draws out) take a few microseconds at 3.35 TB/s. The
-// products run on the float32 FMA pipes at one chain per warp, far from
-// that bound; PERF.md keeps the measured time beside the bound.
+// products run on the float32 FMA pipes, the affine window at one chain
+// per warp, far from that bound; PERF.md keeps the measured times beside
+// the bound.
 
-#include "latent_grad.cuh"
+#include "tile_grad.cuh"
 
 // Built by kernels/nuts_window_cuda.py (`LIBRARY`, kernels/cuda_build.py)
 // as one translation unit per instantiation (-DNUTS_DPL=1..8, DPL = d / 32
@@ -71,6 +85,9 @@ cudaError_t launch(const Args& a, int window, cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
                          cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
+                        int window, cudaStream_t stream);
 
 }  // namespace tpuflows_window
 
@@ -167,6 +184,58 @@ __global__ void __launch_bounds__(32) nuts_window_chain_kernel(Args a,
                     ChainGrad<DPL>{a, c, smem, lane});
 }
 
+// The window of a tile of `rows` chains per block, warp b on chain
+// blockIdx.x rows + b: `window_slots` with K1's tile lockstep in every
+// slot (nuts_chain_tile_kernel's hooks), a padding row past n storing
+// nothing.
+template <int DPL>
+__global__ void __launch_bounds__(32 * kMaxTileRows)
+    nuts_window_tile_kernel(Args a, ChainList c, int rows, int window) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * rows + warp;
+  const int chain = min(row, a.n - 1);
+#define NUTS_LOGP_GRAD(z, g) \
+  tile_chain_logp_grad<DPL>(a, c, smem, rows, z, g, lane, warp)
+  float q_cur[DPL], g_cur[DPL];
+#pragma unroll
+  for (int j = 0; j < DPL; ++j)
+    q_cur[j] = __ldg(a.q + (size_t)chain * a.d + lane + 32 * j);
+  float lp_cur = NUTS_LOGP_GRAD(q_cur, g_cur);
+  for (int w = 0; w < window; ++w) {
+    // the proposal's gradient: the subtree's (st_gp) and the transition's
+    float st_gp[DPL], g_prop[DPL];
+    copy<DPL>(st_gp, g_cur);
+    copy<DPL>(g_prop, g_cur);
+#define NUTS_ROW (chain * window + w)
+#define NUTS_Q0(j, i) q_cur[j]
+#define NUTS_LOGP_GRAD0(z, g) carried<DPL>(g_cur, lp_cur, g)
+#define NUTS_TAKE_LEAF copy<DPL>(st_gp, g_new);
+#define NUTS_TAKE_SUBTREE copy<DPL>(g_prop, st_gp);
+#define NUTS_OUT_ROW (w * a.n + chain)
+#define NUTS_INFO_STRIDE (window * a.n)
+#define NUTS_DOUBLING_ON(go) __syncthreads_or(go)
+#define NUTS_LEAF_ON(go) __syncthreads_or(go)
+#define NUTS_SUBTREE_TURN0 turning
+#define NUTS_SUBTREE_DIV0 diverging
+#define NUTS_LEAF_BEGIN const bool leaf_on = !(st_turn || st_div);
+#define NUTS_LEAF_GRAD(z, g)                                              \
+  tile_chain_logp_grad_at<DPL>(a, c, smem, rows, leaf_on, z, s_q, g, lane, \
+                               warp)
+#define NUTS_LEAF_SKIP \
+  if (!leaf_on) continue;
+#define NUTS_BEFORE_STORE if (row < a.n) {
+#define NUTS_AFTER_STORE }
+#include "nuts_tree_body.inc"
+    copy<DPL>(q_cur, q_prop);
+    copy<DPL>(g_cur, g_prop);
+    lp_cur = lp_prop;
+  }
+#undef NUTS_LOGP_GRAD
+}
+
 }  // namespace
 
 namespace tpuflows_window {
@@ -193,9 +262,29 @@ cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
   return cudaGetLastError();
 }
 
+template <int DPL>
+cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
+                        int window, cudaStream_t stream) {
+  const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(rows, row);
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_window_tile_kernel<DPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.n + rows - 1) / rows;
+  nuts_window_tile_kernel<DPL><<<blocks, 32 * rows, smem, stream>>>(
+      a, c, rows, window);
+  return cudaGetLastError();
+}
+
 template cudaError_t launch<NUTS_DPL>(const Args&, int, cudaStream_t);
 template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
                                            int, cudaStream_t);
+template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
+                                          int, int, cudaStream_t);
 
 }  // namespace tpuflows_window
 
@@ -262,27 +351,77 @@ extern "C" int nuts_window_f32(
   }
 }
 
-// A module list (nuts_window_chain_kernel), as K1's
-// nuts_chain_transition_f32 takes it. Returns a cudaError_t.
+namespace {
+
+bool chain_window_ok(int n, int d, int n_mods, int hmax, int head,
+                     int depth, int window) {
+  using namespace tpuflows_window;
+  return n >= 1 && width_ok(d) && n_mods >= 1 &&
+         n_mods <= tpuflows_nuts::kMaxModules &&
+         (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0 &&
+         depth >= 1 && depth <= kMaxDepth && window >= 1 &&
+         (long long)n * window <= (1 << 30);
+}
+
+tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
+                                    int head) {
+  tpuflows_nuts::ChainList c;
+  c.mods = static_cast<const int*>(mods);
+  c.n_mods = n_mods; c.hmax = hmax; c.head = head;
+  return c;
+}
+
+}  // namespace
+
+// A module list on tiles of `rows` chains (a power of two up to
+// kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
+// (nuts_window_tile_kernel), as K1's nuts_chain_transition_f32 takes it
+// plus the window. Refused where the tile's rows leave no room for a
+// weight ring (`tile_ring_stage`). Returns a cudaError_t.
 extern "C" int nuts_chain_window_f32(
+    const void* q, const void* p0c, const void* dirs, const void* u_acc,
+    const void* u_take, const void* eps, const void* inv_mass,
+    const void* params, const void* mods, int n_mods, int n, int d,
+    int hmax, int head, int depth, int window, float sigma_v,
+    float max_delta_energy, void* draws, void* info, int rows,
+    void* stream) {
+  using namespace tpuflows_window;
+  if (!chain_window_ok(n, d, n_mods, hmax, head, depth, window) ||
+      rows < 1 || rows > kMaxTileRows || (rows & (rows - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
+                             params, n, d, depth, sigma_v, max_delta_energy,
+                             draws, info);
+  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d / 32) {
+    case 1: return (int)launch_tile<1>(a, c, rows, window, s);
+    case 2: return (int)launch_tile<2>(a, c, rows, window, s);
+    case 3: return (int)launch_tile<3>(a, c, rows, window, s);
+    case 4: return (int)launch_tile<4>(a, c, rows, window, s);
+    case 5: return (int)launch_tile<5>(a, c, rows, window, s);
+    case 6: return (int)launch_tile<6>(a, c, rows, window, s);
+    case 7: return (int)launch_tile<7>(a, c, rows, window, s);
+    default: return (int)launch_tile<8>(a, c, rows, window, s);
+  }
+}
+
+// The per-warp module-list window (nuts_window_chain_kernel), one chain
+// per block: chip_smoke.py's oracle and yardstick for the tile kernel, on
+// no path. Same arguments as nuts_chain_window_f32 without rows.
+extern "C" int nuts_chain_window_warp_f32(
     const void* q, const void* p0c, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, int n_mods, int n, int d,
     int hmax, int head, int depth, int window, float sigma_v,
     float max_delta_energy, void* draws, void* info, void* stream) {
   using namespace tpuflows_window;
-  if (n < 1 || !width_ok(d) || n_mods < 1 ||
-      n_mods > tpuflows_nuts::kMaxModules ||
-      (hmax != 0 && !width_ok(hmax)) || head < 0 || head % 32 != 0 ||
-      depth < 1 || depth > kMaxDepth || window < 1 ||
-      (long long)n * window > (1 << 30))
+  if (!chain_window_ok(n, d, n_mods, hmax, head, depth, window))
     return (int)cudaErrorInvalidValue;
   const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                              params, n, d, depth, sigma_v, max_delta_energy,
                              draws, info);
-  ChainList c;
-  c.mods = static_cast<const int*>(mods);
-  c.n_mods = n_mods; c.hmax = hmax; c.head = head;
+  const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_chain<1>(a, c, window, s);

@@ -81,9 +81,7 @@ def _launch(z, model: nuts_cuda.PackedFlow, rows=None):
     R)."""
     global LAUNCHES
     _check(z, model)
-    if not model.affine:
-        rows = nuts_cuda.tile_rows(model) if rows is None else rows
-        nuts_cuda.check_tile(model, rows)
+    rows = nuts_cuda.launch_rows(model, rows)
     n, d = z.shape
     lib = LIBRARY.load()
     lp = torch.empty(n, device=z.device, dtype=torch.float32)

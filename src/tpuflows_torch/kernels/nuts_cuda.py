@@ -28,10 +28,10 @@ Three pieces:
 Standardize, AffineCoupling and RQSCouplingBlock modules to
 `nuts_chain_tile_kernel` as a module list. `chain_transition_warp` runs
 the per-warp module-list kernel (`nuts_chain_kernel`), which is on no
-path: it is `chip_smoke.py`'s oracle and yardstick for the tile kernel
-until K2 moves to the tile gradient. The library is built with nvcc into
-`build/kernels/` at the repository root on first use (`cuda_build`);
-nothing is compiled or loaded at import time.
+path: it is `chip_smoke.py`'s oracle and yardstick for the tile kernel.
+The library is built with nvcc into `build/kernels/` at the repository
+root on first use (`cuda_build`); nothing is compiled or loaded at
+import time.
 """
 from __future__ import annotations
 
@@ -319,8 +319,8 @@ def check_launch(q, tensors, model: PackedFlow):
 
 def smem_bytes(model: PackedFlow) -> int:
     """Dynamic shared memory of one row of the module-list kernels (one
-    warp of `nuts_chain_kernel` and K3's `fused_logp_chain_kernel`, one
-    row of a tile of `nuts_chain_tile_kernel` and `fused_logp_tile_kernel`)."""
+    warp of the per-warp kernels, one row of a tile of the tile kernels:
+    K1's, K2's and K3's)."""
     return 4 * ((model.mods.shape[0] + 1) * model.d + 4 * model.hmax
                 + model.head)
 
@@ -345,10 +345,10 @@ def tile_smem_bytes(model: PackedFlow, rows: int) -> int:
 
 
 def tile_rows(model: PackedFlow) -> int:
-    """Rows R of a tile of the module-list kernels (K1's and K3's), which
-    share every weight read over their R rows: the largest power of two up
-    to MAX_TILE_ROWS whose R rows of scratch leave room for the whole 96
-    KB weight ring in SMEM_LIMIT. 8 at the generic arqs flow (~10 KB a
+    """Rows R of a tile of the module-list kernels (K1's, K2's and K3's),
+    which share every weight read over their R rows: the largest power of
+    two up to MAX_TILE_ROWS whose R rows of scratch leave room for the
+    whole 96 KB weight ring in SMEM_LIMIT. 8 at the generic arqs flow (~10 KB a
     row), 2 at d = 256, K = 16 (~54 KB a row); 1, with a smaller ring,
     where one row leaves less room (d = 256, K > 40)."""
     rows = 1
@@ -370,6 +370,18 @@ def check_tile(model: PackedFlow, rows: int):
             f"a tile of {rows} rows needs {rows * smem_bytes(model)} bytes "
             f"of shared memory and a weight ring of at least "
             f"{4 * RING_STAGES * 256 * rows} bytes, over {SMEM_LIMIT}")
+
+
+def launch_rows(model: PackedFlow, rows: int | None = None) -> int | None:
+    """The tile rows a module-list launch takes (K1's, K2's and K3's tile
+    kernels): `tile_rows(model)` unless `rows` is given, refused where
+    `check_tile` refuses it; None for the affine flow, whose kernels run
+    one warp per chain."""
+    if model.affine:
+        return None
+    rows = tile_rows(model) if rows is None else rows
+    check_tile(model, rows)
+    return rows
 
 
 def lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
@@ -419,9 +431,7 @@ def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
     n, d = q.shape
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
     check_launch(q, ins, model)
-    if not model.affine:
-        rows = tile_rows(model) if rows is None else rows
-        check_tile(model, rows)
+    rows = launch_rows(model, rows)
     lib = LIBRARY.load()
     q_out = torch.empty_like(q)
     info = torch.empty((7, n), device=q.device, dtype=torch.float32)

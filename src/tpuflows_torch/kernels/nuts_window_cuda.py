@@ -17,10 +17,14 @@ Four pieces:
     lp and g between transitions instead of recomputing them;
   * `nuts_window` — the wrapper. A CPU tensor goes to the plain version
     with `nuts_cuda.plain_logp_grad`; a CUDA tensor goes to the
-    hand-written kernel `csrc/nuts_window.cu` (one warp per chain looping
-    over the slots with K1's tree code), or the wrapper raises. There is no
-    fallback from one to the other. `LAUNCHES` counts the kernel's
-    launches;
+    hand-written kernel `csrc/nuts_window.cu` (K1's tree code once per
+    slot: the affine flow one warp per chain, a module list on tiles of
+    `nuts_cuda.tile_rows(model)` chains in K1's tile lockstep, every
+    gradient through the tile gradient `csrc/tile_grad.cuh`), or the
+    wrapper raises. There is no fallback from one to the other.
+    `LAUNCHES` counts the kernel's launches. `chain_window_warp` runs the
+    per-warp module-list window (`nuts_window_chain_kernel`), on no path:
+    `chip_smoke.py`'s oracle and yardstick for the tile kernel;
   * `chain_slots` — S chained per-transition calls on the slot columns
     (the equivalence the kernel's design rests on), or S calls each from
     a given window's previous draw, to hold every slot of a window on its
@@ -30,6 +34,8 @@ Four pieces:
     the window's randomness with a `torch.Generator` on the chains' device
     and calls the wrapper. It takes the flows K1 takes (`pack_flow`) and
     exposes the window size as `.window`.
+`window_lockstep_gradients` counts the gradients the tile lockstep
+computes for a window.
 
 The library is built with nvcc into `build/kernels/` at the repository
 root on first use (`cuda_build`); nothing is compiled or loaded at import
@@ -46,7 +52,8 @@ from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
 from tpuflows_torch.kernels.nuts_cuda import (_UNITS, MAX_DELTA_ENERGY,
                                               PackedFlow, check_inputs,
-                                              check_launch, pack_flow,
+                                              check_launch, launch_rows,
+                                              lockstep_gradients, pack_flow,
                                               plain_logp_grad)
 from tpuflows_torch.mcmc.nuts import (NUTSInfo, _popcount32,
                                       _trailing_zeros32,
@@ -63,6 +70,9 @@ def _bind(lib):
     fn.argtypes = [p] * 8 + [i32] * 6 + [f32] * 3 + [p] * 3
     fn.restype = i32
     fn = lib.nuts_chain_window_f32
+    fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 2 + [i32, p]
+    fn.restype = i32
+    fn = lib.nuts_chain_window_warp_f32
     fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 3
     fn.restype = i32
 
@@ -70,7 +80,7 @@ def _bind(lib):
 # one translation unit per instantiation (d / 32 dims per lane) plus the C
 # entry points, as K1's
 LIBRARY = CudaLibrary("nuts_window", "nuts_window.cu", _UNITS,
-                      ["latent_grad.cuh", "nuts_tree.cuh",
+                      ["latent_grad.cuh", "tile_grad.cuh", "nuts_tree.cuh",
                        "nuts_tree_body.inc", "rqs_math.cuh"], _bind)
 
 
@@ -325,9 +335,22 @@ def chain_slots(step: Callable, q, p0c, dirs, u_acc, u_take, window: int,
             div, turn, h0)
 
 
-def _launch(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
-            window, out):
-    global LAUNCHES
+def window_lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
+    """Latent gradients K2's tile lockstep of `rows` chains computes for
+    one window with these leapfrog counts (n_steps (S, n), info's, chains
+    in tile order), counted per tile, not per row: one at the window's
+    start, then in each slot `nuts_cuda.lockstep_gradients` without its
+    start call (a slot starts from the carried lp and g). With rows = 1
+    it is sum(n_steps) + n. A ragged last tile counts as a whole one."""
+    steps = n_steps.detach().to("cpu").reshape(n_steps.shape[0], -1)
+    tiles = -(-steps.shape[1] // rows)
+    return tiles + sum(lockstep_gradients(s, rows) - tiles for s in steps)
+
+
+def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
+          max_depth, window, out, extra=()):
+    """One entry point of the library on CUDA tensors; `extra` goes
+    between info and the stream. Returns `nuts_window`'s outputs."""
     n, d = q.shape
     ins = (q, p0c, dirs, u_acc, u_take, eps, inv_mass, model.params)
     check_launch(q, (*ins, *(() if out is None else (out,))), model)
@@ -339,24 +362,53 @@ def _launch(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if model.affine:
-            name = "nuts_window_f32"
-            rc = lib.nuts_window_f32(
+            rc = getattr(lib, name)(
                 *ptrs, n, d, model.h1, model.h2, max_depth, window,
                 model.clamp, model.target.sigma_v, MAX_DELTA_ENERGY,
-                draws.data_ptr(), info.data_ptr(), stream)
+                draws.data_ptr(), info.data_ptr(), *extra, stream)
         else:
-            name = "nuts_chain_window_f32"
-            rc = lib.nuts_chain_window_f32(
+            rc = getattr(lib, name)(
                 *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
                 model.hmax, model.head, max_depth, window,
                 model.target.sigma_v, MAX_DELTA_ENERGY, draws.data_ptr(),
-                info.data_ptr(), stream)
+                info.data_ptr(), *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES += 1
     lp, sum_acc, n_steps, depth, div, turn, h0 = info.unbind(0)
     return (draws, lp, sum_acc / torch.clamp(n_steps, min=1.0), n_steps,
             depth, div, turn, h0)
+
+
+def _launch(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
+            window, out, rows=None):
+    """K2 on the card; a module list on tiles of `rows` chains (the
+    wrapper's `tile_rows(model)`; `chip_smoke.py` times other R)."""
+    global LAUNCHES
+    rows = launch_rows(model, rows)
+    if model.affine:
+        res = _call("nuts_window_f32", q, p0c, dirs, u_acc, u_take, eps,
+                    inv_mass, model, max_depth, window, out)
+    else:
+        res = _call("nuts_chain_window_f32", q, p0c, dirs, u_acc, u_take,
+                    eps, inv_mass, model, max_depth, window, out,
+                    extra=(rows,))
+    LAUNCHES += 1
+    return res
+
+
+def chain_window_warp(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
+                      model: PackedFlow, max_depth: int, window: int):
+    """The per-warp module-list window (`nuts_window_chain_kernel`) on
+    CUDA tensors: `chip_smoke.py`'s oracle and yardstick for the tile
+    kernel, which must equal it in value. On no path, and not counted in
+    LAUNCHES. Same returns as `nuts_window`."""
+    if model.affine or q.device.type != "cuda":
+        raise ValueError("the per-warp module-list window takes a module "
+                         "list on CUDA tensors")
+    check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
+                 max_depth, window=window)
+    return _call("nuts_chain_window_warp_f32", q, p0c, dirs, u_acc, u_take,
+                 eps, inv_mass, model, max_depth, window, None)
 
 
 def nuts_window(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
@@ -365,7 +417,8 @@ def nuts_window(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
     (the layout of `draw_window_randomness`).
 
     A CPU tensor runs `window_math_torch` with `plain_logp_grad`; a CUDA
-    tensor launches K2. Same returns as `window_math_torch`; the draws are
+    tensor launches K2, a module list on tiles of `tile_rows(model)`
+    chains. Same returns as `window_math_torch`; the draws are
     written into `out` (S, n, d) when it is given."""
     check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth, window=window, out=out)
