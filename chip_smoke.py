@@ -49,7 +49,8 @@ Phases, one JSON line each on stdout with its wall time in seconds:
   6. main_path — config 4 of bench.py (`ceiling` variant): a 6000-step
                reverse-KL/STL fit at batch 1024 of Standardize + one
                leading-mask affine coupling on the 64-d funnel, then NUTS
-               with 1024 chains through K1: 128 warmup steps, then windows
+               with 1024 chains through K1's tile kernel (R = 8, the
+               weights resident): 128 warmup steps, then windows
                of 512 draws until max split-R-hat < 1.05 and min ESS >=
                10000 on data-space draws (at most 4 windows, else it fails).
                K1's launch count is set to 0 before and must equal the
@@ -58,7 +59,10 @@ Phases, one JSON line each on stdout with its wall time in seconds:
   7. timing  — K1 and its plain version with CUDA events at the main path's
                post-warmup state (trained flow, adapted metric and step
                size), beside the bound of the work; the two are held to the
-               same bar there;
+               same bar there. The tile kernel is timed at R = 4 and 8 with
+               its weights through the ring and resident in shared memory,
+               launched from the host and replayed from a CUDA graph,
+               beside the per-warp affine kernel it replaced (`warp_ms`);
   8. main_path_generic — the `generic` variant of bench.py: the arqs flow
                (Standardize + 3 x (affine + spline), K = 8, hidden 128 x
                128, mixed masks, clamp 8) fitted the same way, every spline
@@ -102,25 +106,27 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                generic arqs shape (0.01 x He heads), a ragged batch of 37,
                affine and spline flows at d = 32 and 256 (K = 16 there),
                and both paths' trained flows at their post-warmup states;
- 13b. tile_vs_warp — K1's, K3's and K2's module-list kernels, which run
-               on the tile gradient (csrc/tile_grad.cuh: one block of R
-               warps per tile of R rows that share every weight read),
-               against the per-warp module-list kernels they replaced,
-               kept built as the oracle: every row of phase 5 and the
-               generic post-warmup state for K1, every module-list row of
-               phase 13 and the generic post-warmup state for K3, every
-               module-list row of phase 18 (its seeded windows), the first
-               of them at 1,003 chains (a ragged last tile) and the
-               generic post-warmup state (S = 32) for K2, and all three on
-               a flow whose row leaves no room for the 96 KB weight ring
-               (d = 256, K = 64: R = 1 on a smaller ring), at R = 4 and 8
-               where the tile fits, and the wrappers' default R. Every
-               element of every output must equal the per-warp kernel's
-               in value (the tile kernels skip products with a zero
-               factor, which can change only a zero's sign, counted apart
-               as zero_signs); the count of differing elements, the
-               largest difference, the tile lockstep's efficiency and, for
-               K1, flips and max dq are printed per R;
+ 13b. tile_vs_warp — the tile kernels (csrc/tile_grad.cuh: one block of R
+               warps per tile of R rows that share every weight read; K1's
+               and K2's in both weight modes, the ring and, where they fit,
+               the weights resident in shared memory) against the per-warp
+               module-list kernels, kept built as the oracle: K1 on every
+               row of phase 4's kernel_shapes (the affine flows, d = 32..256,
+               random masks), every row of phase 5 and both post-warmup
+               states; K3 on every module-list row of phase 13 and the
+               generic post-warmup state; K2 on every row of phase 18 (its
+               seeded windows, affine and spline), the bench and first
+               spline rows at 1,003 chains (a ragged last tile) and both
+               post-warmup states (S = 32); and all three on a flow whose
+               row leaves no room for the 96 KB weight ring (d = 256, K =
+               64: R = 1 on a smaller ring), at R = 4 and 8 where the tile
+               fits, and the wrappers' default R. Every element of every
+               output must equal the per-warp kernel's in value (the tile
+               kernels skip products with a zero factor, which can change
+               only a zero's sign, counted apart as zero_signs); the count
+               of differing elements, the largest difference, the tile
+               lockstep's efficiency and, for K1, flips and max dq are
+               printed per mode;
  14. main_path_portable, main_path_portable_generic — flow-preconditioned
                NUTS through the portable route, `NUTSDriver(log p~,
                max_depth=6, logp_and_grad=K3)`, on the trained flows of
@@ -164,8 +170,8 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                autograd gradient: `window_bar`); flips and
                max |dq| per slot are printed, the slots whose energies
                equal K1's to the bit, the elements in which K2 differs from
-               the chained K1 launches in bits (`bitwise_k1`: on module
-               lists both are tile kernels), and whether K2 meets K1's bar
+               the chained K1 launches in bits (`bitwise_k1`: both are tile
+               kernels on every flow), and whether K2 meets K1's bar
                itself. At the post-warmup states
                the plain window also runs the whole window (timed for
                phase 20), and how far the free-running windows part is
@@ -182,12 +188,16 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                events (also replayed from a CUDA graph), per transition
                beside K1's (phases 7 and 9), beside its bound (one latent
                gradient per chain per window plus one per leapfrog) and its
-               plain version's time (phase 18); on the module list the tile
-               kernel at each R beside the per-warp kernel (`warp_ms`) and
-               the lockstep's efficiency, as phase 9 times K1.
-Then the card's nvidia-smi line, the kernels' JSON line (the module-list
-rows of K1, K3 and K2 with the tile kernel's times and `earlier_ms`, the
-per-warp kernel's in the same run) and, last,
+               plain version's time (phase 18); the tile kernel at each R
+               (at the ceiling with the ring and resident weights) beside
+               the per-warp kernel it replaced (`warp_ms`: the affine
+               window at the ceiling, the module-list window at the
+               generic state) and the lockstep's efficiency, as phases 7
+               and 9 time K1.
+Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1
+and K2 and K3's module-list row with the tile kernel's device time, its R
+and weight mode, and `earlier_ms` / `earlier_device_ms`, the per-warp
+kernel's it replaced in the same run) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
 """
@@ -268,8 +278,9 @@ def _kernel_key(name):
         return f"d/32={t.group(1)}"
     if "nuts_chain_kernel" in name and t:
         return f"chain d/32={t.group(1)}"
+    res = " resident" if re.search(r"ILi\d+ELb1E", name) else ""
     if "nuts_chain_tile_kernel" in name and t:
-        return f"chain tile d/32={t.group(1)}"
+        return f"chain tile d/32={t.group(1)}{res}"
     if "fused_logp_affine_kernel" in name and t:
         return f"K3 d/32={t.group(1)}"
     if "fused_logp_chain_kernel" in name and t:
@@ -281,7 +292,7 @@ def _kernel_key(name):
     if "nuts_window_chain_kernel" in name and t:
         return f"K2 chain d/32={t.group(1)}"
     if "nuts_window_tile_kernel" in name and t:
-        return f"K2 tile d/32={t.group(1)}"
+        return f"K2 tile d/32={t.group(1)}{res}"
     for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
@@ -925,6 +936,19 @@ def spline_inputs(device, n, d, depth, seed, unit_metric):
     return [t.to(device) for t in (q, im, *rnd)]
 
 
+def card_inputs(device, n, d, depth, seed, unit_metric):
+    """q ~ N(0, 1), a unit or a random diagonal metric and the
+    precomputed randomness of K1, drawn on `device` from `seed`."""
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((n, d), generator=g, device=device)
+    im = (torch.ones(d, device=device) if unit_metric
+          else 0.5 + torch.rand(d, generator=g, device=device))
+    return [q, im, *nuts_cuda.draw_randomness(g, n, d, depth, im)]
+
+
 def kernel_vs_plain(device, flow, n, depth, eps, seed, unit_metric,
                     plain_spread=False, cpu_inputs=False):
     """K1 against its plain version on one set of inputs: q ~ N(0, 1), a
@@ -942,11 +966,7 @@ def kernel_vs_plain(device, flow, n, depth, eps, seed, unit_metric,
     if cpu_inputs:
         q, im, *rnd = spline_inputs(device, n, d, depth, seed, unit_metric)
     else:
-        g = torch.Generator(device=device).manual_seed(seed)
-        q = torch.randn((n, d), generator=g, device=device)
-        im = (torch.ones(d, device=device) if unit_metric
-              else 0.5 + torch.rand(d, generator=g, device=device))
-        rnd = nuts_cuda.draw_randomness(g, n, d, depth, im)
+        q, im, *rnd = card_inputs(device, n, d, depth, seed, unit_metric)
     e = torch.tensor(eps, device=device)
     kern = nuts_cuda.nuts_transition(q, *rnd, e, im, model, depth)
     plain = nuts_cuda.transition_math_torch(
@@ -980,18 +1000,23 @@ OTHER_SHAPES = [(64, 128, 128, 6, 0.3, 1024, "leading"),
                 (256, 128, 256, 2, 0.1, 256, "random")]
 
 
-def kernel_shapes(device, shapes=OTHER_SHAPES):
-    """K1 against its plain version with every flow leaf and the metric
-    random, at the bench shape and away from it."""
+def shape_flow(device, d, h1, h2, scheme):
+    """The random affine flow of an OTHER_SHAPES row."""
     import torch
     from tpuflows_torch.util.shapes import leading_mask
 
+    g = torch.Generator().manual_seed(d)
+    mask = (leading_mask(d) if scheme == "leading" else
+            tuple(torch.randint(0, 2, (d,), generator=g).tolist()))
+    return random_flow(device, d + h1, d, (h1, h2), mask)
+
+
+def kernel_shapes(device, shapes=OTHER_SHAPES):
+    """K1 against its plain version with every flow leaf and the metric
+    random, at the bench shape and away from it."""
     rows = []
     for d, h1, h2, depth, eps, n, scheme in shapes:
-        g = torch.Generator().manual_seed(d)
-        mask = (leading_mask(d) if scheme == "leading" else
-                tuple(torch.randint(0, 2, (d,), generator=g).tolist()))
-        flow = random_flow(device, d + h1, d, (h1, h2), mask)
+        flow = shape_flow(device, d, h1, h2, scheme)
         res = kernel_vs_plain(device, flow, n, depth, eps, seed=d + h2,
                               unit_metric=False)
         rows.append({"d": d, "h1": h1, "h2": h2, "max_depth": depth,
@@ -1203,6 +1228,9 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
         "train_ms_per_step": 1e3 * train_time / max(train_steps, 1),
         "train_final_loss": float(res.loss_hist[-1]),
         "final_elbo": final_elbo, **gated, "launches": launches,
+        "k1_tile_rows": nuts_cuda.launch_rows(transition.model),
+        "k1_resident": nuts_cuda.launch_resident(
+            transition.model, nuts_cuda.launch_rows(transition.model)) > 0,
         "rqs_launches": dict(rqs_cuda.LAUNCHES),
         "rqs_launches_fit": fit_launches,
         "rqs_launches_expected": expected, "use_pallas": use_pallas,
@@ -1288,11 +1316,14 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False,
     bar and twice that spread: at the generic path's state float32
     reordering alone moves q by more than K1's bar, and the largest q
     difference of two such float32 evaluations over 1024 chains varies by
-    up to twice from one pair to another (PERF.md, Findings). For a module
-    list the tile kernel is also timed at each R of TILE_ROWS that fits,
+    up to twice from one pair to another (PERF.md, Findings). The tile
+    kernel is also timed at each R of TILE_ROWS that fits, with its
+    weights through the ring and, where they fit, resident,
     launched from the host and replayed from a CUDA graph, beside the
-    per-warp kernel (`tile_and_warp_times`), with the tile lockstep's
-    efficiency at each R (`lockstep_efficiency`)."""
+    per-warp kernel it replaced (the module-list kernel, or the affine
+    kernel for Standardize + one AffineCoupling: `tile_and_warp_times`),
+    with the tile lockstep's efficiency at each R
+    (`lockstep_efficiency`)."""
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
 
@@ -1334,17 +1365,18 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False,
                      2.0 * out["plain_vs_plain_at_state"]["max_dq"])
     out["dq_bar"] = max_dq
     out["vs_plain_at_state"] = compare(plain, kern, max_dq)
-    if not model.affine:
-        out.update(tile_and_warp_times(
-            model, lambda R: nuts_cuda._launch(
-                q, *rnd, eps, im, model, MAX_DEPTH, rows=R),
-            lambda: nuts_cuda.chain_transition_warp(
-                q, *rnd, eps, im, model, MAX_DEPTH), TILE_ROWS,
-            n_reps, graph_reps=graph_reps, graph_replays=graph_replays))
-        for R, r in out["tile"].items():
-            r["lockstep_efficiency"] = lockstep_efficiency(kern[3], R)
-        out["lockstep_efficiency"] = out["tile"][out["rows"]][
-            "lockstep_efficiency"]
+    warp = (nuts_cuda.affine_transition_warp if model.affine
+            else nuts_cuda.chain_transition_warp)
+    out.update(tile_and_warp_times(
+        model, lambda R, resident: nuts_cuda._launch(
+            q, *rnd, eps, im, model, MAX_DEPTH, rows=R, resident=resident),
+        lambda: warp(q, *rnd, eps, im, model, MAX_DEPTH),
+        tile_modes(model, TILE_ROWS), n_reps, graph_reps=graph_reps,
+        graph_replays=graph_replays))
+    for R, r in (*out["tile"].items(), *out["tile_resident"].items()):
+        r["lockstep_efficiency"] = lockstep_efficiency(kern[3], R)
+    out["lockstep_efficiency"] = out["tile"][out["rows"]][
+        "lockstep_efficiency"]
     return out
 
 
@@ -1593,9 +1625,9 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
            "portable_transition_ms": port_ms, "k1_transition_ms": k1_ms}
     if not model.affine:
         out.update(tile_and_warp_times(
-            model, lambda R: fused_logp_cuda._launch(z, model, rows=R),
+            model, lambda R, _: fused_logp_cuda._launch(z, model, rows=R),
             lambda: fused_logp_cuda.chain_logp_grad_warp(z, model),
-            TILE_ROWS, n_reps))
+            [(R, False) for R in fitting_rows(model, TILE_ROWS)], n_reps))
     return out
 
 
@@ -1630,6 +1662,21 @@ def fitting_rows(model, candidates):
                   | {nuts_cuda.tile_rows(model)})
 
 
+def tile_modes(model, candidates):
+    """(R, resident) of every tile launch of K1 and K2 to measure: the
+    ring at each R of `fitting_rows`, and the resident weights where they
+    fit at that R (`nuts_cuda.resident_fits`)."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    return [(R, res) for R in fitting_rows(model, candidates)
+            for res in (False, True)
+            if not res or nuts_cuda.resident_fits(model, R)]
+
+
+def mode_label(R, resident):
+    return f"R={R} {'resident' if resident else 'ring'}"
+
+
 def value_diff(a, b):
     """(elements of a and b that differ in value, NaN counting as equal to
     NaN; elements equal in value whose bits differ, which can only be a
@@ -1662,12 +1709,16 @@ def lockstep_efficiency(n_steps, rows):
     return useful / (rows * count(n_steps, rows))
 
 
-def tile_and_warp_times(model, tile_fn, warp_fn, candidates, n_reps,
+def tile_and_warp_times(model, tile_fn, warp_fn, modes, n_reps,
                         graph_reps=20, graph_replays=10):
-    """A module-list kernel's tile version at each R of `candidates` that
-    fits (`tile_fn(R)`) and its per-warp version (`warp_fn()`), each
-    launched from the host (`timed`) and replayed from a CUDA graph
-    (`graph_ms`), on the same inputs, in turns: warp, tiles, warp."""
+    """A kernel's tile version at each (R, resident) of `modes`
+    (`tile_fn(R, resident)`: the ring at each R that fits, and for K1 and
+    K2 the resident weights where they fit, `tile_modes`) and the
+    per-warp kernel it replaced (`warp_fn()`), each launched from the host
+    (`timed`) and replayed from a CUDA graph (`graph_ms`), on the same
+    inputs, in turns: warp, tiles, warp. `tile` holds the ring's times by
+    R, `tile_resident` the resident weights'; `tile_device_ms` is the
+    mode the wrappers take (`rows`, `resident`)."""
     from tpuflows_torch.kernels import nuts_cuda
 
     def both(fn):
@@ -1676,23 +1727,34 @@ def tile_and_warp_times(model, tile_fn, warp_fn, candidates, n_reps,
                                       replays=graph_replays)}
 
     first = both(warp_fn)
-    tile = {R: both(lambda R=R: tile_fn(R))
-            for R in fitting_rows(model, candidates)}
+    times = {m: both(lambda m=m: tile_fn(*m)) for m in modes}
     last = both(warp_fn)
     rows = nuts_cuda.tile_rows(model)
+    resident = nuts_cuda.launch_resident(model, rows) > 0
     warp = {k: 0.5 * (first[k] + last[k]) for k in first}
-    return {"rows": rows, "tile": tile, "warp_ms": warp["ms"],
-            "warp_device_ms": warp["device_ms"], "warp_runs": [first, last],
-            "tile_device_ms": tile[rows]["device_ms"],
-            "speedup_device": warp["device_ms"] / tile[rows]["device_ms"]}
+    out = {"rows": rows, "resident": resident,
+           "tile": {R: t for (R, r), t in times.items() if not r},
+           "tile_resident": {R: t for (R, r), t in times.items() if r},
+           "warp_ms": warp["ms"], "warp_device_ms": warp["device_ms"],
+           "warp_runs": [first, last],
+           "tile_ms": times[rows, resident]["ms"],
+           "tile_device_ms": times[rows, resident]["device_ms"]}
+    out["speedup_device"] = warp["device_ms"] / out["tile_device_ms"]
+    if out["tile_resident"]:
+        out["resident_vs_ring_device"] = {
+            R: out["tile"][R]["device_ms"] / t["device_ms"]
+            for R, t in out["tile_resident"].items()}
+    return out
 
 
 def k1_tile_vs_warp(flow, q, im, rnd, eps, depth):
-    """K1's tile kernel (`nuts_cuda._launch(..., rows=R)`) at each R of
-    TILE_ROWS that fits against the per-warp module-list kernel on the
-    same inputs: per R, the elements of the eight outputs whose bits
-    differ (expected 0) and the largest difference, K1's flips and max dq
-    between the two (`compare`), and the tile lockstep's efficiency."""
+    """K1's tile kernel (`nuts_cuda._launch(..., rows=R, resident=...)`)
+    at each R of TILE_ROWS that fits, with the ring and, where they fit,
+    the resident weights (`tile_modes`), against the per-warp module-list
+    kernel on the same inputs: per mode, the elements of the eight outputs
+    whose bits differ (expected 0) and the largest difference, K1's flips
+    and max dq between the two (`compare`), and the tile lockstep's
+    efficiency."""
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
 
@@ -1700,12 +1762,13 @@ def k1_tile_vs_warp(flow, q, im, rnd, eps, depth):
     warp = nuts_cuda.chain_transition_warp(q, *rnd, eps, im, model, depth)
     out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
            "default_rows": nuts_cuda.tile_rows(model), "rows": {}}
-    for R in fitting_rows(model, TILE_ROWS):
-        tile = nuts_cuda._launch(q, *rnd, eps, im, model, depth, rows=R)
+    for R, resident in tile_modes(model, TILE_ROWS):
+        tile = nuts_cuda._launch(q, *rnd, eps, im, model, depth, rows=R,
+                                 resident=resident)
         diffs = {k: value_diff(t, w)
                  for k, t, w in zip(K1_OUTS, tile, warp)}
         c = compare(warp, tile)
-        out["rows"][R] = {
+        out["rows"][mode_label(R, resident)] = {
             "differ": sum(v[0] for v in diffs.values()),
             "zero_signs": sum(v[1] for v in diffs.values()),
             "max_abs": max(v[2] for v in diffs.values()),
@@ -1745,12 +1808,12 @@ def k3_tile_vs_warp(flow, z):
 
 
 def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window):
-    """K2's tile kernel (`nuts_window_cuda._launch(..., rows=R)`) at each R
-    of TILE_ROWS that fits against the per-warp module-list window
-    (`chain_window_warp`) on the same inputs: per R, the elements of the
-    draws and the seven info outputs that differ in value (expected 0),
-    the largest difference, and the tile lockstep's efficiency over the
-    window."""
+    """K2's tile kernel (`nuts_window_cuda._launch(..., rows=R,
+    resident=...)`) in every mode of `tile_modes` against the per-warp
+    module-list window (`chain_window_warp`) on the same inputs: per mode,
+    the elements of the draws and the seven info outputs that differ in
+    value (expected 0), the largest difference, and the tile lockstep's
+    efficiency over the window."""
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.kernels import nuts_window_cuda as nw
     from tpuflows_torch.targets import NealsFunnel
@@ -1760,12 +1823,12 @@ def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window):
     out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
            "window": window, "default_rows": nuts_cuda.tile_rows(model),
            "rows": {}}
-    for R in fitting_rows(model, TILE_ROWS):
+    for R, resident in tile_modes(model, TILE_ROWS):
         tile = nw._launch(q, *rnd, eps, im, model, depth, window, None,
-                          rows=R)
+                          rows=R, resident=resident)
         diffs = {k: value_diff(t, w)
                  for k, t, w in zip(K2_OUTS, tile, warp)}
-        out["rows"][R] = {
+        out["rows"][mode_label(R, resident)] = {
             "differ": sum(v[0] for v in diffs.values()),
             "zero_signs": sum(v[1] for v in diffs.values()),
             "max_abs": max(v[2] for v in diffs.values()),
@@ -1776,23 +1839,33 @@ def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window):
 
 
 def tile_vs_warp(device, k1_states=(), k3_states=(), k2_states=()):
-    """Phase tile_vs_warp: K1 on every module-list row of
-    `kernel_vs_plain_spline` (its flows and inputs, rebuilt from their
-    seeds) and on `k1_states` ((label, flow, NUTSState)); K3 on every
-    module-list row of `fused_logp_rows` (z ~ N(0, 1) from a seed) and on
-    `k3_states` ((label, flow, z)); K2 on every module-list row of
-    `window_rows` (its flows, starts and window randomness), on the
-    first of them at a chain count that no tile divides (RAGGED_CHAINS),
-    and on `k2_states` ((label, flow, NUTSState), windows of
-    WINDOW_SLOTS on the randomness of its `window_vs_plain` row); all
+    """Phase tile_vs_warp: K1 on every row of `kernel_shapes` (the affine
+    flows at d = 32..256, their inputs rebuilt from their seeds) and every
+    module-list row of `kernel_vs_plain_spline`, and on `k1_states`
+    ((label, flow, NUTSState)); K3 on every module-list row of
+    `fused_logp_rows` other than the affine flow (z ~ N(0, 1) from a seed)
+    and on `k3_states` ((label, flow, z)); K2 on every row of
+    `window_rows` (its flows, starts and window randomness), on its bench
+    row and its first spline row at a chain count that no tile divides
+    (RAGGED_CHAINS), and on `k2_states` ((label, flow, NUTSState), windows
+    of WINDOW_SLOTS on the randomness of its `window_vs_plain` row); all
     three on SMALL_RING_SHAPE (q ~ N(0, 1) as `kernel_vs_plain_spline`
-    draws it; K2 on a window of 4). Every row passes when the tile kernel
-    equals the per-warp kernel in value at every R measured."""
+    draws it; K2 on a window of 4). K1 and K2 run every mode of
+    `tile_modes` (the ring, and the resident weights where they fit).
+    Every row passes when the tile kernel equals the per-warp module-list
+    kernel in value in every mode measured."""
     import torch
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
 
     rows = []
+    for d, h1, h2, depth, eps, n, scheme in OTHER_SHAPES:
+        flow = shape_flow(device, d, h1, h2, scheme)
+        q, im, *rnd = card_inputs(device, n, d, depth, d + h2, False)
+        res = k1_tile_vs_warp(flow, q, im, rnd,
+                              torch.tensor(eps, device=device), depth)
+        rows.append({"kernel": "K1", "label": f"affine d={d} h={h1},{h2} "
+                     f"{scheme}", **res})
     for d, hidden, K, nb, depth, eps, n, unit, head in (
             *SPLINE_SHAPES, SPLINE_CHAOS_SHAPE):
         flow = spline_flow_with_random_heads(device, 10 + d, dim=d,
@@ -1831,11 +1904,13 @@ def tile_vs_warp(device, k1_states=(), k3_states=(), k2_states=()):
     rnd = window_randomness(device, n, d, 4, depth, im, 20 + K)
     rows.append({"kernel": "K2", "label": label, **k2_tile_vs_warp(
         flow, q, im, rnd, torch.tensor(eps, device=device), depth, 4)})
-    spline = [r for r in window_rows(device) if r[0].startswith("spline")]
-    label, flow, q, im, eps, depth, S, seed = spline[0]
-    ragged = (f"{label}, {RAGGED_CHAINS} chains", flow,
-              q[:RAGGED_CHAINS].contiguous(), im, eps, depth, S, seed)
-    for label, flow, q, im, eps, depth, S, seed in (*spline, ragged):
+    wrows = window_rows(device)
+    ragged = [(f"{label}, {RAGGED_CHAINS} chains", flow,
+               q[:RAGGED_CHAINS].contiguous(), im, eps, depth, S, seed)
+              for label, flow, q, im, eps, depth, S, seed in (
+                  wrows[0], next(r for r in wrows
+                                 if r[0].startswith("spline")))]
+    for label, flow, q, im, eps, depth, S, seed in (*wrows, *ragged):
         n, d = q.shape
         rnd = window_randomness(device, n, d, S, depth, im, seed)
         rows.append({"kernel": "K2", "label": label, **k2_tile_vs_warp(
@@ -2080,8 +2155,8 @@ def main_path_window(device, variant, flow, n_chains=N_CHAINS,
     paths' gates. The launch counts are set to 0 before: K1's must equal
     the warmup steps, K2's the draws / `slots` (0 on the CPU), and K4/K5
     (spline flows on the K4/K5 tier) launch only the data-space mapping's
-    inverses. `k2_tile_rows` is the R of K2's tile kernel on a module list
-    (None for the affine flow's kernel)."""
+    inverses. `k2_tile_rows` is the R of K2's tile kernel, `k2_resident`
+    whether its weights stay resident in shared memory."""
     import torch
     from tpuflows_torch.flows import RQSCouplingBlock
     from tpuflows_torch.kernels import (coupling_cuda, nuts_cuda,
@@ -2122,6 +2197,9 @@ def main_path_window(device, variant, flow, n_chains=N_CHAINS,
         "k2_launches": nuts_window_cuda.LAUNCHES,
         "k2_launches_expected": gated["n_draws"] // slots if on_card else 0,
         "k2_tile_rows": nuts_cuda.launch_rows(window_transition.model),
+        "k2_resident": nuts_cuda.launch_resident(
+            window_transition.model,
+            nuts_cuda.launch_rows(window_transition.model)) > 0,
         "rqs_launches": dict(rqs_cuda.LAUNCHES),
         "rqs_launches_expected": {"k4_forward": 0,
                                   "k4_inverse": per * inverse_calls,
@@ -2157,7 +2235,9 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
     from the host and replayed from a CUDA graph (`graph_ms`), on the
     randomness of its `window_vs_plain` row; per transition beside K1's
     time there (`k1_ms`, from `time_kernel`), beside the bound of the work
-    and the plain version's time (`plain_ms`, from `window_vs_plain`).
+    and the plain version's time (`plain_ms`, from `window_vs_plain`),
+    and the tile kernel in every mode of `tile_modes` beside the per-warp
+    window it replaced (`tile_and_warp_times`, as `time_kernel`).
     The work: one latent gradient per chain at the window's start and one
     per leapfrog, each the MLPs' forward and input-gradient backward
     (`mlp_flops`); the bytes: q, the window's randomness, the flow's
@@ -2194,17 +2274,18 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
            "bytes": nbytes, "gradients": gradients,
            "leapfrogs_per_transition": (gradients - n) / (n * slots),
            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
-    if not model.affine:
-        res.update(tile_and_warp_times(
-            model, lambda R: nw._launch(q, *rnd, eps, im, model, MAX_DEPTH,
-                                        slots, None, rows=R),
-            lambda: nw.chain_window_warp(q, *rnd, eps, im, model,
-                                         MAX_DEPTH, slots), TILE_ROWS,
-            n_reps, graph_reps=graph_reps, graph_replays=graph_replays))
-        for R, r in res["tile"].items():
-            r["lockstep_efficiency"] = lockstep_efficiency(steps, R)
-        res["lockstep_efficiency"] = res["tile"][res["rows"]][
-            "lockstep_efficiency"]
+    warp = nw.affine_window_warp if model.affine else nw.chain_window_warp
+    res.update(tile_and_warp_times(
+        model, lambda R, resident: nw._launch(
+            q, *rnd, eps, im, model, MAX_DEPTH, slots, None, rows=R,
+            resident=resident),
+        lambda: warp(q, *rnd, eps, im, model, MAX_DEPTH, slots),
+        tile_modes(model, TILE_ROWS), n_reps, graph_reps=graph_reps,
+        graph_replays=graph_replays))
+    for R, r in (*res["tile"].items(), *res["tile_resident"].items()):
+        r["lockstep_efficiency"] = lockstep_efficiency(steps, R)
+    res["lockstep_efficiency"] = res["tile"][res["rows"]][
+        "lockstep_efficiency"]
     return res
 
 
@@ -2381,10 +2462,12 @@ def main(argv=None):
         raise RuntimeError(f"K3 disagrees with its plain version: {bad}")
 
     t = time.perf_counter()
+    states = [("ceiling post-warmup state", flow, warm_state),
+              ("generic post-warmup state", gflow, gstate)]
     tile_rows = tile_vs_warp(
-        device, k1_states=[("generic post-warmup state", gflow, gstate)],
+        device, k1_states=states,
         k3_states=[("generic post-warmup state", gflow, gstate.q)],
-        k2_states=[("generic post-warmup state", gflow, gstate)])
+        k2_states=states)
     emit("tile_vs_warp", t, rows=tile_rows,
          bar="every element of every output equal in value to the "
              "per-warp kernel's at every R measured (a zero's sign may "
@@ -2478,6 +2561,9 @@ def main(argv=None):
         "source": "src/tpuflows_torch/csrc/nuts_transition.cu",
         "replaces": k1, "launches": res["launches"],
         "max_abs_err": cmp["max_dq"], "ms": tim["ms"],
+        "device_ms": tim["tile_device_ms"], "rows": tim["rows"],
+        "resident": tim["resident"], "earlier_ms": tim["warp_ms"],
+        "earlier_device_ms": tim["warp_device_ms"],
         "plain_ms": tim["plain_ms"], "bound_ms": tim["bound_ms"],
         "bound_by": tim["bound_by"], "library_ms": None,
     }, {
@@ -2486,7 +2572,7 @@ def main(argv=None):
         "replaces": k1, "launches": gres["launches"],
         "max_abs_err": spline_rows[0]["max_dq"], "ms": gtim["ms"],
         "device_ms": gtim["tile_device_ms"], "rows": gtim["rows"],
-        "earlier_ms": gtim["warp_ms"],
+        "resident": gtim["resident"], "earlier_ms": gtim["warp_ms"],
         "earlier_device_ms": gtim["warp_device_ms"],
         "plain_ms": gtim["plain_ms"], "bound_ms": gtim["bound_ms"],
         "bound_by": gtim["bound_by"], "library_ms": None,
@@ -2564,11 +2650,10 @@ def main(argv=None):
             "max_abs_err_covers": row["vs_plain"]["covers"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-        if "warp_ms" in r:  # the module list: tile and per-warp times
-            kernels[-1].update(
-                device_ms=r["tile_device_ms"], rows=r["rows"],
-                earlier_ms=r["warp_ms"],
-                earlier_device_ms=r["warp_device_ms"])
+        kernels[-1].update(  # the tile kernel and the per-warp one
+            device_ms=r["tile_device_ms"], rows=r["rows"],
+            resident=r["resident"], earlier_ms=r["warp_ms"],
+            earlier_device_ms=r["warp_device_ms"])
     print(json.dumps({"total_seconds": time.perf_counter() - T0}),
           flush=True)
     print(smi, flush=True)

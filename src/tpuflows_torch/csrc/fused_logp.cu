@@ -21,9 +21,12 @@
 // (`fused_logp_chain_kernel`, `chain_logp_grad`), with 3-layer silu MLPs.
 //
 // Design. The affine kernel (`fused_logp_affine_kernel`) is one warp per
-// row, one warp per block, with K1's gradient device code unchanged
-// (`logp_grad`), its scratch 6 d + 3 h1 + 3 h2 floats of dynamic shared
-// memory. The module-list kernel (`fused_logp_tile_kernel`) runs the tile
+// row, one warp per block, with the per-warp gradient device code
+// (`logp_grad`, which K1's and K2's per-warp affine kernels share), its
+// scratch 6 d + 3 h1 + 3 h2 floats of dynamic shared memory; it reads the
+// `Net` prefix of the packed buffer, and is the last affine kernel on a
+// path (the portable one) now that K1 and K2 run the affine flow on their
+// tile kernels. The module-list kernel (`fused_logp_tile_kernel`) runs the tile
 // gradient of tile_grad.cuh: one block of R warps per tile of R rows,
 // every weight read once per tile (through a cp.async ring in shared
 // memory) and used for all R rows, warp b owning row b with
@@ -37,9 +40,7 @@
 // order of every sum; the compact layers it reads can change only a
 // zero's sign). The per-warp kernel (`fused_logp_chain_kernel`, entry
 // point `fused_logp_chain_warp_f32`) stays built only as chip_smoke.py's
-// oracle and yardstick for the tile kernel; no wrapper calls it, and it
-// goes when K2 moves to the tile gradient and `chain_logp_grad` loses its
-// last user.
+// oracle and yardstick for the tile kernel; no wrapper calls it.
 //
 // Bound on this card: operations. A row costs one forward and one
 // input-gradient backward of every conditioner MLP, counted over the work

@@ -3,15 +3,15 @@
 // over Neal's funnel, for two kinds of flow:
 //  * `logp_grad`: Standardize + one AffineCoupling (any 0/1 mask, any
 //    clamp) whose conditioner is an MLP d -> h1 -> h2 -> 2d with silu, its
-//    leaves packed as `Net` says (the ceiling path): K1's affine kernel
-//    (nuts_transition.cu), K3's (fused_logp.cu) and K2's
-//    (nuts_window.cu);
+//    leaves packed as `Net` says: K3's affine kernel (fused_logp.cu, the
+//    ceiling's portable path), and K1's and K2's per-warp affine kernels
+//    (nuts_transition.cu, nuts_window.cu), which no path runs any more
+//    and which stay built as chip_smoke.py's yardstick of that design;
 //  * `chain_logp_grad`: any Chain of Standardize, AffineCoupling and
 //    RQSCouplingBlock modules with such MLPs, given as a module list
-//    (`ChainList`, the generic path's arqs flow): K2's module-list kernel,
-//    and the per-warp module-list kernels of K1 and K3, which no path
-//    runs any more and which stay built as chip_smoke.py's oracle for the
-//    tile gradient until K2 moves to it. It follows
+//    (`ChainList`): the per-warp module-list kernels of K1, K2 and K3,
+//    which no path runs any more and which stay built as chip_smoke.py's
+//    oracle for the tile gradient. It follows
 //    `tile_logp_and_grad_streamed` (src/tpuflows/kernels/tile_flow.py:107):
 //    sweep 1 applies the inverse chain and keeps only each module's d-wide
 //    input in the warp's shared memory; sweep 2 walks back, recomputes each
@@ -21,7 +21,7 @@
 //    pulled back first and is not recomputed. Spline conditioners come
 //    with p-major last layers (`permute_for_tiles`), so lane l reads
 //    parameter p of its dims at p d + l + 32 j, which it wrote itself.
-// K1's and K3's module-list kernels run the tile gradient of
+// K1's, K2's and K3's tile kernels run the tile gradient of
 // tile_grad.cuh instead: the same per-row code and order of sums, with
 // the MLP products shared over a tile of rows.
 //
@@ -483,7 +483,15 @@ __device__ __noinline__ void module_vjp(const Args& a, const int* md, const Scra
   __syncwarp();  // xin and head are written again by the next module
 }
 
-// funnel logp at x and its gradient
+// funnel logp at x and its gradient. Every product and sum is rounded as
+// written (__fmaf_rn, __fmul_rn, __fadd_rn, __fsub_rn), so that it gives
+// the same bits wherever it is inlined: with plain operators the compiler
+// fused them into FMAs differently at a tree's start and at its leaves,
+// so that K2's carried gradient (a leaf's) parted from K1's at the same
+// point (its start) at rounding level, and the ceiling window's draws by
+// up to 2.4e-4 from K1's in one transition. Now K2 equals chained K1
+// launches to the bit on every flow; not inlining it did that too, but
+// cost K1's tile kernel 5-20% (PERF.md).
 template <int DPL>
 __device__ float funnel_logp_grad(const Args& a, const float (&x)[DPL],
                                   float (&g)[DPL], int lane) {
@@ -491,19 +499,24 @@ __device__ float funnel_logp_grad(const Args& a, const float (&x)[DPL],
   float sq = 0.0f;
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    if (lane + 32 * j != 0) sq += x[j] * x[j];
+    if (lane + 32 * j != 0) sq = __fmaf_rn(x[j], x[j], sq);
   sq = warp_sum(sq);
   const float v = __shfl_sync(kFull, x[0], 0);
   const float sv = a.sigma_v;
-  const float k = (float)(d - 1);
+  const float hk = 0.5f * (float)(d - 1);
   const float env = expf(-v);
   const float vs = v / sv;
-  const float lp_v = -0.5f * vs * vs - logf(sv) - 0.5f * kLog2Pi;
-  const float lp_rest = -0.5f * sq * env - 0.5f * k * v - 0.5f * k * kLog2Pi;
-  const float gv = -v / (sv * sv) + 0.5f * sq * env - 0.5f * k;
+  const float hse = __fmul_rn(__fmul_rn(0.5f, sq), env);
+  const float lp_v = __fsub_rn(
+      __fsub_rn(__fmul_rn(__fmul_rn(-0.5f, vs), vs), logf(sv)),
+      0.5f * kLog2Pi);
+  const float lp_rest =
+      __fsub_rn(__fsub_rn(-hse, __fmul_rn(hk, v)), __fmul_rn(hk, kLog2Pi));
+  const float gv = __fsub_rn(__fadd_rn(-v / __fmul_rn(sv, sv), hse), hk);
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) g[j] = (lane + 32 * j == 0) ? gv : -x[j] * env;
-  return lp_v + lp_rest;
+  for (int j = 0; j < DPL; ++j)
+    g[j] = (lane + 32 * j == 0) ? gv : __fmul_rn(-x[j], env);
+  return __fadd_rn(lp_v, lp_rest);
 }
 
 // lp = log p(f^-1(z)) + ladj and g = d lp / dz through the module list.

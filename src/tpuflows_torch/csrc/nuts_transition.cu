@@ -12,18 +12,24 @@
 // Three kernels share the tree code (nuts_tree_body.inc); the gradients
 // of log p(f^-1(z)) + ladj live in latent_grad.cuh and tile_grad.cuh,
 // which K3 (fused_logp.cu) shares:
-//  * `nuts_transition_kernel`: the flow Standardize + one AffineCoupling
-//    with a silu MLP d -> h1 -> h2 -> 2d (`logp_grad`, the ceiling path),
-//    one warp per chain;
-//  * `nuts_chain_tile_kernel`: any Chain of Standardize, AffineCoupling
-//    and RQSCouplingBlock modules with such MLPs, given as a module list
-//    (the generic path's arqs flow), on tiles of R chains whose gradients
-//    share every weight read (`tile_chain_logp_grad`);
+//  * `nuts_chain_tile_kernel`, the one on every path: any Chain of
+//    Standardize, AffineCoupling and RQSCouplingBlock modules with silu
+//    MLPs d -> h1 -> h2 -> n, given as a module list (the ceiling path's
+//    Standardize + one AffineCoupling and the generic path's arqs flow),
+//    on tiles of R chains whose gradients share every weight read
+//    (`tile_chain_logp_grad`). Two instantiations: the weights through a
+//    cp.async ring, or, for a flow with one coupling whose layers fit
+//    (the ceiling's), resident in shared memory for the whole launch
+//    (kResident, tile_grad.cuh);
 //  * `nuts_chain_kernel`: the same module list one warp per chain
 //    (`chain_logp_grad`), entry point `nuts_chain_transition_warp_f32`:
-//    kept only as chip_smoke.py's oracle and yardstick for the tile
-//    kernel, on no path; it goes when K2 moves to the tile gradient and
-//    `chain_logp_grad` loses its last user.
+//    kept only as chip_smoke.py's oracle for the tile kernel, on no path;
+//  * `nuts_transition_kernel`: Standardize + one AffineCoupling one warp
+//    per chain (`logp_grad`), entry point `nuts_transition_f32`, which ran
+//    the ceiling path before the tile kernel took it: kept only as
+//    chip_smoke.py's yardstick of that design, on no path. It and
+//    `logp_grad` go when K3's affine kernel, their last user, moves to
+//    the tiles too.
 //
 // Design:
 //  * One warp per chain; each chain's tree state stays in its warp's
@@ -33,9 +39,9 @@
 //    done, so the u_take column of leaf j in doubling k is always 2^k - 1
 //    + j (tests/test_torch_nuts.py::test_chains_are_independent, and
 //    tests/test_torch_tile_grad.py for module lists).
-//  * The affine kernel and the per-warp module-list kernel are one warp
-//    per block and keep no lockstep. The tile kernel is one block of R
-//    warps (R from `nuts_cuda.tile_rows`, 8 at the generic flow), and
+//  * The per-warp kernels are one warp per block and keep no lockstep.
+//    The tile kernel is one block of R warps (R from
+//    `nuts_cuda.tile_rows`, 8 at the ceiling and the generic flow), and
 //    every warp must call the tile gradient the same number of times, so
 //    both loops run while any chain of the tile is active (the tile
 //    lockstep of `_transition_math`, at tile R instead of 256): their
@@ -46,10 +52,11 @@
 //    repeat chain n - 1, so they lengthen no loop, and store nothing.
 //  * Lane layout and the per-row math as latent_grad.cuh says. Both loops
 //    are bounded: at most `depth` doublings and at most 2^k leaves in
-//    doubling k. The weights stay resident in L2 (~82 k floats for the
-//    affine flow at d = 64, h = 128; ~1.5 M floats for the arqs flow of
-//    the generic path). The scratch is dynamic shared memory sized by the
-//    launch (R rows of it for the tile kernel: ~80 KB at the generic flow).
+//    doubling k. The weights stay resident in L2 (~1.5 M floats for the
+//    arqs flow of the generic path) or, at the ceiling flow, in shared
+//    memory (its compact forward layers, 37 k floats). The scratch is
+//    dynamic shared memory sized by the launch (R rows of it for the tile
+//    kernel: ~80 KB at the generic flow, 26 KB at the ceiling).
 //  * The U-turn checkpoint pairs (2 x depth x d floats) live in registers,
 //    selected by unrolled compares against the slot (no dynamic indexing).
 //  * A divergent leaf's non-finite q, p and g are zeroed (the plain
@@ -64,12 +71,12 @@
 // at the trained post-warmup states a transition of 1024 chains takes about
 // 8,190 gradients, 1.07 / 14.09 GFLOP, 0.0160 / 0.210 ms at 67 TFLOP/s
 // float32, while it moves only q in and out plus its random inputs (about
-// 1 KB per chain). The affine kernel reads every weight from L2 for each
-// chain's leapfrog, far from that bound; the tile kernel reads them once
-// per R chains, and does the gradients its lockstep adds (chains that wait
-// for their tile-mates). Both run in float32 on the FMA pipes
-// (tile_grad.cuh says why). PERF.md keeps the measured times beside the
-// bound.
+// 1 KB per chain). The per-warp affine kernel reads every weight from L2
+// for each chain's leapfrog, far from that bound; the tile kernel reads
+// them once per R chains (at the ceiling once per launch), and does the
+// gradients its lockstep adds (chains that wait for their tile-mates).
+// Both run in float32 on the FMA pipes (tile_grad.cuh says why). PERF.md
+// keeps the measured times beside the bound.
 
 #include "tile_grad.cuh"
 
@@ -89,7 +96,7 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
-                        cudaStream_t stream);
+                        int resident, cudaStream_t stream);
 
 }  // namespace tpuflows_nuts
 
@@ -123,8 +130,9 @@ __global__ void __launch_bounds__(32) nuts_chain_kernel(Args a, ChainList c) {
 }
 
 // One tile of `rows` chains per block, warp b on chain blockIdx.x rows +
-// b, its two loops in tile lockstep (nuts_tree_body.inc's hooks).
-template <int DPL>
+// b, its two loops in tile lockstep (nuts_tree_body.inc's hooks); the
+// weights through the ring, or resident (kResident, tile_grad.cuh).
+template <int DPL, bool kResident>
 __global__ void __launch_bounds__(32 * kMaxTileRows)
     nuts_chain_tile_kernel(Args a, ChainList c, int rows) {
   extern __shared__ float4 smem4[];
@@ -133,16 +141,19 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * rows + warp;
   const int chain = min(row, a.n - 1);
+  if constexpr (kResident) {
+    tile_load_resident(a, c, rows);
+  }
 #define NUTS_LOGP_GRAD(z, g) \
-  tile_chain_logp_grad<DPL>(a, c, smem, rows, z, g, lane, warp)
+  tile_chain_logp_grad<DPL, kResident>(a, c, smem, rows, z, g, lane, warp)
 #define NUTS_DOUBLING_ON(go) __syncthreads_or(go)
 #define NUTS_LEAF_ON(go) __syncthreads_or(go)
 #define NUTS_SUBTREE_TURN0 turning
 #define NUTS_SUBTREE_DIV0 diverging
 #define NUTS_LEAF_BEGIN const bool leaf_on = !(st_turn || st_div);
-#define NUTS_LEAF_GRAD(z, g)                                              \
-  tile_chain_logp_grad_at<DPL>(a, c, smem, rows, leaf_on, z, s_q, g, lane, \
-                               warp)
+#define NUTS_LEAF_GRAD(z, g)                                     \
+  tile_chain_logp_grad_at<DPL, kResident>(a, c, smem, rows, leaf_on, z, \
+                                          s_q, g, lane, warp)
 #define NUTS_LEAF_SKIP \
   if (!leaf_on) continue;
 #define NUTS_BEFORE_STORE \
@@ -151,6 +162,20 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
 #undef NUTS_LOGP_GRAD
 }
 
+template <int DPL, bool kResident>
+cudaError_t launch_tile_kernel(const Args& a, const ChainList& c, int rows,
+                               size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_chain_tile_kernel<DPL, kResident>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.n + rows - 1) / rows;
+  nuts_chain_tile_kernel<DPL, kResident>
+      <<<blocks, 32 * rows, smem, stream>>>(a, c, rows);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -178,29 +203,29 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
   return cudaGetLastError();
 }
 
+// `resident` > 0: the resident instantiation, with that many floats of
+// resident layers behind the rows (the host's `resident_floats`); 0: the
+// ring
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
-                        cudaStream_t stream) {
+                        int resident, cudaStream_t stream) {
   const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
-  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(rows, row);
-  if (smem > 48 * 1024) {  // above 48 KB only when asked for
-    const cudaError_t e = cudaFuncSetAttribute(
-        nuts_chain_tile_kernel<DPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  if (resident > 0) {
+    if (!tile_resident_fits(rows, row, resident))
+      return cudaErrorInvalidValue;
+    return launch_tile_kernel<DPL, true>(
+        a, c, rows, tile_resident_smem_bytes(rows, row, resident), stream);
   }
-  const int blocks = (a.n + rows - 1) / rows;
-  nuts_chain_tile_kernel<DPL><<<blocks, 32 * rows, smem, stream>>>(a, c,
-                                                                   rows);
-  return cudaGetLastError();
+  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
+  return launch_tile_kernel<DPL, false>(a, c, rows,
+                                        tile_smem_bytes(rows, row), stream);
 }
 
 template cudaError_t launch<NUTS_DPL>(const Args&, cudaStream_t);
 template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
                                            cudaStream_t);
 template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
-                                          int, cudaStream_t);
+                                          int, int, cudaStream_t);
 
 }  // namespace tpuflows_nuts
 
@@ -294,17 +319,20 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 // kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
 // (nuts_chain_tile_kernel): `mods` is a device array of n_mods * kModInts
 // ints, hmax the widest hidden layer (0 without couplings), head the
-// widest conditioner output. Refused where the tile's rows leave no room
-// for a weight ring (`tile_ring_stage`). Returns a cudaError_t.
+// widest conditioner output; `resident` the floats of the resident
+// layers (`tile_resident_floats` of the list's one coupling), 0 for the
+// ring. Refused where the tile's rows leave no room for a weight ring
+// (`tile_ring_stage`) or for the resident layers (`tile_resident_fits`).
+// Returns a cudaError_t.
 extern "C" int nuts_chain_transition_f32(
     const void* q, const void* p0, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, int n_mods, int n, int d,
     int hmax, int head, int depth, float sigma_v, float max_delta_energy,
-    void* q_out, void* info, int rows, void* stream) {
+    void* q_out, void* info, int rows, int resident, void* stream) {
   using namespace tpuflows_nuts;
   if (!chain_ok(n, d, n_mods, hmax, head, depth) || rows < 1 ||
-      rows > kMaxTileRows || (rows & (rows - 1)) != 0)
+      rows > kMaxTileRows || (rows & (rows - 1)) != 0 || resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                             params, n, d, depth, sigma_v, max_delta_energy,
@@ -312,14 +340,14 @@ extern "C" int nuts_chain_transition_f32(
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
-    case 1: return (int)launch_tile<1>(a, c, rows, s);
-    case 2: return (int)launch_tile<2>(a, c, rows, s);
-    case 3: return (int)launch_tile<3>(a, c, rows, s);
-    case 4: return (int)launch_tile<4>(a, c, rows, s);
-    case 5: return (int)launch_tile<5>(a, c, rows, s);
-    case 6: return (int)launch_tile<6>(a, c, rows, s);
-    case 7: return (int)launch_tile<7>(a, c, rows, s);
-    default: return (int)launch_tile<8>(a, c, rows, s);
+    case 1: return (int)launch_tile<1>(a, c, rows, resident, s);
+    case 2: return (int)launch_tile<2>(a, c, rows, resident, s);
+    case 3: return (int)launch_tile<3>(a, c, rows, resident, s);
+    case 4: return (int)launch_tile<4>(a, c, rows, resident, s);
+    case 5: return (int)launch_tile<5>(a, c, rows, resident, s);
+    case 6: return (int)launch_tile<6>(a, c, rows, resident, s);
+    case 7: return (int)launch_tile<7>(a, c, rows, resident, s);
+    default: return (int)launch_tile<8>(a, c, rows, resident, s);
   }
 }
 

@@ -25,14 +25,15 @@
 //    transition). A window computes the gradient at its start point once;
 //    every later slot starts from the carried lp and g, which are the
 //    gradient code's own output at that point.
-//  * Three kernels. `nuts_window_kernel`: the affine flow (`logp_grad` of
-//    latent_grad.cuh), one warp per chain, no lockstep; it equals S
-//    chained K1 launches on the slot columns bit for bit.
-//    `nuts_window_tile_kernel`: a module list (the generic path's arqs
-//    flow) on tiles of R chains, one block of R warps (R from
-//    `nuts_cuda.tile_rows`, 8 at the generic flow), every latent gradient
-//    through the tile gradient (tile_grad.cuh `tile_chain_logp_grad`), so
-//    that each weight is read from L2 once per tile. In every slot the
+//  * Three kernels. `nuts_window_tile_kernel`, the one on every path: the
+//    flow as a module list (the ceiling path's Standardize + one
+//    AffineCoupling, the generic path's arqs flow) on tiles of R chains,
+//    one block of R warps (R from `nuts_cuda.tile_rows`, 8 at both
+//    flows), every latent gradient through the tile gradient
+//    (tile_grad.cuh `tile_chain_logp_grad`), so that each weight is read
+//    from L2 once per tile; at the ceiling flow its resident
+//    instantiation (kResident) reads them from L2 once per launch and
+//    keeps them in shared memory for all S slots. In every slot the
 //    tile runs K1's tile lockstep (the hooks of `nuts_chain_tile_kernel`:
 //    both loops run while any chain of the tile is active, a stopped
 //    chain joins the gradients at its last point); the window's start
@@ -43,18 +44,24 @@
 //    `nuts_window_chain_kernel`: the same module list one warp per chain
 //    (latent_grad.cuh `chain_logp_grad`), entry point
 //    `nuts_chain_window_warp_f32`: kept only as chip_smoke.py's oracle
-//    and yardstick for the tile kernel, on no path.
-//  * Rounding. The per-warp module-list window equals K1's per-warp
-//    kernel in slot 0; a later slot, held against one K1 launch from the
-//    window's own previous draw, has K1's energy to the bit (so the
-//    carried lp is K1's) and a draw that differs at rounding level, since
-//    the g it starts from is the leaf call's (inlined into the tree code,
-//    apart from its per-module functions), not K1's call at its start
-//    point (chip_smoke.py, window_vs_plain). Whether the tile window
-//    equals chained K1 tile launches to the bit is printed per row
-//    (`bitwise_k1`). Every window differs from `_window_math` at rounding
-//    level only: that machine sums the accept statistic per leaf and
-//    writes its state through masked blends b + m (a - b).
+//    for the tile kernel, on no path. `nuts_window_kernel`: Standardize +
+//    one AffineCoupling one warp per chain (`logp_grad`), entry point
+//    `nuts_window_f32`, which ran the ceiling window before the tile
+//    kernel took it (it equals S chained launches of K1's per-warp affine
+//    kernel bit for bit): kept only as chip_smoke.py's yardstick of that
+//    design, on no path.
+//  * Rounding. A later slot starts from the g of the leaf call that made
+//    its start point, where K1 calls the gradient at its start. The two
+//    calls compute the same arithmetic: the per-module functions are not
+//    inlined, the funnel's gradient (latent_grad.cuh `funnel_logp_grad`)
+//    rounds every operation as written, and the rest only adds and
+//    copies. So the tile
+//    window equals chained K1 tile launches to the bit, slot by slot, on
+//    every flow (chip_smoke.py, window_vs_plain: `bitwise_k1`), as the
+//    per-warp windows equal the per-warp K1 kernels. Every window differs
+//    from `_window_math` at rounding level only: that machine sums the
+//    accept statistic per leaf and writes its state through masked blends
+//    b + m (a - b).
 //
 // Bound on this card: operations, as K1: one latent gradient per leapfrog
 // plus one per chain per window at its start (`chip_smoke.mlp_flops` per
@@ -62,9 +69,9 @@
 // MFLOP for the generic arqs flow), at 67 TFLOP/s float32. The bytes (q in,
 // S slots of randomness, about 5.4 KB per chain per slot at d = 64 and
 // D = 6, and S draws out) take a few microseconds at 3.35 TB/s. The
-// products run on the float32 FMA pipes, the affine window at one chain
-// per warp, far from that bound; PERF.md keeps the measured times beside
-// the bound.
+// products run on the float32 FMA pipes, the per-warp windows at one
+// chain per warp, far from that bound; PERF.md keeps the measured times
+// beside the bound.
 
 #include "tile_grad.cuh"
 
@@ -87,7 +94,7 @@ cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
                          cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
-                        int window, cudaStream_t stream);
+                        int resident, int window, cudaStream_t stream);
 
 }  // namespace tpuflows_window
 
@@ -187,8 +194,9 @@ __global__ void __launch_bounds__(32) nuts_window_chain_kernel(Args a,
 // The window of a tile of `rows` chains per block, warp b on chain
 // blockIdx.x rows + b: `window_slots` with K1's tile lockstep in every
 // slot (nuts_chain_tile_kernel's hooks), a padding row past n storing
-// nothing.
-template <int DPL>
+// nothing; the weights through the ring, or resident (kResident,
+// tile_grad.cuh: copied once for the whole window).
+template <int DPL, bool kResident>
 __global__ void __launch_bounds__(32 * kMaxTileRows)
     nuts_window_tile_kernel(Args a, ChainList c, int rows, int window) {
   extern __shared__ float4 smem4[];
@@ -197,8 +205,11 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * rows + warp;
   const int chain = min(row, a.n - 1);
+  if constexpr (kResident) {
+    tile_load_resident(a, c, rows);
+  }
 #define NUTS_LOGP_GRAD(z, g) \
-  tile_chain_logp_grad<DPL>(a, c, smem, rows, z, g, lane, warp)
+  tile_chain_logp_grad<DPL, kResident>(a, c, smem, rows, z, g, lane, warp)
   float q_cur[DPL], g_cur[DPL];
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
@@ -221,9 +232,9 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
 #define NUTS_SUBTREE_TURN0 turning
 #define NUTS_SUBTREE_DIV0 diverging
 #define NUTS_LEAF_BEGIN const bool leaf_on = !(st_turn || st_div);
-#define NUTS_LEAF_GRAD(z, g)                                              \
-  tile_chain_logp_grad_at<DPL>(a, c, smem, rows, leaf_on, z, s_q, g, lane, \
-                               warp)
+#define NUTS_LEAF_GRAD(z, g)                                     \
+  tile_chain_logp_grad_at<DPL, kResident>(a, c, smem, rows, leaf_on, z, \
+                                          s_q, g, lane, warp)
 #define NUTS_LEAF_SKIP \
   if (!leaf_on) continue;
 #define NUTS_BEFORE_STORE if (row < a.n) {
@@ -234,6 +245,22 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
     lp_cur = lp_prop;
   }
 #undef NUTS_LOGP_GRAD
+}
+
+template <int DPL, bool kResident>
+cudaError_t launch_tile_kernel(const Args& a, const ChainList& c, int rows,
+                               int window, size_t smem,
+                               cudaStream_t stream) {
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        nuts_window_tile_kernel<DPL, kResident>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.n + rows - 1) / rows;
+  nuts_window_tile_kernel<DPL, kResident>
+      <<<blocks, 32 * rows, smem, stream>>>(a, c, rows, window);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -262,29 +289,30 @@ cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
   return cudaGetLastError();
 }
 
+// `resident` > 0: the resident instantiation, with that many floats of
+// resident layers behind the rows (the host's `resident_floats`); 0: the
+// ring
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
-                        int window, cudaStream_t stream) {
+                        int resident, int window, cudaStream_t stream) {
   const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
-  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(rows, row);
-  if (smem > 48 * 1024) {  // above 48 KB only when asked for
-    const cudaError_t e = cudaFuncSetAttribute(
-        nuts_window_tile_kernel<DPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  if (resident > 0) {
+    if (!tile_resident_fits(rows, row, resident))
+      return cudaErrorInvalidValue;
+    return launch_tile_kernel<DPL, true>(
+        a, c, rows, window, tile_resident_smem_bytes(rows, row, resident),
+        stream);
   }
-  const int blocks = (a.n + rows - 1) / rows;
-  nuts_window_tile_kernel<DPL><<<blocks, 32 * rows, smem, stream>>>(
-      a, c, rows, window);
-  return cudaGetLastError();
+  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
+  return launch_tile_kernel<DPL, false>(
+      a, c, rows, window, tile_smem_bytes(rows, row), stream);
 }
 
 template cudaError_t launch<NUTS_DPL>(const Args&, int, cudaStream_t);
 template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
                                            int, cudaStream_t);
 template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
-                                          int, int, cudaStream_t);
+                                          int, int, int, cudaStream_t);
 
 }  // namespace tpuflows_window
 
@@ -376,18 +404,20 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 // A module list on tiles of `rows` chains (a power of two up to
 // kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
 // (nuts_window_tile_kernel), as K1's nuts_chain_transition_f32 takes it
-// plus the window. Refused where the tile's rows leave no room for a
-// weight ring (`tile_ring_stage`). Returns a cudaError_t.
+// (`resident` too) plus the window. Refused where the tile's rows leave
+// no room for a weight ring (`tile_ring_stage`) or for the resident
+// layers (`tile_resident_fits`). Returns a cudaError_t.
 extern "C" int nuts_chain_window_f32(
     const void* q, const void* p0c, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, int n_mods, int n, int d,
     int hmax, int head, int depth, int window, float sigma_v,
     float max_delta_energy, void* draws, void* info, int rows,
-    void* stream) {
+    int resident, void* stream) {
   using namespace tpuflows_window;
   if (!chain_window_ok(n, d, n_mods, hmax, head, depth, window) ||
-      rows < 1 || rows > kMaxTileRows || (rows & (rows - 1)) != 0)
+      rows < 1 || rows > kMaxTileRows || (rows & (rows - 1)) != 0 ||
+      resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                              params, n, d, depth, sigma_v, max_delta_energy,
@@ -395,14 +425,14 @@ extern "C" int nuts_chain_window_f32(
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
-    case 1: return (int)launch_tile<1>(a, c, rows, window, s);
-    case 2: return (int)launch_tile<2>(a, c, rows, window, s);
-    case 3: return (int)launch_tile<3>(a, c, rows, window, s);
-    case 4: return (int)launch_tile<4>(a, c, rows, window, s);
-    case 5: return (int)launch_tile<5>(a, c, rows, window, s);
-    case 6: return (int)launch_tile<6>(a, c, rows, window, s);
-    case 7: return (int)launch_tile<7>(a, c, rows, window, s);
-    default: return (int)launch_tile<8>(a, c, rows, window, s);
+    case 1: return (int)launch_tile<1>(a, c, rows, resident, window, s);
+    case 2: return (int)launch_tile<2>(a, c, rows, resident, window, s);
+    case 3: return (int)launch_tile<3>(a, c, rows, resident, window, s);
+    case 4: return (int)launch_tile<4>(a, c, rows, resident, window, s);
+    case 5: return (int)launch_tile<5>(a, c, rows, resident, window, s);
+    case 6: return (int)launch_tile<6>(a, c, rows, resident, window, s);
+    case 7: return (int)launch_tile<7>(a, c, rows, resident, window, s);
+    default: return (int)launch_tile<8>(a, c, rows, resident, window, s);
   }
 }
 

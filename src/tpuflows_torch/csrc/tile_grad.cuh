@@ -1,8 +1,9 @@
 // The tile gradient: the module-list latent log density and its gradient
 // (latent_grad.cuh `chain_logp_grad`) for a tile of R rows in one block of
 // R warps, so that every weight read from L2 serves all R rows. K1's
-// (nuts_transition.cu, `nuts_chain_tile_kernel`) and K3's
-// (fused_logp.cu, `fused_logp_tile_kernel`) module-list kernels run on it.
+// (nuts_transition.cu, `nuts_chain_tile_kernel`), K2's (nuts_window.cu,
+// `nuts_window_tile_kernel`) and K3's (fused_logp.cu,
+// `fused_logp_tile_kernel`) tile kernels run on it.
 //
 // Why. `chain_logp_grad` runs one row per warp, and its `matvec` reads
 // every weight with __ldg for that row alone. At the generic arqs flow's
@@ -57,6 +58,23 @@
 //    beside the 96 KB ring (d = 256 with K > 40 knots), R is 1 and the
 //    ring shrinks to what is left (`tile_ring_stage`), so the tile
 //    kernels take every flow whose row fits, as the per-warp kernels did.
+//  * Resident weights, for a small flow. Where the module list has one
+//    coupling and its compact forward layers (W1, W2, W3) fit beside the
+//    R rows (`tile_resident_floats`, `tile_resident_fits`; the host's
+//    copy is kernels/nuts_cuda.py `resident_floats`), the tile kernels'
+//    resident instantiation (template argument kResident) copies them
+//    once per launch into shared memory (`tile_load_resident`, coalesced
+//    cp.async) in place of the ring, and every forward and backward
+//    product reads them there (`tile_matvec_resident`): no ring, no
+//    barrier a chunk, no L2 read after the first, and no W^T copies. The
+//    backward product reads a forward layer transposed: each layer's rows
+//    are padded by one float, so the 32 lanes of a warp, each on a column
+//    of the transposed layer (a row of the stored one), hit 32 banks. The
+//    products keep matvec's order (bias or 0, then fmaf over r ascending),
+//    so both instantiations give the same values. The ceiling's affine
+//    flow (d = 64, 1 -> 128 -> 128 -> 126, compact 32 -> 128 -> 128 ->
+//    128) takes 148,608 bytes beside 26,624 bytes of rows at R = 8; the
+//    generic flow's six couplings never fit.
 //  * Every warp of the block must call the tile gradient the same number
 //    of times with the same module list: the control flow here is uniform
 //    over the block, and K1's tree loops run in tile lockstep
@@ -117,6 +135,31 @@ __host__ __device__ __forceinline__ size_t tile_smem_bytes(
     int R, size_t row_floats) {
   const size_t ring = (size_t)kRingStages * tile_ring_stage(R, row_floats);
   return sizeof(float) * (R * row_floats + ring);
+}
+
+// Floats of the resident copy of a coupling's compact forward layers:
+// W1 (n_in x h1), W2 (h1 x h2) and W3 (h2 x n_head), each row padded by
+// one float. The host decides the resident mode with it (kernels/
+// nuts_cuda.py `resident_floats` is its copy) and the device lays the
+// copy out with it.
+__host__ __device__ __forceinline__ size_t tile_resident_floats(
+    int n_in, int h1, int h2, int n_head) {
+  return (size_t)n_in * (h1 + 1) + (size_t)h1 * (h2 + 1) +
+         (size_t)h2 * (n_head + 1);
+}
+
+// dynamic shared memory of a tile of R rows of `row_floats` floats each
+// and the resident layers (`resident` floats) behind them
+__host__ __device__ __forceinline__ size_t tile_resident_smem_bytes(
+    int R, size_t row_floats, size_t resident) {
+  return sizeof(float) * (R * row_floats + resident);
+}
+
+// whether the resident layers fit beside the tile's rows in kSmemLimit
+__host__ __device__ __forceinline__ bool tile_resident_fits(
+    int R, size_t row_floats, size_t resident) {
+  return resident > 0 &&
+         tile_resident_smem_bytes(R, row_floats, resident) <= kSmemLimit;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -279,6 +322,86 @@ __device__ __noinline__ void tile_matvec(const float* __restrict__ W,
 #undef TILE_PART
 }
 
+// `tile_matvec_part` on a layer resident in shared memory: its element
+// (r, c) at Ws[r sr + c sc] (sr = n_out + 1, sc = 1 for a stored layer;
+// sr = 1, sc = its row stride for the transpose of one). No ring and no
+// barrier: the same threads, columns, rows and order of every sum.
+template <int RPT, int KC>
+__device__ __forceinline__ void tile_matvec_resident_part(
+    const float* Ws, int sr, int sc, const float* __restrict__ bias,
+    const float* in, int n_in, int n_out, float* out, float* act, int ld,
+    int b0, int ct, int nct) {
+  const float* x0 = in + (size_t)b0 * ld;
+  const int pw = KC * nct;
+  for (int c0 = 0; c0 < n_out; c0 += pw) {
+    bool on[KC];
+    float acc[KC][RPT];
+    const float* wc[KC];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int c = c0 + ct + nct * k;
+      on[k] = c < n_out;  // uniform over a warp: nct and n_out are x 32
+      const float b = (on[k] && bias != nullptr) ? __ldg(bias + c) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) acc[k][i] = b;
+      wc[k] = Ws + (size_t)min(c, n_out - 1) * sc;  // read, unused, off
+    }
+    // unrolled twice: at the ceiling post-warmup state K1 took 0.164 ms
+    // against 0.206 not unrolled and 0.161 unrolled 4 times, K2 5.49 ms a
+    // window against 5.72 and 5.73 (PERF.md)
+#pragma unroll 2
+    for (int r = 0; r < n_in; r += 4) {
+      float w[4][KC];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < KC; ++k) w[q][k] = wc[k][(r + q) * sr];
+      fma_quad<RPT, KC>(acc, w, x0, ld, r);
+    }
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      if (on[k]) {
+        const int c = c0 + ct + nct * k;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const size_t o = (size_t)(b0 + i) * ld + c;
+          out[o] = acc[k][i];
+          if (act != nullptr) act[o] = acc[k][i] * sigmoid(acc[k][i]);
+        }
+      }
+    }
+  }
+}
+
+// `tile_matvec` on a resident layer (`tile_matvec_resident_part`'s Ws,
+// sr, sc), with its thread layout.
+__device__ __noinline__ void tile_matvec_resident(
+    const float* Ws, int sr, int sc, const float* __restrict__ bias,
+    const float* in, int n_in, int n_out, float* out, float* act, int ld,
+    int R) {
+  const int rpt = tile_rpt(n_out, R);
+  const int nct = 32 * rpt;
+  const int t = threadIdx.x;
+  const int b0 = (t / nct) * rpt, ct = t % nct;
+  const bool two = n_out >= 2 * nct;
+#define TILE_PART(RPT_)                                                    \
+  case RPT_:                                                               \
+    if (two)                                                               \
+      tile_matvec_resident_part<RPT_, 2>(Ws, sr, sc, bias, in, n_in,       \
+                                         n_out, out, act, ld, b0, ct, nct); \
+    else                                                                   \
+      tile_matvec_resident_part<RPT_, 1>(Ws, sr, sc, bias, in, n_in,       \
+                                         n_out, out, act, ld, b0, ct, nct); \
+    break;
+  switch (rpt) {
+    TILE_PART(1)
+    TILE_PART(2)
+    TILE_PART(4)
+    TILE_PART(8)
+  }
+#undef TILE_PART
+}
+
 // floats of one row's scratch (latent_grad.cuh `Scratch`)
 __device__ __forceinline__ int tile_ld(const Args& a, const ChainList& c) {
   return (c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
@@ -319,6 +442,74 @@ __device__ __forceinline__ TileMlp tile_mlp_at(const Args& a,
   return t;
 }
 
+// The resident copy of the one coupling's compact forward layers, behind
+// the tile's R rows of ld floats: W1, W2, W3 with rows of n_out + 1.
+struct TileResident {
+  const float *w1, *w2, *w3;
+};
+
+__device__ __forceinline__ TileResident tile_resident_at(const TileMlp& m,
+                                                         int ld, int R) {
+  extern __shared__ float4 tile_dynamic_smem[];
+  const float* p =
+      reinterpret_cast<const float*>(tile_dynamic_smem) + (size_t)R * ld;
+  TileResident w;
+  w.w1 = p;  p += (size_t)m.n_in * (m.h1 + 1);
+  w.w2 = p;  p += (size_t)m.h1 * (m.h2 + 1);
+  w.w3 = p;
+  return w;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+// rows x cols floats from L2 (row-major) to shared memory at rows of
+// cols + 1: warp w copies rows w, w + R, ..., its lanes neighbouring
+// floats (cols is a multiple of 32)
+__device__ __forceinline__ void copy_padded(float* dst, const float* src,
+                                            int rows, int cols, int R) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < rows; r += R)
+    for (int c = lane; c < cols; c += 32)
+      cp_async4(dst + (size_t)r * (cols + 1) + c, src + (size_t)r * cols + c);
+}
+
+// The resident mode's start, by every thread of the block: the compact
+// forward layers of the module list's one coupling into shared memory
+// behind the R rows (`tile_resident_at`), once per launch. Traps where the
+// list has another number of couplings or the launch gave too little
+// shared memory: the host's `resident_floats` disagrees with the device.
+__device__ void tile_load_resident(const Args& a, const ChainList& c,
+                                   int R) {
+  const int* md = nullptr;
+  int couplings = 0;
+  for (int k = 0; k < c.n_mods; ++k) {
+    if (c.mods[kModInts * k] != tpuflows_nuts::kStandardize) {
+      md = c.mods + kModInts * k;
+      ++couplings;
+    }
+  }
+  if (couplings != 1) __trap();
+  const TileMlp m = tile_mlp_at(a, md);
+  const int ld = tile_ld(a, c);
+  unsigned bytes;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+  if (tile_resident_smem_bytes(
+          R, ld, tile_resident_floats(m.n_in, m.h1, m.h2, m.n_head)) >
+      bytes)
+    __trap();
+  const TileResident w = tile_resident_at(m, ld, R);
+  copy_padded(const_cast<float*>(w.w1), m.w1, m.n_in, m.h1, R);
+  copy_padded(const_cast<float*>(w.w2), m.w2, m.h1, m.h2, R);
+  copy_padded(const_cast<float*>(w.w3), m.w3, m.h2, m.n_head, R);
+  cp_async_commit();
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+}
+
 // pos[j]: the place of dim lane + 32 j among the pass-through dims (mask
 // 1) or among the transformed dims (mask 0), in dim order
 template <int DPL>
@@ -337,9 +528,25 @@ __device__ __forceinline__ void compact_positions(const float (&mk)[DPL],
 }
 
 // head = MLP(xin) for every row of the tile, keeping a1 and a2; s0 is row
-// 0's scratch; xin and head hold the compact layers' inputs and outputs
+// 0's scratch; xin and head hold the compact layers' inputs and outputs.
+// The weights come through the ring, or from the resident copy.
+template <bool kResident = false>
 __device__ void tile_mlp_forward(const TileMlp& m, const Scratch& s0,
                                  int ld, int R) {
+  if constexpr (kResident) {
+    const TileResident w = tile_resident_at(m, ld, R);
+    __syncthreads();
+    tile_matvec_resident(w.w1, m.h1 + 1, 1, m.b1, s0.xin, m.n_in, m.h1,
+                         s0.a1, s0.v1, ld, R);
+    __syncthreads();
+    tile_matvec_resident(w.w2, m.h2 + 1, 1, m.b2, s0.v1, m.h1, m.h2, s0.a2,
+                         s0.v2, ld, R);
+    __syncthreads();
+    tile_matvec_resident(w.w3, m.n_head + 1, 1, m.b3, s0.v2, m.h2,
+                         m.n_head, s0.head, nullptr, ld, R);
+    __syncthreads();
+    return;
+  }
   __syncthreads();
   tile_matvec(m.w1, m.b1, s0.xin, m.n_in, m.h1, s0.a1, s0.v1, ld, R);
   __syncthreads();
@@ -350,10 +557,29 @@ __device__ void tile_mlp_forward(const TileMlp& m, const Scratch& s0,
 }
 
 // xin = d (head . MLP) / d input for every row of the tile; silu_backward
-// per warp on its own row s
+// per warp on its own row s. The resident copy is read transposed.
+template <bool kResident = false>
 __device__ void tile_mlp_backward(const TileMlp& m, const Scratch& s0,
                                   const Scratch& s, int ld, int R,
                                   int lane) {
+  if constexpr (kResident) {
+    const TileResident w = tile_resident_at(m, ld, R);
+    __syncthreads();
+    tile_matvec_resident(w.w3, 1, m.n_head + 1, nullptr, s0.head, m.n_head,
+                         m.h2, s0.v2, nullptr, ld, R);
+    __syncthreads();
+    silu_backward(s.v2, s.a2, m.h2, lane);
+    __syncthreads();
+    tile_matvec_resident(w.w2, 1, m.h2 + 1, nullptr, s0.v2, m.h2, m.h1,
+                         s0.v1, nullptr, ld, R);
+    __syncthreads();
+    silu_backward(s.v1, s.a1, m.h1, lane);
+    __syncthreads();
+    tile_matvec_resident(w.w1, 1, m.h1 + 1, nullptr, s0.v1, m.h1, m.n_in,
+                         s0.xin, nullptr, ld, R);
+    __syncthreads();
+    return;
+  }
   __syncthreads();
   tile_matvec(m.w3t, nullptr, s0.head, m.n_head, m.h2, s0.v2, nullptr, ld,
               R);
@@ -386,7 +612,7 @@ __device__ __forceinline__ void write_compact_input(
 // products with a zero factor and terms multiplied by zero (y' = y and
 // ladj unchanged on a pass-through dim), so it can change only the sign
 // of a zero against `module_inverse`.
-template <int DPL>
+template <int DPL, bool kResident = false>
 __device__ __noinline__ float tile_module_inverse(
     const Args& a, const int* md, const Scratch& s0, const Scratch& s,
     int ld, int R, float (&y)[DPL], int lane) {
@@ -411,7 +637,7 @@ __device__ __noinline__ float tile_module_inverse(
   for (int j = 0; j < DPL; ++j) mk[j] = __ldg(mm.mask + lane + 32 * j);
   compact_positions<DPL>(mk, pos, lane);
   write_compact_input<DPL>(m, s, y, mk, pos, lane);
-  tile_mlp_forward(m, s0, ld, R);
+  tile_mlp_forward<kResident>(m, s0, ld, R);
   const float c = __int_as_float(md[5]);
   if (md[0] == tpuflows_nuts::kAffine) {
     // y' = (y - shift) exp(-s), s = clamp tanh(raw / clamp), on the
@@ -444,7 +670,7 @@ __device__ __noinline__ float tile_module_inverse(
 // pass-through dims' head cotangents are zeros and left out; the
 // transformed dims' input cotangents are multiplied by zero and not
 // computed): it can change only the sign of a zero against `module_vjp`.
-template <int DPL>
+template <int DPL, bool kResident = false>
 __device__ __noinline__ void tile_module_vjp(
     const Args& a, const int* md, const Scratch& s0, const Scratch& s,
     int ld, int R, const float* y_in, bool& live, float (&g)[DPL],
@@ -470,7 +696,7 @@ __device__ __noinline__ void tile_module_vjp(
   compact_positions<DPL>(mk, pos, lane);
   if (!live) {
     write_compact_input<DPL>(m, s, y, mk, pos, lane);
-    tile_mlp_forward(m, s0, ld, R);
+    tile_mlp_forward<kResident>(m, s0, ld, R);
   }
   live = false;
   const float c = __int_as_float(md[5]);
@@ -506,7 +732,7 @@ __device__ __noinline__ void tile_module_vjp(
     }
   }
   for (int r = used + lane; r < m.n_head; r += 32) s.head[r] = 0.0f;
-  tile_mlp_backward(m, s0, s, ld, R, lane);
+  tile_mlp_backward<kResident>(m, s0, s, ld, R, lane);
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
     g[j] = mk[j] != 0.0f ? gd[j] + s.xin[pos[j]] : gd[j];
@@ -516,7 +742,7 @@ __device__ __noinline__ void tile_module_vjp(
 // the warp's row `warp` of a tile of R rows (`chain_logp_grad`, with its
 // MLPs shared over the tile). Every warp of the block calls it together;
 // `smem` holds R rows of tile_ld floats.
-template <int DPL>
+template <int DPL, bool kResident = false>
 __device__ float tile_chain_logp_grad(const Args& a, const ChainList& c,
                                       float* smem, int R,
                                       const float (&z)[DPL],
@@ -533,21 +759,21 @@ __device__ float tile_chain_logp_grad(const Args& a, const ChainList& c,
   for (int k = c.n_mods - 1; k >= 0; --k) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
-    ladj += tile_module_inverse<DPL>(a, c.mods + kModInts * k, s0, s, ld, R,
-                                     x, lane);
+    ladj += tile_module_inverse<DPL, kResident>(a, c.mods + kModInts * k,
+                                                s0, s, ld, R, x, lane);
   }
   const float lp = funnel_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
   // sweep 2: first module first; its conditioner ran last in sweep 1
   bool live = true;
   for (int k = 0; k < c.n_mods; ++k)
-    tile_module_vjp<DPL>(a, c.mods + kModInts * k, s0, s, ld, R,
-                         s.bounds + k * d, live, g, lane);
+    tile_module_vjp<DPL, kResident>(a, c.mods + kModInts * k, s0, s, ld,
+                                    R, s.bounds + k * d, live, g, lane);
   return lp;
 }
 
 // The same at `on ? z : alt`: a warp whose chain has stopped takes part in
 // its tile's gradient at a finite point of its own (K1's lockstep).
-template <int DPL>
+template <int DPL, bool kResident = false>
 __device__ __forceinline__ float tile_chain_logp_grad_at(
     const Args& a, const ChainList& c, float* smem, int R, bool on,
     const float (&z)[DPL], const float (&alt)[DPL], float (&g)[DPL],
@@ -555,7 +781,8 @@ __device__ __forceinline__ float tile_chain_logp_grad_at(
   float zz[DPL];
 #pragma unroll
   for (int j = 0; j < DPL; ++j) zz[j] = on ? z[j] : alt[j];
-  return tile_chain_logp_grad<DPL>(a, c, smem, R, zz, g, lane, warp);
+  return tile_chain_logp_grad<DPL, kResident>(a, c, smem, R, zz, g, lane,
+                                              warp);
 }
 
 }  // namespace

@@ -12,10 +12,11 @@ g (n, d)) with
     through the flow, or the streamed per-block backward on the p-major
     relayout for flows with splines), the counterpart of the JAX kernel's
     `_reference`;
-  * the kernel, `csrc/fused_logp.cu`, is one warp per row with K1's
-    gradient device code (`csrc/latent_grad.cuh`) for the affine flow, and
-    for a module list one block per tile of `nuts_cuda.tile_rows(model)`
-    rows that share every weight read (`csrc/tile_grad.cuh`);
+  * the kernel, `csrc/fused_logp.cu`, is one warp per row with the
+    per-warp gradient device code (`csrc/latent_grad.cuh` `logp_grad`) for
+    the affine flow, and for any other module list one block per tile of
+    `nuts_cuda.tile_rows(model)` rows that share every weight read
+    (`csrc/tile_grad.cuh`);
     `chain_logp_grad_warp` runs the per-warp module-list kernel, on no
     path: `chip_smoke.py`'s oracle and yardstick for the tile kernel;
   * the wrapper (`FusedLatentLogpAndGrad.__call__`): a CPU tensor runs the
@@ -75,34 +76,40 @@ LIBRARY = CudaLibrary("fused_logp", "fused_logp.cu", _UNITS,
                       _bind)
 
 
-def _launch(z, model: nuts_cuda.PackedFlow, rows=None):
-    """K3 on the card; a module list on tiles of `rows` rows (the
-    wrapper's `nuts_cuda.tile_rows(model)`; `chip_smoke.py` times other
-    R)."""
-    global LAUNCHES
-    _check(z, model)
-    rows = nuts_cuda.launch_rows(model, rows)
-    n, d = z.shape
+def _call(name, z, args):
+    """Entry point `name` of the library with `args` and z's stream, on
+    z's card; raises if the launch failed."""
     lib = LIBRARY.load()
-    lp = torch.empty(n, device=z.device, dtype=torch.float32)
-    g = torch.empty_like(z)
     with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream(z.device).cuda_stream
-        if model.affine:
-            name = "fused_logp_affine_f32"
-            rc = lib.fused_logp_affine_f32(
-                z.data_ptr(), model.params.data_ptr(), n, d, model.h1,
-                model.h2, model.clamp, model.target.sigma_v, lp.data_ptr(),
-                g.data_ptr(), stream)
-        else:
-            name = "fused_logp_chain_f32"
-            rc = lib.fused_logp_chain_f32(
-                z.data_ptr(), model.params.data_ptr(),
-                model.mods.data_ptr(), model.mods.shape[0], n, d,
-                model.hmax, model.head, model.target.sigma_v, lp.data_ptr(),
-                g.data_ptr(), rows, stream)
+        rc = getattr(lib, name)(
+            *args, torch.cuda.current_stream(z.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _launch(z, model: nuts_cuda.PackedFlow, rows=None):
+    """K3 on the card. Standardize + one AffineCoupling keeps its per-warp
+    kernel (`fused_logp_affine_f32` on the packed `Net` prefix), which K1
+    and K2 left for the tile kernels: the portable path around it is
+    host-bound, and its turn on the tiles comes next (ROADMAP). Any other
+    module list runs on tiles of `rows` rows (the wrapper's
+    `nuts_cuda.tile_rows(model)`; `chip_smoke.py` times other R)."""
+    global LAUNCHES
+    _check(z, model)
+    n, d = z.shape
+    lp = torch.empty(n, device=z.device, dtype=torch.float32)
+    g = torch.empty_like(z)
+    if model.affine:
+        _call("fused_logp_affine_f32", z, [
+            z.data_ptr(), model.params.data_ptr(), n, d, model.h1,
+            model.h2, model.clamp, model.target.sigma_v, lp.data_ptr(),
+            g.data_ptr()])
+    else:
+        _call("fused_logp_chain_f32", z, [
+            z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
+            model.mods.shape[0], n, d, model.hmax, model.head,
+            model.target.sigma_v, lp.data_ptr(), g.data_ptr(),
+            nuts_cuda.launch_rows(model, rows)])
     LAUNCHES += 1
     return lp, g
 
@@ -123,18 +130,12 @@ def chain_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
                          "list and a contiguous CUDA z")
     _check(z, model)
     n, d = z.shape
-    lib = LIBRARY.load()
     lp = torch.empty(n, device=z.device, dtype=torch.float32)
     g = torch.empty_like(z)
-    with torch.cuda.device(z.device):
-        rc = lib.fused_logp_chain_warp_f32(
-            z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
-            model.mods.shape[0], n, d, model.hmax, model.head,
-            model.target.sigma_v, lp.data_ptr(), g.data_ptr(),
-            torch.cuda.current_stream(z.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_logp_chain_warp_f32 launch failed: "
-                           f"cudaError {rc}")
+    _call("fused_logp_chain_warp_f32", z, [
+        z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
+        model.mods.shape[0], n, d, model.hmax, model.head,
+        model.target.sigma_v, lp.data_ptr(), g.data_ptr()])
     return lp, g
 
 

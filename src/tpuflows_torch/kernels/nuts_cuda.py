@@ -13,22 +13,26 @@ Three pieces:
     the p-major relayout, as in the JAX package. It runs on any device;
   * `nuts_transition` — the wrapper. A CPU tensor goes to the plain
     version; a CUDA tensor goes to the hand-written kernel
-    `csrc/nuts_transition.cu` (one warp per chain; a module list on tiles
-    of `tile_rows(model)` chains in lockstep, `csrc/tile_grad.cuh`), or the
-    wrapper raises. There is no fallback from one to the other. `LAUNCHES`
-    counts the kernel's launches;
+    `csrc/nuts_transition.cu` (the flow as a module list on tiles of
+    `tile_rows(model)` chains in lockstep, `csrc/tile_grad.cuh`, its
+    weights through a ring or, for a small flow, resident in shared
+    memory: `launch_resident`), or the wrapper raises. There is no
+    fallback from one to the other. `LAUNCHES` counts the kernel's
+    launches;
   * `FusedNUTS` / `fused_nuts_for_flow` — the batched transition that
     `NUTSDriver(transition=...)` calls: it draws the randomness (momenta,
     direction signs, acceptance uniforms, one uniform per potential leaf)
     with a `torch.Generator` on the chains' device (`draw_randomness`) and
     calls the wrapper.
 
-`pack_flow` checks a flow and packs its leaves for the kernel: Standardize
-+ one AffineCoupling goes to `nuts_transition_kernel`, any other Chain of
-Standardize, AffineCoupling and RQSCouplingBlock modules to
+`pack_flow` checks a flow and packs its leaves for the kernel: any Chain
+of Standardize, AffineCoupling and RQSCouplingBlock modules goes to
 `nuts_chain_tile_kernel` as a module list. `chain_transition_warp` runs
-the per-warp module-list kernel (`nuts_chain_kernel`), which is on no
-path: it is `chip_smoke.py`'s oracle and yardstick for the tile kernel.
+the per-warp module-list kernel (`nuts_chain_kernel`) and
+`affine_transition_warp` the per-warp kernel of Standardize + one
+AffineCoupling (`nuts_transition_kernel`, which ran the ceiling path
+before the tile kernel took it); neither is on a path: they are
+`chip_smoke.py`'s oracle and yardstick for the tile kernel.
 The library is built with nvcc into `build/kernels/` at the repository
 root on first use (`cuda_build`); nothing is compiled or loaded at
 import time.
@@ -84,7 +88,7 @@ def _bind(lib):
     fn.argtypes = [p] * 8 + [i32] * 5 + [f32] * 3 + [p] * 3
     fn.restype = i32
     fn = lib.nuts_chain_transition_f32
-    fn.argtypes = [p] * 9 + [i32] * 6 + [f32] * 2 + [p] * 2 + [i32, p]
+    fn.argtypes = [p] * 9 + [i32] * 6 + [f32] * 2 + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.nuts_chain_transition_warp_f32
     fn.argtypes = [p] * 9 + [i32] * 6 + [f32] * 2 + [p] * 3
@@ -109,13 +113,14 @@ class PackedFlow(NamedTuple):
     mods: torch.Tensor  # (n_modules, MOD_INTS) int32: the module list
     d: int
     h1: int  # widths and clamp of the first coupling (the ones
-    h2: int  # nuts_transition_kernel takes)
+    h2: int  # the per-warp affine kernels take)
     clamp: float
     hidden: tuple  # every coupling's hidden widths
     hmax: int  # widest hidden layer
     head: int  # widest conditioner output
-    affine: bool  # Standardize + one AffineCoupling: nuts_transition_kernel
+    affine: bool  # Standardize + one AffineCoupling (K3's affine kernel)
     flow_p: Chain | None  # p-major relayout (flows with splines)
+    resident_floats: int  # the resident layers' floats, 0 if not one coupling
 
 
 def _unsupported(msg):
@@ -182,18 +187,27 @@ def _compact_leaves(t, d, w3, b3):
     return [w1c, w1c.t(), w3c, b3c, w3c.t()], n_p
 
 
+def _resident_floats(n_in: int, h1: int, h2: int, n_head: int) -> int:
+    """Floats of the resident copy of a coupling's compact forward layers
+    (csrc/tile_grad.cuh `tile_resident_floats`): W1 (n_in x h1), W2 (h1 x
+    h2) and W3 (h2 x n_head), each row padded by one float so that a warp
+    reading a layer transposed hits 32 banks."""
+    return n_in * (h1 + 1) + h1 * (h2 + 1) + h2 * (n_head + 1)
+
+
 def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     """Check that K1 computes `flow` (a Chain of Standardize,
     AffineCoupling and RQSCouplingBlock modules whose conditioners are
     3-layer silu MLPs, over a funnel of the flow's width) and pack its
     leaves in chain order: Standardize loc, log_scale; a coupling's mask,
     W1, b1, W2, b2, W3, b3, W1^T, W2^T, W3^T, a spline's last layer in
-    p-major columns. For Standardize + one AffineCoupling that is the
-    layout of `nuts_transition_kernel`'s `Net`. For any other chain each
-    coupling's leaves are followed by the tile kernels' compact copies of
-    its first and last layers (`_compact_leaves`), at the offset its row
-    of the module list holds in column 6, with the number of pass-through
-    dims in column 7; the per-warp kernels read neither."""
+    p-major columns; each coupling's leaves are followed by the tile
+    kernels' compact copies of its first and last layers
+    (`_compact_leaves`), at the offset its row of the module list holds in
+    column 6, with the number of pass-through dims in column 7; the
+    per-warp kernels read neither. For Standardize + one AffineCoupling
+    the buffer up to the compact copies is the per-warp affine kernels'
+    `Net` (K3's affine kernel reads it)."""
     ts = list(flow.transforms) if isinstance(flow, Chain) else []
     if not 1 <= len(ts) <= MAX_MODULES:
         raise _unsupported(f"{len(ts)} modules (1 to {MAX_MODULES})")
@@ -205,7 +219,7 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
                            "width")
     affine = (len(ts) == 2 and isinstance(ts[0], Standardize)
               and isinstance(ts[1], AffineCoupling))
-    parts, rows, widths, off = [], [], [], 0
+    parts, rows, widths, resident, off = [], [], [], [], 0
     for t in ts:
         kind = KIND.get(type(t))
         if kind is None:
@@ -220,13 +234,14 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
             spline = kind == 2
             row = [kind, off, h1, h2, t.knots if spline else 0,
                    _float_bits(t.range_limit if spline else t.clamp)]
-            if not affine:
-                compact, n_pass = _compact_leaves(t, d, leaves[5],
-                                                  leaves[6])
-                row += [off + sum(x.numel() for x in leaves), n_pass]
-                leaves = leaves + compact
+            compact, n_pass = _compact_leaves(t, d, leaves[5], leaves[6])
+            row += [off + sum(x.numel() for x in leaves), n_pass]
+            leaves = leaves + compact
             widths.append((h1, h2, n_out, t.range_limit if spline
                            else t.clamp))
+            resident.append(_resident_floats(
+                _pad32(n_pass), h1, h2,
+                _pad32(n_out // d * (d - n_pass))))
         parts += leaves
         rows.append(row + [0] * (MOD_INTS - len(row)))
         off += sum(x.numel() for x in leaves)
@@ -243,7 +258,8 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
         flow, target, params.contiguous(), mods, d, h1, h2, clamp, hidden,
         max(hidden, default=0),
         max((w[2] for w in widths), default=0), affine,
-        permute_for_tiles(flow) if has_spline else None)
+        permute_for_tiles(flow) if has_spline else None,
+        resident[0] if len(resident) == 1 else 0)
 
 
 def autograd_logp_grad(flow: Chain, log_density: Callable) -> Callable:
@@ -372,16 +388,39 @@ def check_tile(model: PackedFlow, rows: int):
             f"{4 * RING_STAGES * 256 * rows} bytes, over {SMEM_LIMIT}")
 
 
-def launch_rows(model: PackedFlow, rows: int | None = None) -> int | None:
-    """The tile rows a module-list launch takes (K1's, K2's and K3's tile
-    kernels): `tile_rows(model)` unless `rows` is given, refused where
-    `check_tile` refuses it; None for the affine flow, whose kernels run
-    one warp per chain."""
-    if model.affine:
-        return None
+def launch_rows(model: PackedFlow, rows: int | None = None) -> int:
+    """The tile rows a launch of the tile kernels takes (K1's and K2's for
+    every flow, K3's for a module list other than the affine flow):
+    `tile_rows(model)` unless `rows` is given, refused where `check_tile`
+    refuses it."""
     rows = tile_rows(model) if rows is None else rows
     check_tile(model, rows)
     return rows
+
+
+def resident_fits(model: PackedFlow, rows: int) -> bool:
+    """Whether the tile kernels can keep the flow's weights resident in
+    shared memory at a tile of `rows` rows (csrc/tile_grad.cuh
+    `tile_resident_fits`): the module list has one coupling and its
+    compact forward layers fit beside the rows' scratch in SMEM_LIMIT.
+    True at the ceiling's affine flow at R = 8; false at the generic arqs
+    flow (six couplings) and at h = 256 (W2 alone is 263 KB)."""
+    return (model.resident_floats > 0
+            and rows * smem_bytes(model) + 4 * model.resident_floats
+            <= SMEM_LIMIT)
+
+
+def launch_resident(model: PackedFlow, rows: int,
+                    resident: bool | None = None) -> int:
+    """The `resident` argument of a tile launch of K1 or K2: the resident
+    layers' floats where they fit at `rows` (`resident_fits`), else 0 (the
+    ring). `resident` True asks for the resident mode and raises where it
+    does not fit; False asks for the ring (`chip_smoke.py` times both)."""
+    fits = resident_fits(model, rows)
+    if resident and not fits:
+        raise ValueError(f"the flow's weights do not stay resident beside "
+                         f"a tile of {rows} rows in {SMEM_LIMIT} bytes")
+    return model.resident_floats if fits and resident is not False else 0
 
 
 def lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
@@ -418,72 +457,96 @@ def check_widths(model: PackedFlow):
         if w > MAX_DIM or w % 32:
             raise ValueError(f"the kernel takes hidden widths % 32 == 0 and "
                              f"<= {MAX_DIM}, got {w}")
-    if not model.affine and smem_bytes(model) > SMEM_LIMIT:
+    if smem_bytes(model) > SMEM_LIMIT:
         raise ValueError(f"the flow needs {smem_bytes(model)} bytes of "
                          f"shared memory per chain, over {SMEM_LIMIT}")
 
 
+def _call(name, q, args):
+    """Entry point `name` of the library with `args` and q's stream, on
+    q's card; raises if the launch failed."""
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, name)(
+            *args, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+def _outputs(q, model, ins):
+    """K1's outputs (q', info (7, n)) and the pointer arguments of a
+    module-list launch up to info."""
+    n, d = q.shape
+    check_launch(q, ins, model)
+    q_out = torch.empty_like(q)
+    info = torch.empty((7, n), device=q.device, dtype=torch.float32)
+    return q_out, info, [t.data_ptr() for t in ins]
+
+
 def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
-            rows=None):
-    """K1 on the card; a module list on tiles of `rows` chains (the
-    wrapper's `tile_rows(model)`; `chip_smoke.py` times other R)."""
+            rows=None, resident=None):
+    """K1 on the card: the tile kernel on tiles of `rows` chains, its
+    weights resident where they fit (the wrapper's `tile_rows(model)` and
+    `launch_resident`; `chip_smoke.py` times other R and the ring)."""
     global LAUNCHES
     n, d = q.shape
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
-    check_launch(q, ins, model)
+    q_out, info, ptrs = _outputs(q, model, ins)
     rows = launch_rows(model, rows)
-    lib = LIBRARY.load()
-    q_out = torch.empty_like(q)
-    info = torch.empty((7, n), device=q.device, dtype=torch.float32)
-    ptrs = [t.data_ptr() for t in ins]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        if model.affine:
-            name = "nuts_transition_f32"
-            rc = lib.nuts_transition_f32(
-                *ptrs, n, d, model.h1, model.h2, max_depth, model.clamp,
-                model.target.sigma_v, MAX_DELTA_ENERGY, q_out.data_ptr(),
-                info.data_ptr(), stream)
-        else:
-            name = "nuts_chain_transition_f32"
-            rc = lib.nuts_chain_transition_f32(
-                *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
-                model.hmax, model.head, max_depth, model.target.sigma_v,
-                MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr(), rows,
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    _call("nuts_chain_transition_f32", q, [
+        *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
+        model.hmax, model.head, max_depth, model.target.sigma_v,
+        MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr(), rows,
+        launch_resident(model, rows, resident)])
     LAUNCHES += 1
     return (q_out, *info.unbind(0))
+
+
+def _yardstick(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
+               max_depth):
+    """Checks of the per-warp kernels' launches; their pointers and
+    outputs."""
+    if q.device.type != "cuda":
+        raise ValueError("the per-warp kernels take CUDA tensors")
+    check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
+                 max_depth)
+    return _outputs(q, model, (q, p0, dirs, u_acc, u_take, eps, inv_mass,
+                               model.params))
 
 
 def chain_transition_warp(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                           model: PackedFlow, max_depth: int):
     """The per-warp module-list kernel (`nuts_chain_kernel`) on CUDA
     tensors: `chip_smoke.py`'s oracle and yardstick for the tile kernel,
-    which must equal it in value. On no path, and not counted in
-    LAUNCHES. Same returns as `nuts_transition`."""
-    if model.affine or q.device.type != "cuda":
-        raise ValueError("the per-warp module-list kernel takes a module "
-                         "list on CUDA tensors")
-    check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
-                 max_depth)
+    which must equal it in value, on every flow. On no path, and not
+    counted in LAUNCHES. Same returns as `nuts_transition`."""
+    q_out, info, ptrs = _yardstick(q, p0, dirs, u_acc, u_take, eps,
+                                   inv_mass, model, max_depth)
     n, d = q.shape
-    ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
-    check_launch(q, ins, model)
-    lib = LIBRARY.load()
-    q_out = torch.empty_like(q)
-    info = torch.empty((7, n), device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        rc = lib.nuts_chain_transition_warp_f32(
-            *[t.data_ptr() for t in ins], model.mods.data_ptr(),
-            model.mods.shape[0], n, d, model.hmax, model.head, max_depth,
-            model.target.sigma_v, MAX_DELTA_ENERGY, q_out.data_ptr(),
-            info.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"nuts_chain_transition_warp_f32 launch failed: "
-                           f"cudaError {rc}")
+    _call("nuts_chain_transition_warp_f32", q, [
+        *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
+        model.hmax, model.head, max_depth, model.target.sigma_v,
+        MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr()])
+    return (q_out, *info.unbind(0))
+
+
+def affine_transition_warp(q, p0, dirs, u_acc, u_take, eps, inv_mass,
+                           model: PackedFlow, max_depth: int):
+    """The per-warp kernel of Standardize + one AffineCoupling
+    (`nuts_transition_kernel`, `logp_grad` on the `Net` prefix of the
+    packed buffer), which ran the ceiling path before the tile kernel:
+    `chip_smoke.py`'s yardstick of the earlier design. On no path, and not
+    counted in LAUNCHES. Same returns as `nuts_transition`."""
+    if not model.affine:
+        raise ValueError("the per-warp affine kernel takes Standardize + "
+                         "one AffineCoupling")
+    q_out, info, ptrs = _yardstick(q, p0, dirs, u_acc, u_take, eps,
+                                   inv_mass, model, max_depth)
+    n, d = q.shape
+    _call("nuts_transition_f32", q, [
+        *ptrs, n, d, model.h1, model.h2, max_depth, model.clamp,
+        model.target.sigma_v, MAX_DELTA_ENERGY, q_out.data_ptr(),
+        info.data_ptr()])
     return (q_out, *info.unbind(0))
 
 
@@ -502,8 +565,9 @@ def nuts_transition(q, p0, dirs, u_acc, u_take, eps, inv_mass,
     """One NUTS transition of every chain, with the randomness given.
 
     A CPU tensor runs `transition_math_torch` with `plain_logp_grad`; a
-    CUDA tensor launches K1, a module list on tiles of `tile_rows(model)`
-    chains. Same returns as `transition_math_torch`."""
+    CUDA tensor launches K1's tile kernel on tiles of `tile_rows(model)`
+    chains, the weights resident where they fit (`launch_resident`). Same
+    returns as `transition_math_torch`."""
     check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth)
     if q.device.type == "cpu":

@@ -18,13 +18,17 @@ Four pieces:
   * `nuts_window` — the wrapper. A CPU tensor goes to the plain version
     with `nuts_cuda.plain_logp_grad`; a CUDA tensor goes to the
     hand-written kernel `csrc/nuts_window.cu` (K1's tree code once per
-    slot: the affine flow one warp per chain, a module list on tiles of
+    slot, the flow as a module list on tiles of
     `nuts_cuda.tile_rows(model)` chains in K1's tile lockstep, every
-    gradient through the tile gradient `csrc/tile_grad.cuh`), or the
-    wrapper raises. There is no fallback from one to the other.
-    `LAUNCHES` counts the kernel's launches. `chain_window_warp` runs the
-    per-warp module-list window (`nuts_window_chain_kernel`), on no path:
-    `chip_smoke.py`'s oracle and yardstick for the tile kernel;
+    gradient through the tile gradient `csrc/tile_grad.cuh`, the weights
+    resident in shared memory for the whole window where they fit:
+    `nuts_cuda.launch_resident`), or the wrapper raises. There is no
+    fallback from one to the other. `LAUNCHES` counts the kernel's
+    launches. `chain_window_warp` runs the per-warp module-list window
+    (`nuts_window_chain_kernel`) and `affine_window_warp` the per-warp
+    window of Standardize + one AffineCoupling (`nuts_window_kernel`,
+    which ran the ceiling window before the tile kernel took it), on no
+    path: `chip_smoke.py`'s oracle and yardsticks for the tile kernel;
   * `chain_slots` — S chained per-transition calls on the slot columns
     (the equivalence the kernel's design rests on), or S calls each from
     a given window's previous draw, to hold every slot of a window on its
@@ -52,9 +56,9 @@ from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
 from tpuflows_torch.kernels.nuts_cuda import (_UNITS, MAX_DELTA_ENERGY,
                                               PackedFlow, check_inputs,
-                                              check_launch, launch_rows,
-                                              lockstep_gradients, pack_flow,
-                                              plain_logp_grad)
+                                              check_launch, launch_resident,
+                                              launch_rows, lockstep_gradients,
+                                              pack_flow, plain_logp_grad)
 from tpuflows_torch.mcmc.nuts import (NUTSInfo, _popcount32,
                                       _trailing_zeros32,
                                       draw_window_randomness)
@@ -70,7 +74,7 @@ def _bind(lib):
     fn.argtypes = [p] * 8 + [i32] * 6 + [f32] * 3 + [p] * 3
     fn.restype = i32
     fn = lib.nuts_chain_window_f32
-    fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 2 + [i32, p]
+    fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.nuts_chain_window_warp_f32
     fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 3
@@ -349,8 +353,10 @@ def window_lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
 
 def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
           max_depth, window, out, extra=()):
-    """One entry point of the library on CUDA tensors; `extra` goes
-    between info and the stream. Returns `nuts_window`'s outputs."""
+    """One entry point of the library on CUDA tensors, with the module
+    list's arguments, or the `Net` widths of the per-warp affine window
+    (`nuts_window_f32`); `extra` goes between info and the stream.
+    Returns `nuts_window`'s outputs."""
     n, d = q.shape
     ins = (q, p0c, dirs, u_acc, u_take, eps, inv_mass, model.params)
     check_launch(q, (*ins, *(() if out is None else (out,))), model)
@@ -361,7 +367,7 @@ def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
     ptrs = [t.data_ptr() for t in ins]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if model.affine:
+        if name == "nuts_window_f32":
             rc = getattr(lib, name)(
                 *ptrs, n, d, model.h1, model.h2, max_depth, window,
                 model.clamp, model.target.sigma_v, MAX_DELTA_ENERGY,
@@ -380,18 +386,16 @@ def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
 
 
 def _launch(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
-            window, out, rows=None):
-    """K2 on the card; a module list on tiles of `rows` chains (the
-    wrapper's `tile_rows(model)`; `chip_smoke.py` times other R)."""
+            window, out, rows=None, resident=None):
+    """K2 on the card: the tile kernel on tiles of `rows` chains, its
+    weights resident where they fit (the wrapper's `tile_rows(model)` and
+    `nuts_cuda.launch_resident`; `chip_smoke.py` times other R and the
+    ring)."""
     global LAUNCHES
     rows = launch_rows(model, rows)
-    if model.affine:
-        res = _call("nuts_window_f32", q, p0c, dirs, u_acc, u_take, eps,
-                    inv_mass, model, max_depth, window, out)
-    else:
-        res = _call("nuts_chain_window_f32", q, p0c, dirs, u_acc, u_take,
-                    eps, inv_mass, model, max_depth, window, out,
-                    extra=(rows,))
+    res = _call("nuts_chain_window_f32", q, p0c, dirs, u_acc, u_take, eps,
+                inv_mass, model, max_depth, window, out,
+                extra=(rows, launch_resident(model, rows, resident)))
     LAUNCHES += 1
     return res
 
@@ -400,15 +404,31 @@ def chain_window_warp(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                       model: PackedFlow, max_depth: int, window: int):
     """The per-warp module-list window (`nuts_window_chain_kernel`) on
     CUDA tensors: `chip_smoke.py`'s oracle and yardstick for the tile
-    kernel, which must equal it in value. On no path, and not counted in
-    LAUNCHES. Same returns as `nuts_window`."""
-    if model.affine or q.device.type != "cuda":
-        raise ValueError("the per-warp module-list window takes a module "
-                         "list on CUDA tensors")
+    kernel, which must equal it in value, on every flow. On no path, and
+    not counted in LAUNCHES. Same returns as `nuts_window`."""
+    if q.device.type != "cuda":
+        raise ValueError("the per-warp module-list window takes CUDA "
+                         "tensors")
     check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
                  max_depth, window=window)
     return _call("nuts_chain_window_warp_f32", q, p0c, dirs, u_acc, u_take,
                  eps, inv_mass, model, max_depth, window, None)
+
+
+def affine_window_warp(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
+                       model: PackedFlow, max_depth: int, window: int):
+    """The per-warp window of Standardize + one AffineCoupling
+    (`nuts_window_kernel`, `logp_grad` on the `Net` prefix of the packed
+    buffer), which ran the ceiling window before the tile kernel:
+    `chip_smoke.py`'s yardstick of the earlier design. On no path, and not
+    counted in LAUNCHES. Same returns as `nuts_window`."""
+    if not model.affine or q.device.type != "cuda":
+        raise ValueError("the per-warp affine window takes Standardize + "
+                         "one AffineCoupling on CUDA tensors")
+    check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
+                 max_depth, window=window)
+    return _call("nuts_window_f32", q, p0c, dirs, u_acc, u_take, eps,
+                 inv_mass, model, max_depth, window, None)
 
 
 def nuts_window(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
@@ -417,9 +437,10 @@ def nuts_window(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
     (the layout of `draw_window_randomness`).
 
     A CPU tensor runs `window_math_torch` with `plain_logp_grad`; a CUDA
-    tensor launches K2, a module list on tiles of `tile_rows(model)`
-    chains. Same returns as `window_math_torch`; the draws are
-    written into `out` (S, n, d) when it is given."""
+    tensor launches K2's tile kernel on tiles of `tile_rows(model)`
+    chains, the weights resident where they fit. Same returns as
+    `window_math_torch`; the draws are written into `out` (S, n, d) when
+    it is given."""
     check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth, window=window, out=out)
     if q.device.type == "cpu":

@@ -306,8 +306,10 @@ def test_pack_takes_a_standardize_only_chain():
 
 
 def test_packed_layout_matches_kernel_order():
-    """The packed buffer holds the leaves in the order the kernel's `Net`
-    reads them, with transposed weight copies at the end."""
+    """The packed buffer holds the leaves in the order the per-warp affine
+    kernels' `Net` reads them, with transposed weight copies at its end,
+    and then the tile kernels' compact first and last layers, at the
+    offset column 6 of the coupling's row of the module list holds."""
     model = _model()
     std, cp = model.flow.transforms
     d, h1, h2 = model.d, model.h1, model.h2
@@ -315,7 +317,15 @@ def test_packed_layout_matches_kernel_order():
     off = 3 * d
     w1 = p[off:off + d * h1].reshape(d, h1)
     torch.testing.assert_close(w1, cp.net.weights[0].detach())
-    total = 3 * d + 2 * (d * h1 + h1 * h2 + h2 * 2 * d) + h1 + h2 + 2 * d
-    assert p.numel() == total
-    w3t = p[total - 2 * d * h2:].reshape(2 * d, h2)
+    net = 3 * d + 2 * (d * h1 + h1 * h2 + h2 * 2 * d) + h1 + h2 + 2 * d
+    w3t = p[net - 2 * d * h2:net].reshape(2 * d, h2)
     torch.testing.assert_close(w3t, cp.net.weights[2].detach().t())
+    # the compact tail: W1, W1^T over the pass-through dims, W3, b3, W3^T
+    # over the transformed dims' head columns, widths padded to 32
+    n_p = int(sum(cp.mask))
+    n_in, n_head = -(-n_p // 32) * 32, -(-2 * (d - n_p) // 32) * 32
+    assert model.mods[1, 6:].tolist() == [net, n_p]
+    assert p.numel() == net + 2 * n_in * h1 + 2 * h2 * n_head + n_head
+    keep = torch.tensor(cp.mask).bool()
+    cw1 = p[net:net + n_in * h1].reshape(n_in, h1)
+    torch.testing.assert_close(cw1[:n_p], cp.net.weights[0].detach()[keep])

@@ -414,15 +414,22 @@ def test_tile_mirror_matches_autograd(d, knots, blocks, seed):
 
 
 def test_affine_only_flow_packs_no_compact_layers():
-    """Standardize + one AffineCoupling goes to the affine kernel, whose
-    `Net` layout ends at W3^T: nothing is appended."""
+    """Standardize + one AffineCoupling runs on the tile kernels too: its
+    `Net` layout, which ends at W3^T, is followed by the compact layers,
+    and the coupling's row of the module list holds their offset and the
+    number of pass-through dims in columns 6-7 (Standardize's stay 0)."""
     model = _model(_affine(D, (16, 16)))
     assert model.affine
     d, h1, h2 = D, 16, 16
     n = 2 * d + d + d * h1 + h1 + h1 * h2 + h2 + h2 * 2 * d + 2 * d + \
         h1 * d + h2 * h1 + 2 * d * h2
-    assert model.params.numel() == n
-    assert model.mods[:, 6:].abs().sum() == 0
+    n_p = int(sum(model.flow.transforms[1].mask))
+    assert model.mods[:, 6:].tolist() == [[0, 0], [n, n_p]]
+    n_in, n_head = _pad32(n_p), _pad32(2 * (d - n_p))
+    assert model.params.numel() == n + 2 * n_in * h1 + 2 * h2 * n_head + \
+        n_head
+    (_, std), (kind, L) = _tile_leaves(model)
+    assert kind == 1 and L["np"] == n_p and L["n_head"] == n_head
 
 
 # ---------------------------------------------------------------------------

@@ -191,7 +191,7 @@ def test_module_list_window_launches_the_tile_kernel(monkeypatch, flow,
     if rows is None:
         assert nuts_cuda.tile_rows(_model(f)) == want
     assert _launched(monkeypatch, f, rows) == ("nuts_chain_window_f32",
-                                               (want,), 1)
+                                               (want, 0), 1)
 
 
 @pytest.mark.parametrize("flow,rows", [("generic", 3), ("generic", 16),
@@ -207,8 +207,12 @@ def test_module_list_window_refuses_what_check_tile_refuses(monkeypatch,
 
 
 def test_affine_window_keeps_its_kernel(monkeypatch):
+    """The ceiling's affine flow runs on K2's tile kernel at R = 8, its
+    weights resident; the per-warp affine window is on no path."""
+    model = _model(_affine(64, (128, 128)))
     assert _launched(monkeypatch, _affine(64, (128, 128))) == (
-        "nuts_window_f32", (), 1)
+        "nuts_chain_window_f32", (8, model.resident_floats), 1)
+    assert model.resident_floats > 0
 
 
 @pytest.mark.parametrize("kind", ["affine", "cpu"])
