@@ -7,9 +7,10 @@ Phases, one JSON line each on stdout with its wall time in seconds:
   1. device  — the card's name and power limit (nvidia-smi);
   2. build   — every kernel with nvcc, all units in parallel: K1
                (csrc/nuts_transition.cu), K4/K5 (csrc/rqs_spline.cu),
-               K6/K7 (csrc/coupling_block.cu), K3 (csrc/fused_logp.cu) and
-               K2 (csrc/nuts_window.cu), and ptxas' registers, shared
-               memory and spills per kernel;
+               K6/K7 (csrc/coupling_tile.cu, and the earlier
+               csrc/coupling_block.cu they replaced, the yardstick), K3
+               (csrc/fused_logp.cu) and K2 (csrc/nuts_window.cu), and
+               ptxas' registers, shared memory and spills per kernel;
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
                pullbacks) against their plain PyTorch versions at the fit's
                shape (1024 x 64, K = 8) and three others (d = 8, 96, 256;
@@ -86,19 +87,27 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                directions, on z, ladj, dx and every weight's and bias's
                cotangent: the fit's shape (1024 x 64, hidden 128 x 128,
                K = 8) under each mixed mask, a ragged batch of 37, d = 256
-               (a 3 MB last layer, streamed), and two rows off the main
+               (a 3 MB last layer, streamed), two rows off the main
                path (tanh and relu conditioners, one and three hidden
-               layers); last layers 0.1 N(0, 1) and 0.01 x He. The bar is
+               layers) and a hidden layer of 3200 units (K6 without its
+               weight ring; K7 refused there, as the earlier K7 refuses
+               it); last layers 0.1 N(0, 1) and 0.01 x He. The bar is
                K4/K5's (`judge`, refereed by float64), at the quantile
-               `block_quantile`; K7 must repeat itself to the bit;
+               `block_quantile`; K7 must repeat itself to the bit. Each
+               row prints its launch plans (`tile_plan`: rows per tile,
+               spline dims per chunk, the ring's stage, shared memory,
+               pass 2's row slices; the library's layout must agree) and
+               the largest difference from the earlier kernels' outputs;
  11. main_path_generic_fused — the generic variant with every spline block
                on the fused tier (use_pallas="fused"), under the same
                gates; K6's and K7's launch counts must equal the counts the
-               path implies and K4/K5 must launch 0 times;
+               path implies (K7: `K7_LAUNCHES` per call) and K4/K5 and the
+               earlier K6/K7 must launch 0 times;
  12. timing_coupling — K6 and K7 with CUDA events at the fit's shape and at
                d = 256 (also replayed from a CUDA graph), beside their
-               bounds and plain versions, and the same block's times on the
-               K4/K5 tier.
+               bounds, their plain versions and the earlier kernels (device
+               ms in turns, earlier, new, new, earlier), K7's pass 2
+               alone, and the same block's times on the K4/K5 tier.
  13. fused_logp_vs_plain — K3 (the latent log density and its gradient,
                one launch per batch of rows) against its plain version on
                lp and g under K4/K5's bar (`judge`, refereed by float64):
@@ -197,7 +206,8 @@ Phases, one JSON line each on stdout with its wall time in seconds:
 Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1
 and K2 and K3's module-list row with the tile kernel's device time, its R
 and weight mode, and `earlier_ms` / `earlier_device_ms`, the per-warp
-kernel's it replaced in the same run) and, last,
+kernel's it replaced in the same run; K6's and K7's with their tile
+plan, the earlier kernels' times and K7's pass 2 alone) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
 """
@@ -293,11 +303,18 @@ def _kernel_key(name):
         return f"K2 chain d/32={t.group(1)}"
     if "nuts_window_tile_kernel" in name and t:
         return f"K2 tile d/32={t.group(1)}{res}"
+    rows = re.search(r"coupling_tile_(fwd|bwd)_kernelILb(\d)ELi(\d+)E", name)
+    if rows:
+        label = "K6 tile" if rows.group(1) == "fwd" else "K7 tile pass 1"
+        direction = "inverse" if rows.group(2) == "1" else "forward"
+        return f"{label} {direction} R={rows.group(3)}"
     for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
         if kern in name:
             return f"{label} {'inverse' if 'ILb1E' in name else 'forward'}"
+    if "coupling_tile_wgrad_kernel" in name:
+        return "K7 tile pass 2"
     if "weight_grad_kernel" in name:
         return "K7 pass 2"
     return name
@@ -554,7 +571,8 @@ COUPLING_SHAPES = [
     (TRAIN_BATCH, 256, HIDDEN, KNOTS, "alternating0", "n0.1", "silu"),
     (TRAIN_BATCH, 256, HIDDEN, KNOTS, "block1", "he0.01", "silu"),
     (300, 32, (64,), 4, "alternating0", "n0.1", "tanh"),
-    (513, 96, (96, 48, 80), 12, "block0", "he0.01", "relu")]
+    (513, 96, (96, 48, 80), 12, "block0", "he0.01", "relu"),
+    (45, DIM, (3200,), KNOTS, "alternating1", "he0.01", "silu")]
 COUPLING_PARAMS = ("w0", "b0", "w1", "b1", "w2", "b2")
 
 
@@ -643,6 +661,53 @@ def block_quantile(n):
     return max(0.5, min(0.999, 1.0 - 10.0 / n))
 
 
+def tile_plans(cc, widths, K, nt, n, device):
+    """K6's and K7's launch plans (`tile_plan`) as dicts, or {"refused":
+    why} where no plan fits; on the card each plan's shared memory is
+    also asked of the library, and the two must agree (the plan is
+    Python, the layout CUDA)."""
+    import torch
+
+    plans = {}
+    for key, grad in (("k6", False), ("k7", True)):
+        try:
+            plan = cc.tile_plan(widths, K, nt, n, grad)
+        except ValueError as e:  # the wrapper refuses this block
+            plans[key] = {"refused": str(e)}
+            continue
+        if torch.device(device).type == "cuda":
+            lib = cc.LIBRARY.load()
+            smem = lib.coupling_tile_smem(cc._ints(widths), len(widths) - 1,
+                                          K, plan.rows, plan.dc, plan.stage,
+                                          int(grad))
+            if smem != plan.smem:
+                raise RuntimeError(f"tile_plan's {plan.smem} bytes of shared "
+                                   f"memory for widths {widths}, the "
+                                   f"kernel's layout {smem}")
+        plans[key] = plan._asdict()
+    return plans
+
+
+def refuses(fn):
+    """Whether fn() raises ValueError (a wrapper refusing a block)."""
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
+def earlier_diffs(names, new, old):
+    """How far the new kernels' outputs part from the earlier kernels'
+    (the yardstick): the largest difference of each, and whether all are
+    equal to the bit."""
+    import torch
+
+    return {"max_abs": {k: float((a - b).abs().max()) if a.numel() else 0.0
+                        for k, a, b in zip(names, new, old)},
+            "bitwise": all(torch.equal(a, b) for a, b in zip(new, old))}
+
+
 def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
     """K6 and K7 against their plain versions, both directions, on z, ladj,
     dx and every weight's and bias's cotangent, refereed by the plain
@@ -652,10 +717,16 @@ def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
     products and round differently, which the bar's comparison against
     float64 allows for. K7 runs twice and must repeat itself to the bit
     (its sums have a fixed order), and its dx without the weights' pass
-    must equal its dx with it."""
+    must equal its dx with it. On the card each row also prints the launch
+    plans and how far the earlier kernels' outputs (8 rows a block, the
+    yardstick) part from the new ones: a second reference, not a bar.
+    Where no K7 plan fits the shared memory (a hidden layer of 3200
+    units), the row holds K6 alone, and on the card K7's wrapper and the
+    earlier K7 must both refuse the block."""
     import torch
     from tpuflows_torch.kernels import coupling_cuda as cc
 
+    on_card = torch.device(device).type == "cuda"
     rows = []
     for n, d, hidden, K, mask_name, head, act in shapes:
         mask_t = coupling_mask(mask_name, d)
@@ -664,37 +735,58 @@ def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
         m32 = torch.tensor(mask_t, dtype=torch.float32, device=device)
         f64 = [t.double() for t in (x, *params, gz, gl)]
         x64, p64, gz64, gl64 = f64[0], tuple(f64[1:-2]), f64[-2], f64[-1]
+        widths = [d, *hidden, (3 * K - 1) * d]
+        nt = sum(1 for m in mask_t if m == 0)
+        plans = tile_plans(cc, widths, K, nt, n, device)
+        with_k7 = "refused" not in plans["k7"]
         for inverse in (False, True):
             spec = cc.BlockSpec(mask_t, K, 4.0, act, inverse)
             kz = cc.block_eval(x, params, spec)
-            kdx, kdp = cc.block_grad(x, params, spec, gz, gl)
-            rdx, rdp = cc.block_grad(x, params, spec, gz, gl)
-            odx, _ = cc.block_grad(x, params, spec, gz, gl,
-                                   need_params=False)
             pz = cc.plain_block(x, params, m32, K, 4.0, act, inverse)
-            pdx, pdp = cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
-                                          act, inverse)
             oz = oracle_block(x, params, m32, K, inverse, act)
-            odx2, *odp = oracle_block_vjp(x, params, m32, K, inverse, gz, gl,
-                                          act)
             ez = cc.plain_block(x64, p64, m32.double(), K, 4.0, act, inverse)
-            edx, edp = cc.plain_block_vjp(x64, p64, m32.double(), gz64,
-                                          gl64, K, 4.0, act, inverse)
             row = {"n": n, "d": d, "hidden": list(hidden), "knots": K,
                    "mask": mask_name, "head": head, "activation": act,
-                   "direction": "inverse" if inverse else "forward"}
+                   "direction": "inverse" if inverse else "forward",
+                   "plans": plans}
             outs = [("z", kz[0], pz[0], oz[0], ez[0]),
-                    ("ladj", kz[1], pz[1], oz[1], ez[1]),
-                    ("dx", kdx, pdx, odx2, edx)]
-            outs += [(name, k, p, o, e) for name, k, p, o, e in zip(
-                param_names(len(params)), kdp, pdp, odp, edp)]
+                    ("ladj", kz[1], pz[1], oz[1], ez[1])]
+            if with_k7:
+                kdx, kdp = cc.block_grad(x, params, spec, gz, gl)
+                rdx, rdp = cc.block_grad(x, params, spec, gz, gl)
+                odx, _ = cc.block_grad(x, params, spec, gz, gl,
+                                       need_params=False)
+                pdx, pdp = cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
+                                              act, inverse)
+                odx2, *odp = oracle_block_vjp(x, params, m32, K, inverse, gz,
+                                              gl, act)
+                edx, edp = cc.plain_block_vjp(x64, p64, m32.double(), gz64,
+                                              gl64, K, 4.0, act, inverse)
+                outs += [("dx", kdx, pdx, odx2, edx)]
+                outs += [(name, k, p, o, e) for name, k, p, o, e in zip(
+                    param_names(len(params)), kdp, pdp, odp, edp)]
+                row["repeats_bitwise"] = bool(
+                    torch.equal(kdx, rdx) and torch.equal(kdx, odx)
+                    and all(torch.equal(a, b) for a, b in zip(kdp, rdp)))
+            elif on_card:  # K7 and the earlier K7 both refuse the block
+                row["k7_refused_by_both"] = refuses(
+                    lambda: cc.block_grad(x, params, spec, gz, gl)) and \
+                    refuses(lambda: cc.earlier_block_grad(x, params, spec,
+                                                          gz, gl))
             for name, k, p, o, e in outs:
                 row[name] = judge(k, p, o, e, block_quantile(k.numel()))
-            row["repeats_bitwise"] = bool(
-                torch.equal(kdx, rdx) and torch.equal(kdx, odx)
-                and all(torch.equal(a, b) for a, b in zip(kdp, rdp)))
-            row["passed"] = row["repeats_bitwise"] and all(
-                row[name]["passed"] for name, *_ in outs)
+            if on_card:
+                new, old = list(kz), list(cc.earlier_block_eval(x, params,
+                                                                spec))
+                if with_k7:
+                    wdx, wdp = cc.earlier_block_grad(x, params, spec, gz, gl)
+                    new += [kdx, *kdp]
+                    old += [wdx, *wdp]
+                row["earlier"] = earlier_diffs(
+                    [name for name, *_ in outs], new, old)
+            row["passed"] = row.get("repeats_bitwise", True) and \
+                row.get("k7_refused_by_both", True) and all(
+                    row[name]["passed"] for name, *_ in outs)
             rows.append(row)
     return rows
 
@@ -734,6 +826,29 @@ def _bound(ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def wgrad_work(n, d, hidden, K, nt):
+    """(ops, bytes) of K7's pass 2 alone: dW_l = H_l^T G_l with a row of
+    ones for the bias, over n rows, the last layer's over the spline dims;
+    it reads pass 1's scratch once and writes every weight's and bias's
+    cotangent (the last layer's whole p-major arrays)."""
+    P = 3 * K - 1
+    ins = (d, *hidden)
+    outs = (*hidden, P * nt)
+    ops = 2.0 * n * sum((a + 1) * b for a, b in zip(ins, outs))
+    full = sum(a * b + b for a, b in zip(ins, (*hidden, P * d)))
+    return ops, 4.0 * (n * (sum(ins) + sum(outs)) + full)
+
+
+def in_turns(new_fn, old_fn):
+    """Device ms of two functions from CUDA graphs (`graph_ms`), in turns
+    old, new, new, old: (new mean, old mean, both readings of each)."""
+    o1 = graph_ms(old_fn)
+    n1 = graph_ms(new_fn)
+    n2 = graph_ms(new_fn)
+    o2 = graph_ms(old_fn)
+    return (n1 + n2) / 2, (o1 + o2) / 2, [n1, n2], [o1, o2]
+
+
 # (rows, d, hidden, knots, mask): the fit's shape and d = 256
 COUPLING_TIMING_SHAPES = [(TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0"),
                           (TRAIN_BATCH, 256, HIDDEN, KNOTS, "alternating0")]
@@ -743,15 +858,17 @@ def time_coupling(device, shapes=COUPLING_TIMING_SHAPES, n_reps=200,
                   plain_reps=20):
     """K6 and K7 with CUDA events at the fit's shape and at d = 256, both
     directions, launched from the host (`timed`) and replayed from a CUDA
-    graph (`graph_ms`, the device alone), beside their bounds and their
-    plain versions. K7 is timed
-    as the fit runs it: with the weights' pass in the inverse direction
-    (the sample path, whose weights train) and without it in the forward
-    direction (the STL loss's detached pass); the other variant is timed
-    too. Beside them, the same block on the K4/K5 tier (torch.matmul
-    conditioner + K4/K5) and on this tier through autograd, forward alone
-    and forward + backward with every cotangent: a comparison of tiers,
-    not a library call (no single PyTorch call computes a block)."""
+    graph (`graph_ms`, the device alone), beside their bounds, their plain
+    versions and the earlier kernels (8 rows a block, timed in turns with
+    the new ones: `earlier_device_ms`). K7 is timed as the fit runs it:
+    with the weights' pass in the inverse direction (the sample path,
+    whose weights train) and without it in the forward direction (the STL
+    loss's detached pass); the other variant is timed too, and pass 2
+    alone (`pass2`). Beside them, the same block on the K4/K5 tier
+    (torch.matmul conditioner + K4/K5) and on this tier through autograd,
+    forward alone and forward + backward with every cotangent: a
+    comparison of tiers, not a library call (no single PyTorch call
+    computes a block)."""
     import torch
     from tpuflows_torch.flows import MLP, RQSCouplingBlock
     from tpuflows_torch.kernels import coupling_cuda as cc
@@ -763,10 +880,12 @@ def time_coupling(device, shapes=COUPLING_TIMING_SHAPES, n_reps=200,
         x, params, gz, gl = coupling_inputs(device, n, d, hidden, K, "n0.1",
                                             seed=n + d + K)
         m32 = torch.tensor(mask_t, dtype=torch.float32, device=device)
+        widths = [d, *hidden, (3 * K - 1) * d]
         k6_ops, k6_bytes, k7_ops, k7_bytes, k7a_ops, k7a_bytes = \
             coupling_work(n, d, hidden, K, nt)
         row = {"n": n, "d": d, "hidden": list(hidden), "knots": K,
-               "mask": mask_name, "spline_dims": nt}
+               "mask": mask_name, "spline_dims": nt,
+               "plans": tile_plans(cc, widths, K, nt, n, device)}
         for inverse in (False, True):
             direction = "inverse" if inverse else "forward"
             spec = cc.BlockSpec(mask_t, K, 4.0, "silu", inverse)
@@ -774,26 +893,49 @@ def time_coupling(device, shapes=COUPLING_TIMING_SHAPES, n_reps=200,
             cases = (
                 ("k6", k6_ops, k6_bytes,
                  lambda: cc.block_eval(x, params, spec),
+                 lambda: cc.earlier_block_eval(x, params, spec),
                  lambda: cc.plain_block(x, params, m32, K, 4.0, "silu",
                                         inverse)),
                 ("k7", *((k7_ops, k7_bytes) if fit_params
                          else (k7a_ops, k7a_bytes)),
                  lambda: cc.block_grad(x, params, spec, gz, gl,
                                        need_params=fit_params),
+                 lambda: cc.earlier_block_grad(x, params, spec, gz, gl,
+                                               need_params=fit_params),
                  lambda: cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
                                             "silu", inverse)))
-            for kname, ops, nbytes, kern, plain in cases:
+            for kname, ops, nbytes, kern, old, plain in cases:
                 ms, _ = timed(kern, n_reps)
+                earlier_ms, _ = timed(old, n_reps)
+                dev, old_dev, dev_turns, old_turns = in_turns(kern, old)
                 plain_ms, _ = timed(plain, plain_reps)
                 bound_ms, bound_by = _bound(ops, nbytes)
                 row[f"{kname}_{direction}"] = {
-                    "ms": ms, "device_ms": graph_ms(kern),
+                    "ms": ms, "device_ms": dev, "device_ms_turns": dev_turns,
+                    "earlier_ms": earlier_ms, "earlier_device_ms": old_dev,
+                    "earlier_device_ms_turns": old_turns,
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "ops": ops, "bytes": nbytes,
                     "with_weight_pass": kname == "k7" and fit_params}
-            other_ms, _ = timed(lambda: cc.block_grad(
+            k7 = row[f"k7_{direction}"]
+            k7["other_variant_ms"], _ = timed(lambda: cc.block_grad(
                 x, params, spec, gz, gl, need_params=not fit_params), n_reps)
-            row[f"k7_{direction}"]["other_variant_ms"] = other_ms
+            k7["other_variant_device_ms"] = graph_ms(lambda: cc.block_grad(
+                x, params, spec, gz, gl, need_params=not fit_params))
+            k7["earlier_other_variant_device_ms"] = graph_ms(
+                lambda: cc.earlier_block_grad(x, params, spec, gz, gl,
+                                              need_params=not fit_params))
+            # pass 2 alone, on pass 1's scratch
+            plan = cc.tile_plan(widths, K, nt, n, True)
+            _, Hs, Gs = cc._pass1(x, params, spec, widths, gz, gl, plan,
+                                  True)
+            p2_ops, p2_bytes = wgrad_work(n, d, hidden, K, nt)
+            p2_bound, p2_by = _bound(p2_ops, p2_bytes)
+            k7["pass2"] = {
+                "device_ms": graph_ms(lambda: cc._pass2(
+                    x, params, spec, widths, plan, Hs, Gs)),
+                "slices": plan.slices, "ops": p2_ops, "bytes": p2_bytes,
+                "bound_ms": p2_bound, "bound_by": p2_by}
             # the same block on both tiers, through the module
             ws = list(params[0::2])
             bs = [b.reshape(-1) for b in params[1::2]]
@@ -1208,7 +1350,9 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
     # K4/K5 tier that is one K4 and one K5 launch each. On the fused tier
     # it is one K6 launch each; K7 launches pass 1 for both pullbacks and
     # pass 2 (the weights' cotangents) for the inverse's only, since the
-    # forward pass's weights are detached.
+    # forward pass's weights are detached (`K7_LAUNCHES`: launches per
+    # call without and with the weights' pass). The earlier kernels (the
+    # yardstick) launch 0 times.
     inverse_calls = 1 + sum(-(-r // _CHUNK) for r in mapped_rows)
     per = n_rqs if on_card else 0
     fused = use_pallas == "fused"
@@ -1220,8 +1364,10 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
     expected_coupling = {
         "k6_forward": per_fused * train_steps,
         "k6_inverse": per_fused * (train_steps + inverse_calls),
-        "k7_forward": per_fused * train_steps,
-        "k7_inverse": 2 * per_fused * train_steps}
+        "k7_forward": coupling_cuda.K7_LAUNCHES[False] * per_fused
+        * train_steps,
+        "k7_inverse": coupling_cuda.K7_LAUNCHES[True] * per_fused
+        * train_steps}
     out = {
         "variant": variant, "modules": len(flow.transforms),
         "train_steps": train_steps, "train_time_s": train_time,
@@ -1237,6 +1383,7 @@ def main_path(device, variant="ceiling", dim=DIM, n_chains=N_CHAINS,
         "coupling_launches": dict(coupling_cuda.LAUNCHES),
         "coupling_launches_fit": fit_coupling,
         "coupling_launches_expected": expected_coupling,
+        "earlier_coupling_launches": dict(coupling_cuda.EARLIER_LAUNCHES),
     }
     return out, flow, warm_state
 
@@ -1258,6 +1405,9 @@ def check_main_path(res):
         raise RuntimeError(f"{res['variant']}: K6/K7 launched "
                            f"{res['coupling_launches']}, the path implies "
                            f"{res['coupling_launches_expected']}")
+    if any(res["earlier_coupling_launches"].values()):
+        raise RuntimeError(f"{res['variant']}: the earlier K6/K7 launched "
+                           f"{res['earlier_coupling_launches']} on the path")
     if not res["moment_check_passed"]:
         raise RuntimeError(f"{res['variant']}: v's draws fail the moment "
                            f"check: {res}")
@@ -2357,7 +2507,8 @@ def main(argv=None):
 
     t = time.perf_counter()
     infos = cuda_build.build(nuts_cuda.LIBRARY, rqs_cuda.LIBRARY,
-                             coupling_cuda.LIBRARY, fused_logp_cuda.LIBRARY,
+                             coupling_cuda.LIBRARY, coupling_cuda.EARLIER,
+                             fused_logp_cuda.LIBRARY,
                              nuts_window_cuda.LIBRARY)
     emit("build", t,
          nvcc_seconds=max(i.seconds for i in infos.values()),
@@ -2608,15 +2759,22 @@ def main(argv=None):
                    and x["head"] == "n0.1" and x["direction"] in key)
         errs = (("z", "ladj") if key.startswith("k6")
                 else ("dx", *COUPLING_PARAMS))
+        plan = fit_block["plans"][key[:2]]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/tpuflows_torch/csrc/coupling_block.cu",
+            "source": "src/tpuflows_torch/csrc/coupling_tile.cu",
             "replaces": "src/tpuflows/kernels/coupling_pallas.py" + replaces,
             "launches": fres["coupling_launches"][key],
             "max_abs_err": max(row[e]["max_abs"] for e in errs),
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "rows": plan["rows"], "cluster": coupling_cuda.CLUSTER,
+            "earlier_ms": r["earlier_ms"],
+            "earlier_device_ms": r["earlier_device_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+        if "pass2" in r and r["with_weight_pass"]:
+            kernels[-1]["pass2_device_ms"] = r["pass2"]["device_ms"]
     for variant, name in (("ceiling", "fused_logp (affine)"),
                           ("generic", "fused_logp (module list, spline)")):
         r = k3_tim[variant]

@@ -1,5 +1,10 @@
-// K6 and K7 of tpuflows_torch: one whole rational-quadratic-spline
-// coupling block per tile of rows, and its pullback.
+// The earlier K6 and K7 of tpuflows_torch: one whole
+// rational-quadratic-spline coupling block per tile of 8 rows, and its
+// pullback. The kernels on the path are csrc/coupling_tile.cu's (tiles of
+// rows whose cluster shares every weight read); these stay built, behind
+// the entry points coupling_rows8_*, as their yardstick: chip_smoke.py
+// times both in one call and prints how far their results part. No path
+// calls them (coupling_cuda.earlier_block_eval / earlier_block_grad).
 //
 // K6 replaces the Pallas kernel of `_make_block_op`'s forward `_call_fwd`
 // (src/tpuflows/kernels/coupling_pallas.py:163, pallas_call at :185): the
@@ -580,7 +585,7 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 // dtype, shapes and contiguity before calling.
 
 // Shared memory of a launch, in bytes (0 if the arguments are invalid).
-extern "C" long long coupling_block_smem(const int* widths, int n_layers,
+extern "C" long long coupling_rows8_smem(const int* widths, int n_layers,
                                          int d, int knots, int dc,
                                          int grad) {
   if (n_layers < 1 || n_layers > kMaxLayers) return 0;
@@ -589,7 +594,7 @@ extern "C" long long coupling_block_smem(const int* widths, int n_layers,
 }
 
 // K6: (z, ladj) of the block, forward or inverse.
-extern "C" int coupling_block_fwd_f32(
+extern "C" int coupling_rows8_fwd_f32(
     const void* x, const void* mask, const void* idx, const void* const* ws,
     const void* const* bs, const int* widths, int n_layers, long long N,
     int d, int nt, int knots, float range_limit, int act, int inverse,
@@ -621,7 +626,7 @@ extern "C" int coupling_block_fwd_f32(
 
 // K7, pass 1: dx, and with Hs / Gs (host arrays of n_layers device
 // pointers, or null) each layer's input and pre-activation cotangent.
-extern "C" int coupling_block_bwd_f32(
+extern "C" int coupling_rows8_bwd_f32(
     const void* x, const void* mask, const void* idx, const void* const* ws,
     const void* const* bs, const int* widths, int n_layers, long long N,
     int d, int nt, int knots, float range_limit, int act, int inverse,
@@ -664,7 +669,7 @@ extern "C" int coupling_block_bwd_f32(
 // K7, pass 2: dW_l = H_l^T G_l and db_l = sum_rows G_l for every layer, the
 // last layer's written to the columns p d + idx[t] of its p-major dW and
 // db (the wrapper zeroes the others: pass-through dims get no cotangent).
-extern "C" int coupling_block_wgrad_f32(
+extern "C" int coupling_rows8_wgrad_f32(
     void* const* Hs, void* const* Gs, void* const* dWs, void* const* dbs,
     const int* widths, int n_layers, long long N, int d, int nt, int knots,
     const void* idx, void* stream) {
