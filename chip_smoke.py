@@ -12,9 +12,13 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                (csrc/fused_logp.cu) and K2 (csrc/nuts_window.cu), and
                ptxas' registers, shared memory and spills per kernel;
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
-               pullbacks) against their plain PyTorch versions at the fit's
-               shape (1024 x 64, K = 8) and three others (d = 8, 96, 256;
-               K = 4, 12), raw ~ N(0, 1), x spread over [-6, 6], on y,
+               pullbacks, the group kernel of csrc/rqs_lanes.cuh) against
+               their plain PyTorch versions at the fit's shape (1024 x 64,
+               K = 8), three others (d = 8, 96, 256; K = 4, 12), K = 64
+               (16 lanes of 4 bins), K = 2 and 24 (the group kernel's
+               other lane counts) and a ragged row whose inputs and draw are
+               views 4 bytes into their buffers (K5's 4-byte copies),
+               raw ~ N(0, 1), x spread over [-6, 6], on y,
                ladj, dx and draw. The bar is the JAX package's for its
                Pallas spline against the oracle (tests/test_pallas.py:
                jnp.allclose, atol 1e-4 and its default rtol 1e-5), with the
@@ -22,6 +26,11 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                resolve some ill-conditioned elements of dx and draw to that
                bar, so the kernel must be as accurate against float64 as
                the two float32 plain versions (`judge`);
+     k5_vs_earlier — K5 against the one-thread kernel it replaced
+               (kept built as the oracle) on the same rows and directions:
+               the elements of dx and draw whose bits differ (expected 0:
+               the group kernel takes every ordered sum in rqs_math.cuh's
+               order) and the largest difference;
   4. kernel_vs_plain — K1 against its plain PyTorch version
                (`transition_math_torch`) at the bench widths (1024 chains,
                d = 64, max_depth 6, MLP 64-128-128-128) on the same
@@ -73,7 +82,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                (3 spline blocks, inverse and forward) plus the final ELBO's
                and the data-space mapping's inverses;
   9. timing_generic — K4 and K5 at the fit's shape (also replayed from a
-               CUDA graph, the device's time alone), and K1 at the generic
+               CUDA graph, the device's time alone; K5 beside the
+               one-thread kernel it replaced, in turns, with both
+               kernels' registers and spills), and K1 at the generic
                path's post-warmup state, with CUDA events, beside their
                bounds and their plain versions' times. K1 is held to K1's
                bar there, with q's bar raised to twice the spread of two
@@ -122,8 +133,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                module-list kernels, kept built as the oracle: K1 on every
                row of phase 4's kernel_shapes (the affine flows, d = 32..256,
                random masks), every row of phase 5 and both post-warmup
-               states; K3 on every module-list row of phase 13 and the
-               generic post-warmup state; K2 on every row of phase 18 (its
+               states; K3 on every row of phase 13 (the affine flows in
+               both weight modes) and both post-warmup states; K2 on every
+               row of phase 18 (its
                seeded windows, affine and spline), the bench and first
                spline rows at 1,003 chains (a ragged last tile) and both
                post-warmup states (S = 32); and all three on a flow whose
@@ -155,9 +167,12 @@ Phases, one JSON line each on stdout with its wall time in seconds:
  17. timing_fused_logp — K3 at both post-warmup states with CUDA events
                (also replayed from a CUDA graph), beside its bound, its
                plain version and its launches on the portable path, the
-               module list's tile kernel at each R beside the per-warp
-               kernel (`warp_ms`); and a portable transition's time beside
-               K1's on the same inputs.
+               tile kernel at each R and weight mode beside the per-warp
+               kernel it replaced (`warp_ms`: the affine kernel at the
+               ceiling, the module-list kernel at the generic state); and a
+               portable transition's time beside K1's on the same inputs
+               (at the ceiling also in turns with the same transition
+               through the per-warp affine kernel).
  18. window_vs_plain — K2 (a window of S transitions per chain in one
                launch), held slot by slot: slot s of its window against
                one transition from K2's own draw of slot s - 1 on slot s's
@@ -203,11 +218,11 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                window at the ceiling, the module-list window at the
                generic state) and the lockstep's efficiency, as phases 7
                and 9 time K1.
-Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1
-and K2 and K3's module-list row with the tile kernel's device time, its R
-and weight mode, and `earlier_ms` / `earlier_device_ms`, the per-warp
-kernel's it replaced in the same run; K6's and K7's with their tile
-plan, the earlier kernels' times and K7's pass 2 alone) and, last,
+Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1,
+K2 and K3 with the tile kernel's device time, its R and weight mode, and
+`earlier_ms` / `earlier_device_ms`, the per-warp kernel's it replaced in
+the same run; K5's with the one-thread kernel's; K6's and K7's with their
+tile plan, the earlier kernels' times and K7's pass 2 alone) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
 """
@@ -296,7 +311,7 @@ def _kernel_key(name):
     if "fused_logp_chain_kernel" in name and t:
         return f"K3 chain d/32={t.group(1)}"
     if "fused_logp_tile_kernel" in name and t:
-        return f"K3 tile d/32={t.group(1)}"
+        return f"K3 tile d/32={t.group(1)}{res}"
     if "nuts_window_kernel" in name and t:
         return f"K2 d/32={t.group(1)}"
     if "nuts_window_chain_kernel" in name and t:
@@ -308,7 +323,12 @@ def _kernel_key(name):
         label = "K6 tile" if rows.group(1) == "fwd" else "K7 tile pass 1"
         direction = "inverse" if rows.group(2) == "1" else "forward"
         return f"{label} {direction} R={rows.group(3)}"
-    for kern, label in (("rqs_eval_kernel", "K4"), ("rqs_grad_kernel", "K5"),
+    lanes = re.search(r"rqs_grad_lanes_kernelILb(\d)ELi(\d+)E", name)
+    if lanes:
+        direction = "inverse" if lanes.group(1) == "1" else "forward"
+        return f"K5 {direction} L={lanes.group(2)}"
+    for kern, label in (("rqs_eval_kernel", "K4"),
+                        ("rqs_grad_kernel", "K5 one-thread"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
         if kern in name:
@@ -398,6 +418,27 @@ def graph_ms(fn, reps=20, replays=10):
 # (rows, d, knots): the fit's shape, then three others
 RQS_SHAPES = [(TRAIN_BATCH, DIM, KNOTS), (333, 8, 4), (200, 96, 12),
               (64, 256, 4)]
+# K5's other rows (rows, d, knots, offset): MAX_KNOTS (16 lanes of 4 bins
+# in the group kernel), every input and draw a view 4 bytes into its
+# buffer (the 4-byte copies; a ragged last block too), and the knots that
+# reach the group kernel's other instantiations (1 and 8 lanes)
+RQS_EXTRA_SHAPES = [(96, 32, 64, False), (257, 24, KNOTS, True),
+                    (128, 16, 2, False), (80, 16, 24, False)]
+
+
+def rqs_cases():
+    """(rows, d, knots, offset) of every K4/K5 comparison."""
+    return [(*r, False) for r in RQS_SHAPES] + RQS_EXTRA_SHAPES
+
+
+def at_offset(t):
+    """A contiguous copy of t that starts 4 bytes into its buffer."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def rqs_inputs(device, n, d, K, seed):
@@ -470,14 +511,36 @@ def oracle_grad(x, raw, gy, gl, inverse):
                                    (gy, gl))
 
 
-def rqs_vs_plain(device, shapes=RQS_SHAPES):
-    """K4 and K5 against their plain versions, both directions, refereed
-    by the plain version in float64 (`judge`)."""
+def k5_call(x, raw, gy, gl, inverse, offset, earlier=False):
+    """K5 (the group kernel, or with `earlier` the one-thread kernel it
+    replaced), its draw written into a view 4 bytes into its buffer where
+    `offset` says (the inputs are then such views too)."""
     from tpuflows_torch.kernels import rqs_cuda
 
-    rows = []
-    for n, d, K in shapes:
-        x, raw, gy, gl = rqs_inputs(device, n, d, K, seed=n + d + K)
+    draw = at_offset(raw) if offset else None
+    if earlier:
+        return rqs_cuda.earlier_spline_grad(x, raw, gy, gl, 4.0, inverse,
+                                            draw=draw)
+    if offset:
+        return rqs_cuda._launch_grad(x, raw, gy, gl, 4.0, inverse,
+                                     draw=draw)
+    return rqs_cuda.spline_grad(x, raw, gy, gl, 4.0, inverse)
+
+
+def rqs_row_inputs(device, n, d, K, offset):
+    ins = rqs_inputs(device, n, d, K, seed=n + d + K)
+    return [at_offset(t) for t in ins] if offset else ins
+
+
+def rqs_vs_plain(device, rows=None):
+    """K4 and K5 against their plain versions, both directions, refereed
+    by the plain version in float64 (`judge`), on every row of
+    `rqs_cases`."""
+    from tpuflows_torch.kernels import rqs_cuda
+
+    out = []
+    for n, d, K, offset in rows or rqs_cases():
+        x, raw, gy, gl = rqs_row_inputs(device, n, d, K, offset)
         f64 = [t.double() for t in (x, raw, gy, gl)]
         for inverse in (False, True):
             outs = (
@@ -485,20 +548,46 @@ def rqs_vs_plain(device, shapes=RQS_SHAPES):
                  rqs_cuda.plain_eval(x, raw, 4.0, inverse),
                  oracle_eval(x, raw, inverse),
                  rqs_cuda.plain_eval(*f64[:2], 4.0, inverse)),
-                ("dx", "draw",
-                 rqs_cuda.spline_grad(x, raw, gy, gl, 4.0, inverse),
+                ("dx", "draw", k5_call(x, raw, gy, gl, inverse, offset),
                  rqs_cuda.plain_grad(x, raw, gy, gl, 4.0, inverse),
                  oracle_grad(x, raw, gy, gl, inverse),
                  rqs_cuda.plain_grad(*f64, 4.0, inverse)))
-            row = {"n": n, "d": d, "knots": K,
+            row = {"n": n, "d": d, "knots": K, "offset": offset,
                    "direction": "inverse" if inverse else "forward"}
             for n1, n2, k, p, o, e in outs:
                 for j, name in enumerate((n1, n2)):
                     row[name] = judge(k[j], p[j], o[j], e[j])
             row["passed"] = all(row[m]["passed"]
                                 for m in ("y", "ladj", "dx", "draw"))
-            rows.append(row)
-    return rows
+            out.append(row)
+    return out
+
+
+def k5_vs_earlier(device, rows=None):
+    """K5's group kernel against the one-thread kernel it replaced, on the
+    same inputs, both directions, every row of `rqs_cases`: the elements of
+    dx and draw whose bits differ (expected 0) and the largest
+    difference."""
+    import torch
+
+    out = []
+    for n, d, K, offset in rows or rqs_cases():
+        x, raw, gy, gl = rqs_row_inputs(device, n, d, K, offset)
+        for inverse in (False, True):
+            new = k5_call(x, raw, gy, gl, inverse, offset)
+            old = k5_call(x, raw, gy, gl, inverse, offset, earlier=True)
+            row = {"n": n, "d": d, "knots": K, "offset": offset,
+                   "direction": "inverse" if inverse else "forward"}
+            for name, a, b in zip(("dx", "draw"), new, old):
+                a, b = a.contiguous(), b.contiguous()
+                row[name] = {
+                    "bits_differ": int((a.view(torch.int32)
+                                        != b.view(torch.int32)).sum()),
+                    "max_abs": float((a - b).abs().max())}
+            row["bits_differ"] = row["dx"]["bits_differ"] + \
+                row["draw"]["bits_differ"]
+            out.append(row)
+    return out
 
 
 def rqs_bytes_ops(n_el, K):
@@ -515,15 +604,20 @@ def rqs_bytes_ops(n_el, K):
                                                              + 12 * K + 60)))
 
 
-def time_rqs(device, n_reps=200, plain_reps=20):
+def time_rqs(device, ptxas=None, n_reps=200, plain_reps=20):
     """K4 and K5 at the fit's shape, forward and inverse, with CUDA events
     (launched from the host, and replayed from a CUDA graph: `graph_ms`),
-    beside their bounds and the plain versions."""
+    beside their bounds and the plain versions; K5 also beside the
+    one-thread kernel it replaced, host-launched and in turns on the
+    device (`in_turns`: earlier, new, new, earlier), with both kernels'
+    registers and spills from `ptxas` (`ptxas_summary` of the build)."""
     from tpuflows_torch.kernels import rqs_cuda
 
     n, d, K = RQS_SHAPES[0]
     x, raw, gy, gl = rqs_inputs(device, n, d, K, seed=n + d + K)
     b4, o4, b5, o5 = rqs_bytes_ops(n * d, K)
+    L, NB, _ = rqs_cuda.lane_layout(K)
+    ptxas = ptxas or {}
     out = {}
     for inverse in (False, True):
         direction = "inverse" if inverse else "forward"
@@ -539,13 +633,25 @@ def time_rqs(device, n_reps=200, plain_reps=20):
             plain_ms, ref = timed(plain, plain_reps)
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = ops / PEAK_F32_FLOPS * 1e3
-            out[f"{kname}_{direction}"] = {
+            row = out[f"{kname}_{direction}"] = {
                 "ms": ms, "device_ms": graph_ms(kern), "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": ops,
                 "max_abs_err": max(float((a - b).abs().max())
                                    for a, b in zip(res, ref))}
+            if kname == "k5":
+                def old():
+                    return rqs_cuda.earlier_spline_grad(x, raw, gy, gl, 4.0,
+                                                        inverse)
+                row["earlier_ms"], _ = timed(old, n_reps)
+                (row["device_ms"], row["earlier_device_ms"],
+                 row["device_turns"], row["earlier_turns"]) = in_turns(
+                    kern, old)
+                row["lanes"], row["bins_per_lane"] = L, NB
+                row["ptxas"] = ptxas.get(f"K5 {direction} L={L}")
+                row["earlier_ptxas"] = ptxas.get(
+                    f"K5 one-thread {direction}")
     return out
 
 
@@ -1742,9 +1848,14 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
     launched from the host and replayed from a CUDA graph (`graph_ms`),
     beside its bound and its plain version; and one portable transition
     (the host-driven lockstep loop with K3) on the inputs `time_kernel`
-    timed K1 on, beside that time `k1_ms`. For a module list the tile
-    kernel is also timed at each R of TILE_ROWS that fits, beside the
-    per-warp kernel (`tile_and_warp_times`)."""
+    timed K1 on, beside that time `k1_ms` (for the affine flow, in turns
+    with the same transition through the per-warp affine kernel the tile
+    kernel replaced: `earlier_portable_transition_ms`). The tile kernel
+    is also timed in each mode of `tile_modes` (each R of TILE_ROWS that
+    fits, the ring and, for a flow with one coupling, the resident
+    weights), beside the per-warp kernel it replaced
+    (`tile_and_warp_times`): the affine kernel for the affine flow, the
+    module-list kernel for any other."""
     from tpuflows_torch.kernels import fused_logp_cuda
     from tpuflows_torch.kernels.fused_logp_cuda import (
         fused_latent_logp_and_grad)
@@ -1767,17 +1878,34 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
     nbytes = 4.0 * (n * d + flow_floats + n + n * d)
     bound_ms, bound_by = _bound(flops, nbytes)
     q, eps, im, *rnd = state_inputs(state, cpu_randomness=cpu_randomness)
-    port_ms, _ = timed(lambda: nuts_transition_math(
-        q, *rnd, eps, im, hook, MAX_DEPTH), trans_reps, warmup=1)
+
+    def transition(logp_and_grad):
+        return timed(lambda: nuts_transition_math(
+            q, *rnd, eps, im, logp_and_grad, MAX_DEPTH), trans_reps,
+            warmup=1)[0]
+
     out = {"n": n, "d": d, "ms": ms, "device_ms": graph_ms(lambda: hook(z)),
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-           "portable_transition_ms": port_ms, "k1_transition_ms": k1_ms}
-    if not model.affine:
-        out.update(tile_and_warp_times(
-            model, lambda R, _: fused_logp_cuda._launch(z, model, rows=R),
-            lambda: fused_logp_cuda.chain_logp_grad_warp(z, model),
-            [(R, False) for R in fitting_rows(model, TILE_ROWS)], n_reps))
+           "k1_transition_ms": k1_ms}
+    if model.affine:  # the same transition through the per-warp yardstick
+        def warp(zz):
+            return fused_logp_cuda.affine_logp_grad_warp(zz, model)
+
+        runs = [transition(f) for f in (hook, warp, warp, hook)]
+        out["portable_transition_ms"] = 0.5 * (runs[0] + runs[3])
+        out["earlier_portable_transition_ms"] = 0.5 * (runs[1] + runs[2])
+        out["portable_transition_runs"] = runs
+    else:
+        out["portable_transition_ms"] = transition(hook)
+    out.update(tile_and_warp_times(
+        model, lambda R, res: fused_logp_cuda._launch(z, model, rows=R,
+                                                      resident=res),
+        lambda: (fused_logp_cuda.affine_logp_grad_warp if model.affine
+                 else fused_logp_cuda.chain_logp_grad_warp)(z, model),
+        tile_modes(model, TILE_ROWS), n_reps))
+    out["earlier"] = ("per-warp affine kernel" if model.affine
+                      else "per-warp module-list kernel")
     return out
 
 
@@ -1930,9 +2058,10 @@ def k1_tile_vs_warp(flow, q, im, rnd, eps, depth):
 
 
 def k3_tile_vs_warp(flow, z):
-    """K3's tile kernel (`fused_logp_cuda._launch(z, model, rows=R)`) at
-    each R of TILE_ROWS that fits against the per-warp module-list kernel
-    on the same z: per R, the elements of lp and g whose bits differ
+    """K3's tile kernel (`fused_logp_cuda._launch(z, model, rows=R,
+    resident=...)`) in every mode of `tile_modes` (the affine flow's
+    resident weights included) against the per-warp module-list kernel on
+    the same z: per mode, the elements of lp and g whose bits differ
     (expected 0) and the largest difference."""
     from tpuflows_torch.kernels import fused_logp_cuda, nuts_cuda
     from tpuflows_torch.kernels.fused_logp_cuda import (
@@ -1943,11 +2072,12 @@ def k3_tile_vs_warp(flow, z):
     warp = fused_logp_cuda.chain_logp_grad_warp(z, hook.model)
     out = {"n": int(z.shape[0]), "d": int(z.shape[1]),
            "default_rows": nuts_cuda.tile_rows(hook.model), "rows": {}}
-    for R in fitting_rows(hook.model, TILE_ROWS):
-        tile = fused_logp_cuda._launch(z, hook.model, rows=R)
+    for R, resident in tile_modes(hook.model, TILE_ROWS):
+        tile = fused_logp_cuda._launch(z, hook.model, rows=R,
+                                       resident=resident)
         diffs = {k: value_diff(t, w)
                  for k, t, w in zip(("lp", "g"), tile, warp)}
-        out["rows"][R] = {
+        out["rows"][mode_label(R, resident)] = {
             "differ": sum(v[0] for v in diffs.values()),
             "zero_signs": sum(v[1] for v in diffs.values()),
             "max_abs": max(v[2] for v in diffs.values()),
@@ -1992,21 +2122,19 @@ def tile_vs_warp(device, k1_states=(), k3_states=(), k2_states=()):
     """Phase tile_vs_warp: K1 on every row of `kernel_shapes` (the affine
     flows at d = 32..256, their inputs rebuilt from their seeds) and every
     module-list row of `kernel_vs_plain_spline`, and on `k1_states`
-    ((label, flow, NUTSState)); K3 on every module-list row of
-    `fused_logp_rows` other than the affine flow (z ~ N(0, 1) from a seed)
-    and on `k3_states` ((label, flow, z)); K2 on every row of
+    ((label, flow, NUTSState)); K3 on every row of `fused_logp_rows`, the
+    affine flows included (z ~ N(0, 1) from a seed), and on `k3_states`
+    ((label, flow, z)); K2 on every row of
     `window_rows` (its flows, starts and window randomness), on its bench
     row and its first spline row at a chain count that no tile divides
     (RAGGED_CHAINS), and on `k2_states` ((label, flow, NUTSState), windows
     of WINDOW_SLOTS on the randomness of its `window_vs_plain` row); all
     three on SMALL_RING_SHAPE (q ~ N(0, 1) as `kernel_vs_plain_spline`
-    draws it; K2 on a window of 4). K1 and K2 run every mode of
+    draws it; K2 on a window of 4). K1, K2 and K3 run every mode of
     `tile_modes` (the ring, and the resident weights where they fit).
     Every row passes when the tile kernel equals the per-warp module-list
     kernel in value in every mode measured."""
     import torch
-    from tpuflows_torch.kernels import nuts_cuda
-    from tpuflows_torch.targets import NealsFunnel
 
     rows = []
     for d, h1, h2, depth, eps, n, scheme in OTHER_SHAPES:
@@ -2032,8 +2160,6 @@ def tile_vs_warp(device, k1_states=(), k3_states=(), k2_states=()):
                      **k1_tile_vs_warp(flow, q, im, rnd, eps, MAX_DEPTH)})
     for i, (label, flow, n, _) in enumerate(fused_logp_rows(device)):
         d = flow.transforms[0].loc.numel()
-        if nuts_cuda.pack_flow(flow, NealsFunnel(dim=d)).affine:
-            continue
         g = torch.Generator(device=device).manual_seed(30 + i)
         z = torch.randn((n, d), generator=g, device=device)
         rows.append({"kernel": "K3", "label": label,
@@ -2510,11 +2636,11 @@ def main(argv=None):
                              coupling_cuda.LIBRARY, coupling_cuda.EARLIER,
                              fused_logp_cuda.LIBRARY,
                              nuts_window_cuda.LIBRARY)
+    ptxas = {k: v for i in infos.values()
+             for k, v in ptxas_summary(i.log).items()}
     emit("build", t,
          nvcc_seconds=max(i.seconds for i in infos.values()),
-         libraries=[i.path for i in infos.values()],
-         ptxas={k: v for i in infos.values()
-                for k, v in ptxas_summary(i.log).items()})
+         libraries=[i.path for i in infos.values()], ptxas=ptxas)
 
     t = time.perf_counter()
     rqs_rows = rqs_vs_plain(device)
@@ -2524,6 +2650,11 @@ def main(argv=None):
     if bad:
         raise RuntimeError(f"K4/K5 disagree with their plain versions: "
                            f"{bad}")
+
+    t = time.perf_counter()
+    k5_rows = k5_vs_earlier(device)
+    emit("k5_vs_earlier", t, rows=k5_rows,
+         bits_differ=sum(r["bits_differ"] for r in k5_rows))
 
     t = time.perf_counter()
     # the setting of the JAX kernel's on-chip bar: unit metric, eps 0.3
@@ -2569,7 +2700,7 @@ def main(argv=None):
     check_main_path(gres)
 
     t = time.perf_counter()
-    rqs_tim = time_rqs(device)
+    rqs_tim = time_rqs(device, ptxas)
     gtim = time_kernel(gflow, gstate, n_reps=10, plain_reps=2,
                        cpu_randomness=True)
     if save_state:
@@ -2617,7 +2748,8 @@ def main(argv=None):
               ("generic post-warmup state", gflow, gstate)]
     tile_rows = tile_vs_warp(
         device, k1_states=states,
-        k3_states=[("generic post-warmup state", gflow, gstate.q)],
+        k3_states=[("ceiling post-warmup state", flow, warm_state.q),
+                   ("generic post-warmup state", gflow, gstate.q)],
         k2_states=states)
     emit("tile_vs_warp", t, rows=tile_rows,
          bar="every element of every output equal in value to the "
@@ -2743,9 +2875,13 @@ def main(argv=None):
             "replaces": "src/tpuflows/kernels/rqs_pallas.py" + replaces,
             "launches": gres["rqs_launches"][key],
             "max_abs_err": max(row[e]["max_abs"] for e in errs),
-            "ms": r["ms"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+        if "earlier_ms" in r:  # K5: the one-thread kernel it replaced
+            kernels[-1].update(earlier_ms=r["earlier_ms"],
+                               earlier_device_ms=r["earlier_device_ms"],
+                               lanes=r["lanes"])
     fit_block = block_tim[0]
     for key, name, replaces in (
             ("k6_forward", "coupling_block forward (K6)", ":185"),
@@ -2788,11 +2924,10 @@ def main(argv=None):
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
-        if "warp_ms" in r:  # the module list: tile and per-warp times
-            kernels[-1].update(
-                device_ms=r["tile_device_ms"], rows=r["rows"],
-                earlier_ms=r["warp_ms"],
-                earlier_device_ms=r["warp_device_ms"])
+        kernels[-1].update(  # the tile kernel and the per-warp one
+            device_ms=r["tile_device_ms"], rows=r["rows"],
+            resident=r["resident"], earlier_ms=r["warp_ms"],
+            earlier_device_ms=r["warp_device_ms"])
     for variant, name, label in (
             ("ceiling", "nuts_window (affine)", "bench"),
             ("generic", "nuts_window (module list, spline)",

@@ -2,15 +2,20 @@
 
     git archive <rev> src/tpuflows_torch/csrc | tar -x -C <dir>
     python3 scripts/ring_token_check.py <dir>/src/tpuflows_torch/csrc
+    python3 scripts/ring_token_check.py --as-is <dir>/src/tpuflows_torch/csrc
 
 Preprocesses every unit of K1 (nuts_transition.cu), K2 (nuts_window.cu)
-and K3 (fused_logp.cu), per DPL and the entry unit, at the old and the
-current revision (`g++ -E -P` with an empty `cuda_runtime.h`), specializes
-the current tokens to the tile kernels' ring instantiation (kResident =
-false: `if constexpr (kResident) {...}` and the template parameter
-dropped, as csrc/tile_grad.cuh writes them), splits both into top-level
-definitions (namespaces transparent) and prints, per unit, the old
-definitions that no longer appear unchanged. Needs g++; no nvcc.
+and K3 (fused_logp.cu), per DPL and the entry unit, and the single units
+of K4/K5 (rqs_spline.cu) and K6/K7 (coupling_tile.cu), at the old and the
+current revision (`g++ -E -P` with empty `cuda_runtime.h` and
+`cooperative_groups.h`), specializes the current tokens to the tile
+kernels' ring instantiation (kResident = false: `if constexpr (kResident)
+{...}` and the template parameter dropped, as csrc/tile_grad.cuh writes
+them; not with `--as-is`, for an old revision that has the resident
+instantiation too), splits both into top-level definitions (namespaces
+transparent) and prints, per unit, whether the whole units' tokens are
+equal, else the old definitions that no longer appear unchanged. Needs
+g++; no nvcc.
 """
 import re
 import subprocess
@@ -103,30 +108,36 @@ def name_of(d):
     return m[0] if m else d[:60]
 
 
-def check(unit, defs, old_dir, new_dir, stub):
+def check(unit, defs, old_dir, new_dir, stub, as_is):
     old = tokens(f"{old_dir}/{unit}", defs, old_dir, stub)
     new = tokens(f"{new_dir}/{unit}", defs, new_dir, stub)
-    rn = ring(new)
+    rn = new if as_is else ring(new)
     od, nd = definitions(old), set(definitions(rn))
     missing = [d for d in od if d not in nd]
     equal = old == rn
     return equal, [name_of(d) for d in missing], len(od)
 
 
-def main(old_dir, new_dir):
+def main(old_dir, new_dir, as_is):
     with tempfile.TemporaryDirectory() as stub:
-        (Path(stub) / "cuda_runtime.h").touch()
+        for header in ("cuda_runtime.h", "cooperative_groups.h"):
+            (Path(stub) / header).touch()
         for unit, macro in (("nuts_transition.cu", "NUTS_DPL"),
                             ("nuts_window.cu", "NUTS_DPL"),
-                            ("fused_logp.cu", "LATENT_DPL")):
-            for k in ["entry"] + list(range(1, 9)):
+                            ("fused_logp.cu", "LATENT_DPL"),
+                            ("rqs_spline.cu", None),
+                            ("coupling_tile.cu", None)):
+            for k in ["entry"] + (list(range(1, 9)) if macro else []):
                 defs = [] if k == "entry" else [f"-D{macro}={k}"]
-                eq, missing, n = check(unit, defs, old_dir, new_dir, stub)
+                eq, missing, n = check(unit, defs, old_dir, new_dir, stub,
+                                       as_is)
                 print(unit, k, "whole unit equal" if eq else
-                      f"{n} old definitions, missing after ring: {missing}")
+                      f"{n} old definitions, missing"
+                      f"{'' if as_is else ' after ring'}: {missing}")
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else
+    args = [a for a in sys.argv[1:] if a != "--as-is"]
+    main(args[0], args[1] if len(args) > 1 else
          str(Path(__file__).resolve().parents[1] / "src" / "tpuflows_torch"
-             / "csrc"))
+             / "csrc"), "--as-is" in sys.argv[1:])

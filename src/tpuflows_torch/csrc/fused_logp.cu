@@ -20,27 +20,30 @@
 // Standardize, AffineCoupling and RQSCouplingBlock modules
 // (`fused_logp_chain_kernel`, `chain_logp_grad`), with 3-layer silu MLPs.
 //
-// Design. The affine kernel (`fused_logp_affine_kernel`) is one warp per
-// row, one warp per block, with the per-warp gradient device code
-// (`logp_grad`, which K1's and K2's per-warp affine kernels share), its
-// scratch 6 d + 3 h1 + 3 h2 floats of dynamic shared memory; it reads the
-// `Net` prefix of the packed buffer, and is the last affine kernel on a
-// path (the portable one) now that K1 and K2 run the affine flow on their
-// tile kernels. The module-list kernel (`fused_logp_tile_kernel`) runs the tile
-// gradient of tile_grad.cuh: one block of R warps per tile of R rows,
-// every weight read once per tile (through a cp.async ring in shared
-// memory) and used for all R rows, warp b owning row b with
-// latent_grad.cuh's per-row code; R (`nuts_cuda.tile_rows`, 8 at the
-// generic flow) comes from the host, and the block's dynamic shared
-// memory is R rows of (n_mods + 1) d + 4 hmax + head floats and the 96 KB
-// ring (176 KB at the generic flow; less where one row leaves less room,
-// tile_grad.cuh `tile_ring_stage`). Rows past n in the last tile compute
-// on a copy of row n - 1 and store nothing. Its lp and g equal the
-// per-warp module-list kernel's in value (the same per-row code, the same
-// order of every sum; the compact layers it reads can change only a
-// zero's sign). The per-warp kernel (`fused_logp_chain_kernel`, entry
-// point `fused_logp_chain_warp_f32`) stays built only as chip_smoke.py's
-// oracle and yardstick for the tile kernel; no wrapper calls it.
+// Design. Every flow runs on the tile kernel (`fused_logp_tile_kernel`),
+// the tile gradient of tile_grad.cuh: one block of R warps per tile of R
+// rows, every weight read once per tile and used for all R rows, warp b
+// owning row b with latent_grad.cuh's per-row code; R and the weight mode
+// come from the host (`nuts_cuda.launch_rows`, `launch_resident`). The
+// weights go through a cp.async ring in shared memory, or, for a flow
+// with one coupling whose compact forward layers fit beside the rows (the
+// ceiling's affine flow), they are copied once per launch behind the rows
+// (template argument kResident, `tile_load_resident`, as K1 and K2 do).
+// The block's dynamic shared memory is R rows of (n_mods + 1) d + 4 hmax
+// + head floats and the 96 KB ring (176 KB at the generic flow; less
+// where one row leaves less room, tile_grad.cuh `tile_ring_stage`), or
+// the rows padded by one float and the resident layers. Rows past n in
+// the last tile compute on a copy of row n - 1 and store nothing. Its lp
+// and g equal the per-warp module-list kernel's in value (the same
+// per-row code, the same order of every sum; the compact layers it reads
+// can change only a zero's sign). The per-warp kernel
+// (`fused_logp_chain_kernel`, entry point `fused_logp_chain_warp_f32`)
+// stays built as chip_smoke.py's oracle and yardstick for the tile
+// kernel, and the per-warp affine kernel (`fused_logp_affine_kernel`, one
+// warp per row with latent_grad.cuh's `logp_grad` on the `Net` prefix of
+// the packed buffer, entry point `fused_logp_affine_f32`) as the
+// yardstick of the design the tile kernel replaced for the affine flow;
+// no wrapper on a path calls either.
 //
 // Bound on this card: operations. A row costs one forward and one
 // input-gradient backward of every conditioner MLP, counted over the work
@@ -51,8 +54,9 @@
 // 26.3 us). Its bytes (z in, lp and g out, the flow's parameters and masks
 // once, 0.69-3.6 MB) take 0.2-1.1 us at 3.35 TB/s. One warp per row reads
 // every weight from L2 for each row (~9 MB per row of the generic flow,
-// tile_grad.cuh), so the affine kernel stays far from that bound; the
-// tile kernel reads them once per R rows. Both stay in float32 on the FMA
+// tile_grad.cuh), so the per-warp kernels stay far from that bound; the
+// tile kernel reads them once per R rows, or once per launch and block
+// when they are resident. Both stay in float32 on the FMA
 // pipes (tile_grad.cuh says why). PERF.md keeps the measured times beside
 // the bound.
 
@@ -75,7 +79,7 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
-                        cudaStream_t stream);
+                        int resident, cudaStream_t stream);
 
 }  // namespace tpuflows_logp
 
@@ -126,8 +130,10 @@ __global__ void __launch_bounds__(32) fused_logp_chain_kernel(Args a,
   store_row<DPL>(a, row, lane, lp, g);
 }
 
-// One tile of `rows` rows per block, warp b on row blockIdx.x rows + b.
-template <int DPL>
+// One tile of `rows` rows per block, warp b on row blockIdx.x rows + b;
+// the weights through the ring, or resident (kResident, tile_grad.cuh:
+// copied once per launch).
+template <int DPL, bool kResident>
 __global__ void __launch_bounds__(32 * kMaxTileRows)
     fused_logp_tile_kernel(Args a, ChainList c, int rows) {
   extern __shared__ float4 smem4[];
@@ -135,11 +141,29 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * rows + warp;
+  if constexpr (kResident) {
+    tile_load_resident(a, c, rows);
+  }
   float z[DPL], g[DPL];
   load_row<DPL>(a, min(row, a.n - 1), lane, z);
-  const float lp = tile_chain_logp_grad<DPL>(a, c, smem, rows, z, g, lane,
-                                             warp);
+  const float lp = tile_chain_logp_grad<DPL, kResident>(a, c, smem, rows, z,
+                                                        g, lane, warp);
   if (row < a.n) store_row<DPL>(a, row, lane, lp, g);
+}
+
+template <int DPL, bool kResident>
+cudaError_t launch_tile_kernel(const Args& a, const ChainList& c, int rows,
+                               size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {  // above 48 KB only when asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_logp_tile_kernel<DPL, kResident>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (a.n + rows - 1) / rows;
+  fused_logp_tile_kernel<DPL, kResident>
+      <<<blocks, 32 * rows, smem, stream>>>(a, c, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -168,29 +192,29 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
   return cudaGetLastError();
 }
 
+// `resident` > 0: the resident instantiation, with that many floats of
+// resident layers behind the rows (the host's `resident_floats`); 0: the
+// ring
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
-                        cudaStream_t stream) {
+                        int resident, cudaStream_t stream) {
   const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
-  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
-  const size_t smem = tile_smem_bytes(rows, row);
-  if (smem > 48 * 1024) {  // above 48 KB only when asked for
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_logp_tile_kernel<DPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+  if (resident > 0) {
+    if (!tile_resident_fits(rows, row, resident))
+      return cudaErrorInvalidValue;
+    return launch_tile_kernel<DPL, true>(
+        a, c, rows, tile_resident_smem_bytes(rows, row, resident), stream);
   }
-  const int blocks = (a.n + rows - 1) / rows;
-  fused_logp_tile_kernel<DPL><<<blocks, 32 * rows, smem, stream>>>(a, c,
-                                                                   rows);
-  return cudaGetLastError();
+  if (tile_ring_stage(rows, row) == 0) return cudaErrorInvalidValue;
+  return launch_tile_kernel<DPL, false>(a, c, rows,
+                                        tile_smem_bytes(rows, row), stream);
 }
 
 template cudaError_t launch_affine<LATENT_DPL>(const Args&, cudaStream_t);
 template cudaError_t launch_chain<LATENT_DPL>(const Args&, const ChainList&,
                                              cudaStream_t);
 template cudaError_t launch_tile<LATENT_DPL>(const Args&, const ChainList&,
-                                            int, cudaStream_t);
+                                            int, int, cudaStream_t);
 
 }  // namespace tpuflows_logp
 
@@ -217,7 +241,9 @@ tpuflows_nuts::Args rows_args(const void* z, const void* params, int n,
 
 // lp (n,) and g (n, d) of z (n, d) through Standardize + one affine
 // coupling with an MLP d -> h1 -> h2 -> 2d, its leaves packed as
-// latent_grad.cuh's `Net` says. Returns a cudaError_t (0 = launched).
+// latent_grad.cuh's `Net` says, one warp per row (`fused_logp_affine_
+// kernel`): the yardstick of the design the tile kernel replaced for the
+// affine flow, on no path. Returns a cudaError_t (0 = launched).
 // Shapes are checked again here; the Python wrapper checks device, dtype
 // and contiguity before calling.
 extern "C" int fused_logp_affine_f32(const void* z, const void* params,
@@ -264,33 +290,35 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 
 }  // namespace
 
-// The same through a module list, on tiles of `rows` rows (a power of two
-// up to kMaxTileRows, tile_grad.cuh) that share every weight read
+// The same through any module list, on tiles of `rows` rows (a power of
+// two up to kMaxTileRows, tile_grad.cuh) that share every weight read
 // (`fused_logp_tile_kernel`): `mods` is a device array of n_mods *
 // kModInts ints, hmax the widest hidden layer (0 without couplings), head
-// the widest conditioner output. Refused where the tile's rows leave no
-// room for a weight ring (`tile_ring_stage`). Returns a cudaError_t.
+// the widest conditioner output, `resident` the floats of the resident
+// layers (the host's `resident_floats`) or 0 for the ring. Refused where
+// the tile's rows leave no room for a weight ring (`tile_ring_stage`) or
+// for the resident layers (`tile_resident_fits`). Returns a cudaError_t.
 extern "C" int fused_logp_chain_f32(const void* z, const void* params,
                                     const void* mods, int n_mods, int n,
                                     int d, int hmax, int head, float sigma_v,
-                                    void* lp, void* g, int rows,
+                                    void* lp, void* g, int rows, int resident,
                                     void* stream) {
   using namespace tpuflows_logp;
   if (!chain_ok(n, d, n_mods, hmax, head) || rows < 1 ||
-      rows > kMaxTileRows || (rows & (rows - 1)) != 0)
+      rows > kMaxTileRows || (rows & (rows - 1)) != 0 || resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = rows_args(z, params, n, d, sigma_v, lp, g);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
-    case 1: return (int)launch_tile<1>(a, c, rows, s);
-    case 2: return (int)launch_tile<2>(a, c, rows, s);
-    case 3: return (int)launch_tile<3>(a, c, rows, s);
-    case 4: return (int)launch_tile<4>(a, c, rows, s);
-    case 5: return (int)launch_tile<5>(a, c, rows, s);
-    case 6: return (int)launch_tile<6>(a, c, rows, s);
-    case 7: return (int)launch_tile<7>(a, c, rows, s);
-    default: return (int)launch_tile<8>(a, c, rows, s);
+    case 1: return (int)launch_tile<1>(a, c, rows, resident, s);
+    case 2: return (int)launch_tile<2>(a, c, rows, resident, s);
+    case 3: return (int)launch_tile<3>(a, c, rows, resident, s);
+    case 4: return (int)launch_tile<4>(a, c, rows, resident, s);
+    case 5: return (int)launch_tile<5>(a, c, rows, resident, s);
+    case 6: return (int)launch_tile<6>(a, c, rows, resident, s);
+    case 7: return (int)launch_tile<7>(a, c, rows, resident, s);
+    default: return (int)launch_tile<8>(a, c, rows, resident, s);
   }
 }
 

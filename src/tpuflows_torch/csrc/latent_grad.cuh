@@ -3,10 +3,10 @@
 // over Neal's funnel, for two kinds of flow:
 //  * `logp_grad`: Standardize + one AffineCoupling (any 0/1 mask, any
 //    clamp) whose conditioner is an MLP d -> h1 -> h2 -> 2d with silu, its
-//    leaves packed as `Net` says: K3's affine kernel (fused_logp.cu, the
-//    ceiling's portable path), and K1's and K2's per-warp affine kernels
-//    (nuts_transition.cu, nuts_window.cu), which no path runs any more
-//    and which stay built as chip_smoke.py's yardstick of that design;
+//    leaves packed as `Net` says: the per-warp affine kernels of K1, K2
+//    and K3 (nuts_transition.cu, nuts_window.cu, fused_logp.cu), which no
+//    path runs any more and which stay built as chip_smoke.py's
+//    yardstick of that design;
 //  * `chain_logp_grad`: any Chain of Standardize, AffineCoupling and
 //    RQSCouplingBlock modules with such MLPs, given as a module list
 //    (`ChainList`): the per-warp module-list kernels of K1, K2 and K3,

@@ -27,9 +27,9 @@
 //  * `nuts_transition_kernel`: Standardize + one AffineCoupling one warp
 //    per chain (`logp_grad`), entry point `nuts_transition_f32`, which ran
 //    the ceiling path before the tile kernel took it: kept only as
-//    chip_smoke.py's yardstick of that design, on no path. It and
-//    `logp_grad` go when K3's affine kernel, their last user, moves to
-//    the tiles too.
+//    chip_smoke.py's yardstick of that design, on no path. It, K2's and
+//    K3's per-warp affine kernels and `logp_grad`, which only they use,
+//    may go together (ROADMAP).
 //
 // Design:
 //  * One warp per chain; each chain's tree state stays in its warp's

@@ -12,13 +12,16 @@ g (n, d)) with
     through the flow, or the streamed per-block backward on the p-major
     relayout for flows with splines), the counterpart of the JAX kernel's
     `_reference`;
-  * the kernel, `csrc/fused_logp.cu`, is one warp per row with the
-    per-warp gradient device code (`csrc/latent_grad.cuh` `logp_grad`) for
-    the affine flow, and for any other module list one block per tile of
-    `nuts_cuda.tile_rows(model)` rows that share every weight read
-    (`csrc/tile_grad.cuh`);
+  * the kernel, `csrc/fused_logp.cu`, is one block per tile of rows that
+    share every weight read (`csrc/tile_grad.cuh`), on every flow, the
+    affine one included: `nuts_cuda.tile_rows(model)` rows, the weights
+    resident in shared memory where they fit, as K1 and K2 take them (at
+    the ceiling's affine flow R = 8, resident);
     `chain_logp_grad_warp` runs the per-warp module-list kernel, on no
-    path: `chip_smoke.py`'s oracle and yardstick for the tile kernel;
+    path: `chip_smoke.py`'s oracle for the tile kernel;
+    `affine_logp_grad_warp` the per-warp affine kernel (one warp per row,
+    `csrc/latent_grad.cuh` `logp_grad`) that the tile kernel replaced for
+    the affine flow, on no path: `chip_smoke.py`'s yardstick;
   * the wrapper (`FusedLatentLogpAndGrad.__call__`): a CPU tensor runs the
     plain version; a CUDA tensor launches the kernel, or the wrapper
     raises. `LAUNCHES` counts the kernel's launches.
@@ -64,7 +67,7 @@ def _bind(lib):
     fn.argtypes = [p, p] + [i32] * 4 + [f32] * 2 + [p] * 3
     fn.restype = i32
     fn = lib.fused_logp_chain_f32
-    fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 2 + [i32, p]
+    fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.fused_logp_chain_warp_f32
     fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 3
@@ -87,29 +90,24 @@ def _call(name, z, args):
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def _launch(z, model: nuts_cuda.PackedFlow, rows=None):
-    """K3 on the card. Standardize + one AffineCoupling keeps its per-warp
-    kernel (`fused_logp_affine_f32` on the packed `Net` prefix), which K1
-    and K2 left for the tile kernels: the portable path around it is
-    host-bound, and its turn on the tiles comes next (ROADMAP). Any other
-    module list runs on tiles of `rows` rows (the wrapper's
-    `nuts_cuda.tile_rows(model)`; `chip_smoke.py` times other R)."""
+def _launch(z, model: nuts_cuda.PackedFlow, rows=None, resident=None):
+    """K3 on the card: the tile kernel on every flow, on tiles of `rows`
+    rows, its weights resident where they fit, K1's and K2's rule (the
+    wrapper's `tile_rows(model)` and `launch_resident`; `chip_smoke.py`
+    times other R and the ring). At the ceiling's post-warmup state R = 8
+    with resident weights is K3's fastest mode too (PERF.md §6), though a
+    K3 launch serves one gradient a row."""
     global LAUNCHES
     _check(z, model)
+    rows = nuts_cuda.launch_rows(model, rows)
     n, d = z.shape
     lp = torch.empty(n, device=z.device, dtype=torch.float32)
     g = torch.empty_like(z)
-    if model.affine:
-        _call("fused_logp_affine_f32", z, [
-            z.data_ptr(), model.params.data_ptr(), n, d, model.h1,
-            model.h2, model.clamp, model.target.sigma_v, lp.data_ptr(),
-            g.data_ptr()])
-    else:
-        _call("fused_logp_chain_f32", z, [
-            z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
-            model.mods.shape[0], n, d, model.hmax, model.head,
-            model.target.sigma_v, lp.data_ptr(), g.data_ptr(),
-            nuts_cuda.launch_rows(model, rows)])
+    _call("fused_logp_chain_f32", z, [
+        z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
+        model.mods.shape[0], n, d, model.hmax, model.head,
+        model.target.sigma_v, lp.data_ptr(), g.data_ptr(), rows,
+        nuts_cuda.launch_resident(model, rows, resident)])
     LAUNCHES += 1
     return lp, g
 
@@ -120,22 +118,44 @@ def _check(z, model: nuts_cuda.PackedFlow):
         raise ValueError("the packed flow is on another device than z")
 
 
+def _yardstick(z, model: nuts_cuda.PackedFlow):
+    """Checks of a per-warp kernel's launch; its outputs."""
+    if z.device.type != "cuda" or not z.is_contiguous():
+        raise ValueError("the per-warp kernels take a contiguous CUDA z")
+    _check(z, model)
+    n = z.shape[0]
+    return torch.empty(n, device=z.device, dtype=torch.float32), \
+        torch.empty_like(z)
+
+
 def chain_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
     """The per-warp module-list kernel (`fused_logp_chain_kernel`) on a
-    contiguous float32 CUDA z: `chip_smoke.py`'s oracle and yardstick for
-    the tile kernel, which must equal it in value. On no path, and not
-    counted in LAUNCHES."""
-    if model.affine or z.device.type != "cuda" or not z.is_contiguous():
-        raise ValueError("the per-warp module-list kernel takes a module "
-                         "list and a contiguous CUDA z")
-    _check(z, model)
+    contiguous float32 CUDA z, on any flow K3 takes, the affine one
+    included: `chip_smoke.py`'s oracle for the tile kernel, which must
+    equal it in value. On no path, and not counted in LAUNCHES."""
+    lp, g = _yardstick(z, model)
     n, d = z.shape
-    lp = torch.empty(n, device=z.device, dtype=torch.float32)
-    g = torch.empty_like(z)
     _call("fused_logp_chain_warp_f32", z, [
         z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
         model.mods.shape[0], n, d, model.hmax, model.head,
         model.target.sigma_v, lp.data_ptr(), g.data_ptr()])
+    return lp, g
+
+
+def affine_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
+    """The per-warp affine kernel (`fused_logp_affine_kernel`, one warp
+    per row on the packed `Net` prefix) on a contiguous float32 CUDA z and
+    Standardize + one AffineCoupling: the yardstick of the design the tile
+    kernel replaced for the affine flow (`chip_smoke.py` times it beside
+    the tile kernel). On no path, and not counted in LAUNCHES."""
+    if not model.affine:
+        raise ValueError("the per-warp affine kernel takes Standardize + "
+                         "one AffineCoupling, not a module list")
+    lp, g = _yardstick(z, model)
+    n, d = z.shape
+    _call("fused_logp_affine_f32", z, [
+        z.data_ptr(), model.params.data_ptr(), n, d, model.h1, model.h2,
+        model.clamp, model.target.sigma_v, lp.data_ptr(), g.data_ptr()])
     return lp, g
 
 

@@ -118,7 +118,7 @@ class PackedFlow(NamedTuple):
     hidden: tuple  # every coupling's hidden widths
     hmax: int  # widest hidden layer
     head: int  # widest conditioner output
-    affine: bool  # Standardize + one AffineCoupling (K3's affine kernel)
+    affine: bool  # Standardize + one AffineCoupling (the per-warp yardsticks)
     flow_p: Chain | None  # p-major relayout (flows with splines)
     resident_floats: int  # the resident layers' floats, 0 if not one coupling
 
@@ -207,7 +207,7 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     column 6, with the number of pass-through dims in column 7; the
     per-warp kernels read neither. For Standardize + one AffineCoupling
     the buffer up to the compact copies is the per-warp affine kernels'
-    `Net` (K3's affine kernel reads it)."""
+    `Net` (the per-warp affine kernels, yardsticks now, read it)."""
     ts = list(flow.transforms) if isinstance(flow, Chain) else []
     if not 1 <= len(ts) <= MAX_MODULES:
         raise _unsupported(f"{len(ts)} modules (1 to {MAX_MODULES})")
@@ -389,10 +389,9 @@ def check_tile(model: PackedFlow, rows: int):
 
 
 def launch_rows(model: PackedFlow, rows: int | None = None) -> int:
-    """The tile rows a launch of the tile kernels takes (K1's and K2's for
-    every flow, K3's for a module list other than the affine flow):
-    `tile_rows(model)` unless `rows` is given, refused where `check_tile`
-    refuses it."""
+    """The tile rows a launch of the tile kernels takes (K1's, K2's and
+    K3's, for every flow): `tile_rows(model)` unless `rows` is given,
+    refused where `check_tile` refuses it."""
     rows = tile_rows(model) if rows is None else rows
     check_tile(model, rows)
     return rows
@@ -412,10 +411,11 @@ def resident_fits(model: PackedFlow, rows: int) -> bool:
 
 def launch_resident(model: PackedFlow, rows: int,
                     resident: bool | None = None) -> int:
-    """The `resident` argument of a tile launch of K1 or K2: the resident
-    layers' floats where they fit at `rows` (`resident_fits`), else 0 (the
-    ring). `resident` True asks for the resident mode and raises where it
-    does not fit; False asks for the ring (`chip_smoke.py` times both)."""
+    """The `resident` argument of a tile launch of K1, K2 or K3: the
+    resident layers' floats where they fit at `rows` (`resident_fits`),
+    else 0 (the ring). `resident` True asks for the resident mode and
+    raises where it does not fit; False asks for the ring (`chip_smoke.py`
+    times both)."""
     fits = resident_fits(model, rows)
     if resident and not fits:
         raise ValueError(f"the flow's weights do not stay resident beside "

@@ -6,7 +6,11 @@ pullback (port of `tpuflows/kernels/rqs_pallas.py`).
     torch on lists of same-shaped tensors (one per spline parameter), and
     its pullback by torch.autograd (`plain_eval`, `plain_grad`);
   * K4 and K5, hand-written CUDA (`csrc/rqs_spline.cu`, math in
-    `csrc/rqs_math.cuh`): one thread per element, forward or inverse;
+    `csrc/rqs_math.cuh`), forward or inverse: K4 one thread per element;
+    K5 a group of lanes per element, each block's span of raw values
+    staged in shared memory (`csrc/rqs_lanes.cuh`); the one-thread K5 it
+    replaced stays built as the oracle and yardstick of `chip_smoke.py`
+    (`earlier_spline_grad`, on no path, not counted);
   * `spline_eval` / `spline_grad`, the wrappers: a CPU tensor runs the
     plain version, a CUDA tensor launches the kernel or the wrapper raises;
     `LAUNCHES` counts the kernels' launches;
@@ -45,12 +49,31 @@ def _bind(lib):
                         ctypes.c_float)
     lib.rqs_eval_f32.argtypes = [p] * 4 + [i64, i32, f32, i32, p]
     lib.rqs_eval_f32.restype = i32
-    lib.rqs_grad_f32.argtypes = [p] * 6 + [i64, i32, f32, i32, p]
-    lib.rqs_grad_f32.restype = i32
+    for fn in (lib.rqs_grad_f32, lib.rqs_grad_thread_f32):
+        fn.argtypes = [p] * 6 + [i64, i32, f32, i32, p]
+        fn.restype = i32
 
 
 LIBRARY = CudaLibrary("rqs_spline", "rqs_spline.cu", [("rqs_spline", [])],
-                      ["rqs_math.cuh"], _bind)
+                      ["rqs_math.cuh", "rqs_lanes.cuh"], _bind)
+
+
+# threads of a block of K5's group kernel and the bins a lane holds up to
+# 32 lanes an element (csrc/rqs_lanes.cuh kLaneThreads, kBinsPerLane)
+LANE_THREADS = 256
+LANE_BINS = 4
+
+
+def lane_layout(K: int) -> tuple[int, int, int]:
+    """(L, NB, E) of K5's group kernel at K knots, the host's copy of
+    csrc/rqs_lanes.cuh `lanes_for` and `block_elements`: L lanes per
+    element (the least power of two with L LANE_BINS >= K, at most 32),
+    NB bins a lane at most (lane l holds bins l, l + L, ...), E elements a
+    block."""
+    L = 1
+    while L < 32 and L * LANE_BINS < K:
+        L *= 2
+    return L, -(-K // L), LANE_THREADS // L
 
 
 def reset_launches():
@@ -247,20 +270,46 @@ def _launch_eval(x, raw, range_limit, inverse):
     return y, ladj
 
 
-def _launch_grad(x, raw, gy, gl, range_limit, inverse):
+def _grad_call(entry, x, raw, gy, gl, range_limit, inverse, draw):
+    """Entry point `entry` of K5's library: (dx, draw), draw written into
+    `draw` where given (contiguous, raw's shape and dtype; chip_smoke.py
+    passes a view at an offset), else into a new tensor."""
     K = _check(x, raw, gy, gl)
     _check_kernel("K5", x, raw, gy, gl)
+    if draw is None:
+        draw = torch.empty_like(raw)
+    else:
+        _check(x, draw)
+        _check_kernel("K5", draw)
     lib = LIBRARY.load()
     dx = torch.empty_like(x)
-    draw = torch.empty_like(raw)
     with torch.cuda.device(x.device):
-        rc = lib.rqs_grad_f32(x.data_ptr(), raw.data_ptr(), gy.data_ptr(),
-                              gl.data_ptr(), dx.data_ptr(), draw.data_ptr(),
-                              x.numel(), K, float(range_limit), int(inverse),
-                              _stream(x))
-    _launched(rc, "rqs_grad_f32 (K5)",
-              "k5_inverse" if inverse else "k5_forward")
+        rc = getattr(lib, entry)(
+            x.data_ptr(), raw.data_ptr(), gy.data_ptr(), gl.data_ptr(),
+            dx.data_ptr(), draw.data_ptr(), x.numel(), K, float(range_limit),
+            int(inverse), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{entry} (K5) launch failed: cudaError {rc}")
     return dx, draw
+
+
+def _launch_grad(x, raw, gy, gl, range_limit, inverse, draw=None):
+    dx, draw = _grad_call("rqs_grad_f32", x, raw, gy, gl, range_limit,
+                          inverse, draw)
+    LAUNCHES["k5_inverse" if inverse else "k5_forward"] += 1
+    return dx, draw
+
+
+def earlier_spline_grad(x, raw, gy, gl, range_limit=DEFAULT_RANGE,
+                        inverse=False, draw=None):
+    """The one-thread K5 (`rqs_grad_kernel`, entry point
+    `rqs_grad_thread_f32`) that the group kernel replaced, on CUDA float32
+    tensors: `chip_smoke.py`'s oracle and yardstick for K5. On no path,
+    and not counted in LAUNCHES."""
+    if x.device.type != "cuda":
+        raise ValueError("the one-thread K5 takes CUDA tensors")
+    return _grad_call("rqs_grad_thread_f32", x, raw, gy, gl, range_limit,
+                      inverse, draw)
 
 
 def spline_eval(x, raw, range_limit=DEFAULT_RANGE, inverse=False):

@@ -5,7 +5,7 @@ what the design rests on. The kernels run only on the card, where
 to the per-warp module-list kernels bit for bit.
 
   * `pack_flow` keeps the per-warp affine kernels' `Net` layout as the
-    prefix of the packed buffer (K3's affine kernel reads it), element for
+    prefix of the packed buffer (the yardsticks read it), element for
     element against a `Net`-only pack, and appends the tile kernels'
     compact layers after it, their offset and the number of pass-through
     dims in columns 6-7 of the coupling's row of the module list;
@@ -18,8 +18,11 @@ to the per-warp module-list kernels bit for bit.
   * the wrappers' routing: K1's and K2's `_launch` call the tile entry
     points at R = `tile_rows(model)` (8 at the ceiling flow) with the
     resident weights where they fit, the ring or another R only when
-    asked; K3's calls `fused_logp_affine_f32`. Checked with a recorder in
-    place of the library call;
+    asked; K3's calls `fused_logp_chain_f32` too, by the same rule.
+    Checked with a recorder in
+    place of the library call; the per-warp affine K3, now a yardstick
+    (`affine_logp_grad_warp`), refuses a module list and CPU tensors, and
+    the per-warp module-list oracle takes the affine flow's list;
   * the resident choice (`resident_fits`, the host's copy of
     csrc/tile_grad.cuh `tile_resident_floats` / `tile_resident_fits`):
     true at the ceiling flow at R = 8, false at the generic arqs flow and
@@ -225,16 +228,84 @@ def test_resident_weights_are_refused_where_they_do_not_fit(monkeypatch,
     assert (nuts_cuda if kernel == "K1" else nw).LAUNCHES == 0
 
 
-def test_k3_keeps_its_affine_kernel(monkeypatch):
-    model = _ceiling()
+def _k3_launched(monkeypatch, model, **kw):
     seen = []
     monkeypatch.setattr(fused_logp_cuda, "_call",
-                        lambda name, z, args: seen.append(name))
+                        lambda name, z, args: seen.append((name, args)))
     monkeypatch.setattr(fused_logp_cuda, "LAUNCHES", 0)
-    lp, g = fused_logp_cuda._launch(torch.zeros((6, 64)), model)
-    assert seen == ["fused_logp_affine_f32"]
-    assert lp.shape == (6,) and g.shape == (6, 64)
-    assert fused_logp_cuda.LAUNCHES == 1
+    lp, g = fused_logp_cuda._launch(torch.zeros((6, model.d)), model, **kw)
+    assert lp.shape == (6,) and g.shape == (6, model.d) and len(seen) == 1
+    name, args = seen[0]
+    return name, args[-2], args[-1], fused_logp_cuda.LAUNCHES
+
+
+def test_k3_keeps_its_affine_kernel(monkeypatch):
+    """K3 keeps taking the affine flow, now on the tile kernel: the
+    ceiling flow launches `fused_logp_chain_f32` at R = 8 with its weights
+    resident, K1's and K2's mode there and K3's fastest on the card."""
+    model = _ceiling()
+    assert nuts_cuda.tile_rows(model) == 8
+    assert nuts_cuda.resident_fits(model, 8)
+    assert _k3_launched(monkeypatch, model) == (
+        "fused_logp_chain_f32", 8, model.resident_floats, 1)
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({"resident": False}, (8, False)), ({"rows": 4}, (4, True)),
+    ({"rows": 8, "resident": False}, (8, False)),
+    ({"rows": 4, "resident": True}, (4, True))])
+def test_k3_takes_every_tile_mode_of_the_ceiling_flow(monkeypatch, kw,
+                                                      want):
+    model = _ceiling()
+    rows, resident = want
+    floats = model.resident_floats if resident else 0
+    assert _k3_launched(monkeypatch, model, **kw) == (
+        "fused_logp_chain_f32", rows, floats, 1)
+
+
+def test_k3_module_lists_keep_the_ring_at_tile_rows(monkeypatch):
+    """A flow with six couplings (the generic arqs flow) has no resident
+    mode: K3 takes `tile_rows` and the ring, and refuses resident
+    weights without launching."""
+    model = nuts_cuda.pack_flow(_arqs(64, (128, 128), 8, 3),
+                                NealsFunnel(dim=64))
+    assert _k3_launched(monkeypatch, model) == (
+        "fused_logp_chain_f32", nuts_cuda.tile_rows(model), 0, 1)
+    with pytest.raises(ValueError, match="resident"):
+        _k3_launched(monkeypatch, model, resident=True)
+    assert fused_logp_cuda.LAUNCHES == 0
+
+
+def test_per_warp_affine_k3_refuses_module_lists_and_cpu_tensors():
+    generic = nuts_cuda.pack_flow(_arqs(64, (16, 16), 4, 1),
+                                  NealsFunnel(dim=64))
+    with pytest.raises(ValueError, match="module list"):
+        fused_logp_cuda.affine_logp_grad_warp(torch.zeros((4, 64)), generic)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_logp_cuda.affine_logp_grad_warp(torch.zeros((4, 64)),
+                                              _ceiling())
+
+
+def test_per_warp_module_list_oracle_takes_the_affine_flow(monkeypatch):
+    """`chain_logp_grad_warp` no longer refuses the affine flow's list: on
+    a CPU tensor it stops at the device check, and with a recorder in
+    place of the library call it launches the per-warp module-list kernel
+    on the ceiling flow's list, counting nothing."""
+    model = _ceiling()
+    with pytest.raises(ValueError, match="CUDA z"):
+        fused_logp_cuda.chain_logp_grad_warp(torch.zeros((4, 64)), model)
+    seen = []
+    monkeypatch.setattr(fused_logp_cuda, "_call",
+                        lambda name, z, args: seen.append((name, args)))
+    monkeypatch.setattr(fused_logp_cuda, "_yardstick",
+                        lambda z, m: (torch.empty(z.shape[0]),
+                                      torch.empty_like(z)))
+    monkeypatch.setattr(fused_logp_cuda, "LAUNCHES", 0)
+    lp, g = fused_logp_cuda.chain_logp_grad_warp(torch.zeros((4, 64)),
+                                                 model)
+    assert [name for name, _ in seen] == ["fused_logp_chain_warp_f32"]
+    assert seen[0][1][3] == model.mods.shape[0] == 2
+    assert fused_logp_cuda.LAUNCHES == 0
 
 
 # ---------------------------------------------------------------------------

@@ -193,9 +193,10 @@ def _knots_vjp(r, K, B, n, bin_, g_x0, g_w, g_y0, g_h, g_d0, g_d1):
     return draw
 
 
-def _forward_vjp(x, r, K, B, gy, gl):
-    n = _normalize(r, K)
-    x0, w, y0, h, d0, d1, _ = bin_ = _select_bin(x, r, K, B, n, False)
+def _forward_local(x, bin_, B, gy, gl):
+    """`rqs_forward_vjp`'s pullback through the bin, up to knots_vjp:
+    (dx, g_x0, g_w, g_y0, g_h, g_d0, g_d1)."""
+    x0, w, y0, h, d0, d1, _ = bin_
     s = h / w
     xi = (x - x0) / w
     xi1m = 1.0 - xi
@@ -240,13 +241,20 @@ def _forward_vjp(x, r, K, B, gy, gl):
     g_h = g_h + g_s / w
     g_w = g_w - g_s * s / w
     dx = g_x * _clip_grad(x, -B, B)
-    return dx, _knots_vjp(r, K, B, n, bin_, g_x0, g_w, g_y0, g_h, g_d0,
-                          g_d1)
+    return dx, g_x0, g_w, g_y0, g_h, g_d0, g_d1
 
 
-def _inverse_vjp(y, r, K, B, gx, gl):
+def _forward_vjp(x, r, K, B, gy, gl):
     n = _normalize(r, K)
-    x0, w, y0, h, d0, d1, _ = bin_ = _select_bin(y, r, K, B, n, True)
+    bin_ = _select_bin(x, r, K, B, n, False)
+    dx, *gs = _forward_local(x, bin_, B, gy, gl)
+    return dx, _knots_vjp(r, K, B, n, bin_, *gs)
+
+
+def _inverse_local(y, bin_, B, gx, gl):
+    """`rqs_inverse_vjp`'s pullback through the bin, up to knots_vjp:
+    (dy, g_x0, g_w, g_y0, g_h, g_d0, g_d1)."""
+    x0, w, y0, h, d0, d1, _ = bin_
     s = h / w
     dy = y - y0
     t = d1 + d0 - 2.0 * s
@@ -310,8 +318,14 @@ def _inverse_vjp(y, r, K, B, gx, gl):
     g_h = g_h + g_s / w
     g_w = g_w - g_s * s / w
     dy_out = g_dy * _clip_grad(y, -B, B)
-    return dy_out, _knots_vjp(r, K, B, n, bin_, g_x0, g_w, g_y0, g_h, g_d0,
-                              g_d1)
+    return dy_out, g_x0, g_w, g_y0, g_h, g_d0, g_d1
+
+
+def _inverse_vjp(y, r, K, B, gx, gl):
+    n = _normalize(r, K)
+    bin_ = _select_bin(y, r, K, B, n, True)
+    dy_out, *gs = _inverse_local(y, bin_, B, gx, gl)
+    return dy_out, _knots_vjp(r, K, B, n, bin_, *gs)
 
 
 def mirror_vjp(x, raw, gy, gl, B, inverse):

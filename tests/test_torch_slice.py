@@ -306,7 +306,12 @@ def test_chip_smoke_refuses_to_run_without_a_card():
      "chain_kernelILi6EEEvN13tpuflows_nuts4ArgsENS0_9ChainListE",
      "chain d/32=6"),
     ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_grad_"
-     "kernelILb0EEEvPKfS2_S2_S2_PfS3_xif", "K5 forward"),
+     "kernelILb0EEEvPKfS2_S2_S2_PfS3_xif", "K5 one-thread forward"),
+    ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a021rqs_grad_"
+     "lanes_kernelILb1ELi2EEEvPKfS2_S2_S2_PfS3_xif", "K5 inverse L=2"),
+    ("_ZN46_GLOBAL__N__0e4d4b43_13_fused_logp_cu_9a1b2c3d22fused_logp_"
+     "tile_kernelILi2ELb1EEEvN13tpuflows_nuts4ArgsENS0_9ChainListEi",
+     "K3 tile d/32=2 resident"),
     ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_eval_"
      "kernelILb1EEEvPKfS2_PfS3_xif", "K4 inverse"),
     ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed619coupling_"
