@@ -12,12 +12,12 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                (csrc/fused_logp.cu) and K2 (csrc/nuts_window.cu), and
                ptxas' registers, shared memory and spills per kernel;
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
-               pullbacks, the group kernel of csrc/rqs_lanes.cuh) against
+               pullbacks), the group kernels of csrc/rqs_lanes.cuh, against
                their plain PyTorch versions at the fit's shape (1024 x 64,
                K = 8), three others (d = 8, 96, 256; K = 4, 12), K = 64
                (16 lanes of 4 bins), K = 2 and 24 (the group kernel's
                other lane counts) and a ragged row whose inputs and draw are
-               views 4 bytes into their buffers (K5's 4-byte copies),
+               views 4 bytes into their buffers (the 4-byte copies),
                raw ~ N(0, 1), x spread over [-6, 6], on y,
                ladj, dx and draw. The bar is the JAX package's for its
                Pallas spline against the oracle (tests/test_pallas.py:
@@ -26,11 +26,14 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                resolve some ill-conditioned elements of dx and draw to that
                bar, so the kernel must be as accurate against float64 as
                the two float32 plain versions (`judge`);
-     k5_vs_earlier — K5 against the one-thread kernel it replaced
-               (kept built as the oracle) on the same rows and directions:
-               the elements of dx and draw whose bits differ (expected 0:
-               the group kernel takes every ordered sum in rqs_math.cuh's
-               order) and the largest difference;
+     k4_vs_earlier, k5_vs_earlier — K4 and K5 against the one-thread
+               kernels they replaced (kept built as the oracles) on the
+               same rows and directions, each a phase of its own: the
+               elements of y and ladj (K5: dx and draw) whose bits differ
+               and the largest difference. Any differing bit fails: the
+               group kernels take every ordered sum in rqs_math.cuh's order
+               and round the bin's arithmetic as the one-thread kernels'
+               code does;
   4. kernel_vs_plain — K1 against its plain PyTorch version
                (`transition_math_torch`) at the bench widths (1024 chains,
                d = 64, max_depth 6, MLP 64-128-128-128) on the same
@@ -82,13 +85,15 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                (3 spline blocks, inverse and forward) plus the final ELBO's
                and the data-space mapping's inverses;
   9. timing_generic — K4 and K5 at the fit's shape (also replayed from a
-               CUDA graph, the device's time alone; K5 beside the
-               one-thread kernel it replaced, in turns, with both
-               kernels' registers and spills), and K1 at the generic
-               path's post-warmup state, with CUDA events, beside their
-               bounds and their plain versions' times. K1 is held to K1's
-               bar there, with q's bar raised to twice the spread of two
-               plain versions on the same inputs (`time_kernel`). The tile
+               CUDA graph, the device's time alone, with the inputs warm
+               in L2 and, over copies of them that together pass the 50 MB
+               L2, cold; each beside the one-thread kernel it replaced, in
+               turns, with both kernels' registers and spills), and K1 at
+               the generic path's post-warmup state, with CUDA events,
+               beside their bounds and their plain versions' times. K1 is
+               held to K1's bar there, with q's bar raised to twice the
+               spread of two plain versions on the same inputs
+               (`time_kernel`). The tile
                kernel is timed at each R, launched from the host and
                replayed from a CUDA graph, beside the per-warp kernel
                (`warp_ms`), with the tile lockstep's efficiency (useful
@@ -221,8 +226,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
 Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1,
 K2 and K3 with the tile kernel's device time, its R and weight mode, and
 `earlier_ms` / `earlier_device_ms`, the per-warp kernel's it replaced in
-the same run; K5's with the one-thread kernel's; K6's and K7's with their
-tile plan, the earlier kernels' times and K7's pass 2 alone) and, last,
+the same run; K4's and K5's with the one-thread kernels' and the cold
+device time; K6's and K7's with their tile plan, the earlier kernels'
+times and K7's pass 2 alone) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
 """
@@ -276,6 +282,8 @@ MOMENT_SIGMA = 5.0
 # published float32 (non-tensor-core) rate and memory rate of one H100 SXM
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# bytes of input copies for a cold-L2 time: 1.6 x the H100's 50 MB L2
+COLD_BYTES = 80e6
 
 T0 = time.perf_counter()
 
@@ -323,11 +331,12 @@ def _kernel_key(name):
         label = "K6 tile" if rows.group(1) == "fwd" else "K7 tile pass 1"
         direction = "inverse" if rows.group(2) == "1" else "forward"
         return f"{label} {direction} R={rows.group(3)}"
-    lanes = re.search(r"rqs_grad_lanes_kernelILb(\d)ELi(\d+)E", name)
+    lanes = re.search(r"rqs_(eval|grad)_lanes_kernelILb(\d)ELi(\d+)E", name)
     if lanes:
-        direction = "inverse" if lanes.group(1) == "1" else "forward"
-        return f"K5 {direction} L={lanes.group(2)}"
-    for kern, label in (("rqs_eval_kernel", "K4"),
+        label = "K4" if lanes.group(1) == "eval" else "K5"
+        direction = "inverse" if lanes.group(2) == "1" else "forward"
+        return f"{label} {direction} L={lanes.group(3)}"
+    for kern, label in (("rqs_eval_kernel", "K4 one-thread"),
                         ("rqs_grad_kernel", "K5 one-thread"),
                         ("coupling_fwd_kernel", "K6"),
                         ("coupling_bwd_kernel", "K7 pass 1")):
@@ -388,17 +397,25 @@ def graph_ms(fn, reps=20, replays=10):
     CUDA graph, replayed `replays` times between CUDA events. `timed`
     launches from the host, and a kernel shorter than its wrapper's host
     work (checks, ctypes, allocation) is timed at the host's pace."""
+    return graph_calls_ms([fn] * reps, replays)
+
+
+def graph_calls_ms(calls, replays=10):
+    """Mean ms of a call of `calls`, each made once in turn, captured in
+    one CUDA graph and replayed `replays` times between CUDA events. Calls
+    on distinct copies of their inputs that together pass the 50 MB L2
+    (`cold_calls`) are timed with their inputs read from device memory."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            fn()
+            calls[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -409,7 +426,7 @@ def graph_ms(fn, reps=20, replays=10):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
+    return start.elapsed_time(end) / (len(calls) * replays)
 
 
 # ---------------------------------------------------------------------------
@@ -563,31 +580,54 @@ def rqs_vs_plain(device, rows=None):
     return out
 
 
-def k5_vs_earlier(device, rows=None):
-    """K5's group kernel against the one-thread kernel it replaced, on the
+def k4_call(x, raw, inverse, earlier=False):
+    """K4 (the group kernel, or with `earlier` the one-thread kernel it
+    replaced)."""
+    from tpuflows_torch.kernels import rqs_cuda
+
+    if earlier:
+        return rqs_cuda.earlier_spline_eval(x, raw, 4.0, inverse)
+    return rqs_cuda.spline_eval(x, raw, 4.0, inverse)
+
+
+def bits_vs_earlier(device, names, call, rows=None):
+    """A group kernel against the one-thread kernel it replaced, on the
     same inputs, both directions, every row of `rqs_cases`: the elements of
-    dx and draw whose bits differ (expected 0) and the largest
-    difference."""
+    each output (`names`) whose bits differ (expected 0) and the largest
+    difference. `call(x, raw, gy, gl, inverse, offset, earlier)` runs
+    either kernel."""
     import torch
 
     out = []
     for n, d, K, offset in rows or rqs_cases():
         x, raw, gy, gl = rqs_row_inputs(device, n, d, K, offset)
         for inverse in (False, True):
-            new = k5_call(x, raw, gy, gl, inverse, offset)
-            old = k5_call(x, raw, gy, gl, inverse, offset, earlier=True)
+            new = call(x, raw, gy, gl, inverse, offset, False)
+            old = call(x, raw, gy, gl, inverse, offset, True)
             row = {"n": n, "d": d, "knots": K, "offset": offset,
                    "direction": "inverse" if inverse else "forward"}
-            for name, a, b in zip(("dx", "draw"), new, old):
+            for name, a, b in zip(names, new, old):
                 a, b = a.contiguous(), b.contiguous()
                 row[name] = {
                     "bits_differ": int((a.view(torch.int32)
                                         != b.view(torch.int32)).sum()),
                     "max_abs": float((a - b).abs().max())}
-            row["bits_differ"] = row["dx"]["bits_differ"] + \
-                row["draw"]["bits_differ"]
+            row["bits_differ"] = sum(row[m]["bits_differ"] for m in names)
             out.append(row)
     return out
+
+
+def k4_vs_earlier(device, rows=None):
+    """K4's group kernel against the one-thread K4 on y and ladj."""
+    return bits_vs_earlier(
+        device, ("y", "ladj"),
+        lambda x, raw, gy, gl, inverse, offset, earlier: k4_call(
+            x, raw, inverse, earlier), rows)
+
+
+def k5_vs_earlier(device, rows=None):
+    """K5's group kernel against the one-thread K5 on dx and draw."""
+    return bits_vs_earlier(device, ("dx", "draw"), k5_call, rows)
 
 
 def rqs_bytes_ops(n_el, K):
@@ -607,52 +647,75 @@ def rqs_bytes_ops(n_el, K):
 def time_rqs(device, ptxas=None, n_reps=200, plain_reps=20):
     """K4 and K5 at the fit's shape, forward and inverse, with CUDA events
     (launched from the host, and replayed from a CUDA graph: `graph_ms`),
-    beside their bounds and the plain versions; K5 also beside the
-    one-thread kernel it replaced, host-launched and in turns on the
-    device (`in_turns`: earlier, new, new, earlier), with both kernels'
-    registers and spills from `ptxas` (`ptxas_summary` of the build)."""
+    beside their bounds and the plain versions, and beside the one-thread
+    kernels they replaced, host-launched and in turns on the device
+    (`in_turns`: earlier, new, new, earlier), with both kernels' registers
+    and spills from `ptxas` (`ptxas_summary` of the build). The device
+    times are taken twice: on one set of inputs, which stays in L2 between
+    calls (`device_ms`), and over `cold_calls` copies of them, each read
+    from device memory (`cold_device_ms`), the time the bound, a read from
+    device memory, is compared with (`bound_share`)."""
     from tpuflows_torch.kernels import rqs_cuda
 
     n, d, K = RQS_SHAPES[0]
-    x, raw, gy, gl = rqs_inputs(device, n, d, K, seed=n + d + K)
     b4, o4, b5, o5 = rqs_bytes_ops(n * d, K)
-    L, NB, _ = rqs_cuda.lane_layout(K)
     ptxas = ptxas or {}
     out = {}
     for inverse in (False, True):
         direction = "inverse" if inverse else "forward"
-        for kname, nbytes, ops, kern, plain in (
-                ("k4", b4, o4,
-                 lambda: rqs_cuda.spline_eval(x, raw, 4.0, inverse),
-                 lambda: rqs_cuda.plain_eval(x, raw, 4.0, inverse)),
-                ("k5", b5, o5,
-                 lambda: rqs_cuda.spline_grad(x, raw, gy, gl, 4.0, inverse),
-                 lambda: rqs_cuda.plain_grad(x, raw, gy, gl, 4.0,
-                                             inverse))):
-            ms, res = timed(kern, n_reps)
-            plain_ms, ref = timed(plain, plain_reps)
+        for kname, nbytes, ops, bins in (("k4", b4, o4,
+                                          rqs_cuda.EVAL_LANE_BINS),
+                                         ("k5", b5, o5, rqs_cuda.LANE_BINS)):
+            def kern(x, raw, gy, gl, earlier=False):
+                if kname == "k4":
+                    return k4_call(x, raw, inverse, earlier)
+                return k5_call(x, raw, gy, gl, inverse, False, earlier)
+
+            def plain(x, raw, gy, gl):
+                if kname == "k4":
+                    return rqs_cuda.plain_eval(x, raw, 4.0, inverse)
+                return rqs_cuda.plain_grad(x, raw, gy, gl, 4.0, inverse)
+
+            ins = rqs_inputs(device, n, d, K, seed=n + d + K)
+            ms, res = timed(lambda: kern(*ins), n_reps)
+            plain_ms, ref = timed(lambda: plain(*ins), plain_reps)
+            earlier_ms, _ = timed(lambda: kern(*ins, earlier=True), n_reps)
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = ops / PEAK_F32_FLOPS * 1e3
+            L, NB, _ = rqs_cuda.lane_layout(K, bins)
+            label = kname.upper()
             row = out[f"{kname}_{direction}"] = {
-                "ms": ms, "device_ms": graph_ms(kern), "plain_ms": plain_ms,
+                "ms": ms, "plain_ms": plain_ms, "earlier_ms": earlier_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": ops,
                 "max_abs_err": max(float((a - b).abs().max())
-                                   for a, b in zip(res, ref))}
-            if kname == "k5":
-                def old():
-                    return rqs_cuda.earlier_spline_grad(x, raw, gy, gl, 4.0,
-                                                        inverse)
-                row["earlier_ms"], _ = timed(old, n_reps)
-                (row["device_ms"], row["earlier_device_ms"],
-                 row["device_turns"], row["earlier_turns"]) = in_turns(
-                    kern, old)
-                row["lanes"], row["bins_per_lane"] = L, NB
-                row["ptxas"] = ptxas.get(f"K5 {direction} L={L}")
-                row["earlier_ptxas"] = ptxas.get(
-                    f"K5 one-thread {direction}")
+                                   for a, b in zip(res, ref)),
+                "lanes": L, "bins_per_lane": NB,
+                "ptxas": ptxas.get(f"{label} {direction} L={L}"),
+                "earlier_ptxas": ptxas.get(f"{label} one-thread {direction}")}
+            (row["device_ms"], row["earlier_device_ms"],
+             row["device_turns"], row["earlier_turns"]) = in_turns(
+                lambda: kern(*ins), lambda: kern(*ins, earlier=True))
+            copies = cold_calls(nbytes)
+            cold = [rqs_inputs(device, n, d, K, seed=n + d + K + c)
+                    for c in range(copies)]
+            (row["cold_device_ms"], row["earlier_cold_device_ms"],
+             row["cold_turns"], row["earlier_cold_turns"]) = in_turns(
+                [lambda c=c: kern(*c) for c in cold],
+                [lambda c=c: kern(*c, earlier=True) for c in cold],
+                graph_calls_ms)
+            row["cold_copies"] = copies
+            row["bound_share"] = row["bound_ms"] / row["cold_device_ms"]
+            row["warm_bound_share"] = row["bound_ms"] / row["device_ms"]
+            del cold
     return out
+
+
+def cold_calls(nbytes):
+    """Copies of a call's inputs that together pass the L2: COLD_BYTES
+    over the bytes one call moves."""
+    return math.ceil(COLD_BYTES / nbytes)
 
 
 # ---------------------------------------------------------------------------
@@ -945,13 +1008,14 @@ def wgrad_work(n, d, hidden, K, nt):
     return ops, 4.0 * (n * (sum(ins) + sum(outs)) + full)
 
 
-def in_turns(new_fn, old_fn):
-    """Device ms of two functions from CUDA graphs (`graph_ms`), in turns
-    old, new, new, old: (new mean, old mean, both readings of each)."""
-    o1 = graph_ms(old_fn)
-    n1 = graph_ms(new_fn)
-    n2 = graph_ms(new_fn)
-    o2 = graph_ms(old_fn)
+def in_turns(new_fn, old_fn, ms=graph_ms):
+    """Device ms of two functions from CUDA graphs (`graph_ms`, or `ms`),
+    in turns old, new, new, old: (new mean, old mean, both readings of
+    each)."""
+    o1 = ms(old_fn)
+    n1 = ms(new_fn)
+    n2 = ms(new_fn)
+    o2 = ms(old_fn)
     return (n1 + n2) / 2, (o1 + o2) / 2, [n1, n2], [o1, o2]
 
 
@@ -2651,10 +2715,15 @@ def main(argv=None):
         raise RuntimeError(f"K4/K5 disagree with their plain versions: "
                            f"{bad}")
 
-    t = time.perf_counter()
-    k5_rows = k5_vs_earlier(device)
-    emit("k5_vs_earlier", t, rows=k5_rows,
-         bits_differ=sum(r["bits_differ"] for r in k5_rows))
+    for phase, fn in (("k4_vs_earlier", k4_vs_earlier),
+                      ("k5_vs_earlier", k5_vs_earlier)):
+        t = time.perf_counter()
+        bit_rows = fn(device)
+        differ = sum(r["bits_differ"] for r in bit_rows)
+        emit(phase, t, rows=bit_rows, bits_differ=differ)
+        if differ:
+            raise RuntimeError(f"{phase}: {differ} elements differ in bits "
+                               f"from the one-thread kernel")
 
     t = time.perf_counter()
     # the setting of the JAX kernel's on-chip bar: unit metric, eps 0.3
@@ -2878,10 +2947,11 @@ def main(argv=None):
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-        if "earlier_ms" in r:  # K5: the one-thread kernel it replaced
-            kernels[-1].update(earlier_ms=r["earlier_ms"],
-                               earlier_device_ms=r["earlier_device_ms"],
-                               lanes=r["lanes"])
+        kernels[-1].update(  # the one-thread kernel it replaced
+            earlier_ms=r["earlier_ms"],
+            earlier_device_ms=r["earlier_device_ms"], lanes=r["lanes"],
+            cold_device_ms=r["cold_device_ms"],
+            earlier_cold_device_ms=r["earlier_cold_device_ms"])
     fit_block = block_tim[0]
     for key, name, replaces in (
             ("k6_forward", "coupling_block forward (K6)", ":185"),

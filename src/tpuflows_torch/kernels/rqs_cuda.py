@@ -6,11 +6,12 @@ pullback (port of `tpuflows/kernels/rqs_pallas.py`).
     torch on lists of same-shaped tensors (one per spline parameter), and
     its pullback by torch.autograd (`plain_eval`, `plain_grad`);
   * K4 and K5, hand-written CUDA (`csrc/rqs_spline.cu`, math in
-    `csrc/rqs_math.cuh`), forward or inverse: K4 one thread per element;
-    K5 a group of lanes per element, each block's span of raw values
-    staged in shared memory (`csrc/rqs_lanes.cuh`); the one-thread K5 it
-    replaced stays built as the oracle and yardstick of `chip_smoke.py`
-    (`earlier_spline_grad`, on no path, not counted);
+    `csrc/rqs_math.cuh`), forward or inverse: a group of lanes per
+    element, each block's span of raw values staged in shared memory
+    (`csrc/rqs_lanes.cuh`); the one-thread K4 and K5 they replaced stay
+    built as the oracles and yardsticks of `chip_smoke.py`
+    (`earlier_spline_eval`, `earlier_spline_grad`, on no path, not
+    counted);
   * `spline_eval` / `spline_grad`, the wrappers: a CPU tensor runs the
     plain version, a CUDA tensor launches the kernel or the wrapper raises;
     `LAUNCHES` counts the kernels' launches;
@@ -47,8 +48,9 @@ MAX_KNOTS = 64
 def _bind(lib):
     p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_float)
-    lib.rqs_eval_f32.argtypes = [p] * 4 + [i64, i32, f32, i32, p]
-    lib.rqs_eval_f32.restype = i32
+    for fn in (lib.rqs_eval_f32, lib.rqs_eval_thread_f32):
+        fn.argtypes = [p] * 4 + [i64, i32, f32, i32, p]
+        fn.restype = i32
     for fn in (lib.rqs_grad_f32, lib.rqs_grad_thread_f32):
         fn.argtypes = [p] * 6 + [i64, i32, f32, i32, p]
         fn.restype = i32
@@ -58,20 +60,23 @@ LIBRARY = CudaLibrary("rqs_spline", "rqs_spline.cu", [("rqs_spline", [])],
                       ["rqs_math.cuh", "rqs_lanes.cuh"], _bind)
 
 
-# threads of a block of K5's group kernel and the bins a lane holds up to
-# 32 lanes an element (csrc/rqs_lanes.cuh kLaneThreads, kBinsPerLane)
+# threads of a block of the group kernels and the bins a lane holds up to
+# 32 lanes an element, K5's and K4's (csrc/rqs_lanes.cuh kLaneThreads,
+# kBinsPerLane, kEvalBinsPerLane)
 LANE_THREADS = 256
 LANE_BINS = 4
+EVAL_LANE_BINS = 8
 
 
-def lane_layout(K: int) -> tuple[int, int, int]:
-    """(L, NB, E) of K5's group kernel at K knots, the host's copy of
+def lane_layout(K: int, bins: int = LANE_BINS) -> tuple[int, int, int]:
+    """(L, NB, E) of a group kernel at K knots and `bins` bins a lane (K5's
+    by default; K4's with EVAL_LANE_BINS), the host's copy of
     csrc/rqs_lanes.cuh `lanes_for` and `block_elements`: L lanes per
-    element (the least power of two with L LANE_BINS >= K, at most 32),
-    NB bins a lane at most (lane l holds bins l, l + L, ...), E elements a
+    element (the least power of two with L bins >= K, at most 32), NB
+    bins a lane at most (lane l holds bins l, l + L, ...), E elements a
     block."""
     L = 1
-    while L < 32 and L * LANE_BINS < K:
+    while L < 32 and L * bins < K:
         L *= 2
     return L, -(-K // L), LANE_THREADS // L
 
@@ -249,25 +254,36 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launched(rc, name, key):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[key] += 1
-
-
-def _launch_eval(x, raw, range_limit, inverse):
+def _eval_call(entry, x, raw, range_limit, inverse):
+    """Entry point `entry` of K4's library: (y, ladj)."""
     K = _check(x, raw)
     _check_kernel("K4", x, raw)
     lib = LIBRARY.load()
     y = torch.empty_like(x)
     ladj = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = lib.rqs_eval_f32(x.data_ptr(), raw.data_ptr(), y.data_ptr(),
-                              ladj.data_ptr(), x.numel(), K,
-                              float(range_limit), int(inverse), _stream(x))
-    _launched(rc, "rqs_eval_f32 (K4)",
-              "k4_inverse" if inverse else "k4_forward")
+        rc = getattr(lib, entry)(
+            x.data_ptr(), raw.data_ptr(), y.data_ptr(), ladj.data_ptr(),
+            x.numel(), K, float(range_limit), int(inverse), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"{entry} (K4) launch failed: cudaError {rc}")
     return y, ladj
+
+
+def _launch_eval(x, raw, range_limit, inverse):
+    y, ladj = _eval_call("rqs_eval_f32", x, raw, range_limit, inverse)
+    LAUNCHES["k4_inverse" if inverse else "k4_forward"] += 1
+    return y, ladj
+
+
+def earlier_spline_eval(x, raw, range_limit=DEFAULT_RANGE, inverse=False):
+    """The one-thread K4 (`rqs_eval_kernel`, entry point
+    `rqs_eval_thread_f32`) that the group kernel replaced, on CUDA float32
+    tensors: `chip_smoke.py`'s oracle and yardstick for K4. On no path,
+    and not counted in LAUNCHES."""
+    if x.device.type != "cuda":
+        raise ValueError("the one-thread K4 takes CUDA tensors")
+    return _eval_call("rqs_eval_thread_f32", x, raw, range_limit, inverse)
 
 
 def _grad_call(entry, x, raw, gy, gl, range_limit, inverse, draw):

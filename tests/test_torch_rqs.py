@@ -18,6 +18,11 @@ same numpy inputs, and the hand-written pullback of K4/K5 against autograd.
     knot the two orders differ there by up to ~2e-5); 2e-4 relative where
     the K5 output is an ill-conditioned float32 quantity, named in the
     test;
+  * `mirror_eval`, `rqs_forward` / `rqs_inverse` of csrc/rqs_math.cuh
+    (K4's one-thread kernel) written out line by line in torch, against
+    the plain version and against the JAX package's `_pallas_eval`
+    (Pallas interpret mode) at points inside the bins, exactly on the
+    knots, on +-B and in the tails, within the JAX bar (atol 1e-4);
   * the wrapper on the CPU runs the plain version and counts no launch.
 """
 import jax
@@ -340,6 +345,55 @@ def mirror_vjp(x, raw, gy, gl, B, inverse):
             torch.where(inside[..., None], draw, torch.zeros_like(draw)))
 
 
+def _forward_eval(x, r, K, B):
+    """`rqs_forward`'s evaluation inside [-B, B]: (y, ladj)."""
+    x0, w, y0, h, d0, d1, _ = _select_bin(x, r, K, B, _normalize(r, K), False)
+    s = h / w
+    xi = (x - x0) / w
+    xi1m = 1.0 - xi
+    q = xi * xi1m
+    denom = s + (d1 + d0 - 2.0 * s) * q
+    y = y0 + h * (s * xi * xi + d0 * q) / denom
+    num = s * s * (d1 * xi * xi + 2.0 * s * q + d0 * xi1m * xi1m)
+    return y, torch.log(num) - 2.0 * torch.log(denom)
+
+
+def _inverse_eval(y, r, K, B):
+    """`rqs_inverse`'s root (`inverse_root`) and evaluation inside
+    [-B, B]: (x, ladj). fminf / fmaxf, which drop a NaN, are torch.fmin /
+    torch.fmax."""
+    x0, w, y0, h, d0, d1, _ = _select_bin(y, r, K, B, _normalize(r, K), True)
+    s = h / w
+    dy = y - y0
+    t = d1 + d0 - 2.0 * s
+    a = h * (s - d0) + dy * t
+    bq = h * d0 - dy * t
+    c = -s * dy
+    disc_raw = bq * bq - 4.0 * a * c
+    sq = torch.sqrt(torch.fmax(disc_raw, torch.zeros_like(disc_raw)))
+    den = -bq - sq
+    xi_raw = 2.0 * c / den
+    xi = torch.fmin(torch.fmax(xi_raw, torch.zeros_like(xi_raw)),
+                    torch.ones_like(xi_raw))
+    x = x0 + w * xi
+    xi1m = 1.0 - xi
+    q = xi * xi1m
+    denom = s + t * q
+    num = s * s * (d1 * xi * xi + 2.0 * s * q + d0 * xi1m * xi1m)
+    return x, 2.0 * torch.log(denom) - torch.log(num)
+
+
+def mirror_eval(x, raw, B, inverse):
+    """`rqs_forward` / `rqs_inverse` of csrc/rqs_math.cuh on (..., d)
+    tensors: (y, ladj). Outside [-B, B] (NaN included) the identity."""
+    K = (raw.shape[-1] + 1) // 3
+    inside = x.abs() <= B
+    xc = torch.where(inside, x, torch.zeros_like(x))  # the branch not taken
+    fn = _inverse_eval if inverse else _forward_eval
+    y, ladj = fn(xc, raw, K, B)
+    return torch.where(inside, y, x), torch.where(inside, ladj, 0.0)
+
+
 def _knot_points(raw, K, B, inverse, n_rows):
     """One element per row, exactly on knot k = row % (K + 1) (-B and B
     included), as the tile math computes the knots."""
@@ -371,6 +425,47 @@ def test_hand_written_pullback_matches_autograd(K, where, inverse):
     got = mirror_vjp(xt, rt, gyt, glt, B, inverse)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4)
+
+
+def _eval_points(K, where, inverse, n=45, B=4.0):
+    """x (n, 1) inside the bins, exactly on the knots, or in the tails (+-B
+    and just inside included), and raw, from a seed."""
+    x, raw, _, _ = _inputs(5 * K + len(where), (n, 1), K)
+    if where == "inside":
+        x = np.random.default_rng(K).uniform(-3.9, 3.9, (n, 1)).astype(
+            np.float32)
+    elif where == "knots":
+        x = _knot_points(raw, K, B, inverse, n)
+    else:
+        x = np.resize(np.array([-6.5, -B, -3.9999, 3.9999, B, 5.0, 1e3],
+                               np.float32), (n, 1))
+    return x, raw
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("where", ["inside", "knots", "tails"])
+@pytest.mark.parametrize("K", [4, 8, 12])
+def test_mirror_eval_matches_plain_version(K, where, inverse):
+    x, raw = (torch.from_numpy(a) for a in _eval_points(K, where, inverse))
+    got = mirror_eval(x, raw, 4.0, inverse)
+    want = rqs_cuda.plain_eval(x, raw, 4.0, inverse)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **JAX_BAR)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape,K", [((64, 8), 8), ((33, 3), 8),
+                                     ((16, 4), 4), ((7, 9), 12)])
+def test_mirror_eval_matches_pallas_interpret(shape, K, inverse):
+    """y and ladj against the JAX kernel `_pallas_eval` (interpret mode on
+    the CPU), on the same numpy inputs, raw ~ N(0, 1), x ~ 6 N(0, 1)."""
+    x, raw, _, _ = _inputs(200 + K + shape[0], shape, K)
+    got = mirror_eval(torch.from_numpy(x), torch.from_numpy(raw), 4.0,
+                      inverse)
+    name = "rqs_inverse_from_raw" if inverse else "rqs_forward_from_raw"
+    want = getattr(j_pallas, name)(jnp.asarray(x), jnp.asarray(raw))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **JAX_BAR)
 
 
 @pytest.mark.parametrize("inverse", [False, True])

@@ -313,7 +313,9 @@ def test_chip_smoke_refuses_to_run_without_a_card():
      "tile_kernelILi2ELb1EEEvN13tpuflows_nuts4ArgsENS0_9ChainListEi",
      "K3 tile d/32=2 resident"),
     ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a015rqs_eval_"
-     "kernelILb1EEEvPKfS2_PfS3_xif", "K4 inverse"),
+     "kernelILb1EEEvPKfS2_PfS3_xif", "K4 one-thread inverse"),
+    ("_ZN46_GLOBAL__N__6ef3eb06_13_rqs_spline_cu_57cc75a021rqs_eval_"
+     "lanes_kernelILb0ELi2EEEvPKfS2_PfS3_xif", "K4 forward L=2"),
     ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed619coupling_"
      "fwd_kernelILb1EEEvNS_6LayersENS_5BlockEPfS3_", "K6 inverse"),
     ("_ZN50_GLOBAL__N__570a5339_17_coupling_block_cu_3c6ffed619coupling_"
