@@ -14,7 +14,8 @@ Phases, one JSON line each on stdout with its wall time in seconds:
   3. rqs_vs_plain — K4 (forward and inverse spline) and K5 (their
                pullbacks), the group kernels of csrc/rqs_lanes.cuh, against
                their plain PyTorch versions at the fit's shape (1024 x 64,
-               K = 8), three others (d = 8, 96, 256; K = 4, 12), K = 64
+               K = 8), three others (d = 8, 96, 256; K = 4, 12), config
+               c2's fit (512 x 8, K = 8; phase 21), K = 64
                (16 lanes of 4 bins), K = 2 and 24 (the group kernel's
                other lane counts) and a ragged row whose inputs and draw are
                views 4 bytes into their buffers (the 4-byte copies),
@@ -223,11 +224,26 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                window at the ceiling, the module-list window at the
                generic state) and the lockstep's efficiency, as phases 7
                and 9 time K1.
+ 21. run_configs — the config runner, `tpuflows_torch.run.run`, on
+               configs/c1_std_normal_affine.json (forward-KL fit),
+               c2_correlated_rqs.json (VI of a 4-block spline flow, its
+               splines through K4 and K5) and c4_funnel_nuts.json (VI,
+               then 1024 chains of NUTS through K1), as written, each
+               record captured through a `MetricsLogger` into this phase's
+               line, with the wall times of the fit, warmup and draws.
+               Gates: the JAX runner's record keys; c1's final loss and
+               c2's final ELBO within RUN_MARGIN_SIGMAS standard
+               deviations of the JAX package's results on three seeds
+               (RUN_REFERENCE); c4's max split-R-hat < 1.05; K1 launched
+               once per transition of c4 (640), K4 inverse once per spline
+               block per step of c2 and for its final ELBO, K5 inverse once
+               per block per step, nothing forward.
 Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1,
 K2 and K3 with the tile kernel's device time, its R and weight mode, and
 `earlier_ms` / `earlier_device_ms`, the per-warp kernel's it replaced in
-the same run; K4's and K5's with the one-thread kernels' and the cold
-device time; K6's and K7's with their tile plan, the earlier kernels'
+the same run, K1's affine row with c4's launches through the runner;
+K4's and K5's with the one-thread kernels', the cold device time and
+c2's launches through the runner; K6's and K7's with their tile plan, the earlier kernels'
 times and K7's pass 2 alone) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
@@ -432,9 +448,10 @@ def graph_calls_ms(calls, replays=10):
 # ---------------------------------------------------------------------------
 # K4 / K5
 # ---------------------------------------------------------------------------
-# (rows, d, knots): the fit's shape, then three others
+# (rows, d, knots): the fit's shape, three others and the shape of config
+# c2's fit (batch 512, d = 8, K = 8; phase run_configs)
 RQS_SHAPES = [(TRAIN_BATCH, DIM, KNOTS), (333, 8, 4), (200, 96, 12),
-              (64, 256, 4)]
+              (64, 256, 4), (512, 8, KNOTS)]
 # K5's other rows (rows, d, knots, offset): MAX_KNOTS (16 lanes of 4 bins
 # in the group kernel), every input and draw a view 4 bytes into its
 # buffer (the 4-byte copies; a ragged last block too), and the knots that
@@ -2629,6 +2646,200 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
     return res
 
 
+# ---------------------------------------------------------------------------
+# the config runner
+# ---------------------------------------------------------------------------
+RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts")
+# The JAX package's results for c1 and c2 as written, on the CPU, at the
+# config's seed and the next two (scripts/runner_reference.py): the port's
+# result on the card must lie within RUN_MARGIN_SIGMAS of their standard
+# deviations of their mean. With three values the standard deviation is
+# itself uncertain: 10 of them keeps the chance that a result from the
+# same distribution fails near 1% (Student's t, 2 degrees of freedom).
+RUN_REFERENCE = {
+    "c1_std_normal_affine": ("final_loss", (2.904125452041626,
+                                            2.7373180389404297,
+                                            2.8427441120147705)),
+    "c2_correlated_rqs": ("final_elbo", (-0.028232574462890625,
+                                         -0.058971405029296875,
+                                         -0.02308368682861328)),
+}
+RUN_MARGIN_SIGMAS = 10.0
+# c1's fit starts at its optimum (the flow's Standardize fits the
+# standard-normal samples), so the window above, which holds the untrained
+# flow's loss too, cannot tell a fit from none. A fit task's final loss is
+# also held to the analytic optimum, the entropy of N(0, I_d) for c1, and
+# to at most its initial loss: each loss is the negll of one batch of
+# n_fit_samples / nbatches = 512 rows, whose standard deviation at the
+# optimum is sqrt(d / 2) / sqrt(512) = 0.044, and FIT_NOISE_MARGIN is
+# about 5 of those (4 of the difference of two batches).
+RUN_OPTIMUM = {"c1_std_normal_affine": ("final_loss",
+                                        1.0 + math.log(2.0 * math.pi))}
+FIT_NOISE_MARGIN = 0.25
+
+
+def reference_window(name):
+    """(key, mean, margin) of the gate on a config's result."""
+    key, values = RUN_REFERENCE[name]
+    mean = sum(values) / len(values)
+    sd = math.sqrt(sum((v - mean) ** 2 for v in values) / (len(values) - 1))
+    return key, mean, RUN_MARGIN_SIGMAS * sd
+
+
+class PhaseClock:
+    """Times the runner's phases from outside: while active, the fit
+    (`optimize_flow`, `fit_vi`), NUTS warmup and NUTS draws each wait for
+    the device before and after and add their wall time to `seconds`.
+    It patches the package attributes the runner looks up when a task
+    starts; `run_configs` fails a config whose phases were not all timed,
+    so a runner that binds them otherwise cannot pass unnoticed."""
+
+    def __init__(self, on_card):
+        self.on_card = on_card
+        self.seconds = {}
+
+    def _wrap(self, name, fn):
+        import torch
+
+        def timed_fn(*args, **kwargs):
+            if self.on_card:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if self.on_card:
+                torch.cuda.synchronize()
+            self.seconds[name] = (self.seconds.get(name, 0.0)
+                                  + time.perf_counter() - t)
+            return out
+
+        return timed_fn
+
+    def __enter__(self):
+        from tpuflows_torch import flows, vi
+        from tpuflows_torch.mcmc import sample
+
+        self._saved = [(flows, "optimize_flow", flows.optimize_flow),
+                       (vi, "fit_vi", vi.fit_vi),
+                       (sample.NUTSDriver, "warmup",
+                        sample.NUTSDriver.warmup),
+                       (sample.NUTSDriver, "draws", sample.NUTSDriver.draws)]
+        for (owner, attr, fn), name in zip(
+                self._saved, ("fit", "fit", "warmup", "draws")):
+            setattr(owner, attr, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+
+def run_configs(device, names=RUN_CONFIGS, overrides=None):
+    """`tpuflows_torch.run.run` on each config as written (`overrides`: a
+    function of (name, RunConfig) that a CPU rehearsal uses to cut it),
+    its record captured through a `MetricsLogger` of its own, K1's and
+    K4/K5's launches counted around the call, and the phases' wall times.
+    Gates: the record's keys are the JAX runner's (and the nuts record's
+    `transition`); every phase the task runs was timed; c1's and c2's
+    result within `reference_window`; c1's final loss within
+    FIT_NOISE_MARGIN of its optimum and of its initial loss or below; c4's
+    max split-R-hat below RHAT_GATE, its transition the fused one and
+    K1 launched once per transition (num_warmup + num_samples); c2's
+    spline blocks launched K4 inverse once per block per step and for the
+    final ELBO, K5 inverse once per block per step, nothing forward."""
+    import io
+
+    import torch
+    from tpuflows_torch import run as runner
+    from tpuflows_torch.config import RunConfig
+    from tpuflows_torch.kernels import nuts_cuda, rqs_cuda
+    from tpuflows_torch.util.profiling import MetricsLogger
+
+    keys = {"fit": {"final_loss", "initial_loss"}, "vi": {"final_elbo"},
+            "nuts": {"min_ess", "max_rhat", "step_size",
+                     "divergence_rate"}}
+    extra_keys = {"nuts": {"transition"}}  # the port's, beyond the JAX's
+    rows = []
+    for name in names:
+        cfg = RunConfig.from_json(os.path.join(ROOT, "configs",
+                                               f"{name}.json"))
+        if overrides is not None:
+            cfg = overrides(name, cfg)
+        buf = io.StringIO()
+        saved = runner._metrics
+        runner._metrics = MetricsLogger(stream=buf)
+        nuts_cuda.LAUNCHES = 0
+        rqs_cuda.reset_launches()
+        t = time.perf_counter()
+        try:
+            with PhaseClock(device != "cpu") as clock:
+                out = runner.run(cfg, device=device)
+        finally:
+            runner._metrics = saved
+        seconds = time.perf_counter() - t
+        record = json.loads(buf.getvalue())
+        row = {"config": name, "task": cfg.task, "record": record,
+               "seconds": seconds, "phase_seconds": clock.seconds,
+               "k1_launches": nuts_cuda.LAUNCHES,
+               "rqs_launches": dict(rqs_cuda.LAUNCHES)}
+        failures = []
+        if set(record) != {"ts", "name", "task", "wall_s",
+                           *keys[cfg.task],
+                           *extra_keys.get(cfg.task, ())}:
+            failures.append(f"record keys {sorted(record)}")
+        phases = {"fit"} if cfg.task != "nuts" else {"warmup", "draws"}
+        if cfg.task == "nuts" and cfg.nuts.preconditioned:
+            phases.add("fit")
+        if set(clock.seconds) != phases:
+            failures.append(f"phases timed {sorted(clock.seconds)}, the "
+                            f"task runs {sorted(phases)}")
+        if not all(math.isfinite(out[k]) for k in keys[cfg.task]):
+            failures.append(f"a non-finite result: {out}")
+        if name in RUN_REFERENCE:
+            key, mean, margin = reference_window(name)
+            row["reference"] = {"key": key, "jax_mean": mean,
+                                "margin": margin,
+                                "jax": list(RUN_REFERENCE[name][1])}
+            if not abs(out[key] - mean) <= margin:
+                failures.append(f"{key} {out[key]} outside {mean} +- "
+                                f"{margin}")
+        if name in RUN_OPTIMUM:
+            key, best = RUN_OPTIMUM[name]
+            row["optimum"] = {"key": key, "value": best,
+                              "margin": FIT_NOISE_MARGIN}
+            if not abs(out[key] - best) <= FIT_NOISE_MARGIN:
+                failures.append(f"{key} {out[key]} outside the optimum "
+                                f"{best} +- {FIT_NOISE_MARGIN}")
+        if (cfg.task == "fit" and not out["final_loss"]
+                <= out["initial_loss"] + FIT_NOISE_MARGIN):
+            failures.append(f"final_loss {out['final_loss']} above the "
+                            f"initial {out['initial_loss']}")
+        if cfg.task == "nuts":
+            want = cfg.nuts.num_warmup + cfg.nuts.num_samples
+            row["k1_launches_expected"] = want if device != "cpu" else 0
+            if not out["max_rhat"] < RHAT_GATE:
+                failures.append(f"max split-R-hat {out['max_rhat']}")
+            if cfg.nuts.preconditioned and out["transition"] != "fused":
+                failures.append(f"the {out['transition']} NUTS ran, not "
+                                f"K1's transition")
+            if nuts_cuda.LAUNCHES != row["k1_launches_expected"]:
+                failures.append(f"K1 launched {nuts_cuda.LAUNCHES} times "
+                                f"for {want} transitions")
+        if cfg.task == "vi" and cfg.flow.kind == "rqs":
+            n = cfg.flow.n_blocks if device != "cpu" else 0
+            want = {"k4_forward": 0, "k4_inverse": n * (cfg.train.nsteps + 1),
+                    "k5_forward": 0, "k5_inverse": n * cfg.train.nsteps}
+            row["rqs_launches_expected"] = want
+            if dict(rqs_cuda.LAUNCHES) != want:
+                failures.append(f"K4/K5 launched {dict(rqs_cuda.LAUNCHES)},"
+                                f" the path implies {want}")
+        row["failures"] = failures
+        row["passed"] = not failures
+        rows.append(row)
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    return rows
+
+
 def flow_specs(flow):
     """A flow's modules as `convert.flow_from_jax_modules` dicts (numpy
     leaves and static fields), for the JAX package on the CPU."""
@@ -2907,11 +3118,21 @@ def main(argv=None):
         r["library_ms"] = None
     emit("timing_window", t, **k2_tim)
 
+    t = time.perf_counter()
+    run_rows = run_configs(device)
+    emit("run_configs", t, rows=run_rows,
+         bar={"margin_sigmas": RUN_MARGIN_SIGMAS, "max_rhat": RHAT_GATE})
+    bad = [r for r in run_rows if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"the config runner failed its gates: {bad}")
+    runner = {r["config"]: r for r in run_rows}
+
     k1 = "src/tpuflows/kernels/nuts_pallas.py:407"
     kernels = [{
         "name": "nuts_transition (affine)", "route": "cuda",
         "source": "src/tpuflows_torch/csrc/nuts_transition.cu",
         "replaces": k1, "launches": res["launches"],
+        "launches_runner_c4": runner["c4_funnel_nuts"]["k1_launches"],
         "max_abs_err": cmp["max_dq"], "ms": tim["ms"],
         "device_ms": tim["tile_device_ms"], "rows": tim["rows"],
         "resident": tim["resident"], "earlier_ms": tim["warp_ms"],
@@ -2943,6 +3164,8 @@ def main(argv=None):
             "source": "src/tpuflows_torch/csrc/rqs_spline.cu",
             "replaces": "src/tpuflows/kernels/rqs_pallas.py" + replaces,
             "launches": gres["rqs_launches"][key],
+            "launches_runner_c2": runner["c2_correlated_rqs"][
+                "rqs_launches"][key],
             "max_abs_err": max(row[e]["max_abs"] for e in errs),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -7,18 +7,39 @@ of the JAX package, which stays the reference the tests compare against.
 Conventions carried over from `tpuflows`:
   - `forward` maps data -> base (x -> z), `inverse` base -> data;
   - arrays are `(..., d)`, batch leading, features trailing;
-  - all math is float32. The entry points (`build_flow`,
-    `make_reverse_kl_trainer`, `NUTSDriver`, `elbo`, ...) take an explicit
-    `device=` that defaults to "cuda", and they switch TF32 off
+  - all math is float32 (bar the MLP's opt-in bf16 operands). The entry
+    points (`build_flow`, `run.run`, `make_reverse_kl_trainer`,
+    `NUTSDriver`, `elbo`, ...) take an explicit `device=` that defaults
+    to "cuda", and they switch TF32 off
     (`torch.backends.cuda.matmul.allow_tf32 = False`,
     `torch.backends.cudnn.allow_tf32 = False`), so a float32 matmul on the
     card is a float32 matmul.
 
-What is ported so far: the flow core, the affine and spline couplings,
-the reverse-KL/STL fit, Neal's funnel, ESS / R-hat, and NUTS and HMC, both
-the portable samplers (`mcmc`) and the fused NUTS transition, with the
-CUDA kernels K1 and K3-K7 (`kernels`); it runs both variants of
-`bench.py`. ROADMAP.md lists the rest.
+What is ported so far:
+  - the flow core (`flows`): Standardize, Whiten, Identity, Chain,
+    ScannedRepeat, the affine and spline couplings, MLPs with silu, tanh,
+    relu and gelu and opt-in bf16 operands, `build_flow`;
+  - training and VI: forward KL (`optimize_flow`, with `val_frac` early
+    stopping, and `optimize_flow_sequentially`), reverse KL with STL and
+    annealing, `fit_vi`, the written-out `Adam` and `ClipAdamCosine`;
+  - targets: the standard, diagonal and correlated Gaussians and Neal's
+    funnel; ESS, R-hat and the moment gates (`diagnostics`);
+  - NUTS and HMC, both the portable samplers (`mcmc`) and the fused
+    transition and window, with the hand-written CUDA kernels K1-K7
+    (`kernels`), which refuse gelu and bf16 conditioners, Whiten,
+    Identity and ScannedRepeat (ROADMAP Queue 2 item B);
+  - `util` (shapes, `VariateShape`, `Timer`, `MetricsLogger`, `trace`),
+    `io` (single-process checkpoints), `dist` (the single-process
+    failure policy), `config` and the runner `run`.
+
+The runner takes the JAX package's configs, on the card by default:
+
+    PYTHONPATH=src python -m tpuflows_torch.run configs/c2_correlated_rqs.json
+
+It runs the `fit`, `vi` and `nuts` tasks (configs c1, c2 and c4); the
+other tasks and targets raise NotImplementedError naming their ROADMAP
+items. It runs both variants of `bench.py` through `chip_smoke.py`.
+ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

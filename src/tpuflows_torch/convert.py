@@ -7,8 +7,9 @@ JAX: the caller reads the leaves and passes them.
 
   * `flow_from_jax_params` — `Chain(Standardize, AffineCoupling)`, the
     flow of the ceiling path;
-  * `flow_from_jax_modules` — any Chain of Standardize, AffineCoupling and
-    RQSCouplingBlock, one dict per module.
+  * `flow_from_jax_modules` — any Chain of Standardize, Whiten, Identity,
+    AffineCoupling, RQSCouplingBlock and ScannedRepeat, one dict per
+    module (`module_from_jax_spec`).
 """
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
-from tpuflows_torch.flows.affine import AffineCoupling, Standardize
-from tpuflows_torch.flows.core import Chain
+from tpuflows_torch.flows.affine import AffineCoupling, Standardize, Whiten
+from tpuflows_torch.flows.core import Chain, Identity, ScannedRepeat
 from tpuflows_torch.flows.coupling import RQSCouplingBlock
 from tpuflows_torch.flows.nets import MLP
 from tpuflows_torch.flows.rqs_ref import DEFAULT_RANGE
@@ -32,7 +33,8 @@ def _t(a, device):
 def _mlp(spec, device):
     return MLP([_t(w, device) for w in spec["weights"]],
                [_t(b, device) for b in spec["biases"]],
-               activation=spec.get("activation", "silu"))
+               activation=spec.get("activation", "silu"),
+               compute_dtype=spec.get("compute_dtype", "f32"))
 
 
 def flow_from_jax_params(loc, log_scale, weights: Sequence,
@@ -50,38 +52,50 @@ def flow_from_jax_params(loc, log_scale, weights: Sequence,
     return Chain([std, coupling])
 
 
-def flow_from_jax_modules(modules: Sequence[Mapping],
-                          device="cuda") -> Chain:
-    """A Chain of the port's modules, one per dict, in chain order:
+def module_from_jax_spec(spec: Mapping, device):
+    """One of the port's modules from its dict:
 
       {"kind": "standardize", "loc", "log_scale"}
+      {"kind": "whiten", "loc", "inv_chol", "chol"}
+      {"kind": "identity"}
       {"kind": "affine", "mask", "weights", "biases", "clamp",
-       "activation" (default "silu")}
+       "activation" (default "silu"), "compute_dtype" (default "f32")}
       {"kind": "rqs", "mask", "weights", "biases", "knots",
        "range_limit" (default 4.0), "activation" (default "silu"),
-       "use_pallas" (default "auto")}
+       "compute_dtype" (default "f32"), "use_pallas" (default "auto")}
+      {"kind": "scanned", "inner": the dict of the stacked block, whose
+       leaves carry the leading block axis}
 
     weights[i] is (d_in, d_out) and biases[i] (d_out,), as in
     `tpuflows.flows.nets.MLP`; a spline conditioner's last layer keeps the
-    JAX package's d-major columns. Built on `device` (default "cuda"), with
-    TF32 switched off."""
+    JAX package's d-major columns."""
+    kind = spec["kind"]
+    if kind == "standardize":
+        return Standardize(_t(spec["loc"], device),
+                           _t(spec["log_scale"], device))
+    if kind == "whiten":
+        return Whiten(_t(spec["loc"], device), _t(spec["inv_chol"], device),
+                      _t(spec["chol"], device))
+    if kind == "identity":
+        return Identity()
+    if kind == "affine":
+        return AffineCoupling(tuple(int(m) for m in spec["mask"]),
+                              _mlp(spec, device), clamp=spec["clamp"])
+    if kind == "rqs":
+        return RQSCouplingBlock(
+            tuple(int(m) for m in spec["mask"]), _mlp(spec, device),
+            knots=spec["knots"],
+            range_limit=spec.get("range_limit", DEFAULT_RANGE),
+            use_pallas=spec.get("use_pallas", "auto"))
+    if kind == "scanned":
+        return ScannedRepeat(module_from_jax_spec(spec["inner"], device))
+    raise ValueError(f"unknown module kind: {kind!r}")
+
+
+def flow_from_jax_modules(modules: Sequence[Mapping],
+                          device="cuda") -> Chain:
+    """A Chain of the port's modules, one per dict
+    (`module_from_jax_spec`), in chain order; built on `device` (default
+    "cuda"), with TF32 switched off."""
     device = f32_device(device)
-    out = []
-    for spec in modules:
-        kind = spec["kind"]
-        if kind == "standardize":
-            out.append(Standardize(_t(spec["loc"], device),
-                                   _t(spec["log_scale"], device)))
-        elif kind == "affine":
-            out.append(AffineCoupling(tuple(int(m) for m in spec["mask"]),
-                                      _mlp(spec, device),
-                                      clamp=spec["clamp"]))
-        elif kind == "rqs":
-            out.append(RQSCouplingBlock(
-                tuple(int(m) for m in spec["mask"]), _mlp(spec, device),
-                knots=spec["knots"],
-                range_limit=spec.get("range_limit", DEFAULT_RANGE),
-                use_pallas=spec.get("use_pallas", "auto")))
-        else:
-            raise ValueError(f"unknown module kind: {kind!r}")
-    return Chain(out)
+    return Chain([module_from_jax_spec(spec, device) for spec in modules])

@@ -1,5 +1,5 @@
-"""Input standardization and affine coupling (port of
-`tpuflows/flows/affine.py`; `Whiten` waits for a later slice).
+"""Input standardization, whitening and affine coupling (port of
+`tpuflows/flows/affine.py`).
 
 Couplings use the dense-mask formulation of the JAX package: the
 conditioner sees `x * mask` at full width d and emits (shift, raw
@@ -48,6 +48,45 @@ class Standardize(Bijector):
     def identity(dim: int, device=None) -> "Standardize":
         return Standardize(torch.zeros(dim, device=device),
                            torch.zeros(dim, device=device))
+
+
+class Whiten(Bijector):
+    """Full-covariance whitening: z = L^-1 (x - loc), Sigma = L L^T.
+
+    Both L and L^-1 are stored (computed once at fit time), so each
+    direction is one dense matmul. The ladj is constant in x: forward
+    ladj = sum(log diag L^-1), broadcast over the batch."""
+
+    def __init__(self, loc, inv_chol, chol):
+        super().__init__()
+        self.loc = nn.Parameter(torch.as_tensor(loc, dtype=torch.float32))
+        self.inv_chol = nn.Parameter(
+            torch.as_tensor(inv_chol, dtype=torch.float32))
+        self.chol = nn.Parameter(torch.as_tensor(chol, dtype=torch.float32))
+
+    def forward_and_ladj(self, x):
+        z = (x - self.loc) @ self.inv_chol.T
+        ladj = torch.sum(torch.log(torch.diagonal(self.inv_chol)))
+        return z, ladj.expand(x.shape[:-1])
+
+    def inverse_and_ladj(self, z):
+        x = z @ self.chol.T + self.loc
+        ladj = torch.sum(torch.log(torch.diagonal(self.chol)))
+        return x, ladj.expand(z.shape[:-1])
+
+    @staticmethod
+    def from_samples(samples: torch.Tensor, jitter: float = 1e-5
+                     ) -> "Whiten":
+        """Fit from an (N, d) sample matrix: the (biased) covariance plus
+        `jitter` on the diagonal, its Cholesky factor and that factor's
+        inverse by a triangular solve."""
+        loc = torch.mean(samples, dim=0)
+        xc = samples - loc
+        cov = xc.T @ xc / samples.shape[0]
+        eye = torch.eye(cov.shape[0], dtype=cov.dtype, device=cov.device)
+        chol = torch.linalg.cholesky(cov + jitter * eye)
+        inv_chol = torch.linalg.solve_triangular(chol, eye, upper=False)
+        return Whiten(loc, inv_chol, chol)
 
 
 class AffineCoupling(Bijector):

@@ -26,9 +26,12 @@ its pullback (port of `tpuflows/kernels/coupling_pallas.py`).
     and whose backward is K7, and `fused_coupling_forward` /
     `fused_coupling_inverse` with the JAX package's signatures.
 
-The conditioner computes in float32 (`flows/nets.py`); the JAX package's
-opt-in bf16 operands (`compute_dtype`) and its "gelu" wait for ROADMAP
-Queue 1 item 3. Importing this module compiles nothing.
+The plain version takes every activation of `flows/nets.py` (gelu
+included) and the conditioner's `compute_dtype` (bf16 operands with float32
+accumulation, as `MLP` computes). The kernels compute in float32 with silu,
+tanh or relu only: a gelu or bf16 conditioner on a CUDA tensor raises
+(`check_kernel_spec`; ROADMAP Queue 2 item B) rather than run in float32.
+Importing this module compiles nothing.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpuflows_torch.flows.nets import _ACTIVATIONS
+from tpuflows_torch.flows.nets import _ACTIVATIONS, _bf16_operand
 from tpuflows_torch.flows.rqs_ref import (
     DEFAULT_MIN_BIN,
     DEFAULT_MIN_DERIV,
@@ -117,10 +120,24 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 def _activation(name):
     if name not in _ACTIVATIONS:
-        raise ValueError(f"activation {name!r} is not ported (the JAX "
-                         f"package's 'gelu' waits for ROADMAP Queue 1 item "
-                         f"3)")
+        raise ValueError(f"unknown activation: {name!r}")
     return _ACTIVATIONS[name]
+
+
+def check_kernel_spec(spec):
+    """Raises ValueError unless the kernels compute the block of `spec`:
+    float32 operands and a silu, tanh or relu conditioner (gelu and bf16
+    on the kernels are ROADMAP Queue 2 item B)."""
+    if spec.activation not in ACTIVATION_CODES:
+        raise ValueError(
+            f"the coupling-block kernels take silu, tanh or relu "
+            f"conditioners, not {spec.activation!r} (ROADMAP Queue 2 item "
+            f"B); use_pallas=True or False runs it")
+    if spec.compute_dtype != "f32":
+        raise ValueError(
+            f"the coupling-block kernels compute in float32, not "
+            f"compute_dtype={spec.compute_dtype!r} (ROADMAP Queue 2 item "
+            f"B); use_pallas=True or False runs it")
 
 
 def flatten_params(net, d: int, knots: int) -> tuple:
@@ -140,19 +157,27 @@ def flatten_params(net, d: int, knots: int) -> tuple:
     return tuple(out)
 
 
-def block_math(x2d, params, mask_vec, K, B, activation, inverse):
+def block_math(x2d, params, mask_vec, K, B, activation, inverse,
+               compute_dtype="f32"):
     """One coupling block on a (T, d) tile, as the Pallas body computes it:
     the conditioner on x * b, p-major slices of its last layer, the spline
     (forward, or inverse when `inverse`), z = b x + (1 - b) y and the
     masked ladj summed per row. Returns (z (T, d), ladj (T, 1)); `params`
-    as `flatten_params` gives them, `mask_vec` (d,) or (1, d)."""
+    as `flatten_params` gives them, `mask_vec` (d,) or (1, d);
+    `compute_dtype` "bf16" rounds the matmuls' operands to bfloat16."""
     act = _activation(activation)
     d = x2d.shape[-1]
     ws, bs = params[0::2], params[1::2]
+
+    def dot(a, w):
+        if compute_dtype == "bf16":
+            return _bf16_operand(a) @ _bf16_operand(w)
+        return a @ w
+
     h = x2d * mask_vec
     for w, b in zip(ws[:-1], bs[:-1]):
-        h = act(h @ w + b)
-    raw_t = h @ ws[-1] + bs[-1]  # (T, P d), p-major
+        h = act(dot(h, w) + b)
+    raw_t = dot(h, ws[-1]) + bs[-1]  # (T, P d), p-major
     P = 3 * K - 1
     raw = [raw_t[:, p * d:(p + 1) * d] for p in range(P)]
     tile_math = _inv_tile_math if inverse else _fwd_tile_math
@@ -163,22 +188,24 @@ def block_math(x2d, params, mask_vec, K, B, activation, inverse):
     return z, ladj
 
 
-def plain_block(x2d, params, mask_vec, K, B, activation, inverse):
+def plain_block(x2d, params, mask_vec, K, B, activation, inverse,
+                compute_dtype="f32"):
     """The plain version of K6 on any device: (z (T, d), ladj (T,))."""
     with torch.no_grad():
         z, ladj = block_math(x2d, params, mask_vec, K, B, activation,
-                             inverse)
+                             inverse, compute_dtype)
     return z, ladj[:, 0]
 
 
 def plain_block_vjp(x2d, params, mask_vec, gz, gladj, K, B, activation,
-                    inverse):
+                    inverse, compute_dtype="f32"):
     """The plain version of K7: (dx, dparams), the autograd pullback of
     `block_math` with cotangents gz (T, d) and gladj (T,)."""
     with torch.enable_grad():
         xg = x2d.detach().requires_grad_(True)
         pg = [p.detach().requires_grad_(True) for p in params]
-        z, ladj = block_math(xg, pg, mask_vec, K, B, activation, inverse)
+        z, ladj = block_math(xg, pg, mask_vec, K, B, activation, inverse,
+                             compute_dtype)
         dx, *dps = torch.autograd.grad((z, ladj), (xg, *pg),
                                        (gz, gladj[:, None]))
     return dx, tuple(dps)
@@ -195,6 +222,7 @@ class BlockSpec(NamedTuple):
     range_limit: float
     activation: str
     inverse: bool
+    compute_dtype: str = "f32"
 
 
 _MASKS = {}
@@ -428,6 +456,7 @@ def _spline_dims(spec, device):
 
 
 def _launch_eval(x2d, params, spec, widths):
+    check_kernel_spec(spec)
     _check_kernel(x2d, params)
     z = torch.empty_like(x2d)
     ladj = torch.empty(x2d.shape[0], dtype=x2d.dtype, device=x2d.device)
@@ -495,6 +524,7 @@ def _pass2(x2d, params, spec, widths, plan, Hs, Gs):
 
 
 def _launch_grad(x2d, params, spec, widths, gz, gladj, need_params):
+    check_kernel_spec(spec)
     _check_kernel(x2d, params, gz, gladj)
     N = x2d.shape[0]
     if N == 0:
@@ -534,6 +564,7 @@ def _earlier_check(x2d, params, spec, *cots):
     if x2d.device.type != "cuda":
         raise ValueError("the earlier coupling-block kernels run on a CUDA "
                          f"device only, not {x2d.device}")
+    check_kernel_spec(spec)
     _check_kernel(x2d, params, *cots)
     return widths
 
@@ -609,7 +640,7 @@ def block_eval(x2d, params, spec: BlockSpec):
         mask, _ = _mask_tensors(spec.mask, x2d.device, x2d.dtype)
         return plain_block(x2d, params, mask, spec.knots,
                            float(spec.range_limit), spec.activation,
-                           spec.inverse)
+                           spec.inverse, spec.compute_dtype)
     if x2d.device.type == "cuda":
         return _launch_eval(x2d, params, spec, widths)
     raise ValueError(f"no coupling-block kernel for device {x2d.device}")
@@ -624,7 +655,7 @@ def block_grad(x2d, params, spec: BlockSpec, gz, gladj, need_params=True):
         mask, _ = _mask_tensors(spec.mask, x2d.device, x2d.dtype)
         dx, dps = plain_block_vjp(x2d, params, mask, gz, gladj, spec.knots,
                                   float(spec.range_limit), spec.activation,
-                                  spec.inverse)
+                                  spec.inverse, spec.compute_dtype)
         return dx, (dps if need_params else None)
     if x2d.device.type == "cuda":
         return _launch_grad(x2d, params, spec, widths, gz, gladj,
@@ -664,7 +695,8 @@ def _apply(x, net, mask, knots, range_limit, inverse):
     d = len(mask)
     lead = x.shape[:-1]
     spec = BlockSpec(tuple(int(m) for m in mask), int(knots),
-                     float(range_limit), net.activation, inverse)
+                     float(range_limit), net.activation, inverse,
+                     net.compute_dtype)
     z2d, ladj = FusedCouplingBlock.apply(
         x.reshape(-1, d), spec, *flatten_params(net, d, knots))
     return z2d.reshape(*lead, d), ladj.reshape(lead)

@@ -126,14 +126,25 @@ class PackedFlow(NamedTuple):
 def _unsupported(msg):
     return ValueError(
         "the fused NUTS kernel takes a Chain of Standardize, AffineCoupling "
-        f"and RQSCouplingBlock with 3-layer silu MLPs over a funnel of the "
-        f"flow's width: {msg}")
+        f"and RQSCouplingBlock with 3-layer float32 silu MLPs over a funnel "
+        f"of the flow's width: {msg}")
+
+
+def _unported(what):
+    """A module or conditioner the JAX package's in-kernel flow math takes
+    and the port's does not yet (ROADMAP Queue 2 item B)."""
+    return _unsupported(f"{what} (ROADMAP Queue 2 item B)")
 
 
 def _coupling_leaves(t, d):
     """(leaves, h1, h2, n_out) of a coupling, the spline's last layer
     relaid out p-major; transposed weight copies for the backward."""
     ws, bs = list(t.net.weights), list(t.net.biases)
+    if t.net.compute_dtype != "f32":
+        raise _unported(f"a conditioner with compute_dtype="
+                        f"{t.net.compute_dtype!r}")
+    if t.net.activation not in ("silu", "tanh", "relu"):
+        raise _unported(f"a {t.net.activation} conditioner")
     if len(ws) != 3 or t.net.activation != "silu":
         raise _unsupported("its conditioner must be a 3-layer silu MLP")
     if len(t.mask) != d:
@@ -198,7 +209,10 @@ def _resident_floats(n_in: int, h1: int, h2: int, n_head: int) -> int:
 def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     """Check that K1 computes `flow` (a Chain of Standardize,
     AffineCoupling and RQSCouplingBlock modules whose conditioners are
-    3-layer silu MLPs, over a funnel of the flow's width) and pack its
+    3-layer float32 silu MLPs, over a funnel of the flow's width; any other
+    module, Whiten, Identity and ScannedRepeat included, and a gelu or
+    bf16 conditioner raise ValueError, naming ROADMAP Queue 2 item B where
+    the JAX package's kernel takes them) and pack its
     leaves in chain order: Standardize loc, log_scale; a coupling's mask,
     W1, b1, W2, b2, W3, b3, W1^T, W2^T, W3^T, a spline's last layer in
     p-major columns; each coupling's leaves are followed by the tile
@@ -208,9 +222,14 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
     per-warp kernels read neither. For Standardize + one AffineCoupling
     the buffer up to the compact copies is the per-warp affine kernels'
     `Net` (the per-warp affine kernels, yardsticks now, read it)."""
-    ts = list(flow.transforms) if isinstance(flow, Chain) else []
+    if not isinstance(flow, Chain):
+        raise _unported(f"a {type(flow).__name__} that is not in a Chain")
+    ts = list(flow.transforms)
     if not 1 <= len(ts) <= MAX_MODULES:
         raise _unsupported(f"{len(ts)} modules (1 to {MAX_MODULES})")
+    for t in ts:
+        if type(t) not in KIND:
+            raise _unported(f"module {type(t).__name__}")
     first = ts[0]
     d = (first.loc.numel() if isinstance(first, Standardize)
          else len(getattr(first, "mask", ())))
@@ -221,9 +240,7 @@ def pack_flow(flow: Chain, target: NealsFunnel) -> PackedFlow:
               and isinstance(ts[1], AffineCoupling))
     parts, rows, widths, resident, off = [], [], [], [], 0
     for t in ts:
-        kind = KIND.get(type(t))
-        if kind is None:
-            raise _unsupported(f"module {type(t).__name__}")
+        kind = KIND[type(t)]
         if kind == 0:
             if t.loc.numel() != d:
                 raise _unsupported(f"a Standardize of width "

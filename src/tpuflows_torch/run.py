@@ -1,0 +1,211 @@
+"""Config-file runner (port of `tpuflows/run.py`):
+
+    python -m tpuflows_torch.run configs/c2_correlated_rqs.json [...]
+    python -m tpuflows_torch.run --device cpu configs/c1_std_normal_affine.json
+
+Runs each `RunConfig` task end to end on one device (default "cuda"),
+writes one JSONL record per task through `MetricsLogger` (stdout, and the
+file TPUFLOWS_METRICS names), with the JAX runner's keys, and saves the
+task's state when `output_dir` is set. The `nuts` record adds one key,
+`transition`: "fused" where K1 (or its plain version on the CPU) ran,
+"portable" where the portable NUTS did.
+
+Ported tasks: `fit` (forward KL on exact samples), `vi` (reverse KL) and
+`nuts` (VI-fitted flow, then flow-preconditioned NUTS). The others raise
+NotImplementedError naming their ROADMAP Queue 1 items, and so does a
+target kind not ported yet. Randomness comes from three
+`torch.Generator`s seeded from `cfg.seed` (data, flow build, task), the
+roles of the JAX runner's three keys; the draws differ from the JAX
+package's, so results agree in distribution, not in value. Left out:
+`init_distributed` (waits for `dist/`, ROADMAP Queue 1 item 11).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import numpy as np
+import torch
+
+from tpuflows_torch.util.device import f32_device
+from tpuflows_torch.util.profiling import MetricsLogger, Timer
+
+# JSONL metrics: stdout on process 0, or the file TPUFLOWS_METRICS names
+_metrics = MetricsLogger(path=os.environ.get("TPUFLOWS_METRICS"),
+                         stream=sys.stdout)
+
+# the tasks of the JAX runner that wait for other Queue 1 items
+UNPORTED_TASKS = {
+    "adaptive": "item 8 (the adaptive loop, adaptive/loop.py)",
+    "mh": "item 7 (RWMH and flow-IMH, mcmc/mh.py)",
+    "pt": "item 7 (parallel tempering, mcmc/tempering.py)",
+    "smc": "item 9 (SMC, smc/sampler.py)",
+}
+PORTED_TASKS = ("fit", "vi", "nuts")
+
+
+def _emit(record: dict) -> None:
+    _metrics.log(**record)
+
+
+def run(cfg, device="cuda") -> dict:
+    """Execute one config under the env-configured `FailurePolicy`
+    (TPUFLOWS_COLLECTIVE_TIMEOUT_S). The ported tasks have no intermediate
+    checkpoints, so each is guarded whole: the timeout must cover the
+    full task."""
+    from tpuflows_torch.dist import FailurePolicy
+
+    policy = FailurePolicy.from_env()
+    return policy.guard(_run_task, cfg, device, phase=f"task:{cfg.task}")
+
+
+def _generators(seed: int, device) -> list:
+    """Three generators on `device` (data, flow build, task), seeded by
+    numpy's SeedSequence from `seed`."""
+    states = np.random.SeedSequence(seed).generate_state(3, dtype=np.uint64)
+    return [torch.Generator(device=device).manual_seed(int(s) >> 1)
+            for s in states]
+
+
+def _flow_from_spec(samples, generator, spec, device):
+    """build_flow with every FlowSpec knob applied (one call site per
+    task)."""
+    from tpuflows_torch.flows import build_flow
+
+    return build_flow(samples, generator, kind=spec.kind,
+                      n_blocks=spec.n_blocks, knots=spec.knots,
+                      hidden=spec.hidden, use_pallas=spec.use_pallas,
+                      mask_scheme=spec.mask_scheme,
+                      n_leading=spec.n_leading, clamp=spec.clamp,
+                      device=device)
+
+
+def _nuts_transition(cfg, target, flow):
+    """The transition `nuts.fused_kernel` asks for: K1 ("on", or "auto"
+    where `pack_flow` accepts the flow and target), else None (the
+    portable NUTS). The choice depends on `pack_flow` alone, not on the
+    device: on a CUDA tensor K1 launches, and its launch checks (widths,
+    tile) raise where it cannot take the packed flow; on the CPU K1's
+    plain version runs, as every kernel tier does."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    fk = cfg.nuts.fused_kernel
+    if fk not in ("auto", "on", "off"):
+        raise ValueError(f"unknown nuts.fused_kernel: {fk!r}")
+    if fk == "on" and flow is None:
+        raise ValueError(
+            "nuts.fused_kernel='on' requires nuts.preconditioned=true "
+            "(the fused transition runs in a flow's latent space)")
+    if fk == "off" or flow is None:
+        return None
+    if not 1 <= cfg.nuts.max_depth <= nuts_cuda.MAX_DEPTH:
+        raise ValueError(f"nuts.fused_kernel={fk!r}: the fused NUTS kernel "
+                         f"takes max_depth in [1, {nuts_cuda.MAX_DEPTH}], "
+                         f"got {cfg.nuts.max_depth}")
+    try:
+        return nuts_cuda.fused_nuts_for_flow(target, flow,
+                                             max_depth=cfg.nuts.max_depth)
+    except ValueError as e:
+        if fk == "on":
+            raise ValueError(f"nuts.fused_kernel='on': {e}") from e
+        return None
+
+
+def _run_task(cfg, device="cuda") -> dict:
+    from tpuflows_torch.diagnostics import effective_sample_size, split_rhat
+    from tpuflows_torch.flows import Adam, optimize_flow
+    from tpuflows_torch.io import save_pytree
+    from tpuflows_torch.mcmc import run_nuts
+    from tpuflows_torch.mcmc.preconditioned import (flow_reparameterized,
+                                                    to_data_space)
+    from tpuflows_torch.vi import fit_vi
+
+    if cfg.task in UNPORTED_TASKS:
+        raise NotImplementedError(
+            f"task {cfg.task!r} is not ported to tpuflows_torch yet "
+            f"(ROADMAP Queue 1 {UNPORTED_TASKS[cfg.task]})")
+    if cfg.task not in PORTED_TASKS:
+        raise ValueError(f"unknown task: {cfg.task!r}")
+    dev = f32_device(device)
+    target = cfg.target.build(device=dev)
+    dim = cfg.target.dim
+    g_data, g_build, g_task = _generators(cfg.seed, dev)
+    timer = Timer()
+
+    if cfg.task == "fit":
+        samples = target.sample(g_data, cfg.train.n_fit_samples, device=dev)
+        flow = _flow_from_spec(samples, g_build, cfg.flow, dev)
+        res = optimize_flow(g_task, samples, flow,
+                            Adam(cfg.train.learning_rate),
+                            nbatches=cfg.train.nbatches,
+                            nepochs=cfg.train.nepochs)
+        out = {"final_loss": float(res.loss_hist[-1]),
+               "initial_loss": float(res.loss_hist[0])}
+        state = res.result
+    elif cfg.task == "vi":
+        init = torch.randn((cfg.train.batch_size, dim), generator=g_data,
+                           device=dev)
+        flow = _flow_from_spec(init, g_build, cfg.flow, dev)
+        res = fit_vi(g_task, target.log_density, flow, dim,
+                     optimizer=Adam(cfg.train.learning_rate),
+                     batch_size=cfg.train.batch_size,
+                     nsteps=cfg.train.nsteps, device=dev)
+        out = {"final_elbo": float(res.final_elbo)}
+        state = res.flow
+    else:  # nuts
+        q0 = torch.randn((cfg.nuts.n_chains, dim), generator=g_data,
+                         device=dev)
+        if cfg.nuts.preconditioned:
+            init = torch.randn((2048, dim), generator=g_build, device=dev)
+            flow = _flow_from_spec(init, g_build, cfg.flow, dev)
+            flow = fit_vi(g_task, target.log_density, flow, dim,
+                          batch_size=cfg.train.batch_size,
+                          nsteps=cfg.train.nsteps, device=dev).flow
+            logp = flow_reparameterized(target.log_density, flow)
+        else:
+            flow = None
+            logp = target.log_density
+        transition = _nuts_transition(cfg, target, flow)
+        res = run_nuts(g_task, logp, q0, num_warmup=cfg.nuts.num_warmup,
+                       num_samples=cfg.nuts.num_samples,
+                       max_depth=cfg.nuts.max_depth,
+                       target_accept=cfg.nuts.target_accept,
+                       warmup_schedule=cfg.nuts.warmup_schedule,
+                       transition=transition)
+        x = res.samples
+        if flow is not None:
+            x = to_data_space(flow, x)
+        ess = effective_sample_size(x)
+        out = {"min_ess": float(torch.min(ess)),
+               "max_rhat": float(torch.max(split_rhat(x))),
+               "step_size": float(res.step_size),
+               "divergence_rate": float(torch.mean(
+                   res.info.diverging.float())),
+               "transition": "portable" if transition is None else "fused"}
+        state = x
+
+    out.update({"name": cfg.name, "task": cfg.task,
+                "wall_s": round(timer.stop(sync_on=state), 2)})
+    if cfg.output_dir:
+        save_pytree(f"{cfg.output_dir}/{cfg.name}_state", state)
+    _emit(out)
+    return out
+
+
+def main(argv=None) -> None:
+    from tpuflows_torch.config import RunConfig
+
+    parser = argparse.ArgumentParser(
+        prog="python -m tpuflows_torch.run",
+        description="Run configs/*.json tasks on the PyTorch port.")
+    parser.add_argument("configs", nargs="+", metavar="config.json")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    for path in args.configs:
+        run(RunConfig.from_json(path), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

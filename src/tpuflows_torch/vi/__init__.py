@@ -1,3 +1,3 @@
-from tpuflows_torch.vi.elbo import elbo, vi_sample
+from tpuflows_torch.vi.elbo import VIResult, elbo, fit_vi, vi_log_q, vi_sample
 
-__all__ = ["elbo", "vi_sample"]
+__all__ = ["VIResult", "elbo", "fit_vi", "vi_log_q", "vi_sample"]

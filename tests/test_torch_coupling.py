@@ -204,8 +204,8 @@ def test_converter_builds_every_module_kind():
         RQSCouplingBlock]
     for a, b in _both_ways(jf, tf, _z(5)):
         np.testing.assert_allclose(a, b, **JAX_BAR)
-    with pytest.raises(ValueError):
-        flow_from_jax_modules([{"kind": "whiten"}], device="cpu")
+    with pytest.raises(ValueError):  # a kind the converter does not know
+        flow_from_jax_modules([{"kind": "spline2"}], device="cpu")
 
 
 def _trained_flow():

@@ -420,8 +420,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             p.detach().to("meta") for p in params), spec)
     with pytest.raises(TypeError, match="float64"):
         coupling_cuda.block_eval(x.double(), params, spec)
+    # gelu is plain math in the plain version; the kernels refuse it
+    coupling_cuda.block_math(x, params, torch.zeros(6), 4, 4.0, "gelu",
+                             False)
     with pytest.raises(ValueError, match="gelu"):
-        coupling_cuda.block_math(x, params, torch.zeros(6), 4, 4.0, "gelu",
+        coupling_cuda.check_kernel_spec(spec._replace(activation="gelu"))
+    with pytest.raises(ValueError, match="swish"):
+        coupling_cuda.block_math(x, params, torch.zeros(6), 4, 4.0, "swish",
                                  False)
     # what the CUDA path checks before a launch: float32 and contiguous
     with pytest.raises(TypeError, match="float32"):

@@ -1,0 +1,375 @@
+"""The config runner of the port (`config.py`, `run.py`) against the JAX
+package's:
+
+  * `RunConfig.from_json` on all seven configs, field for field against
+    `tpuflows.config` (the JAX package leaves `FlowSpec.hidden` the JSON
+    list its string annotation misses; the port makes it the tuple both
+    intend), and every spec's defaults;
+  * `TargetSpec.build` for the ported kinds (log density against the JAX
+    target's) and NotImplementedError naming ROADMAP Queue 1 item 5 for
+    the others; `to_smc_config` / `to_adaptive_config` name items 9 and 8;
+  * the `fit`, `vi` and `nuts` tasks on c1, c2 and c4 at reduced size
+    through both runners: the same record keys, and results within the
+    Monte-Carlo margins stated at each test (the two runners draw other
+    random numbers, so they agree in distribution only);
+  * the other four tasks raise NotImplementedError naming their ROADMAP
+    items; `nuts.fused_kernel` "auto" takes K1 (its plain version on the
+    CPU) where `pack_flow` takes the flow and target, whatever the device,
+    and the portable NUTS elsewhere, "on" raises there, naming the
+    refusal; the nuts record says which transition ran;
+  * `main` as `python -m tpuflows_torch.run`, and `output_dir`.
+"""
+import dataclasses as dc
+import io
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuflows import config as jconfig
+from tpuflows import run as jrun
+
+from tpuflows_torch import config as tconfig
+from tpuflows_torch import run as trun
+from tpuflows_torch.flows import Chain, Identity
+from tpuflows_torch.io import load_pytree
+from tpuflows_torch.kernels import nuts_cuda
+from tpuflows_torch.kernels.nuts_cuda import FusedNUTS
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The tasks here are many small ops: one intra-op thread per test
+    worker keeps parallel workers from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+CONFIGS = sorted(p.stem for p in (ROOT / "configs").glob("*.json"))
+SPECS = ["TargetSpec", "FlowSpec", "TrainSpec", "NUTSSpec", "MHSpec",
+         "PTSpec", "SMCSpec", "AdaptiveSpec"]
+
+
+def both(name):
+    path = str(ROOT / "configs" / f"{name}.json")
+    return (jconfig.RunConfig.from_json(path),
+            tconfig.RunConfig.from_json(path))
+
+
+def test_there_are_seven_configs():
+    assert len(CONFIGS) == 7
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_configs_parse_as_the_jax_package_parses_them(name):
+    jc, tc = both(name)
+    assert [f.name for f in dc.fields(tc)] == [f.name for f in dc.fields(jc)]
+    for f in dc.fields(jc):
+        jv, tv = getattr(jc, f.name), getattr(tc, f.name)
+        if not dc.is_dataclass(jv):
+            assert tv == jv, f.name
+            continue
+        assert type(tv).__name__ == type(jv).__name__
+        for g in dc.fields(jv):
+            a, b = getattr(tv, g.name), getattr(jv, g.name)
+            if g.name == "hidden":
+                assert isinstance(a, tuple) and a == tuple(b)
+            else:
+                assert a == b, (f.name, g.name)
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_spec_defaults_match(spec):
+    jcls, tcls = getattr(jconfig, spec), getattr(tconfig, spec)
+    jf = {f.name: f for f in dc.fields(jcls)}
+    tf = {f.name: f for f in dc.fields(tcls)}
+    assert list(tf) == list(jf)
+    for name, f in jf.items():
+        assert tf[name].default == f.default, name
+
+
+def test_unknown_keys_are_refused():
+    with pytest.raises(ValueError, match="unknown keys"):
+        tconfig.RunConfig.from_dict({"name": "x", "task": "fit",
+                                     "flow": {"kinds": "rqs"}})
+
+
+@pytest.mark.parametrize("kind,dim", [("std_normal", 3), ("diag_normal", 3),
+                                      ("correlated", 8), ("funnel", 8)])
+def test_target_spec_builds_the_ported_kinds(kind, dim):
+    jt = jconfig.TargetSpec(kind, dim).build()
+    tt = tconfig.TargetSpec(kind, dim).build(device="cpu")
+    x = np.random.default_rng(dim).normal(size=(16, dim)).astype(np.float32)
+    np.testing.assert_allclose(tt.log_density(torch.from_numpy(x)).numpy(),
+                               np.asarray(jt.log_density(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["mixture", "hierarchical", "banana",
+                                  "rosenbrock"])
+def test_target_spec_names_the_roadmap_item(kind):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        tconfig.TargetSpec(kind, 4).build(device="cpu")
+    with pytest.raises(ValueError, match="unknown target"):
+        tconfig.TargetSpec("gamma", 4).build(device="cpu")
+
+
+def test_smc_and_adaptive_configs_name_their_items():
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tconfig.SMCSpec().to_smc_config()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tconfig.AdaptiveSpec().to_adaptive_config(tconfig.FlowSpec())
+
+
+@pytest.mark.parametrize("name,item", [
+    ("c3_mixture_adaptive", "item 8"), ("c5_hierarchical_smc", "item 9"),
+    ("c6_banana_mh", "item 7"), ("c7_mixture_pt", "item 7")])
+def test_unported_tasks_name_their_items(name, item):
+    _, tc = both(name)
+    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+        trun.run(tc, device="cpu")
+    with pytest.raises(ValueError, match="unknown task"):
+        trun.run(dc.replace(tc, task="sample"), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the three tasks through both runners, at reduced size
+# ---------------------------------------------------------------------------
+def reduce(cfg):
+    if cfg.task == "fit":
+        return dc.replace(cfg, train=dc.replace(cfg.train, nepochs=5))
+    if cfg.task == "vi":
+        return dc.replace(cfg, train=dc.replace(cfg.train, nsteps=40))
+    return dc.replace(
+        cfg, target=dc.replace(cfg.target, dim=8),
+        train=dc.replace(cfg.train, nsteps=300, batch_size=256),
+        nuts=dc.replace(cfg.nuts, n_chains=64, num_warmup=60,
+                        num_samples=100))
+
+
+def records(monkeypatch):
+    """Sends both runners' JSONL records to a buffer each."""
+    bufs = io.StringIO(), io.StringIO()
+    monkeypatch.setattr(jrun._metrics, "_stream", bufs[0])
+    monkeypatch.setattr(trun._metrics, "_stream", bufs[1])
+    return [lambda b=b: b.getvalue().strip().splitlines()[-1] for b in bufs]
+
+
+# the keys the port's records add to the JAX runner's
+EXTRA_KEYS = {"nuts": {"transition"}}
+
+
+def run_both(name, monkeypatch):
+    jc, tc = both(name)
+    jrec, trec = records(monkeypatch)
+    jout = jrun._run_task(reduce(jc))
+    jline = jrec()
+    tout = trun.run(reduce(tc), device="cpu")
+    tline = trec()
+    # the emitted records: the returned ones and a timestamp
+    assert json.loads(jline).keys() == {"ts", *jout}
+    assert json.loads(tline) == {"ts": json.loads(tline)["ts"], **tout}
+    assert tout.keys() == jout.keys() | EXTRA_KEYS.get(tout["task"], set())
+    assert tout["name"] == jout["name"] and tout["task"] == jout["task"]
+    return jout, tout
+
+
+ENTROPY_2D = 1.0 + np.log(2.0 * np.pi)  # of N(0, I_2): the negll optimum
+
+
+def test_fit_task_matches_jax(monkeypatch):
+    """c1, 5 epochs: the flow starts at the optimum (its Standardize fits
+    the standard-normal samples), so each loss is the negll of one batch
+    of 512 rows, within 0.044 (its standard deviation at the optimum) of
+    the entropy 2.838. Margin: 0.3 between the runners, 0.25 from the
+    entropy (about 5 standard deviations)."""
+    jout, tout = run_both("c1_std_normal_affine", monkeypatch)
+    for key in ("final_loss", "initial_loss"):
+        assert abs(tout[key] - jout[key]) < 0.3, key
+        assert abs(tout[key] - ENTROPY_2D) < 0.25, key
+
+
+def test_vi_task_matches_jax(monkeypatch):
+    """c2, 40 steps: the final ELBO on 4096 draws. Over seeds 0-3 the JAX
+    runner gave -0.533..-0.560, the port -0.538..-0.638 (a few hundredths
+    of spread each); margin 0.25 between them, and both far from the
+    ELBO of the unfitted flow."""
+    jout, tout = run_both("c2_correlated_rqs", monkeypatch)
+    assert abs(tout["final_elbo"] - jout["final_elbo"]) < 0.25
+    assert -1.0 < tout["final_elbo"] < 0.05
+
+
+def test_nuts_task_matches_jax(monkeypatch):
+    """c4 at d = 8, 64 chains, a 300-step fit at batch 256, 60 warmup and
+    100 draws; K1's plain version on the CPU ("auto"). Both runs must
+    converge (max split-R-hat < 1.1) with few divergences; step sizes
+    within a factor 1.5 and min ESS within a factor 3 of each other."""
+    jout, tout = run_both("c4_funnel_nuts", monkeypatch)
+    assert tout["transition"] == "fused"
+    for out in (jout, tout):
+        assert out["max_rhat"] < 1.1
+        assert out["divergence_rate"] < 0.05
+    assert 1 / 1.5 < tout["step_size"] / jout["step_size"] < 1.5
+    assert 1 / 3 < tout["min_ess"] / jout["min_ess"] < 3
+
+
+# ---------------------------------------------------------------------------
+# the fused transition's choice
+# ---------------------------------------------------------------------------
+def _nuts_cfg(fused_kernel, kind="funnel", preconditioned=True):
+    _, tc = both("c4_funnel_nuts")
+    return dc.replace(
+        tc, target=dc.replace(tc.target, kind=kind, dim=8),
+        nuts=dc.replace(tc.nuts, fused_kernel=fused_kernel,
+                        preconditioned=preconditioned))
+
+
+def _flow(cfg):
+    g = torch.Generator().manual_seed(0)
+    return trun._flow_from_spec(torch.randn(64, 8, generator=g), g,
+                                cfg.flow, "cpu")
+
+
+def test_auto_takes_k1_where_pack_flow_takes_the_flow():
+    cfg = _nuts_cfg("auto")
+    tr = trun._nuts_transition(cfg, cfg.target.build("cpu"), _flow(cfg))
+    assert isinstance(tr, FusedNUTS) and tr.max_depth == cfg.nuts.max_depth
+    # "auto" does not give way to the portable NUTS where the kernel's
+    # launch checks refuse the packed flow: d = 8 is not a multiple of 32,
+    # so on the card K1's launch raises
+    with pytest.raises(ValueError, match="d % 32"):
+        nuts_cuda.check_widths(tr.model)
+    off = _nuts_cfg("off")
+    assert trun._nuts_transition(off, off.target.build("cpu"),
+                                 _flow(off)) is None
+
+
+def test_auto_takes_the_portable_nuts_for_other_targets():
+    cfg = _nuts_cfg("auto", kind="correlated")
+    assert trun._nuts_transition(cfg, cfg.target.build("cpu"),
+                                 _flow(cfg)) is None
+
+
+def _with_identity(flow):
+    return Chain([Identity(), *flow.transforms])
+
+
+@pytest.mark.parametrize("kind,edit,why", [
+    ("correlated", None, "NealsFunnel"),
+    ("funnel", _with_identity, "module Identity")])
+def test_on_raises_naming_the_refusal(kind, edit, why):
+    cfg = _nuts_cfg("on", kind=kind)
+    flow = _flow(cfg) if edit is None else edit(_flow(cfg))
+    with pytest.raises(ValueError, match="fused_kernel='on'") as err:
+        trun._nuts_transition(cfg, cfg.target.build("cpu"), flow)
+    assert why in str(err.value)
+
+
+def test_on_requires_a_preconditioned_run():
+    cfg = _nuts_cfg("on", preconditioned=False)
+    with pytest.raises(ValueError, match="preconditioned=true"):
+        trun.run(cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown nuts.fused_kernel"):
+        trun._nuts_transition(_nuts_cfg("maybe"), None, None)
+    deep = _nuts_cfg("auto")
+    deep = dc.replace(deep, nuts=dc.replace(deep.nuts, max_depth=11))
+    with pytest.raises(ValueError, match="max_depth in"):
+        trun._nuts_transition(deep, deep.target.build("cpu"), _flow(deep))
+
+
+def test_nuts_task_without_preconditioning_runs_portable(capsys):
+    cfg = _nuts_cfg("auto", kind="correlated", preconditioned=False)
+    cfg = dc.replace(cfg, nuts=dc.replace(cfg.nuts, n_chains=16,
+                                          num_warmup=20, num_samples=20))
+    out = trun.run(cfg, device="cpu")
+    assert out["max_rhat"] < 1.5 and out["step_size"] > 0
+    assert out["transition"] == "portable"
+
+
+# ---------------------------------------------------------------------------
+# main and output_dir
+# ---------------------------------------------------------------------------
+def _small_c1(tmp_path, output_dir=None):
+    cfg = json.loads((ROOT / "configs" /
+                      "c1_std_normal_affine.json").read_text())
+    cfg["train"]["nepochs"] = 2
+    if output_dir:
+        cfg["output_dir"] = output_dir
+    path = tmp_path / "c1_small.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def test_main_runs_a_config_file(tmp_path, monkeypatch):
+    _, trec = records(monkeypatch)
+    trun.main(["--device", "cpu", str(_small_c1(tmp_path))])
+    rec = json.loads(trec())
+    assert rec["name"] == "c1_std_normal_affine" and rec["task"] == "fit"
+    assert {"final_loss", "initial_loss", "wall_s", "ts"} <= set(rec)
+
+
+def test_python_m_entry_point(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpuflows_torch.run", "--device", "cpu",
+         str(_small_c1(tmp_path))], capture_output=True, text=True,
+        timeout=300, cwd=str(tmp_path),
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "TPUFLOWS_METRICS": str(tmp_path / "m.jsonl")})
+    assert proc.returncode == 0, proc.stderr
+    rec = json.loads((tmp_path / "m.jsonl").read_text())
+    assert rec["task"] == "fit"
+    usage = subprocess.run(
+        [sys.executable, "-m", "tpuflows_torch.run"], capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert usage.returncode == 2 and "config.json" in usage.stderr
+
+
+def test_output_dir_saves_the_state(tmp_path, capsys):
+    out_dir = tmp_path / "out"
+    cfg = tconfig.RunConfig.from_json(str(_small_c1(tmp_path, str(out_dir))))
+    trun.run(cfg, device="cpu")
+    state = load_pytree(str(out_dir / "c1_std_normal_affine_state"))
+    assert any(k.endswith("log_scale") for k in state)
+
+
+def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
+    """`chip_smoke.run_configs` at a cut size: the records, the phases'
+    times and the gates. On the CPU no kernel launches (K1 and K4/K5 run
+    their plain versions), and c2 after 10 steps is far from fitted, so
+    the reference gate refuses it: the gate catches an under-fitted
+    flow."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    def cut(name, cfg):
+        if cfg.task == "fit":
+            return dc.replace(cfg, train=dc.replace(cfg.train, nepochs=3))
+        if cfg.task == "vi":
+            return dc.replace(cfg, train=dc.replace(cfg.train, nsteps=10))
+        return dc.replace(
+            cfg, target=dc.replace(cfg.target, dim=8),
+            train=dc.replace(cfg.train, nsteps=100, batch_size=128),
+            nuts=dc.replace(cfg.nuts, n_chains=32, num_warmup=20,
+                            num_samples=40))
+
+    rows = {r["config"]: r for r in chip_smoke.run_configs("cpu",
+                                                           overrides=cut)}
+    assert rows["c1_std_normal_affine"]["passed"]
+    assert rows["c4_funnel_nuts"]["passed"]
+    assert set(rows["c4_funnel_nuts"]["phase_seconds"]) == {
+        "fit", "warmup", "draws"}
+    c2 = rows["c2_correlated_rqs"]
+    assert not c2["passed"] and len(c2["failures"]) == 1
+    assert c2["failures"][0].startswith("final_elbo")
+    for r in rows.values():
+        assert r["k1_launches"] == 0 and not any(r["rqs_launches"].values())
+        assert r["record"]["name"] == r["config"]
