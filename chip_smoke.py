@@ -15,7 +15,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                pullbacks), the group kernels of csrc/rqs_lanes.cuh, against
                their plain PyTorch versions at the fit's shape (1024 x 64,
                K = 8), three others (d = 8, 96, 256; K = 4, 12), config
-               c2's fit (512 x 8, K = 8; phase 21), K = 64
+               c2's fit (512 x 8, K = 8; phase 21), config c3's fit
+               batch and NUTS chains (1200 x 16 and 64 x 16, K = 8),
+               K = 64
                (16 lanes of 4 bins), K = 2 and 24 (the group kernel's
                other lane counts) and a ragged row whose inputs and draw are
                views 4 bytes into their buffers (the 4-byte copies),
@@ -116,8 +118,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                pass 2's row slices; the library's layout must agree) and
                the largest difference from the earlier kernels' outputs;
  11. main_path_generic_fused — the generic variant with every spline block
-               on the fused tier (use_pallas="fused"), under the same
-               gates; K6's and K7's launch counts must equal the counts the
+               on the fused tier (use_pallas="fused"), its fit cut to
+               FUSED_TRAIN_STEPS (1000) steps, under the same gates;
+               K6's and K7's launch counts must equal the counts the
                path implies (K7: `K7_LAUNCHES` per call) and K4/K5 and the
                earlier K6/K7 must launch 0 times;
  12. timing_coupling — K6 and K7 with CUDA events at the fit's shape and at
@@ -185,11 +188,11 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                randomness, by K1, by the plain window (`window_math_torch`
                one slot per call) and by K1's plain version, so that no
                rounding difference carries from slot to slot: the bench
-               widths (1024 chains, d = 64, depth 6, unit metric, S = 32),
-               the seeded arqs flow of phase 5 (S = 4, to bound the plain
-               versions' time), both kernels at d = 32 and d = 256, all at
-               eps 0.1, and both trained flows at their post-warmup states
-               (S = 32). K1's bar in every slot (a chain flips if it
+               widths (1024 chains, d = 64, depth 6, unit metric, S = 8),
+               the seeded arqs flow of phase 5 (S = 2; both to bound the
+               plain versions' time), both kernels at d = 32 and d = 256,
+               all at eps 0.1, and both trained flows at their post-warmup
+               states (S = 32). K1's bar in every slot (a chain flips if it
                differs in leapfrog count, depth, divergence or U-turn, or
                its draw by more than 1e-3, at most 5 of 1024 may; on the
                others energy within 0.012 and q within 2.3e-4), each of
@@ -227,24 +230,35 @@ Phases, one JSON line each on stdout with its wall time in seconds:
  21. run_configs — the config runner, `tpuflows_torch.run.run`, on
                configs/c1_std_normal_affine.json (forward-KL fit),
                c2_correlated_rqs.json (VI of a 4-block spline flow, its
-               splines through K4 and K5) and c4_funnel_nuts.json (VI,
-               then 1024 chains of NUTS through K1), as written, each
-               record captured through a `MetricsLogger` into this phase's
-               line, with the wall times of the fit, warmup and draws.
-               Gates: the JAX runner's record keys; c1's final loss and
-               c2's final ELBO within RUN_MARGIN_SIGMAS standard
-               deviations of the JAX package's results on three seeds
-               (RUN_REFERENCE); c4's max split-R-hat < 1.05; K1 launched
-               once per transition of c4 (640), K4 inverse once per spline
-               block per step of c2 and for its final ELBO, K5 inverse once
-               per block per step, nothing forward.
+               splines through K4 and K5), c4_funnel_nuts.json (VI, then
+               1024 chains of NUTS through K1), c6_banana_mh.json
+               (adaptive RWMH, 256 chains), c7_mixture_pt.json (parallel
+               tempering, 8 temperatures x 64 chains) and
+               c3_mixture_adaptive.json (the adaptive loop: NUTS, then a
+               forward-KL fit of a 4-block spline flow, K4/K5 forward,
+               and its IS-ESS, K4 inverse), as written, and c3 with two
+               rounds forced (RUN_VARIANTS: the second round samples in
+               the flow's latent space, K4/K5 inverse), each record
+               captured through a `MetricsLogger` into this phase's line,
+               with the wall times of the fits, warmups and draws.
+               Gates: the JAX runner's record keys; every phase timed;
+               finite results; each result of RUN_REFERENCE within
+               RUN_MARGIN_SIGMAS standard deviations of the JAX package's
+               results on three seeds (c3's rounds and convergence
+               equal to them); the samplers' max split-R-hat < 1.05; c6's
+               and c7's draws through `moment_gate` (RUN_MOMENTS); K1
+               launched once per transition of c4 (640); K4 inverse once
+               per spline block per step of c2 and for its final ELBO, K5
+               inverse once per block per step, nothing forward; c3's
+               K4/K5 launches as its path implies (`adaptive_launches`),
+               every direction of both in the variant.
 Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1,
 K2 and K3 with the tile kernel's device time, its R and weight mode, and
 `earlier_ms` / `earlier_device_ms`, the per-warp kernel's it replaced in
 the same run, K1's affine row with c4's launches through the runner;
 K4's and K5's with the one-thread kernels', the cold device time and
-c2's launches through the runner; K6's and K7's with their tile plan, the earlier kernels'
-times and K7's pass 2 alone) and, last,
+c2's and c3's launches through the runner; K6's and K7's with their
+tile plan, the earlier kernels' times and K7's pass 2 alone) and, last,
 {"ok": true, "device": {...}}. Any failure raises: the exit code is not 0
 and the last line is not printed. It imports nothing of JAX.
 """
@@ -264,6 +278,10 @@ HIDDEN = (128, 128)
 CLAMP = 8.0
 MAX_DEPTH = 6
 TRAIN_STEPS = 6000
+# the fused tier's fit (K6/K7 at the generic fit's shapes, every launch at
+# TRAIN_BATCH rows): a sixth of the depth, to make room for the runner's
+# configs within the script's time limit; its NUTS keeps every gate
+FUSED_TRAIN_STEPS = 1000
 TRAIN_BATCH = 1024
 NUM_WARMUP = 128
 DRAW_WINDOW = 512
@@ -448,10 +466,14 @@ def graph_calls_ms(calls, replays=10):
 # ---------------------------------------------------------------------------
 # K4 / K5
 # ---------------------------------------------------------------------------
-# (rows, d, knots): the fit's shape, three others and the shape of config
-# c2's fit (batch 512, d = 8, K = 8; phase run_configs)
+# (rows, d, knots): the fit's shape, three others, the shape of config
+# c2's fit (batch 512, d = 8, K = 8) and config c3's, its forward-KL
+# batch (19,200 pooled draws / 16 batches) and its NUTS's 64 chains, at
+# d = 16 (the dense-mask blocks run the spline on every dim; phase
+# run_configs prints the shapes c3 launches)
 RQS_SHAPES = [(TRAIN_BATCH, DIM, KNOTS), (333, 8, 4), (200, 96, 12),
-              (64, 256, 4), (512, 8, KNOTS)]
+              (64, 256, 4), (512, 8, KNOTS), (1200, 16, KNOTS),
+              (64, 16, KNOTS)]
 # K5's other rows (rows, d, knots, offset): MAX_KNOTS (16 lanes of 4 bins
 # in the group kernel), every input and draw a view 4 bytes into its
 # buffer (the 4-byte copies; a ragged last block too), and the knots that
@@ -2372,9 +2394,10 @@ def window_bar(spreads, n):
 def window_rows(device):
     """(label, flow, q, inv_mass, eps, depth, window, seed) of the K2
     comparison on seeded flows: the bench widths (phase 4's flow) at
-    S = 32, the seeded arqs flow of phase 5 at S = 4, and both kernels at
-    d = 32 and d = 256, all at eps WINDOW_EPS; the post-warmup states are
-    added by `main`."""
+    S = 8, the seeded arqs flow of phase 5 at S = 2, and both kernels at
+    d = 32 and d = 256 (S = 8, and 4 for the splines), all at eps
+    WINDOW_EPS; the post-warmup states, added by `main`, hold the main
+    path's S = 32."""
     import torch
 
     def start(n, d, seed, unit):
@@ -2384,19 +2407,18 @@ def window_rows(device):
         return q.to(device), im.to(device)
 
     rows = [("bench", bench_flow_with_random_head(device, 2),
-             *start(N_CHAINS, DIM, 3, True), WINDOW_EPS, MAX_DEPTH,
-             WINDOW_SLOTS, 31),
+             *start(N_CHAINS, DIM, 3, True), WINDOW_EPS, MAX_DEPTH, 8, 31),
             ("spline bench", spline_flow_with_random_heads(device, 10 + DIM),
-             *start(N_CHAINS, DIM, 20 + DIM, True), WINDOW_EPS, MAX_DEPTH, 4,
+             *start(N_CHAINS, DIM, 20 + DIM, True), WINDOW_EPS, MAX_DEPTH, 2,
              32)]
-    for d, h1, h2, depth, eps, n, S in ((32, 32, 64, 5, 0.1, 256, 16),
+    for d, h1, h2, depth, eps, n, S in ((32, 32, 64, 5, 0.1, 256, 8),
                                         (256, 128, 256, 4, 0.1, 128, 8)):
         mask = tuple(j % 2 for j in range(d))
         rows.append((f"affine d={d}", random_flow(device, d + h1, d,
                                                   (h1, h2), mask),
                      *start(n, d, 40 + d, False), eps, depth, S, 41 + d))
     for d, hidden, K, nb, depth, eps, n, S in (
-            (32, (32, 64), 4, 2, 5, 0.1, 256, 8),
+            (32, (32, 64), 4, 2, 5, 0.1, 256, 4),
             (256, (64, 128), 16, 1, 4, 0.1, 128, 4)):
         rows.append((f"spline d={d} K={K}", spline_flow_with_random_heads(
             device, 10 + d, dim=d, hidden=hidden, knots=K, n_blocks=nb),
@@ -2649,22 +2671,87 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
 # ---------------------------------------------------------------------------
 # the config runner
 # ---------------------------------------------------------------------------
-RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts")
-# The JAX package's results for c1 and c2 as written, on the CPU, at the
-# config's seed and the next two (scripts/runner_reference.py): the port's
-# result on the card must lie within RUN_MARGIN_SIGMAS of their standard
-# deviations of their mean. With three values the standard deviation is
-# itself uncertain: 10 of them keeps the chance that a result from the
-# same distribution fails near 1% (Student's t, 2 degrees of freedom).
+RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts",
+               "c6_banana_mh", "c7_mixture_pt", "c3_mixture_adaptive",
+               "c3_mixture_adaptive_two_rounds")
+# Variants of a config: (its file, the keys each section changes). c3 as
+# written stops after round 0 in both packages (its raw NUTS draws reach
+# the ESS threshold), so its flow is fitted and scored but never sampled
+# through. The variant forces a second round, the one that samples in the
+# flow's latent space, at c3's widths. There NUTS's step size falls to
+# ~0.02 and every tree reaches max_depth 8: 256 gradient calls through the
+# four spline blocks per transition, so a round of 600 transitions would
+# take minutes on the card (and 16 on a CPU in the JAX package). The
+# variant cuts the depth: 20 warmup steps (fewer leave round 0's step
+# size unadapted: at 10 its chains accept 0.2% of their moves), 5 draws
+# and 20 epochs a round.
+RUN_VARIANTS = {
+    "c3_mixture_adaptive_two_rounds": (
+        "c3_mixture_adaptive",
+        {"adaptive": {"max_rounds": 2, "ess_threshold": 1e9,
+                      "num_warmup": 20, "num_samples": 5,
+                      "train_epochs": 20}}),
+}
+
+
+def run_config_dict(name):
+    """The JSON dict of a config of `configs/` or of a `RUN_VARIANTS`
+    entry (named after the variant), for either package's
+    `RunConfig.from_dict`."""
+    base, edits = RUN_VARIANTS.get(name, (name, {}))
+    with open(os.path.join(ROOT, "configs", f"{base}.json")) as f:
+        d = json.load(f)
+    for section, changes in edits.items():
+        d[section] = {**d.get(section, {}), **changes}
+    if base != name:
+        d["name"] = name
+    return d
+# The JAX package's results for each config as written (or as its variant
+# changes it), on the CPU, at the config's seed and the next two
+# (scripts/runner_reference.py): each of the port's results on the card
+# must lie within RUN_MARGIN_SIGMAS of their standard deviations of their
+# mean. With three values the standard deviation is itself uncertain: 10
+# of them keeps the chance that a result from the same distribution fails
+# near 1% (Student's t, 2 degrees of freedom). Where the three agree
+# exactly (c3's rounds, its convergence, its best min ESS of 0 when no
+# round sampled through a flow) the window is that value alone.
 RUN_REFERENCE = {
-    "c1_std_normal_affine": ("final_loss", (2.904125452041626,
+    "c1_std_normal_affine": {"final_loss": (2.904125452041626,
                                             2.7373180389404297,
-                                            2.8427441120147705)),
-    "c2_correlated_rqs": ("final_elbo", (-0.028232574462890625,
+                                            2.8427441120147705)},
+    "c2_correlated_rqs": {"final_elbo": (-0.028232574462890625,
                                          -0.058971405029296875,
-                                         -0.02308368682861328)),
+                                         -0.02308368682861328)},
+    "c6_banana_mh": {"accept_rate": (0.23331165313720703,
+                                     0.23475094139575958,
+                                     0.23489056527614594),
+                     "min_ess": (13126.544921875, 10295.984375,
+                                 11064.505859375)},
+    "c7_mixture_pt": {"mean_swap_accept": (0.744265615940094,
+                                           0.7438125014305115,
+                                           0.7446551322937012),
+                      "min_ess": (2274.82568359375, 1946.6734619140625,
+                                  2015.6090087890625)},
+    "c3_mixture_adaptive": {"n_rounds": (1, 1, 1),
+                            "converged": (True, True, True),
+                            "best_min_ess": (0.0, 0.0, 0.0),
+                            "flow_is_ess": (0.1964937001466751,
+                                            0.15713533759117126,
+                                            0.05810265615582466)},
+    "c3_mixture_adaptive_two_rounds": {
+        "n_rounds": (2, 2, 2), "converged": (False, False, False),
+        "best_min_ess": (70.8592300415039, 65.95453643798828,
+                         67.9321517944336),
+        "flow_is_ess": (0.0011806493857875466, 0.006424020975828171,
+                        0.011425626464188099)},
 }
 RUN_MARGIN_SIGMAS = 10.0
+# The sampler configs whose draws are held to the target's analytic mean
+# and variance by `moment_gate`, at the n_sigma of the JAX package's own
+# tests of the sampler (tests/test_mh_tempering.py: 3.5 for RWMH, 4 for
+# parallel tempering). The JAX package's draws pass it on all three seeds
+# of RUN_REFERENCE (scripts/runner_reference.py).
+RUN_MOMENTS = {"c6_banana_mh": 3.5, "c7_mixture_pt": 4.0}
 # c1's fit starts at its optimum (the flow's Standardize fits the
 # standard-normal samples), so the window above, which holds the untrained
 # flow's loss too, cannot tell a fit from none. A fit task's final loss is
@@ -2676,27 +2763,39 @@ RUN_MARGIN_SIGMAS = 10.0
 RUN_OPTIMUM = {"c1_std_normal_affine": ("final_loss",
                                         1.0 + math.log(2.0 * math.pi))}
 FIT_NOISE_MARGIN = 0.25
+# the record's keys of each task (the JAX runner's), and those the port's
+# records add
+RUN_KEYS = {"fit": {"final_loss", "initial_loss"}, "vi": {"final_elbo"},
+            "nuts": {"min_ess", "max_rhat", "step_size", "divergence_rate"},
+            "mh": {"min_ess", "max_rhat", "accept_rate"},
+            "pt": {"min_ess", "max_rhat", "mean_swap_accept"},
+            "adaptive": {"n_rounds", "converged", "min_ess", "best_min_ess",
+                         "flow_is_ess"}}
+RUN_EXTRA_KEYS = {"nuts": {"transition"}}
 
 
-def reference_window(name):
-    """(key, mean, margin) of the gate on a config's result."""
-    key, values = RUN_REFERENCE[name]
+def reference_window(name, key):
+    """(mean, margin) of the gate on one of a config's results."""
+    values = [float(v) for v in RUN_REFERENCE[name][key]]
     mean = sum(values) / len(values)
     sd = math.sqrt(sum((v - mean) ** 2 for v in values) / (len(values) - 1))
-    return key, mean, RUN_MARGIN_SIGMAS * sd
+    return mean, RUN_MARGIN_SIGMAS * sd
 
 
 class PhaseClock:
-    """Times the runner's phases from outside: while active, the fit
-    (`optimize_flow`, `fit_vi`), NUTS warmup and NUTS draws each wait for
-    the device before and after and add their wall time to `seconds`.
-    It patches the package attributes the runner looks up when a task
-    starts; `run_configs` fails a config whose phases were not all timed,
-    so a runner that binds them otherwise cannot pass unnoticed."""
+    """Times the runner's phases from outside: while active, the fits
+    (`optimize_flow`, `fit_vi`), the samplers' warmup (NUTS, RWMH, PT) and
+    their draws (and flow-IMH's) each wait for the device before and after
+    and add their wall time to `seconds` (the adaptive loop's, summed over
+    its rounds), and `counts` counts the calls. It patches the module
+    attributes the runner and the loop look up when they call them;
+    `run_configs` fails a config whose phases were not all timed, so code
+    that binds them otherwise cannot pass unnoticed."""
 
     def __init__(self, on_card):
         self.on_card = on_card
         self.seconds = {}
+        self.counts = {}
 
     def _wrap(self, name, fn):
         import torch
@@ -2710,21 +2809,29 @@ class PhaseClock:
                 torch.cuda.synchronize()
             self.seconds[name] = (self.seconds.get(name, 0.0)
                                   + time.perf_counter() - t)
+            self.counts[name] = self.counts.get(name, 0) + 1
             return out
 
         return timed_fn
 
     def __enter__(self):
         from tpuflows_torch import flows, vi
-        from tpuflows_torch.mcmc import sample
+        from tpuflows_torch.adaptive import loop
+        from tpuflows_torch.mcmc import mh, sample, tempering
 
-        self._saved = [(flows, "optimize_flow", flows.optimize_flow),
-                       (vi, "fit_vi", vi.fit_vi),
-                       (sample.NUTSDriver, "warmup",
-                        sample.NUTSDriver.warmup),
-                       (sample.NUTSDriver, "draws", sample.NUTSDriver.draws)]
-        for (owner, attr, fn), name in zip(
-                self._saved, ("fit", "fit", "warmup", "draws")):
+        phases = [(flows, "optimize_flow", "fit"), (loop, "optimize_flow",
+                                                     "fit"),
+                  (vi, "fit_vi", "fit"),
+                  (sample.NUTSDriver, "warmup", "warmup"),
+                  (sample.NUTSDriver, "draws", "draws"),
+                  (mh, "_rwmh_warmup", "warmup"),
+                  (mh, "_rwmh_draws", "draws"),
+                  (mh, "_flow_imh_run", "draws"),
+                  (tempering, "_pt_warmup", "warmup"),
+                  (tempering, "_pt_sample", "draws")]
+        self._saved = [(owner, attr, getattr(owner, attr))
+                       for owner, attr, _ in phases]
+        for (owner, attr, fn), (_, _, name) in zip(self._saved, phases):
             setattr(owner, attr, self._wrap(name, fn))
         return self
 
@@ -2733,35 +2840,118 @@ class PhaseClock:
             setattr(owner, attr, fn)
 
 
+class AdaptiveProbe:
+    """While active: the `AdaptiveResult` of the runner's `adaptive_fit`
+    call (`result`), the spline kernels' launch shapes (`shapes`, (kernel,
+    rows, d, K) -> launches) and the calls of the latent log density that
+    each round's NUTS differentiates (`latent_calls`): one per gradient
+    call, each running every spline block's K4 inverse and, backwards,
+    its K5 inverse."""
+
+    def __enter__(self):
+        from tpuflows_torch import adaptive
+        from tpuflows_torch.adaptive import loop
+        from tpuflows_torch.kernels import rqs_cuda
+
+        self.result, self.shapes, self.latent_calls = None, {}, 0
+
+        def fit(*args, **kwargs):
+            self.result = self._fit(*args, **kwargs)
+            return self.result
+
+        def reparameterized(log_density, flow):
+            logp = self._reparameterized(log_density, flow)
+
+            def counted(z):
+                self.latent_calls += 1
+                return logp(z)
+
+            return counted
+
+        def shaped(launch):
+            def launch_shaped(x, raw, *args, **kwargs):
+                before = dict(rqs_cuda.LAUNCHES)
+                out = launch(x, raw, *args, **kwargs)
+                for kernel, count in rqs_cuda.LAUNCHES.items():
+                    if count != before[kernel]:
+                        key = (kernel, x.numel() // x.shape[-1],
+                               x.shape[-1], (raw.shape[-1] + 1) // 3)
+                        self.shapes[key] = self.shapes.get(key, 0) + 1
+                return out
+
+            return launch_shaped
+
+        self._fit = adaptive.adaptive_fit
+        self._reparameterized = loop.flow_reparameterized
+        self._launches = (rqs_cuda._launch_eval, rqs_cuda._launch_grad)
+        adaptive.adaptive_fit = fit
+        loop.flow_reparameterized = reparameterized
+        rqs_cuda._launch_eval, rqs_cuda._launch_grad = (
+            shaped(f) for f in self._launches)
+        return self
+
+    def __exit__(self, *exc):
+        from tpuflows_torch import adaptive
+        from tpuflows_torch.adaptive import loop
+        from tpuflows_torch.kernels import rqs_cuda
+
+        adaptive.adaptive_fit = self._fit
+        loop.flow_reparameterized = self._reparameterized
+        rqs_cuda._launch_eval, rqs_cuda._launch_grad = self._launches
+
+
+def adaptive_launches(cfg, rounds, latent_calls):
+    """The K4/K5 launches an adaptive run of `rounds` rounds implies, its
+    flow of n spline blocks never growing: each round's forward-KL fit
+    (epochs x batches steps: K4 and K5 forward per block) and IS-ESS (K4
+    inverse); each round after the first the latent start f(x) (K4
+    forward), the latent NUTS (`latent_calls` gradient calls: K4 and K5
+    inverse) and the draws mapped back (K4 inverse, one chunk)."""
+    n = cfg.flow.n_blocks if cfg.flow.kind == "rqs" else 0
+    steps = cfg.adaptive.train_epochs * 16  # AdaptiveConfig.train_batches
+    latent = rounds - 1
+    return {"k4_forward": n * (steps * rounds + latent),
+            "k4_inverse": n * (latent_calls + rounds + latent),
+            "k5_forward": n * steps * rounds,
+            "k5_inverse": n * latent_calls}
+
+
 def run_configs(device, names=RUN_CONFIGS, overrides=None):
-    """`tpuflows_torch.run.run` on each config as written (`overrides`: a
-    function of (name, RunConfig) that a CPU rehearsal uses to cut it),
-    its record captured through a `MetricsLogger` of its own, K1's and
-    K4/K5's launches counted around the call, and the phases' wall times.
+    """`tpuflows_torch.run.run` on each config as written (or as its
+    `RUN_VARIANTS` entry changes it; `overrides`: a function of (name,
+    RunConfig) that a CPU rehearsal uses to cut it), its record captured
+    through a `MetricsLogger` of its own, K1's and K4/K5's launches
+    counted around the call, and the phases' wall times (`PhaseClock`).
     Gates: the record's keys are the JAX runner's (and the nuts record's
-    `transition`); every phase the task runs was timed; c1's and c2's
-    result within `reference_window`; c1's final loss within
-    FIT_NOISE_MARGIN of its optimum and of its initial loss or below; c4's
-    max split-R-hat below RHAT_GATE, its transition the fused one and
-    K1 launched once per transition (num_warmup + num_samples); c2's
-    spline blocks launched K4 inverse once per block per step and for the
-    final ELBO, K5 inverse once per block per step, nothing forward."""
+    `transition`); every phase the task runs was timed; every result is
+    finite; each result of `RUN_REFERENCE` within `reference_window`;
+    c1's final loss within FIT_NOISE_MARGIN of its optimum and of its
+    initial loss or below; the samplers' max split-R-hat below RHAT_GATE
+    (the adaptive loop's, every round's), where the config runs as
+    written; c6's and c7's draws (saved by
+    the runner through `output_dir`, and loaded back) pass `moment_gate`
+    against the target's analytic moments at `RUN_MOMENTS`' n_sigma; c4's
+    transition the fused one and K1 launched once per transition
+    (num_warmup + num_samples); c2's spline blocks launched K4 inverse
+    once per block per step and for the final ELBO, K5 inverse once per
+    block per step, nothing forward; c3's the launches
+    `adaptive_launches` derives, each direction of each kernel at least
+    once over c3's rows (its spline shapes printed)."""
+    import dataclasses
     import io
+    import tempfile
 
     import torch
     from tpuflows_torch import run as runner
     from tpuflows_torch.config import RunConfig
+    from tpuflows_torch.diagnostics import moment_gate
+    from tpuflows_torch.io import load_pytree
     from tpuflows_torch.kernels import nuts_cuda, rqs_cuda
     from tpuflows_torch.util.profiling import MetricsLogger
 
-    keys = {"fit": {"final_loss", "initial_loss"}, "vi": {"final_elbo"},
-            "nuts": {"min_ess", "max_rhat", "step_size",
-                     "divergence_rate"}}
-    extra_keys = {"nuts": {"transition"}}  # the port's, beyond the JAX's
     rows = []
     for name in names:
-        cfg = RunConfig.from_json(os.path.join(ROOT, "configs",
-                                               f"{name}.json"))
+        cfg = RunConfig.from_dict(run_config_dict(name))
         if overrides is not None:
             cfg = overrides(name, cfg)
         buf = io.StringIO()
@@ -2770,35 +2960,47 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None):
         nuts_cuda.LAUNCHES = 0
         rqs_cuda.reset_launches()
         t = time.perf_counter()
-        try:
-            with PhaseClock(device != "cpu") as clock:
-                out = runner.run(cfg, device=device)
-        finally:
-            runner._metrics = saved
-        seconds = time.perf_counter() - t
+        with tempfile.TemporaryDirectory() as tmp:
+            if name in RUN_MOMENTS:
+                cfg = dataclasses.replace(cfg, output_dir=tmp)
+            try:
+                with PhaseClock(device != "cpu") as clock, \
+                        AdaptiveProbe() as probe:
+                    out = runner.run(cfg, device=device)
+            finally:
+                runner._metrics = saved
+            seconds = time.perf_counter() - t
+            draws = (load_pytree(f"{tmp}/{cfg.name}_state", device=device)
+                     if name in RUN_MOMENTS else None)
         record = json.loads(buf.getvalue())
         row = {"config": name, "task": cfg.task, "record": record,
                "seconds": seconds, "phase_seconds": clock.seconds,
+               "phase_calls": clock.counts,
                "k1_launches": nuts_cuda.LAUNCHES,
                "rqs_launches": dict(rqs_cuda.LAUNCHES)}
         failures = []
         if set(record) != {"ts", "name", "task", "wall_s",
-                           *keys[cfg.task],
-                           *extra_keys.get(cfg.task, ())}:
+                           *RUN_KEYS[cfg.task],
+                           *RUN_EXTRA_KEYS.get(cfg.task, ())}:
             failures.append(f"record keys {sorted(record)}")
-        phases = {"fit"} if cfg.task != "nuts" else {"warmup", "draws"}
-        if cfg.task == "nuts" and cfg.nuts.preconditioned:
-            phases.add("fit")
+        phases = {"fit": {"fit"}, "vi": {"fit"}, "pt": {"warmup", "draws"},
+                  "adaptive": {"fit", "warmup", "draws"}}.get(
+                      cfg.task, {"warmup", "draws"})
+        if ((cfg.task == "nuts" and cfg.nuts.preconditioned)
+                or (cfg.task == "mh" and cfg.mh.flow_proposal)):
+            phases = phases | {"fit"}
+        if cfg.task == "mh" and cfg.mh.flow_proposal:
+            phases = phases - {"warmup"}
         if set(clock.seconds) != phases:
             failures.append(f"phases timed {sorted(clock.seconds)}, the "
                             f"task runs {sorted(phases)}")
-        if not all(math.isfinite(out[k]) for k in keys[cfg.task]):
+        if not all(math.isfinite(out[k]) for k in RUN_KEYS[cfg.task]):
             failures.append(f"a non-finite result: {out}")
-        if name in RUN_REFERENCE:
-            key, mean, margin = reference_window(name)
-            row["reference"] = {"key": key, "jax_mean": mean,
-                                "margin": margin,
-                                "jax": list(RUN_REFERENCE[name][1])}
+        row["reference"] = {}
+        for key, values in RUN_REFERENCE.get(name, {}).items():
+            mean, margin = reference_window(name, key)
+            row["reference"][key] = {"jax_mean": mean, "margin": margin,
+                                     "jax": [float(v) for v in values]}
             if not abs(out[key] - mean) <= margin:
                 failures.append(f"{key} {out[key]} outside {mean} +- "
                                 f"{margin}")
@@ -2813,21 +3015,53 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None):
                 <= out["initial_loss"] + FIT_NOISE_MARGIN):
             failures.append(f"final_loss {out['final_loss']} above the "
                             f"initial {out['initial_loss']}")
+        # the R-hat gate holds the configs as written; a variant's cut
+        # depth leaves too few draws for it
+        as_written = name not in RUN_VARIANTS
+        if as_written and cfg.task in ("nuts", "mh", "pt") \
+                and not out["max_rhat"] < RHAT_GATE:
+            failures.append(f"max split-R-hat {out['max_rhat']}")
+        if name in RUN_MOMENTS:
+            target = cfg.target.build(device=device)
+            check = moment_gate(draws, target.mean(device),
+                                torch.diagonal(target.cov(device)),
+                                n_sigma=RUN_MOMENTS[name])
+            row["moment_gate"] = check._asdict()
+            if not check.passed:
+                failures.append(f"moment gate {check}")
         if cfg.task == "nuts":
             want = cfg.nuts.num_warmup + cfg.nuts.num_samples
             row["k1_launches_expected"] = want if device != "cpu" else 0
-            if not out["max_rhat"] < RHAT_GATE:
-                failures.append(f"max split-R-hat {out['max_rhat']}")
             if cfg.nuts.preconditioned and out["transition"] != "fused":
                 failures.append(f"the {out['transition']} NUTS ran, not "
                                 f"K1's transition")
             if nuts_cuda.LAUNCHES != row["k1_launches_expected"]:
                 failures.append(f"K1 launched {nuts_cuda.LAUNCHES} times "
                                 f"for {want} transitions")
+        want = None
         if cfg.task == "vi" and cfg.flow.kind == "rqs":
-            n = cfg.flow.n_blocks if device != "cpu" else 0
+            n = cfg.flow.n_blocks
             want = {"k4_forward": 0, "k4_inverse": n * (cfg.train.nsteps + 1),
                     "k5_forward": 0, "k5_inverse": n * cfg.train.nsteps}
+        if cfg.task == "adaptive":
+            res = probe.result
+            rhats = [float(r.max_rhat) for r in res.rounds]
+            row["rounds"] = [{k: float(v) for k, v in r._asdict().items()}
+                             for r in res.rounds]
+            row["latent_calls"] = probe.latent_calls
+            row["spline_shapes"] = [
+                {"kernel": k, "rows": n, "d": d, "knots": K,
+                 "launches": c}
+                for (k, n, d, K), c in sorted(probe.shapes.items())]
+            if as_written and not max(rhats) < RHAT_GATE:
+                failures.append(f"max split-R-hat by round {rhats}")
+            want = adaptive_launches(cfg, res.n_rounds, probe.latent_calls)
+            if device != "cpu" and res.n_rounds > 1 and not all(want.values()):
+                failures.append(f"a spline kernel in one direction ran no "
+                                f"time: {want}")
+        if want is not None:
+            if device == "cpu":
+                want = {k: 0 for k in want}
             row["rqs_launches_expected"] = want
             if dict(rqs_cuda.LAUNCHES) != want:
                 failures.append(f"K4/K5 launched {dict(rqs_cuda.LAUNCHES)},"
@@ -2841,29 +3075,18 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None):
 
 
 def flow_specs(flow):
-    """A flow's modules as `convert.flow_from_jax_modules` dicts (numpy
-    leaves and static fields), for the JAX package on the CPU."""
-    from tpuflows_torch.flows import AffineCoupling, Standardize
+    """A flow's modules as `convert.flow_from_jax_modules` dicts
+    (`convert.module_spec`, numpy leaves), for the JAX package on the
+    CPU."""
+    from tpuflows_torch.convert import module_spec
 
-    def arr(t):
-        return t.detach().cpu().numpy()
+    def numpy(v):
+        if isinstance(v, list):
+            return [numpy(x) for x in v]
+        return v.numpy() if hasattr(v, "numpy") else v
 
-    specs = []
-    for t in flow.transforms:
-        if isinstance(t, Standardize):
-            specs.append({"kind": "standardize", "loc": arr(t.loc),
-                          "log_scale": arr(t.log_scale)})
-            continue
-        spec = {"mask": t.mask, "weights": [arr(w) for w in t.net.weights],
-                "biases": [arr(b) for b in t.net.biases],
-                "activation": t.net.activation}
-        if isinstance(t, AffineCoupling):
-            spec.update(kind="affine", clamp=t.clamp)
-        else:
-            spec.update(kind="rqs", knots=t.knots,
-                        range_limit=t.range_limit)
-        specs.append(spec)
-    return specs
+    return [{k: numpy(v) for k, v in module_spec(t).items()}
+            for t in flow.transforms]
 
 
 def save_generic_state(path, flow, state, max_depth=MAX_DEPTH):
@@ -3002,14 +3225,15 @@ def main(argv=None):
                            f"{bad}")
 
     t = time.perf_counter()
-    fres, _, _ = main_path(device, variant="generic", use_pallas="fused")
+    fres, _, _ = main_path(device, variant="generic", use_pallas="fused",
+                           train_steps=FUSED_TRAIN_STEPS)
     emit("main_path_generic_fused", t, **fres)
     check_main_path(fres)
 
     t = time.perf_counter()
     block_tim = time_coupling(device)
     emit("timing_coupling", t, rows=block_tim,
-         fit_step_launches={k: v // TRAIN_STEPS for k, v in
+         fit_step_launches={k: v // fres["train_steps"] for k, v in
                             fres["coupling_launches_fit"].items()})
 
     t = time.perf_counter()
@@ -3166,6 +3390,10 @@ def main(argv=None):
             "launches": gres["rqs_launches"][key],
             "launches_runner_c2": runner["c2_correlated_rqs"][
                 "rqs_launches"][key],
+            "launches_runner_c3": {
+                c: runner[c]["rqs_launches"][key] for c in (
+                    "c3_mixture_adaptive",
+                    "c3_mixture_adaptive_two_rounds")},
             "max_abs_err": max(row[e]["max_abs"] for e in errs),
             "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

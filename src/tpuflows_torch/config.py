@@ -21,7 +21,7 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 # the target kinds the JAX package builds that wait for Queue 1 item 5
-_TARGETS_TO_PORT = ("mixture", "hierarchical", "banana", "rosenbrock")
+_TARGETS_TO_PORT = ("hierarchical",)
 
 
 @dataclass(frozen=True)
@@ -46,8 +46,17 @@ class TargetSpec:
         if k == "correlated":
             return T.CorrelatedGaussian.ar1(dim=d, rho=self.rho,
                                             device=device)
+        if k == "mixture":
+            # as in the JAX package, the spec's `scale` is not passed
+            return T.GaussianMixture.bimodal(dim=d,
+                                             separation=self.separation,
+                                             device=device)
         if k == "funnel":
             return T.NealsFunnel(dim=d, sigma_v=self.scale)
+        if k == "banana":
+            return T.Banana(dim=d)
+        if k == "rosenbrock":
+            return T.Rosenbrock(dim=d)
         if k in _TARGETS_TO_PORT:
             raise _unported(f"the {k!r} target", "item 5")
         raise ValueError(f"unknown target kind: {k!r}")
@@ -153,8 +162,24 @@ class AdaptiveSpec:
     train_epochs: int = 60
 
     def to_adaptive_config(self, flow: "FlowSpec"):
-        raise _unported("the adaptive loop (adaptive/loop.py "
-                        "AdaptiveConfig)", "item 8")
+        """The loop's knobs, with the JAX package's choice of what passes
+        through: the flow's kind, blocks, knots, widths and tier, but not
+        its `mask_scheme` or `clamp` (the loop keeps its own defaults)."""
+        from tpuflows_torch.adaptive import AdaptiveConfig
+
+        return AdaptiveConfig(
+            max_rounds=self.max_rounds,
+            ess_threshold=self.ess_threshold,
+            n_chains=self.n_chains,
+            num_warmup=self.num_warmup,
+            num_samples=self.num_samples,
+            flow_kind=flow.kind,
+            n_blocks=flow.n_blocks,
+            knots=flow.knots,
+            hidden=tuple(flow.hidden),
+            train_epochs=self.train_epochs,
+            use_pallas=flow.use_pallas,
+        )
 
 
 @dataclass(frozen=True)

@@ -9,7 +9,9 @@ JAX: the caller reads the leaves and passes them.
     flow of the ceiling path;
   * `flow_from_jax_modules` — any Chain of Standardize, Whiten, Identity,
     AffineCoupling, RQSCouplingBlock and ScannedRepeat, one dict per
-    module (`module_from_jax_spec`).
+    module (`module_from_jax_spec`);
+  * `module_spec` — the inverse: a module's dict, its leaves as CPU
+    tensors (what `io/checkpoint.py` stores for a flow).
 """
 from __future__ import annotations
 
@@ -90,6 +92,46 @@ def module_from_jax_spec(spec: Mapping, device):
     if kind == "scanned":
         return ScannedRepeat(module_from_jax_spec(spec["inner"], device))
     raise ValueError(f"unknown module kind: {kind!r}")
+
+
+# the module kinds `module_spec` describes
+SPEC_KINDS = (Standardize, Whiten, Identity, AffineCoupling, RQSCouplingBlock,
+              ScannedRepeat)
+
+
+def _leaves(ts):
+    return [t.detach().cpu().clone() for t in ts]
+
+
+def module_spec(module) -> dict:
+    """The dict `module_from_jax_spec` builds `module` from: its static
+    fields as plain values and its tensors detached on the CPU, so that
+    the module it builds computes the same function to the bit."""
+    if isinstance(module, Standardize):
+        return {"kind": "standardize",
+                **dict(zip(("loc", "log_scale"),
+                           _leaves((module.loc, module.log_scale))))}
+    if isinstance(module, Whiten):
+        return {"kind": "whiten",
+                **dict(zip(("loc", "inv_chol", "chol"),
+                           _leaves((module.loc, module.inv_chol,
+                                    module.chol))))}
+    if isinstance(module, Identity):
+        return {"kind": "identity"}
+    if isinstance(module, ScannedRepeat):
+        return {"kind": "scanned", "inner": module_spec(module.stacked)}
+    if not isinstance(module, (AffineCoupling, RQSCouplingBlock)):
+        raise TypeError(f"no spec for a {type(module).__name__}")
+    spec = {"mask": list(module.mask),
+            "weights": _leaves(module.net.weights),
+            "biases": _leaves(module.net.biases),
+            "activation": module.net.activation,
+            "compute_dtype": module.net.compute_dtype}
+    if isinstance(module, AffineCoupling):
+        return {"kind": "affine", **spec, "clamp": module.clamp}
+    return {"kind": "rqs", **spec, "knots": module.knots,
+            "range_limit": module.range_limit,
+            "use_pallas": module.use_pallas}
 
 
 def flow_from_jax_modules(modules: Sequence[Mapping],

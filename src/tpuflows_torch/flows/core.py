@@ -118,6 +118,13 @@ class Chain(Bijector):
             ladj = ladj + l
         return z, ladj
 
+    def append(self, *modules) -> "Chain":
+        """Adaptive growth: a new Chain of this one's modules, then
+        `modules`. This Chain keeps its own list; the two share the
+        module objects, as the JAX package's share their leaves, so
+        training the new Chain in place trains the shared modules too."""
+        return Chain([*self.transforms, *modules])
+
     def __len__(self):
         return len(self.transforms)
 

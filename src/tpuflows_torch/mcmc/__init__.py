@@ -16,6 +16,10 @@ from tpuflows_torch.mcmc.sample import (MCMCResult, NUTSDriver, NUTSState,
                                         nuts_draws, nuts_warmup, run_nuts,
                                         stan_window_closes)
 from tpuflows_torch.mcmc.preconditioned import flow_reparameterized, to_data_space
+from tpuflows_torch.mcmc.mh import (MHInfo, MHResult, make_flow_imh_kernel,
+                                    make_rwmh_kernel, run_flow_imh, run_rwmh)
+from tpuflows_torch.mcmc.tempering import (PTInfo, PTResult, geometric_betas,
+                                           run_parallel_tempering)
 
 __all__ = [
     "HMCInfo", "PhasePoint", "energy", "kinetic", "leapfrog",
@@ -27,4 +31,7 @@ __all__ = [
     "MCMCResult", "NUTSDriver", "NUTSState", "nuts_draws", "nuts_warmup",
     "run_nuts", "stan_window_closes",
     "flow_reparameterized", "to_data_space",
+    "MHInfo", "MHResult", "make_flow_imh_kernel", "make_rwmh_kernel",
+    "run_flow_imh", "run_rwmh",
+    "PTInfo", "PTResult", "geometric_betas", "run_parallel_tempering",
 ]

@@ -10,10 +10,13 @@ task's state when `output_dir` is set. The `nuts` record adds one key,
 `transition`: "fused" where K1 (or its plain version on the CPU) ran,
 "portable" where the portable NUTS did.
 
-Ported tasks: `fit` (forward KL on exact samples), `vi` (reverse KL) and
-`nuts` (VI-fitted flow, then flow-preconditioned NUTS). The others raise
-NotImplementedError naming their ROADMAP Queue 1 items, and so does a
-target kind not ported yet. Randomness comes from three
+Ported tasks: `fit` (forward KL on exact samples), `vi` (reverse KL),
+`nuts` (VI-fitted flow, then flow-preconditioned NUTS), `mh` (adaptive
+random-walk MH, or flow-independence MH from a VI-fitted flow), `pt`
+(parallel tempering) and `adaptive` (the train, sample, retrain loop,
+which saves its best flow). `smc` raises NotImplementedError naming its
+ROADMAP Queue 1 item, and so does a target kind not ported yet.
+Randomness comes from three
 `torch.Generator`s seeded from `cfg.seed` (data, flow build, task), the
 roles of the JAX runner's three keys; the draws differ from the JAX
 package's, so results agree in distribution, not in value. Left out:
@@ -37,12 +40,9 @@ _metrics = MetricsLogger(path=os.environ.get("TPUFLOWS_METRICS"),
 
 # the tasks of the JAX runner that wait for other Queue 1 items
 UNPORTED_TASKS = {
-    "adaptive": "item 8 (the adaptive loop, adaptive/loop.py)",
-    "mh": "item 7 (RWMH and flow-IMH, mcmc/mh.py)",
-    "pt": "item 7 (parallel tempering, mcmc/tempering.py)",
     "smc": "item 9 (SMC, smc/sampler.py)",
 }
-PORTED_TASKS = ("fit", "vi", "nuts")
+PORTED_TASKS = ("fit", "vi", "nuts", "mh", "pt", "adaptive")
 
 
 def _emit(record: dict) -> None:
@@ -51,11 +51,14 @@ def _emit(record: dict) -> None:
 
 def run(cfg, device="cuda") -> dict:
     """Execute one config under the env-configured `FailurePolicy`
-    (TPUFLOWS_COLLECTIVE_TIMEOUT_S). The ported tasks have no intermediate
-    checkpoints, so each is guarded whole: the timeout must cover the
-    full task."""
+    (TPUFLOWS_COLLECTIVE_TIMEOUT_S). `adaptive` guards each phase of each
+    round itself (`adaptive_fit`), so the timeout is a per-phase budget
+    there; the other tasks have no intermediate checkpoints, so each is
+    guarded whole and the timeout must cover the full task."""
     from tpuflows_torch.dist import FailurePolicy
 
+    if cfg.task == "adaptive":
+        return _run_task(cfg, device)
     policy = FailurePolicy.from_env()
     return policy.guard(_run_task, cfg, device, phase=f"task:{cfg.task}")
 
@@ -112,11 +115,19 @@ def _nuts_transition(cfg, target, flow):
         return None
 
 
-def _run_task(cfg, device="cuda") -> dict:
+def _sampler_record(samples, **out) -> dict:
     from tpuflows_torch.diagnostics import effective_sample_size, split_rhat
+
+    return {"min_ess": float(torch.min(effective_sample_size(samples))),
+            "max_rhat": float(torch.max(split_rhat(samples))), **out}
+
+
+def _run_task(cfg, device="cuda") -> dict:
+    from tpuflows_torch.adaptive import adaptive_fit
     from tpuflows_torch.flows import Adam, optimize_flow
     from tpuflows_torch.io import save_pytree
-    from tpuflows_torch.mcmc import run_nuts
+    from tpuflows_torch.mcmc import (geometric_betas, run_flow_imh, run_nuts,
+                                     run_parallel_tempering, run_rwmh)
     from tpuflows_torch.mcmc.preconditioned import (flow_reparameterized,
                                                     to_data_space)
     from tpuflows_torch.vi import fit_vi
@@ -153,6 +164,46 @@ def _run_task(cfg, device="cuda") -> dict:
                      nsteps=cfg.train.nsteps, device=dev)
         out = {"final_elbo": float(res.final_elbo)}
         state = res.flow
+    elif cfg.task == "adaptive":
+        acfg = cfg.adaptive.to_adaptive_config(cfg.flow)
+        res = adaptive_fit(g_task, target.log_density, dim, acfg,
+                           verbose=True, device=dev)
+        out = {"n_rounds": res.n_rounds, "converged": res.converged,
+               "min_ess": float(res.rounds[-1].min_ess),
+               "best_min_ess": float(res.best_min_ess),
+               "flow_is_ess": float(res.rounds[-1].flow_is_ess)}
+        # the best-measured preconditioner, not necessarily the last refit
+        state = res.best_flow
+    elif cfg.task == "mh":
+        q0 = torch.randn((cfg.mh.n_chains, dim), generator=g_data,
+                         device=dev)
+        if cfg.mh.flow_proposal:
+            init = torch.randn((2048, dim), generator=g_build, device=dev)
+            flow = _flow_from_spec(init, g_build, cfg.flow, dev)
+            flow = fit_vi(g_task, target.log_density, flow, dim,
+                          batch_size=cfg.train.batch_size,
+                          nsteps=cfg.train.nsteps, device=dev).flow
+            res = run_flow_imh(g_task, target.log_density, flow, q0,
+                               num_samples=cfg.mh.num_samples)
+        else:
+            res = run_rwmh(g_task, target.log_density, q0,
+                           num_warmup=cfg.mh.num_warmup,
+                           num_samples=cfg.mh.num_samples,
+                           target_accept=cfg.mh.target_accept)
+        out = _sampler_record(res.samples, accept_rate=float(
+            torch.mean(res.info.accept_prob)))
+        state = res.samples
+    elif cfg.task == "pt":
+        q0 = torch.randn((cfg.pt.n_chains, dim), generator=g_data,
+                         device=dev)
+        betas = geometric_betas(cfg.pt.n_temps, cfg.pt.beta_min, device=dev)
+        res = run_parallel_tempering(
+            g_task, target.log_density, q0, betas,
+            num_warmup=cfg.pt.num_warmup, num_samples=cfg.pt.num_samples,
+            target_accept=cfg.pt.target_accept)
+        out = _sampler_record(res.samples, mean_swap_accept=float(
+            torch.mean(res.info.swap_accept)))
+        state = res.samples
     else:  # nuts
         q0 = torch.randn((cfg.nuts.n_chains, dim), generator=g_data,
                          device=dev)
@@ -176,13 +227,10 @@ def _run_task(cfg, device="cuda") -> dict:
         x = res.samples
         if flow is not None:
             x = to_data_space(flow, x)
-        ess = effective_sample_size(x)
-        out = {"min_ess": float(torch.min(ess)),
-               "max_rhat": float(torch.max(split_rhat(x))),
-               "step_size": float(res.step_size),
-               "divergence_rate": float(torch.mean(
-                   res.info.diverging.float())),
-               "transition": "portable" if transition is None else "fused"}
+        out = _sampler_record(
+            x, step_size=float(res.step_size),
+            divergence_rate=float(torch.mean(res.info.diverging.float())),
+            transition="portable" if transition is None else "fused")
         state = x
 
     out.update({"name": cfg.name, "task": cfg.task,

@@ -1,5 +1,6 @@
 """The single-process infrastructure of the port: `io/checkpoint.py`
-(atomic save, load, latest), `dist/failures.py` (`run_with_timeout`,
+(atomic save, load, latest; NamedTuples, generators and flows round-trip,
+loaded with `weights_only=True`), `dist/failures.py` (`run_with_timeout`,
 `CollectiveTimeout`, `FailurePolicy` with its environment and both
 actions) and `util/profiling.py` (`Timer`, `MetricsLogger`, `trace`).
 """
@@ -10,14 +11,19 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
+import numpy as np
 import pytest
 import torch
 
 from tpuflows_torch.dist import (EXIT_PEER_LOSS, CollectiveTimeout,
                                  FailurePolicy, run_with_timeout)
-from tpuflows_torch.flows import build_flow
-from tpuflows_torch.io import latest_checkpoint, load_pytree, save_pytree
+from tpuflows_torch.convert import flow_from_jax_modules, module_spec
+from tpuflows_torch.flows import (Chain, Identity, RQSCouplingBlock,
+                                  ScannedRepeat, Whiten, build_flow)
+from tpuflows_torch.io import checkpoint, latest_checkpoint, load_pytree, \
+    save_pytree
 from tpuflows_torch.util.profiling import MetricsLogger, Timer, trace
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -35,6 +41,7 @@ def small_flow(seed, kind="rqs"):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("kind", ["rqs", "affine", "arqs"])
 def test_flow_state_round_trip(tmp_path, kind):
+    """A flow comes back as a flow; its state loads into another."""
     flow = small_flow(1, kind)
     with torch.no_grad():
         for p in flow.parameters():
@@ -43,10 +50,155 @@ def test_flow_state_round_trip(tmp_path, kind):
     save_pytree(str(tmp_path / "run" / "flow"), flow)
     assert sorted(os.listdir(tmp_path / "run")) == ["flow.pt"]
     other = small_flow(2, kind)
-    other.load_state_dict(load_pytree(str(tmp_path / "run" / "flow")))
+    other.load_state_dict(load_pytree(str(tmp_path / "run" /
+                                          "flow")).state_dict())
     z = torch.randn(16, 4, generator=torch.Generator().manual_seed(3))
     torch.testing.assert_close(other.inverse(z), flow.inverse(z), rtol=0,
                                atol=0)
+
+
+class Pair(NamedTuple):
+    first: torch.Tensor
+    second: object
+
+
+class Outer:
+    class Inner(NamedTuple):
+        x: int
+        y: tuple
+
+
+def test_namedtuples_round_trip(tmp_path):
+    """NamedTuples, nested in dicts and in each other (a class nested in
+    a class too), come back as themselves."""
+    tree = {"a": Pair(torch.arange(3.0), Pair(torch.ones(2, 2), "s")),
+            "b": [Outer.Inner(4, (Pair(torch.zeros(1), None), 5))]}
+    save_pytree(str(tmp_path / "nt"), tree)
+    back = load_pytree(str(tmp_path / "nt"))
+    assert type(back["a"]) is Pair and type(back["a"].second) is Pair
+    torch.testing.assert_close(back["a"].first, torch.arange(3.0))
+    torch.testing.assert_close(back["a"].second.first, torch.ones(2, 2))
+    assert back["a"].second.second == "s"
+    inner = back["b"][0]
+    assert type(inner) is Outer.Inner and inner.x == 4
+    assert type(inner.y) is tuple and type(inner.y[0]) is Pair
+    assert inner.y[1] == 5 and inner.y[0].second is None
+
+
+def test_a_record_naming_another_class_is_refused(tmp_path):
+    torch.save({checkpoint.TAG: "namedtuple", "module": "os",
+                "name": "path", "fields": []}, str(tmp_path / "x.pt"))
+    with pytest.raises(TypeError, match="not a NamedTuple"):
+        load_pytree(str(tmp_path / "x"))
+
+
+def test_generator_round_trip(tmp_path):
+    """A CPU generator saved mid-stream gives back a generator whose next
+    draws are the saved one's."""
+    g = torch.Generator().manual_seed(11)
+    torch.randn(100, generator=g)
+    save_pytree(str(tmp_path / "g"), {"key": g, "step": 3})
+    back = load_pytree(str(tmp_path / "g"))["key"]
+    assert isinstance(back, torch.Generator) and back.device.type == "cpu"
+    torch.testing.assert_close(torch.randn(50, generator=back),
+                               torch.randn(50, generator=g), rtol=0, atol=0)
+    torch.testing.assert_close(torch.rand(7, generator=back),
+                               torch.rand(7, generator=g), rtol=0, atol=0)
+
+
+def test_load_is_weights_only(tmp_path, monkeypatch):
+    seen = []
+    load = torch.load
+    monkeypatch.setattr(torch, "load", lambda *a, **k: seen.append(k)
+                        or load(*a, **k))
+    save_pytree(str(tmp_path / "w"), {"g": torch.Generator(),
+                                      "f": small_flow(0)})
+    load_pytree(str(tmp_path / "w"))
+    assert seen and all(k["weights_only"] is True for k in seen)
+
+
+def _whiten():
+    x = torch.randn(256, 4, generator=torch.Generator().manual_seed(4))
+    return Whiten.from_samples(x @ torch.tensor([[1.0, 0.3, 0, 0],
+                                                 [0, 1.0, 0.2, 0],
+                                                 [0, 0, 2.0, 0],
+                                                 [0.1, 0, 0, 0.5]]))
+
+
+def _scanned():
+    g = torch.Generator().manual_seed(8)
+    return ScannedRepeat.from_blocks([
+        RQSCouplingBlock.init(g, (1, 0, 1, 0), knots=4, hidden=(8,),
+                              use_pallas=False) for _ in range(3)])
+
+
+MODULES = {
+    "standardize": lambda: small_flow(6, "affine").transforms[0],
+    "whiten": _whiten,
+    "identity": Identity,
+    "affine": lambda: small_flow(6, "affine").transforms[1],
+    "rqs": lambda: small_flow(6, "rqs").transforms[1],
+    "scanned": _scanned,
+}
+
+
+def _perturbed(module, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(0.2 * torch.randn(p.shape, generator=g))
+    return module
+
+
+def _same_function(a, b):
+    x = 1.5 * torch.randn(32, 4, generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        for method in ("forward_and_ladj", "inverse_and_ladj"):
+            for u, v in zip(getattr(a, method)(x), getattr(b, method)(x)):
+                torch.testing.assert_close(u, v, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", sorted(MODULES))
+def test_a_flow_of_every_module_kind_round_trips(tmp_path, kind):
+    """Each kind, alone (it comes back as a Chain of one) and in a Chain
+    inside a tree, computes the same forward and ladj, inverse and ladj,
+    to the bit; `module_spec` is `module_from_jax_spec`'s inverse."""
+    module = _perturbed(MODULES[kind](), 1)
+    assert module_spec(module)["kind"] == kind
+    flow = Chain([small_flow(7, "affine").transforms[0], module])
+    save_pytree(str(tmp_path / "m"), {"alone": module, "chain": [flow]})
+    back = load_pytree(str(tmp_path / "m"))
+    assert isinstance(back["alone"], Chain) and len(back["alone"]) == 1
+    _same_function(back["alone"], module)
+    assert isinstance(back["chain"][0], Chain)
+    _same_function(back["chain"][0], flow)
+    rebuilt = flow_from_jax_modules([module_spec(module)], device="cpu")
+    _same_function(rebuilt, module)
+    if kind == "rqs":
+        assert back["alone"].transforms[0].use_pallas == module.use_pallas
+
+
+def test_a_grown_flow_round_trips(tmp_path):
+    flow = small_flow(3, "arqs")
+    g = torch.Generator().manual_seed(5)
+    grown = flow.append(_perturbed(RQSCouplingBlock.init(
+        g, (0, 0, 1, 1), knots=4, hidden=(8,)), 2))
+    save_pytree(str(tmp_path / "grown"), {"flow": grown, "old": flow})
+    back = load_pytree(str(tmp_path / "grown"))
+    assert len(back["flow"]) == len(flow) + 1 == 6
+    assert len(back["old"]) == len(flow)
+    assert back["flow"].transforms[-1].mask == (0, 0, 1, 1)
+    _same_function(back["flow"], grown)
+
+
+def test_other_modules_keep_their_state_dict(tmp_path):
+    """A Chain inside a Chain is not a flow `module_spec` describes: it is
+    saved as its state_dict."""
+    nested = Chain([small_flow(1), Identity()])
+    save_pytree(str(tmp_path / "n"), nested)
+    state = load_pytree(str(tmp_path / "n"))
+    assert not isinstance(state, torch.nn.Module)
+    assert list(state) == list(nested.state_dict())
 
 
 def test_tree_round_trip(tmp_path):
