@@ -22,8 +22,14 @@ What is ported so far:
   - training and VI: forward KL (`optimize_flow`, with `val_frac` early
     stopping, and `optimize_flow_sequentially`), reverse KL with STL and
     annealing, `fit_vi`, the written-out `Adam` and `ClipAdamCosine`;
-  - targets: the standard, diagonal and correlated Gaussians and Neal's
-    funnel; ESS, R-hat and the moment gates (`diagnostics`);
+  - targets: the standard, diagonal and correlated Gaussians, Neal's
+    funnel, the mixture, banana and Rosenbrock, the hierarchical
+    Gaussian (with its quadrature moments and evidence), the multimodal
+    Cauchy, and `Posterior` over an `IndependentPrior` with
+    `find_mode`; ESS, R-hat and the moment gates (`diagnostics`);
+  - the samplers without a kernel: MH, parallel tempering, the ensemble
+    sampler, annealed SMC with flow bridges (`smc`), the adaptive loop
+    (`adaptive`), and the evidence estimators (`integration`);
   - NUTS and HMC, both the portable samplers (`mcmc`) and the fused
     transition and window, with the hand-written CUDA kernels K1-K7
     (`kernels`), which refuse gelu and bf16 conditioners, Whiten,
@@ -36,10 +42,9 @@ The runner takes the JAX package's configs, on the card by default:
 
     PYTHONPATH=src python -m tpuflows_torch.run configs/c2_correlated_rqs.json
 
-It runs the `fit`, `vi` and `nuts` tasks (configs c1, c2 and c4); the
-other tasks and targets raise NotImplementedError naming their ROADMAP
-items. It runs both variants of `bench.py` through `chip_smoke.py`.
-ROADMAP.md lists the rest.
+It runs every task of the JAX runner (configs c1-c7). `chip_smoke.py`
+runs both variants of `bench.py` and the configs on the card. ROADMAP.md
+lists the rest: the multi-process layer (`dist/`).
 """
 
 __version__ = "0.1.0"

@@ -14,16 +14,6 @@ from typing import Optional, Tuple
 import torch
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tpuflows_torch yet (ROADMAP Queue 1 "
-        f"{item})")
-
-
-# the target kinds the JAX package builds that wait for Queue 1 item 5
-_TARGETS_TO_PORT = ("hierarchical",)
-
-
 @dataclass(frozen=True)
 class TargetSpec:
     kind: str  # std_normal | diag_normal | correlated | mixture | funnel
@@ -53,12 +43,12 @@ class TargetSpec:
                                              device=device)
         if k == "funnel":
             return T.NealsFunnel(dim=d, sigma_v=self.scale)
+        if k == "hierarchical":
+            return T.HierarchicalGaussian.standard(dim=d, device=device)
         if k == "banana":
             return T.Banana(dim=d)
         if k == "rosenbrock":
             return T.Rosenbrock(dim=d)
-        if k in _TARGETS_TO_PORT:
-            raise _unported(f"the {k!r} target", "item 5")
         raise ValueError(f"unknown target kind: {k!r}")
 
 
@@ -139,6 +129,8 @@ class SMCSpec:
     retrain_every: int = 0
     retrain_mode: str = "freeze"  # freeze | reweight
     final_equilibration_stages: int = 0
+    # no mesh yet (ROADMAP Queue 1 item 11): one process runs the
+    # unsharded algorithm, what the JAX package's one-device mesh computes
     sharded: bool = False
     # bridge-flow pretraining before SMC starts: "none" or "prior"
     # (forward KL on draws from the target's prior)
@@ -149,7 +141,22 @@ class SMCSpec:
     pretrain_lr: float = 2e-3
 
     def to_smc_config(self):
-        raise _unported("SMC (smc/sampler.py SMCConfig)", "item 9")
+        """The sampler's knobs: the fields the JAX package passes, no more
+        (`resample_threshold`, the step size's and the retrain's knobs keep
+        `SMCConfig`'s defaults)."""
+        from tpuflows_torch.smc import SMCConfig
+
+        return SMCConfig(
+            n_particles=self.n_particles,
+            target_rel_ess=self.target_rel_ess,
+            n_mutation_steps=self.n_mutation_steps,
+            n_leapfrog=self.n_leapfrog,
+            max_stages=self.max_stages,
+            latent_mutation=self.latent_mutation,
+            retrain_every=self.retrain_every,
+            retrain_mode=self.retrain_mode,
+            final_equilibration_stages=self.final_equilibration_stages,
+        )
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,7 @@ from tpuflows_torch.mcmc.sample import (MCMCResult, NUTSDriver, NUTSState,
 from tpuflows_torch.mcmc.preconditioned import flow_reparameterized, to_data_space
 from tpuflows_torch.mcmc.mh import (MHInfo, MHResult, make_flow_imh_kernel,
                                     make_rwmh_kernel, run_flow_imh, run_rwmh)
+from tpuflows_torch.mcmc.ensemble import EnsembleResult, run_ensemble
 from tpuflows_torch.mcmc.tempering import (PTInfo, PTResult, geometric_betas,
                                            run_parallel_tempering)
 
@@ -33,5 +34,6 @@ __all__ = [
     "flow_reparameterized", "to_data_space",
     "MHInfo", "MHResult", "make_flow_imh_kernel", "make_rwmh_kernel",
     "run_flow_imh", "run_rwmh",
+    "EnsembleResult", "run_ensemble",
     "PTInfo", "PTResult", "geometric_betas", "run_parallel_tempering",
 ]

@@ -10,17 +10,25 @@ task's state when `output_dir` is set. The `nuts` record adds one key,
 `transition`: "fused" where K1 (or its plain version on the CPU) ran,
 "portable" where the portable NUTS did.
 
-Ported tasks: `fit` (forward KL on exact samples), `vi` (reverse KL),
-`nuts` (VI-fitted flow, then flow-preconditioned NUTS), `mh` (adaptive
+Tasks: `fit` (forward KL on exact samples), `vi` (reverse KL), `nuts`
+(VI-fitted flow, then flow-preconditioned NUTS), `mh` (adaptive
 random-walk MH, or flow-independence MH from a VI-fitted flow), `pt`
-(parallel tempering) and `adaptive` (the train, sample, retrain loop,
-which saves its best flow). `smc` raises NotImplementedError naming its
-ROADMAP Queue 1 item, and so does a target kind not ported yet.
-Randomness comes from three
-`torch.Generator`s seeded from `cfg.seed` (data, flow build, task), the
-roles of the JAX runner's three keys; the draws differ from the JAX
-package's, so results agree in distribution, not in value. Left out:
-`init_distributed` (waits for `dist/`, ROADMAP Queue 1 item 11).
+(parallel tempering), `adaptive` (the train, sample, retrain loop, which
+saves its best flow) and `smc` (annealed SMC from a flow built on normal
+draws, or pretrained on the target's prior, checkpointing each stage
+under `{output_dir}/smc_ckpt`). Every task of the JAX runner is ported.
+Randomness comes from three `torch.Generator`s seeded from `cfg.seed`
+(data, flow build, task), the roles of the JAX runner's three keys; the
+draws differ from the JAX package's, so results agree in distribution,
+not in value.
+
+`smc.sharded` (c5 sets it): the port has no mesh yet (ROADMAP Queue 1
+item 11), so one process runs the unsharded SMC. That is the algorithm
+the JAX package's one-device mesh computes: its sharded resampler builds
+the same global CDF as `systematic_indices`, up to the rounding of its
+normalization, and its data-parallel retrain on one device is
+`optimize_flow` with its key folded by 0. Left out: `init_distributed`
+(item 11).
 """
 from __future__ import annotations
 
@@ -38,11 +46,7 @@ from tpuflows_torch.util.profiling import MetricsLogger, Timer
 _metrics = MetricsLogger(path=os.environ.get("TPUFLOWS_METRICS"),
                          stream=sys.stdout)
 
-# the tasks of the JAX runner that wait for other Queue 1 items
-UNPORTED_TASKS = {
-    "smc": "item 9 (SMC, smc/sampler.py)",
-}
-PORTED_TASKS = ("fit", "vi", "nuts", "mh", "pt", "adaptive")
+TASKS = ("fit", "vi", "nuts", "mh", "pt", "adaptive", "smc")
 
 
 def _emit(record: dict) -> None:
@@ -51,13 +55,14 @@ def _emit(record: dict) -> None:
 
 def run(cfg, device="cuda") -> dict:
     """Execute one config under the env-configured `FailurePolicy`
-    (TPUFLOWS_COLLECTIVE_TIMEOUT_S). `adaptive` guards each phase of each
-    round itself (`adaptive_fit`), so the timeout is a per-phase budget
-    there; the other tasks have no intermediate checkpoints, so each is
-    guarded whole and the timeout must cover the full task."""
+    (TPUFLOWS_COLLECTIVE_TIMEOUT_S). `smc` and `adaptive` guard each stage
+    or each phase of each round themselves (`run_smc`, `adaptive_fit`),
+    so the timeout is a per-stage budget there; the other tasks have no
+    intermediate checkpoints, so each is guarded whole and the timeout
+    must cover the full task."""
     from tpuflows_torch.dist import FailurePolicy
 
-    if cfg.task == "adaptive":
+    if cfg.task in ("smc", "adaptive"):
         return _run_task(cfg, device)
     policy = FailurePolicy.from_env()
     return policy.guard(_run_task, cfg, device, phase=f"task:{cfg.task}")
@@ -130,13 +135,10 @@ def _run_task(cfg, device="cuda") -> dict:
                                      run_parallel_tempering, run_rwmh)
     from tpuflows_torch.mcmc.preconditioned import (flow_reparameterized,
                                                     to_data_space)
+    from tpuflows_torch.smc import run_smc
     from tpuflows_torch.vi import fit_vi
 
-    if cfg.task in UNPORTED_TASKS:
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported to tpuflows_torch yet "
-            f"(ROADMAP Queue 1 {UNPORTED_TASKS[cfg.task]})")
-    if cfg.task not in PORTED_TASKS:
+    if cfg.task not in TASKS:
         raise ValueError(f"unknown task: {cfg.task!r}")
     dev = f32_device(device)
     target = cfg.target.build(device=dev)
@@ -204,6 +206,33 @@ def _run_task(cfg, device="cuda") -> dict:
         out = _sampler_record(res.samples, mean_swap_accept=float(
             torch.mean(res.info.swap_accept)))
         state = res.samples
+    elif cfg.task == "smc":
+        if cfg.smc.pretrain == "prior":
+            # c5's recipe: build the bridge flow on draws from the
+            # target's prior and fit it by forward KL there; the build
+            # generator serves both, as the JAX runner's k_build does
+            if not hasattr(target, "sample_prior"):
+                raise ValueError(
+                    f'smc.pretrain="prior" needs target.sample_prior; '
+                    f"{cfg.target.kind!r} has none")
+            init = target.sample_prior(g_data, cfg.smc.pretrain_draws,
+                                       device=dev)
+            flow = _flow_from_spec(init, g_build, cfg.flow, dev)
+            flow = optimize_flow(g_build, init, flow,
+                                 Adam(cfg.smc.pretrain_lr),
+                                 nbatches=cfg.smc.pretrain_batches,
+                                 nepochs=cfg.smc.pretrain_epochs).result
+        else:
+            init = torch.randn((2048, dim), generator=g_data, device=dev)
+            flow = _flow_from_spec(init, g_build, cfg.flow, dev)
+        ckpt = f"{cfg.output_dir}/smc_ckpt" if cfg.output_dir else None
+        res = run_smc(g_task, target.log_density, flow, dim,
+                      cfg.smc.to_smc_config(), verbose=True,
+                      checkpoint_dir=ckpt, device=dev)
+        out = {"n_stages": res.n_stages, "log_z": float(res.log_z),
+               "final_beta": float(res.betas[-1]),
+               "mean_accept": float(torch.mean(res.accept_hist))}
+        state = res.particles
     else:  # nuts
         q0 = torch.randn((cfg.nuts.n_chains, dim), generator=g_data,
                          device=dev)

@@ -76,6 +76,19 @@ from test_torch_nuts import flow_leaves, jax_flow, torch_flow
 
 N = 64
 DISCRETE = (3, 4, 5, 6)  # n_steps, depth, diverging, turning
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The window's plain math is thousands of small ops: one intra-op
+    thread keeps parallel test workers from oversubscribing the cores,
+    where a thread pool per op waits for its descheduled threads (on an
+    8-core CPU the file took 149 s alone with the default threads, 146 s
+    with one, and 1,021 s beside the loaded suite with the default)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 LOC = np.array([1.0, -1.0, 0.5, 0.0], np.float32)
 SCALE = np.array([1.0, 0.5, 2.0, 1.0], np.float32)
 HEAD = 0.03

@@ -5,18 +5,18 @@ package's:
     `tpuflows.config` (the JAX package leaves `FlowSpec.hidden` the JSON
     list its string annotation misses; the port makes it the tuple both
     intend), and every spec's defaults;
-  * `TargetSpec.build` for the ported kinds (log density against the JAX
-    target's) and NotImplementedError naming ROADMAP Queue 1 item 5 for
-    the hierarchical target; `to_smc_config` names item 9, and
-    `to_adaptive_config` builds the JAX package's `AdaptiveConfig`;
-  * the `fit`, `vi`, `nuts`, `mh`, `pt` and `adaptive` tasks on c1, c2,
-    c4, c6, c7 and c3 at reduced size through both runners: the same
-    record keys, and results within the Monte-Carlo margins stated at
-    each test (the two runners draw other random numbers, so they agree
-    in distribution only);
-  * the `smc` task raises NotImplementedError naming its ROADMAP item;
-    `nuts.fused_kernel` "auto" takes K1 (its plain version on the
-    CPU) where `pack_flow` takes the flow and target, whatever the device,
+  * `TargetSpec.build` for every kind (log density against the JAX
+    target's; an unknown kind is refused); `to_smc_config` and
+    `to_adaptive_config` build the JAX package's `SMCConfig` and
+    `AdaptiveConfig` field for field;
+  * every task through both runners at reduced size: `fit`, `vi`,
+    `nuts`, `mh`, `pt`, `adaptive` and `smc` on c1, c2, c4, c6, c7, c3
+    and c5: the same record keys, and results within the Monte-Carlo
+    margins stated at each test (the two runners draw other random
+    numbers, so they agree in distribution only); an unknown task is
+    refused;
+  * `nuts.fused_kernel` "auto" takes K1 (its plain version on the CPU)
+    where `pack_flow` takes the flow and target, whatever the device,
     and the portable NUTS elsewhere, "on" raises there, naming the
     refusal; the nuts record says which transition ran;
   * `main` as `python -m tpuflows_torch.run`, and `output_dir`.
@@ -107,7 +107,7 @@ def test_unknown_keys_are_refused():
 @pytest.mark.parametrize("kind,dim", [("std_normal", 3), ("diag_normal", 3),
                                       ("correlated", 8), ("funnel", 8),
                                       ("mixture", 16), ("banana", 2),
-                                      ("rosenbrock", 4)])
+                                      ("rosenbrock", 4), ("hierarchical", 18)])
 def test_target_spec_builds_the_ported_kinds(kind, dim):
     jt = jconfig.TargetSpec(kind, dim).build()
     tt = tconfig.TargetSpec(kind, dim).build(device="cpu")
@@ -119,29 +119,57 @@ def test_target_spec_builds_the_ported_kinds(kind, dim):
 
 @pytest.mark.parametrize("kind", ["hierarchical"])
 def test_target_spec_names_the_roadmap_item(kind):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tconfig.TargetSpec(kind, 4).build(device="cpu")
+    """No target kind is left to port: the hierarchical target, the last
+    one, builds (`test_target_spec_builds_the_ported_kinds` holds its
+    log density against the JAX target's), and an unknown kind is
+    refused."""
+    tt = tconfig.TargetSpec(kind, 4).build(device="cpu")
+    assert tt.dim == 4
     with pytest.raises(ValueError, match="unknown target"):
         tconfig.TargetSpec("gamma", 4).build(device="cpu")
 
 
 def test_smc_and_adaptive_configs_name_their_items():
-    """SMC's config names its item; the adaptive one is ported and equals
-    the JAX package's field for field (`tests/test_torch_adaptive.py`
-    holds its other cases)."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tconfig.SMCSpec().to_smc_config()
+    """Both sampler configs are ported: c5's `to_smc_config` and c3's
+    `to_adaptive_config` equal the JAX package's field for field
+    (`tests/test_torch_adaptive.py` holds the adaptive one's other
+    cases); the SMC one passes exactly the JAX package's fields, so the
+    others keep `SMCConfig`'s defaults."""
+    from tpuflows.smc import SMCConfig as JSMCConfig
+    from tpuflows_torch.smc import SMCConfig
+
+    jc, tc = both("c5_hierarchical_smc")
+    ts, js = tc.smc.to_smc_config(), jc.smc.to_smc_config()
+    assert isinstance(ts, SMCConfig) and isinstance(js, JSMCConfig)
+    assert ts._asdict() == js._asdict()
+    assert ts.resample_threshold == 0.5 and ts.retrain_epochs == 20
     jc, tc = both("c3_mixture_adaptive")
     ta = tc.adaptive.to_adaptive_config(tc.flow)
     ja = jc.adaptive.to_adaptive_config(jc.flow)
     assert ta._asdict() == {**ja._asdict(), "hidden": tuple(ja.hidden)}
 
 
-@pytest.mark.parametrize("name,item", [("c5_hierarchical_smc", "item 9")])
-def test_unported_tasks_name_their_items(name, item):
+@pytest.mark.parametrize("name", ["c5_hierarchical_smc"])
+def test_unported_tasks_name_their_items(name, monkeypatch):
+    """No task is left unported: c5 (the `smc` task, the last one) parses
+    and runs at reduced size through both runners (d = 18, 1,024
+    particles, a 2,048-draw and 20-epoch pretrain, 2 equilibration
+    stages, unsharded: the JAX runner's mesh is the multi-process path
+    the port leaves to ROADMAP Queue 1 item 11): the same record keys, both at beta = 1, log Z within 0.35 of
+    each other (4 of the difference's standard deviations at the sigma
+    such runs report, 0.04-0.06 each, + 0.05) and of the quadrature
+    truth, mean acceptances within 0.05 (both adapt to 0.65). An unknown
+    task is refused."""
+    jout, tout = run_both(name, monkeypatch)
+    truth = tconfig.TargetSpec("hierarchical", 18).build(
+        device="cpu").log_evidence()
+    for out in (jout, tout):
+        assert out["final_beta"] == 1.0
+        assert abs(out["log_z"] - truth) < 0.35
+        assert 1 <= out["n_stages"] <= 100
+    assert abs(tout["log_z"] - jout["log_z"]) < 0.35
+    assert abs(tout["mean_accept"] - jout["mean_accept"]) < 0.05
     _, tc = both(name)
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        trun.run(tc, device="cpu")
     with pytest.raises(ValueError, match="unknown task"):
         trun.run(dc.replace(tc, task="sample"), device="cpu")
 
@@ -160,6 +188,12 @@ def reduce(cfg):
     if cfg.task == "pt":
         return dc.replace(cfg, pt=dc.replace(cfg.pt, num_warmup=300,
                                              num_samples=600))
+    if cfg.task == "smc":
+        return dc.replace(
+            cfg, target=dc.replace(cfg.target, dim=18),
+            smc=dc.replace(cfg.smc, n_particles=1024, pretrain_draws=2048,
+                           pretrain_epochs=20,
+                           final_equilibration_stages=2, sharded=False))
     if cfg.task == "adaptive":
         return dc.replace(
             cfg, target=dc.replace(cfg.target, dim=4),
@@ -431,9 +465,12 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     configs as written, may refuse so short a run. c3 runs its rounds cut
     to 40 + 40 NUTS steps of 16 chains at d = 4 with 2 epochs a round,
     as written with its threshold cut to 50 (it stops after round 0, as
-    on the card) and its variant two rounds; no config may fail a gate
-    on its record's keys, its phases, a non-finite result or its
-    launches."""
+    on the card) and its variant two rounds. c5 runs at d = 18 with 2,048
+    particles and a 4,096-draw pretrain (c5's epochs, stages and
+    equilibration kept): it passes every gate, its log Z against the
+    quadrature truth and its moment gate included, and launches no
+    kernel. No config may fail a gate on its record's keys, its phases, a
+    non-finite result or its launches."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
@@ -448,6 +485,11 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
         if cfg.task == "pt":
             return dc.replace(cfg, pt=dc.replace(cfg.pt, num_warmup=200,
                                                  num_samples=400))
+        if cfg.task == "smc":
+            return dc.replace(
+                cfg, target=dc.replace(cfg.target, dim=18),
+                smc=dc.replace(cfg.smc, n_particles=2048,
+                               pretrain_draws=4096))
         if cfg.task == "adaptive":
             threshold = (50.0 if name == "c3_mixture_adaptive"
                          else cfg.adaptive.ess_threshold)
@@ -488,6 +530,12 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     assert len(c3["rounds"]) == 2
     assert c3["rqs_launches_expected"] == dict.fromkeys(
         ("k4_forward", "k4_inverse", "k5_forward", "k5_inverse"), 0)
+    c5 = rows["c5_hierarchical_smc"]
+    assert c5["passed"], c5["failures"]
+    assert set(c5["phase_seconds"]) == {"fit", "stages", "retrain"}
+    assert c5["phase_calls"]["stages"] == c5["record"]["n_stages"] + 8
+    assert not any(c5["kernel_launches"].values())
+    assert c5["smc"]["moment_gate"]["passed"]
     assert not any(f.startswith(("record keys", "phases", "K4/K5",
                                  "a non-finite", "moment gate"))
                    for r in rows.values() for f in r["failures"])
