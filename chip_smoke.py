@@ -82,7 +82,7 @@ Phases, one JSON line each on stdout with its wall time in seconds:
   8. main_path_generic — the `generic` variant of bench.py: the arqs flow
                (Standardize + 3 x (affine + spline), K = 8, hidden 128 x
                128, mixed masks, clamp 8) fitted the same way for
-               GENERIC_TRAIN_STEPS (3000) steps, every spline
+               GENERIC_TRAIN_STEPS (2000) steps, every spline
                through K4 and K5, then NUTS through K1's module-list kernel
                under the same gates. The launch counts are set to 0 before:
                K1's must equal the transitions, K4's and K5's 6 per fit step
@@ -193,7 +193,9 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                the seeded arqs flow of phase 5 (S = 2; both to bound the
                plain versions' time), both kernels at d = 32 and d = 256,
                all at eps 0.1, and both trained flows at their post-warmup
-               states (S = 32). K1's bar in every slot (a chain flips if it
+               states (S = 32, the first POST_WARMUP_CHECKED_SLOTS = 8
+               slots held slot by slot). K1's bar in every slot (a chain
+               flips if it
                differs in leapfrog count, depth, divergence or U-turn, or
                its draw by more than 1e-3, at most 5 of 1024 may; on the
                others energy within 0.012 and q within 2.3e-4), each of
@@ -255,12 +257,17 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                every direction of both in the variant; and
                c5_hierarchical_smc.json as written (the 256-d
                hierarchical target, 65,536 particles, annealed SMC from an
-               affine flow pretrained on prior draws; one process, the
-               unsharded algorithm), its pretrain, stages and retrains
-               timed, gated by `smc_gates`: final beta 1, log Z within
-               4 sigma + 0.05 of the quadrature truth, the particles
-               through the family-corrected moment gate at 3 sigma with
-               the measured ESS; no kernel launched on its path;
+               affine flow pretrained on prior draws; its "sharded": true
+               runs the sharded stage over `worker_mesh()`, a NCCL world
+               of one, the resample through the ring exchange at this
+               payload, the retrains through `optimize_flow_dp`), its
+               pretrain, stages and retrains timed, gated by
+               `smc_gates`: final beta 1, log Z within 4 sigma + 0.05 of
+               the quadrature truth, the particles through the
+               family-corrected moment gate at 3 sigma with the measured
+               ESS; its row names the world, the backend and the
+               collectives a stage issues; no kernel launched on its
+               path;
  22. evidence_c5 — the three evidence routes with c5's final flow at
                d = 256 (IS on 65,536 flow draws, the Meng-Wong bridge with
                the SMC particles and 16,384 flow draws, the harmonic mean
@@ -272,10 +279,25 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                priors, `Posterior` and `find_mode` on the card, each at
                the size of the JAX package's test of it with that test's
                assertion as the gate (`test_only_modules`).
+ 24. dist_world_of_one — the distributed layer in c5's NCCL world of
+               one (`dist_world_of_one`): each collective on CUDA tensors
+               against its local math and `heartbeat`'s latency;
+               `resample_sharded` at 65,536 x 256 through the all_gather
+               and the ring exchange, ancestors equal to
+               `systematic_indices_math`; one sharded SMC stage against the
+               unsharded one at c5's shapes on the same draws; one
+               `optimize_flow_dp` step against one `optimize_flow` step;
+               the stage and c5's retrain timed both ways, three times
+               each, in one process;
+               `run_nuts_sharded` through K1 on the ceiling flow from the
+               main path's post-warmup positions (1024 chains, 128 warmup
+               transitions, one window of 512 draws), K1 launched once per
+               transition, max split-R-hat < 1.05, v's moment gate.
 Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1,
 K2 and K3 with the tile kernel's device time, its R and weight mode, and
 `earlier_ms` / `earlier_device_ms`, the per-warp kernel's it replaced in
-the same run, K1's affine row with c4's launches through the runner;
+the same run, K1's affine row with c4's launches through the runner and
+the sharded NUTS's (`launches_dist`);
 K4's and K5's with the one-thread kernels', the cold device time and
 c2's and c3's launches through the runner; K6's and K7's with their
 tile plan, the earlier kernels' times and K7's pass 2 alone) and, last,
@@ -287,6 +309,7 @@ import math
 import os
 import re
 import subprocess
+import statistics
 import sys
 import time
 
@@ -297,15 +320,18 @@ N_CHAINS = 1024
 HIDDEN = (128, 128)
 CLAMP = 8.0
 MAX_DEPTH = 6
+# the ceiling's fit: bench.py's 6000 steps
 TRAIN_STEPS = 6000
 # the fused tier's fit (K6/K7 at the generic fit's shapes, every launch at
 # TRAIN_BATCH rows): a sixth of the depth, to make room for the runner's
 # configs within the script's time limit; its NUTS keeps every gate
 FUSED_TRAIN_STEPS = 1000
-# the generic variant's fit (K4/K5 at the fit's shapes): half the depth,
-# to make room for c5 and the modules only tests reach (6000 steps took
-# 147-153 s of a script at 800 s); its NUTS keeps every gate
-GENERIC_TRAIN_STEPS = 3000
+# the generic variant's fit (K4/K5 at the fit's shapes): a third of the
+# depth, to make room for c5, the modules only tests reach and the
+# distributed phase (6000 steps took 147-153 s of a script at 800 s, 3000
+# 72-80 s of one at 704 s); its NUTS keeps every gate (the same flow
+# fitted 1000 steps on the fused tier passes them in two windows)
+GENERIC_TRAIN_STEPS = 2000
 TRAIN_BATCH = 1024
 NUM_WARMUP = 128
 DRAW_WINDOW = 512
@@ -321,6 +347,12 @@ MAX_DENERGY = 0.012
 MAX_DQ = 2.3e-4
 # transitions per K2 launch on the window path (bench.py's window=32)
 WINDOW_SLOTS = 32
+# the post-warmup rows of `window_vs_plain` hold the first 8 of their 32
+# slots slot by slot (three plain versions a slot: 54 s of the generic
+# row's 70 s at all 32 on an H100's host), to make room for the
+# distributed phase; the whole window still runs in K2 and in the plain
+# version, which times it
+POST_WARMUP_CHECKED_SLOTS = 8
 # the seeded flows' step size in the K2 comparison: at K1's eps 0.3 about
 # half (bench) and three quarters (spline) of the chains diverge in one
 # transition from N(0, 1) starts (the divergent counts of phases 4-5), and
@@ -2450,7 +2482,7 @@ def window_rows(device):
     return rows
 
 
-def window_vs_plain(device, rows, full_plain=False):
+def window_vs_plain(device, rows, full_plain=False, checked_slots=None):
     """K2, held slot by slot: each slot s of its window against one
     transition from K2's own draw of slot s - 1 on slot s's columns
     (`chain_slots(..., starts=...)`), by K1, by the plain window
@@ -2466,8 +2498,10 @@ def window_vs_plain(device, rows, full_plain=False):
     `full_plain` the plain window also
     runs the whole window from q (its time is the plain version's time in
     `timing_window`), and how far the two free-running windows part, slot
-    by slot, is printed (not gated). Each call is timed once with CUDA
-    events on the card."""
+    by slot, is printed (not gated). `checked_slots` holds only the first
+    that many slots of each window slot by slot (K2 still runs the whole
+    window, and the free-running plain window too). Each call is timed
+    once with CUDA events on the card."""
     import torch
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.kernels import nuts_window_cuda as nw
@@ -2503,8 +2537,13 @@ def window_vs_plain(device, rows, full_plain=False):
             w[2] = w[2] * torch.clamp(w[3], min=1.0)
             return w
 
+        checked = S if checked_slots is None else min(S, checked_slots)
+        window = kern
+        kern = [t[:checked] for t in window]
+
         def slots(step):
-            return nw.chain_slots(step, q, *rnd, S, depth, starts=kern[0])
+            return nw.chain_slots(step, q, *rnd, checked, depth,
+                                  starts=kern[0])
 
         k1 = slots(lambda z, *r: nuts_cuda.nuts_transition(
             z, *r, e, im, model, depth))
@@ -2522,7 +2561,8 @@ def window_vs_plain(device, rows, full_plain=False):
         bar = window_bar(list(spreads.values()), n)
         vs_plain = compare_window(plain, kern, **bar)
         vs_plain["passed_at_k1_bar"] = compare_window(plain, kern)["passed"]
-        row = {"label": label, "n": n, "d": d, "window": S, "max_depth": depth,
+        row = {"label": label, "n": n, "d": d, "window": S,
+               "checked_slots": checked, "max_depth": depth,
                "eps": float(eps), "bar": bar, "vs_plain": vs_plain,
                "vs_transition": compare_window(transition, kern, **bar),
                "vs_k1": compare_window(k1, kern, **bar),
@@ -2531,13 +2571,13 @@ def window_vs_plain(device, rows, full_plain=False):
                **spreads, "kernel_ms": kernel_ms,
                "plain_slots_ms": plain_ms,
                "depth_histogram": torch.bincount(
-                   kern[4].long().flatten(), minlength=depth + 1).tolist(),
-               "divergent_transitions": int(kern[5].sum())}
+                   window[4].long().flatten(), minlength=depth + 1).tolist(),
+               "divergent_transitions": int(window[5].sum())}
         if full_plain:
             row["plain_window_ms"], free = once(lambda: nw.window_math_torch(
                 q, *rnd, e, im, logp_grad, S, depth))
             row["free_running_vs_plain"] = compare_window(
-                free, kern, math.inf, math.inf, math.inf)
+                free, window, math.inf, math.inf, math.inf)
         bits = {k: value_diff(a, b) for k, a, b in zip(K2_OUTS, kern, k1)}
         row["bitwise_k1"] = sum(v[0] + v[1] for v in bits.values())
         row["bitwise_k1_by_output"] = {k: v[0] + v[1]
@@ -2811,7 +2851,8 @@ class PhaseClock:
     """Times the runner's phases from outside: while active, the fits
     (`optimize_flow`, `fit_vi`; SMC's pretrain), the samplers' warmup
     (NUTS, RWMH, PT) and their draws (and flow-IMH's), SMC's stages (its
-    equilibration stages too) and its retrains each wait for the device
+    equilibration stages too) and its retrains (the sharded run's
+    `optimize_flow_dp`) each wait for the device
     before and after and add their wall time to `seconds` (the adaptive
     loop's, summed over its rounds), and `counts` counts the calls. It patches the module
     attributes the runner and the loop look up when they call them;
@@ -2843,12 +2884,15 @@ class PhaseClock:
     def __enter__(self):
         from tpuflows_torch import flows, vi
         from tpuflows_torch.adaptive import loop
+        from tpuflows_torch.dist import train as dist_train
         from tpuflows_torch.mcmc import mh, sample, tempering
         from tpuflows_torch.smc import sampler
 
         phases = [(sampler, "optimize_flow", "retrain"),
-                  (sampler, "_execute_stage", "stages"),(flows, "optimize_flow", "fit"), (loop, "optimize_flow",
-                                                     "fit"),
+                  (dist_train, "optimize_flow_dp", "retrain"),
+                  (sampler, "_execute_stage", "stages"),
+                  (flows, "optimize_flow", "fit"),
+                  (loop, "optimize_flow", "fit"),
                   (vi, "fit_vi", "fit"),
                   (sample.NUTSDriver, "warmup", "warmup"),
                   (sample.NUTSDriver, "draws", "draws"),
@@ -2931,13 +2975,25 @@ class AdaptiveProbe:
 class SMCProbe:
     """While active: the `SMCResult` of the runner's `run_smc` call
     (`result`), looked up by the runner in `tpuflows_torch.smc` at call
-    time."""
+    time, and the collectives its stages issued (`stage_collectives`)."""
 
     def __enter__(self):
         from tpuflows_torch import smc
+        from tpuflows_torch.dist import collectives
+        from tpuflows_torch.smc import sampler
 
         self.result = None
+        self.stage_collectives = 0
         self._run = smc.run_smc
+        self._stage = sampler._execute_stage
+
+        def stage(*args, **kwargs):
+            before = collectives.collective_count()
+            out = self._stage(*args, **kwargs)
+            self.stage_collectives += collectives.collective_count() - before
+            return out
+
+        sampler._execute_stage = stage
 
         def run(*args, **kwargs):
             self.result = self._run(*args, **kwargs)
@@ -2948,8 +3004,10 @@ class SMCProbe:
 
     def __exit__(self, *exc):
         from tpuflows_torch import smc
+        from tpuflows_torch.smc import sampler
 
         smc.run_smc = self._run
+        sampler._execute_stage = self._stage
 
 
 def kernel_launches():
@@ -3070,9 +3128,11 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
     import tempfile
 
     import torch
+    import torch.distributed as tdist
     from tpuflows_torch import run as runner
     from tpuflows_torch.config import RunConfig
     from tpuflows_torch.diagnostics import moment_gate
+    from tpuflows_torch.dist import collectives
     from tpuflows_torch.io import load_pytree
     from tpuflows_torch.kernels import nuts_cuda, rqs_cuda
     from tpuflows_torch.util.profiling import MetricsLogger
@@ -3086,6 +3146,7 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
         saved = runner._metrics
         runner._metrics = MetricsLogger(stream=buf)
         reset_kernel_launches()
+        collectives.reset_counts()
         if device != "cpu":
             torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -3206,6 +3267,21 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
             if any(row["kernel_launches"].values()):
                 failures.append(f"a kernel launched on SMC's path: "
                                 f"{row['kernel_launches']}")
+            row["sharded"] = cfg.smc.sharded
+            if cfg.smc.sharded:
+                # the world worker_mesh() formed (of one, without torchrun)
+                row["world"] = tdist.get_world_size()
+                row["backend"] = str(tdist.get_backend())
+                row["collectives"] = dict(collectives.COUNTS)
+                row["collectives_per_stage"] = (
+                    smc_probe.stage_collectives
+                    / max(clock.counts.get("stages", 0), 1))
+                backend = "nccl" if device != "cpu" else "gloo"
+                if row["backend"] != backend or not row["collectives"][
+                        "all_reduce"]:
+                    failures.append(f"the sharded run's world: "
+                                    f"{row['backend']}, "
+                                    f"{row['collectives']}")
             if results is not None:
                 results[name] = (smc_probe.result, target)
         if want is not None:
@@ -3291,6 +3367,277 @@ def evidence_c5(device, res, target, n_is=65536, n_proposal=16384, seed=13):
         row("harmonic_flow_aux", hz, logmeanexp_se(lw_h),
             importance_weight_ess(lw_h), post.shape[0])
     return rows
+
+
+# the bars of `dist_world_of_one`: the collectives against their local math
+# (the reductions' other summation order: 1e-6 relative); the sharded stage
+# and the data-parallel step against their unsharded counterparts on the
+# same draws and batch, to the CPU tests' bar (tests/test_torch_dist.py) in
+# absolute terms (a world of one computes the same operations, so they are
+# expected equal to the bit; the bits that differ are printed)
+DIST_RTOL = 1e-6
+DIST_STAGE_BAR = 1e-5
+DIST_STEP_BAR = 1e-6
+# repeats of each way in the phase's stage and retrain timings
+DIST_REPEATS = 3
+
+
+def _bits_differ(a, b):
+    import torch
+
+    return int(torch.sum(a.contiguous().view(torch.int32)
+                         != b.contiguous().view(torch.int32)))
+
+
+def dist_world_of_one(device, flow, warm_state, c5_flow, n=65536, d=256,
+                      n_chains=N_CHAINS, num_warmup=NUM_WARMUP,
+                      num_samples=DRAW_WINDOW, max_depth=MAX_DEPTH,
+                      repeats=DIST_REPEATS, seed=31):
+    """The distributed layer over `worker_mesh(device=)`: on the card a
+    NCCL world of one (one H100 admits no more), the world the runner's
+    c5 already formed. (a) every collective on `device` tensors against
+    its local math, `fold_in_axis_index`, `replicate` and `heartbeat`'s
+    latencies; (b) `resample_sharded` at n x d through both transports:
+    ancestors equal to `systematic_indices_math` on the same uniform, rows
+    equal; (c) one sharded SMC stage (`_stage_math(mesh=)`) against the
+    unsharded one at c5's shapes on the same draws (c5's configuration,
+    its final flow `c5_flow`, weights that force the resample): the
+    resampling decision, ancestors and beta equal, x and the weights
+    within DIST_STAGE_BAR, and each way's seconds `repeats` times;
+    (d) one `optimize_flow_dp` step against one `optimize_flow` step on
+    the same batch and the folded generator, parameters within
+    DIST_STEP_BAR, and c5's whole retrain each way `repeats` times (ms
+    a step); (e) `run_nuts_sharded` through K1
+    (`fused_nuts_for_flow`) on the ceiling flow from the main path's
+    post-warmup positions: `num_warmup` transitions, one window of
+    `num_samples` draws, K1's launches counted from 0 (once per
+    transition on the card), max split-R-hat < RHAT_GATE, v's draws
+    through the moment gate. Returns (result dict, failures)."""
+    import copy
+
+    import torch
+    from tpuflows_torch.diagnostics import (effective_sample_size,
+                                            importance_weight_ess,
+                                            moment_gate, split_rhat)
+    from tpuflows_torch.dist import (heartbeat, optimize_flow_dp,
+                                     replicate, resample_sharded,
+                                     run_nuts_sharded, worker_mesh)
+    from tpuflows_torch.dist import collectives as col
+    from tpuflows_torch.flows import Adam, optimize_flow
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.mcmc import to_data_space
+    from tpuflows_torch.smc import SMCConfig
+    from tpuflows_torch.smc.resample import systematic_indices_math
+    from tpuflows_torch.smc.sampler import _flow_log_q, _stage_math
+    from tpuflows_torch.targets import HierarchicalGaussian, NealsFunnel
+
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def gen(k):
+        return torch.Generator(device=device).manual_seed(seed * 100 + k)
+
+    def clock(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    mesh = worker_mesh(device=device)
+    failures = []
+    out = {"world": mesh.size, "backend": mesh.backend,
+           "device": str(mesh.device)}
+
+    # (a) the collectives
+    g = gen(1)
+    v = torch.randn(n, generator=g, device=device)
+    lw = 3.0 * torch.randn(n, generator=g, device=device)
+    pairs = {"psum": (col.psum(v.sum(), mesh), v.sum()),
+             "pmean": (col.pmean(v.mean(), mesh), v.mean()),
+             "pmax": (col.pmax(v.max(), mesh), v.max()),
+             "logsumexp_g": (col.logsumexp_g(lw, mesh),
+                             torch.logsumexp(lw, 0)),
+             "kish_ess_g": (col.kish_ess_g(lw, mesh),
+                            importance_weight_ess(lw)),
+             "all_gather": (col.all_gather(v, mesh), v),
+             "broadcast": (col.broadcast(v.clone(), mesh), v)}
+    module = copy.deepcopy(flow)
+    replicate(module, mesh)
+    pairs["replicate"] = (torch.cat([p.detach().reshape(-1) for p in
+                                     module.parameters()]),
+                          torch.cat([p.detach().reshape(-1) for p in
+                                     flow.parameters()]))
+    coll = {}
+    for name, (got, want) in pairs.items():
+        err = float(torch.max(torch.abs(got - want)
+                              / torch.clamp_min(torch.abs(want), 1.0)))
+        coll[name] = {"max_rel_err": err, "passed": err <= DIST_RTOL}
+        if err > DIST_RTOL:
+            failures.append(f"{name} differs from its local math by {err}")
+    folded = col.fold_in_axis_index(gen(2), mesh)
+    if torch.equal(torch.rand(8, generator=folded, device=device),
+                   torch.rand(8, generator=gen(2), device=device)):
+        failures.append("fold_in_axis_index left the stream as it was")
+    out["collectives"] = coll
+    out["heartbeat_s"] = [heartbeat(mesh) for _ in range(5)]
+
+    # (b) the sharded resampler at n x d
+    g = gen(3)
+    x = torch.randn((n, d), generator=g, device=device)
+    log_w = 2.0 * torch.randn(n, generator=g, device=device)
+    u0 = torch.rand((), generator=g, device=device)
+    want = systematic_indices_math(u0, log_w)
+    rs = {}
+    for gather in (True, False):
+        ((rows,), anc), secs = clock(lambda: resample_sharded(
+            u0, (x,), log_w, mesh, gather_particles=gather))
+        ok = torch.equal(anc, want) and torch.equal(rows, x[want.long()])
+        rs["gather" if gather else "exchange"] = {"seconds": secs,
+                                                  "passed": ok}
+        if not ok:
+            failures.append(f"resample_sharded (gather={gather}) differs "
+                            f"from systematic_indices_math")
+    out["resample"] = rs
+    del x, rows
+
+    # (c) one sharded stage against the unsharded one, on the same draws
+    target = HierarchicalGaussian.standard(dim=d, device=device)
+    cfg = SMCConfig(n_particles=n, n_mutation_steps=5, n_leapfrog=8,
+                    target_rel_ess=0.8)
+    g = gen(4)
+    with torch.no_grad():
+        x, _ = c5_flow.inverse_and_ladj(
+            torch.randn((n, d), generator=g, device=device))
+        log_q0 = _flow_log_q(c5_flow, x)
+    log_w = torch.randn(n, generator=g, device=device)  # rel. ESS ~0.37
+    anc = torch.arange(n, dtype=torch.int32, device=device)
+    normals = torch.randn((cfg.n_mutation_steps, n, d), generator=g,
+                          device=device)
+    uniforms = torch.rand((cfg.n_mutation_steps, n), generator=g,
+                          device=device)
+    u0 = torch.rand((), generator=g, device=device)
+    beta, eps = torch.tensor(0.3, device=device), torch.tensor(
+        0.2, device=device)
+
+    def stage(m):
+        return _stage_math(target.log_density, cfg, x, log_w, log_q0, anc,
+                           beta, eps, c5_flow, c5_flow, u0,
+                           lambda s: (normals[s], uniforms[s]), m)
+
+    # each way `repeats` times, in the order A B B A ..., so that the
+    # medians share the host's drift
+    order = [(None, mesh) if i % 2 == 0 else (mesh, None)
+             for i in range(repeats)]
+    order = [m for pair in order for m in pair]
+    stage_s = {"unsharded": [], "sharded": []}
+    outs = {}
+    for m in order:
+        way = "unsharded" if m is None else "sharded"
+        o, secs = clock(lambda: stage(m))
+        outs.setdefault(way, o)
+        stage_s[way].append(secs)
+        del o
+    plain, sharded = outs["unsharded"], outs["sharded"]
+    resampled = [bool(o[8] < cfg.resample_threshold) for o in (plain,
+                                                               sharded)]
+    dx = float(torch.max(torch.abs(sharded[0] - plain[0])))
+    dlw = float(torch.max(torch.abs(sharded[1] - plain[1])))
+    out["stage"] = {
+        "seconds_unsharded": stage_s["unsharded"],
+        "seconds_sharded": stage_s["sharded"],
+        "median_s_unsharded": statistics.median(stage_s["unsharded"]),
+        "median_s_sharded": statistics.median(stage_s["sharded"]),
+        "resampled": resampled, "beta": [float(plain[4]),
+                                         float(sharded[4])],
+        "ancestors_equal": torch.equal(plain[3], sharded[3]),
+        "max_abs_dx": dx, "max_abs_dlog_w": dlw,
+        "bits_differ_x": _bits_differ(plain[0], sharded[0]),
+        "bar": DIST_STAGE_BAR}
+    if not (resampled[0] and resampled[1]) or not torch.equal(
+            plain[3], sharded[3]) or float(plain[4]) != float(sharded[4]) \
+            or not (dx <= DIST_STAGE_BAR and dlw <= DIST_STAGE_BAR):
+        failures.append(f"the sharded stage differs from the unsharded "
+                        f"one: {out['stage']}")
+    del normals, uniforms, plain, sharded, outs
+
+    # (d) one data-parallel step against one step on the same batch
+    batch = x[:8192]
+    a, b = copy.deepcopy(c5_flow), copy.deepcopy(c5_flow)
+    optimize_flow_dp(gen(5), batch, a, mesh, optimizer=Adam(1e-3),
+                     nbatches=1, nepochs=1)
+    optimize_flow(col.fold_in_axis_index(gen(5), mesh), batch, b,
+                  Adam(1e-3), nbatches=1, nepochs=1)
+    dp = max(float(torch.max(torch.abs(p.detach() - q.detach())))
+             for p, q in zip(a.parameters(), b.parameters()))
+    out["dp_step"] = {"max_abs_dparam": dp, "bar": DIST_STEP_BAR,
+                      "bits_differ": sum(_bits_differ(p.detach(), q.detach())
+                                         for p, q in zip(a.parameters(),
+                                                         b.parameters()))}
+    if not dp <= DIST_STEP_BAR:
+        failures.append(f"optimize_flow_dp's step differs: {dp}")
+    del batch, a, b
+    # c5's retrain both ways (`optimize_flow` as the unsharded stage loop
+    # calls it, `optimize_flow_dp` as the sharded one does), in the same
+    # order as the stages
+    steps = cfg.retrain_batches * cfg.retrain_epochs
+    fit_ms = {"unsharded": [], "sharded": []}
+    for m in order:
+        f = copy.deepcopy(c5_flow)
+        if m is None:
+            _, secs = clock(lambda: optimize_flow(
+                gen(7), x, f, Adam(cfg.retrain_lr),
+                nbatches=cfg.retrain_batches, nepochs=cfg.retrain_epochs))
+        else:
+            _, secs = clock(lambda: optimize_flow_dp(
+                gen(7), x, f, mesh, optimizer=Adam(cfg.retrain_lr),
+                nbatches=cfg.retrain_batches, nepochs=cfg.retrain_epochs))
+        fit_ms["unsharded" if m is None else "sharded"].append(
+            1e3 * secs / steps)
+    out["retrain"] = {"steps": steps, "rows": n,
+                      "ms_per_step_unsharded": fit_ms["unsharded"],
+                      "ms_per_step_sharded": fit_ms["sharded"],
+                      "median_ms_unsharded": statistics.median(
+                          fit_ms["unsharded"]),
+                      "median_ms_sharded": statistics.median(
+                          fit_ms["sharded"])}
+    del x
+
+    # (e) sharded NUTS through K1
+    funnel = NealsFunnel(dim=warm_state.q.shape[1])
+    transition = nuts_cuda.fused_nuts_for_flow(funnel, flow,
+                                               max_depth=max_depth)
+    nuts_cuda.LAUNCHES = 0
+    res, nuts_s = clock(lambda: run_nuts_sharded(
+        gen(6), None, warm_state.q[:n_chains], mesh, num_warmup=num_warmup,
+        num_samples=num_samples, transition=transition))
+    launches = nuts_cuda.LAUNCHES
+    xs = to_data_space(flow, res.samples)
+    max_rhat = float(split_rhat(xs).max())
+    moments = moment_gate(xs[..., :1], [0.0], [funnel.sigma_v ** 2],
+                          n_sigma=MOMENT_SIGMA)
+    expected = num_warmup + num_samples if on_card else 0
+    out["nuts"] = {"seconds": nuts_s, "chains": n_chains,
+                   "transitions": num_warmup + num_samples,
+                   "launches": launches, "launches_expected": expected,
+                   "max_rhat": max_rhat,
+                   "min_ess": float(effective_sample_size(xs).min()),
+                   "step_size": float(res.step_size),
+                   "v_z_mean": moments.max_sigma_mean,
+                   "v_z_var": moments.max_sigma_var,
+                   "moment_check_passed": moments.passed,
+                   "finite": bool(torch.isfinite(xs).all())}
+    if launches != expected:
+        failures.append(f"K1 launched {launches} times for {expected} "
+                        f"transitions of the sharded NUTS")
+    if not (max_rhat < RHAT_GATE and moments.passed
+            and out["nuts"]["finite"]):
+        failures.append(f"the sharded NUTS failed its gates: "
+                        f"{out['nuts']}")
+    return out, failures
 
 
 def test_only_modules(device, seed=0):
@@ -3711,7 +4058,7 @@ def main(argv=None):
              st.inv_mass, st.step_size, MAX_DEPTH, WINDOW_SLOTS, 8)
             for variant, vflow, st in (("ceiling", flow, warm_state),
                                        ("generic", gflow, gstate))],
-            full_plain=True)
+            full_plain=True, checked_slots=POST_WARMUP_CHECKED_SLOTS)
     emit("window_vs_plain", t, rows=win_rows,
          bar={"flips": MAX_FLIPS, "denergy": MAX_DENERGY, "dq": MAX_DQ,
               "rule": "window_bar: per slot, each slot from K2's own "
@@ -3765,6 +4112,7 @@ def main(argv=None):
     bad = [r for r in ev_rows if not r["passed"]]
     if bad:
         raise RuntimeError(f"an evidence estimate failed its gate: {bad}")
+    c5_flow = smc_results["c5_hierarchical_smc"][0].flow
     del smc_results
     torch.cuda.empty_cache()
 
@@ -3776,6 +4124,17 @@ def main(argv=None):
         raise RuntimeError(f"a module only tests reach failed its JAX "
                            f"test's check: {bad}")
 
+    t = time.perf_counter()
+    dist_res, dist_failures = dist_world_of_one(device, flow, warm_state,
+                                                c5_flow)
+    emit("dist_world_of_one", t, **dist_res,
+         bar={"collectives_rtol": DIST_RTOL, "stage": DIST_STAGE_BAR,
+              "dp_step": DIST_STEP_BAR, "max_rhat": RHAT_GATE,
+              "moment_sigma": MOMENT_SIGMA})
+    if dist_failures:
+        raise RuntimeError(f"dist_world_of_one: {dist_failures}")
+    torch.distributed.destroy_process_group()
+
     k1 = "src/tpuflows/kernels/nuts_pallas.py:407"
     kernels = [{
         "name": "nuts_transition (affine)", "route": "cuda",
@@ -3783,6 +4142,7 @@ def main(argv=None):
         "replaces": k1, "launches": res["launches"],
         "launches_runner_c4": runner["c4_funnel_nuts"]["k1_launches"],
         "launches_runner_c5": c5_launches["k1"],
+        "launches_dist": dist_res["nuts"]["launches"],
         "max_abs_err": cmp["max_dq"], "ms": tim["ms"],
         "device_ms": tim["tile_device_ms"], "rows": tim["rows"],
         "resident": tim["resident"], "earlier_ms": tim["warp_ms"],

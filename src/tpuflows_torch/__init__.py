@@ -35,16 +35,24 @@ What is ported so far:
     (`kernels`), which refuse gelu and bf16 conditioners, Whiten,
     Identity and ScannedRepeat (ROADMAP Queue 2 item B);
   - `util` (shapes, `VariateShape`, `Timer`, `MetricsLogger`, `trace`),
-    `io` (single-process checkpoints), `dist` (the single-process
-    failure policy), `config` and the runner `run`.
+    `io` (checkpoints, per-rank shards that reshard on load), `config` and
+    the runner `run`;
+  - `dist`, the distributed layer on `torch.distributed`: the
+    `WorkerMesh` that stands for the JAX package's `axis_name` (every
+    sampler and trainer takes `mesh=`), the collectives, the sharded
+    resampler with its ring exchange, data-parallel training, sharded
+    NUTS, `heartbeat` and the failure policy; NCCL on the card, gloo for
+    CPU worlds.
 
 The runner takes the JAX package's configs, on the card by default:
 
     PYTHONPATH=src python -m tpuflows_torch.run configs/c2_correlated_rqs.json
 
-It runs every task of the JAX runner (configs c1-c7). `chip_smoke.py`
-runs both variants of `bench.py` and the configs on the card. ROADMAP.md
-lists the rest: the multi-process layer (`dist/`).
+It runs every task of the JAX runner (configs c1-c7), c5's SMC sharded
+over `dist.worker_mesh()`. `chip_smoke.py` runs both variants of
+`bench.py`, the configs and the distributed layer on the card. Every
+module of the JAX package is ported; ROADMAP.md lists the reach gaps
+left.
 """
 
 __version__ = "0.1.0"

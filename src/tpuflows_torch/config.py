@@ -129,8 +129,8 @@ class SMCSpec:
     retrain_every: int = 0
     retrain_mode: str = "freeze"  # freeze | reweight
     final_equilibration_stages: int = 0
-    # no mesh yet (ROADMAP Queue 1 item 11): one process runs the
-    # unsharded algorithm, what the JAX package's one-device mesh computes
+    # run the sharded stage over `dist.worker_mesh()`: the world that
+    # `torchrun` started, or a world of one
     sharded: bool = False
     # bridge-flow pretraining before SMC starts: "none" or "prior"
     # (forward KL on draws from the target's prior)

@@ -1,13 +1,15 @@
-"""Failure detection, the single-process part (port of
-`tpuflows/dist/failures.py`: `CollectiveTimeout`, `run_with_timeout`,
-`FailurePolicy`; `heartbeat` waits for `dist/`, ROADMAP Queue 1 item 11).
+"""Failure detection for multi-process runs (port of
+`tpuflows/dist/failures.py`: `heartbeat`, `CollectiveTimeout`,
+`run_with_timeout`, `FailurePolicy`).
 
 When a peer process dies, the others block for ever in the next
 collective: the call never raises and cannot be cancelled. So a phase runs
 in a worker thread under a time budget; past it, the policy either raises
 `CollectiveTimeout` or exits the process with `EXIT_PEER_LOSS` so that a
-supervisor restarts every worker from the last checkpoint. `run.py` runs
-every task under `FailurePolicy.from_env()`
+supervisor restarts every worker from the last checkpoint. `heartbeat` is
+the cheapest such phase, a one-element `all_reduce` over the mesh, which
+`run_smc` runs under the policy before each stage of a multi-process run.
+`run.py` runs every task under `FailurePolicy.from_env()`
 (TPUFLOWS_COLLECTIVE_TIMEOUT_S, TPUFLOWS_ON_PEER_LOSS).
 """
 from __future__ import annotations
@@ -15,9 +17,13 @@ from __future__ import annotations
 import os
 import sys
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import torch
+
+from tpuflows_torch.dist.collectives import psum
 from tpuflows_torch.util.profiling import process_index, synchronize
 
 EXIT_PEER_LOSS = 43  # distinct from generic-error exit codes
@@ -28,6 +34,22 @@ class CollectiveTimeout(RuntimeError):
 
     The call is still blocked in its worker thread and cannot be cancelled;
     the process should checkpoint nothing further and restart."""
+
+
+def heartbeat(mesh) -> float:
+    """Liveness probe: a one-element `all_reduce` of ones over the mesh.
+
+    Returns its wall-clock latency in seconds (the host read of the sum
+    waits for it). If a rank has died this call hangs: run it under
+    `run_with_timeout` to get an exception instead. A sum other than the
+    world size raises RuntimeError."""
+    t0 = time.perf_counter()
+    total = float(psum(torch.ones((), device=mesh.device), mesh))
+    dt = time.perf_counter() - t0
+    if total != float(mesh.size):
+        raise RuntimeError(f"heartbeat all_reduce returned {total}, "
+                           f"expected {mesh.size}: mesh corrupt")
+    return dt
 
 
 def run_with_timeout(fn: Callable[..., Any], *args: Any,

@@ -6,8 +6,10 @@ uses written out.
 
 The JAX loops run inside jitted scans. Here a host loop runs one eager step
 at a time, with the loss history kept on the device and read back once per
-call. Training updates the flow's parameters in place. Left out: `axis_name`
-(waits for `dist/`, ROADMAP Queue 1 item 11).
+call. Training updates the flow's parameters in place. `mesh=` (the JAX
+package's `axis_name`) makes each step data-parallel: the gradients and the
+loss are averaged over the mesh in one flattened `all_reduce` before the
+update, so every rank applies the same update (`dist/train.py`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuflows_torch.dist.collectives import pmean
 from tpuflows_torch.flows.core import Bijector, Chain, call_with, detached
 from tpuflows_torch.targets.base import std_normal_logpdf
 from tpuflows_torch.util.device import f32_device
@@ -149,11 +152,21 @@ def _check_finite_loss(loss_hist: torch.Tensor) -> None:
             f"of {h.numel()} (loss_hist[-1]={float(h[-1])})")
 
 
-def make_train_step(optimizer: Adam, loss_fn: Callable):
+def _pmean_flat(grads, loss, mesh):
+    """`pmean` of every gradient and the loss, as one `all_reduce` of their
+    concatenation."""
+    flat = pmean(torch.cat([g.reshape(-1) for g in grads]
+                           + [loss.reshape(1)]), mesh)
+    parts = torch.split(flat, [g.numel() for g in grads] + [1])
+    return [p.view_as(g) for p, g in zip(parts, grads)], parts[-1][0]
+
+
+def make_train_step(optimizer: Adam, loss_fn: Callable, mesh=None):
     """`step(flow, opt_state, batch) -> (flow, opt_state, loss)`: the
     gradient of the scalar `loss_fn(flow, batch)` with respect to every
     parameter of the flow (zero for one the loss does not reach), then one
-    optimizer update in place."""
+    optimizer update in place. With `mesh` (`axis_name`), the gradients
+    and the loss are first averaged over the mesh (`pmean`)."""
 
     def step(flow, opt_state, batch):
         params = list(flow.parameters())
@@ -161,8 +174,11 @@ def make_train_step(optimizer: Adam, loss_fn: Callable):
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        loss = loss.detach()
+        if mesh is not None:
+            grads, loss = _pmean_flat(grads, loss, mesh)
         opt_state = optimizer.update(params, grads, opt_state)
-        return flow, opt_state, loss.detach()
+        return flow, opt_state, loss
 
     return step
 
@@ -182,19 +198,20 @@ def _split_validation(samples, val_frac, perm):
 
 
 def _fit_epochs(samples, val, flow, optimizer, loss, nbatches, nepochs,
-                epoch_perm, opt_state) -> TrainResult:
+                epoch_perm, opt_state, mesh=None) -> TrainResult:
     """`optimize_flow` on given rows: epoch e trains on the batches of
     `samples[epoch_perm(e)]` (the first nbatches * (N // nbatches) rows;
     the rows in order when `epoch_perm` is None) and, when `val` is given,
     evaluates the loss on it; the parameters of the epoch with the lowest
     held-out loss are kept and put back into the flow at the end, with
-    the final optimizer state (the JAX package's behaviour)."""
+    the final optimizer state (the JAX package's behaviour). `mesh`: each
+    step averages its gradients and loss over the mesh."""
     n = samples.shape[0]
     bs = n // nbatches
     if bs == 0:
         raise ValueError(f"{n} samples cannot form {nbatches} batches")
     n_used = bs * nbatches
-    step = make_train_step(optimizer, loss)
+    step = make_train_step(optimizer, loss, mesh)
     params = list(flow.parameters())
     if opt_state is None:
         opt_state = optimizer.init(params)
@@ -241,11 +258,15 @@ def optimize_flow(
     shuffle_samples: bool = True,
     opt_state=None,
     val_frac: float = 0.0,
+    mesh=None,
 ) -> TrainResult:
     """Train `flow` on an (N, d) sample matrix by minibatch steps of
     `optimizer` (default `Adam(1e-3)`) on `loss(flow, batch)`: `nepochs`
     epochs of `nbatches` batches of N // nbatches rows, the rows
     reshuffled every epoch from `generator` when `shuffle_samples`.
+    `mesh` (`axis_name`): the rows are this rank's block, and every step
+    averages its gradients and loss over the mesh
+    (`dist.optimize_flow_dp` folds the generator by rank first).
 
     `val_frac > 0` enables early stopping: that fraction of the samples
     (drawn from `generator`) is held out, the held-out loss is evaluated
@@ -270,7 +291,7 @@ def optimize_flow(
     n = samples.shape[0]
     epoch_perm = (lambda _: perm(n)) if shuffle_samples else None
     return _fit_epochs(samples, val, flow, optimizer, loss, nbatches,
-                       nepochs, epoch_perm, opt_state)
+                       nepochs, epoch_perm, opt_state, mesh)
 
 
 class _Frozen(Bijector):
@@ -338,12 +359,13 @@ def anneal_beta(i: int, anneal_steps: int) -> float:
 
 
 def _reverse_kl_steps(flow, log_density, optimizer, opt_state, draw_z,
-                      nsteps, anneal_steps, stl, device) -> TrainResult:
+                      nsteps, anneal_steps, stl, device,
+                      mesh=None) -> TrainResult:
     """`nsteps` reverse-KL steps, step i on the base draws `draw_z(i)` at
     temperature `anneal_beta(i, anneal_steps)`."""
     loss_fn = reverse_kl_stl_loss if stl else reverse_kl_loss
     step = make_train_step(
-        optimizer, lambda f, zb: loss_fn(f, log_density, zb[0], zb[1]))
+        optimizer, lambda f, zb: loss_fn(f, log_density, zb[0], zb[1]), mesh)
     if opt_state is None:
         opt_state = optimizer.init(list(flow.parameters()))
     losses = torch.empty(nsteps, device=device)
@@ -366,13 +388,15 @@ def make_reverse_kl_trainer(
     anneal_steps: int = 0,
     stl: bool = False,
     device="cuda",
+    mesh=None,
 ):
     """Returns `train(generator, flow, nsteps, opt_state=None) ->
     TrainResult`. Each step draws z ~ N(0, I) of shape (batch_size, dim)
     from `generator` on `device` and takes one optimizer step on the
     reverse-KL loss (STL when `stl`), annealed over the first
     `anneal_steps` steps of each call (`anneal_beta`); a non-finite final
-    loss raises."""
+    loss raises. `mesh` (`axis_name`): every step averages its gradients
+    and loss over the mesh."""
     dev = f32_device(device)
 
     def train(generator: torch.Generator, flow: Bijector, nsteps: int,
@@ -380,7 +404,7 @@ def make_reverse_kl_trainer(
         res = _reverse_kl_steps(
             flow, log_density, optimizer, opt_state,
             _base_draws(generator, batch_size, dim, dev), nsteps,
-            anneal_steps, stl, dev)
+            anneal_steps, stl, dev, mesh)
         _check_finite_loss(res.loss_hist)
         return res
 
@@ -400,6 +424,7 @@ def optimize_flow_reverse_kl(
     stl: bool = False,
     chunk_size: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ) -> TrainResult:
     """Reverse-KL (self-sampling) training against `log_density` with
     `optimizer` (default `Adam(1e-3)`): fresh base draws from `generator`
@@ -408,7 +433,8 @@ def optimize_flow_reverse_kl(
     sticking-the-landing estimator. `chunk_size` partitions the JAX
     package's scan into device programs and has no meaning here: it is
     accepted and ignored. As in the JAX package, a non-finite loss is not
-    checked here."""
+    checked here. `mesh` (`axis_name`): every step averages its gradients
+    and loss over the mesh."""
     del chunk_size
     if optimizer is None:
         optimizer = Adam(1e-3)
@@ -416,4 +442,4 @@ def optimize_flow_reverse_kl(
     return _reverse_kl_steps(
         flow, log_density, optimizer, opt_state,
         _base_draws(generator, batch_size, dim, dev), nsteps, anneal_steps,
-        stl, dev)
+        stl, dev, mesh)

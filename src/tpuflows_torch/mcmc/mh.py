@@ -16,8 +16,11 @@ the square root of the pooled Welford variance (regularized) of the
 positions from step int(0.15 num_warmup) on, installed once the count
 passes 10. The host loops read nothing back from the device.
 
-Left out: `jit` (nothing to compile in eager PyTorch) and `axis_name`
-(waits for `dist/`, ROADMAP Queue 1 item 11).
+`mesh=` (the JAX package's `axis_name`): the chains are this rank's block
+and the generator is folded by rank; the random walk's warmup averages
+its pooled acceptance and Welford variance over the mesh (`pmean`), so
+every rank adapts the same proposal. Left out: `jit` (nothing to compile
+in eager PyTorch).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tpuflows_torch.dist.collectives import fold_in_axis_index, pmean
 from tpuflows_torch.flows.core import Bijector
 from tpuflows_torch.mcmc.dual_averaging import (welford_init,
                                                 welford_update_batch,
@@ -117,7 +121,7 @@ def _stacked_info(num_samples, n, device) -> MHInfo:
 
 
 def _rwmh_warmup(log_density, q0, draw, num_warmup, initial_scale,
-                 target_accept, adapt_shape):
+                 target_accept, adapt_shape, mesh=None):
     """Steps 0 .. num_warmup - 1: (q, logp, log_scale, sigma)."""
     n, d = q0.shape
     dev = q0.device
@@ -131,14 +135,15 @@ def _rwmh_warmup(log_density, q0, draw, num_warmup, initial_scale,
         q, logp, info = rwmh_transition_math(log_density, q, logp,
                                              torch.exp(log_scale), sigma,
                                              eps, u)
-        accept = torch.mean(info.accept_prob)
+        accept = pmean(torch.mean(info.accept_prob), mesh)
         log_scale = log_scale + robbins_monro_rate(t) * (accept
                                                          - target_accept)
         if adapt_shape:
             if t >= welford_start:
                 wf = welford_update_batch(wf, q)
-            sigma = torch.where(wf.count > 10.0,
-                                torch.sqrt(welford_variance(wf)), sigma)
+            sigma = torch.where(
+                wf.count > 10.0,
+                torch.sqrt(pmean(welford_variance(wf), mesh)), sigma)
     return q, logp, log_scale, sigma
 
 
@@ -160,10 +165,10 @@ def _rwmh_draws(log_density, q, logp, scale, sigma, draw, first,
 
 
 def _rwmh_run(log_density, q0, draw, num_warmup, num_samples, initial_scale,
-              target_accept, adapt_shape) -> MHResult:
+              target_accept, adapt_shape, mesh=None) -> MHResult:
     q, logp, log_scale, sigma = _rwmh_warmup(
         log_density, q0, draw, num_warmup, initial_scale, target_accept,
-        adapt_shape)
+        adapt_shape, mesh)
     scale = torch.exp(log_scale)
     samples, infos = _rwmh_draws(log_density, q, logp, scale, sigma, draw,
                                  num_warmup, num_samples)
@@ -174,18 +179,20 @@ def run_rwmh(generator: torch.Generator, log_density: Callable,
              init_positions: torch.Tensor, num_warmup: int = 1000,
              num_samples: int = 1000, initial_scale: float = 0.5,
              target_accept: float = 0.234,
-             adapt_shape: bool = True) -> MHResult:
+             adapt_shape: bool = True, mesh=None) -> MHResult:
     """Adaptive random-walk Metropolis over (n_chains, d) chains (BAT's
     `MetropolisHastings`): warmup adapts the global scale and, with
     `adapt_shape`, the per-dim proposal shape (module docstring); the
     draws keep both fixed. Every step's normals and uniforms come from
-    `generator` on the chains' device."""
+    `generator` on the chains' device. `mesh` (`axis_name`): the chains
+    are this rank's block, the adaptation pooled over the mesh."""
     n, d = init_positions.shape
+    generator = fold_in_axis_index(generator, mesh)
     return _rwmh_run(log_density, init_positions,
                      _normals_and_uniforms(generator, n, d,
                                            init_positions.device),
                      num_warmup, num_samples, initial_scale, target_accept,
-                     adapt_shape)
+                     adapt_shape, mesh)
 
 
 def flow_imh_transition_math(log_density: Callable, flow: Bijector, q, logp,
@@ -248,11 +255,13 @@ def _flow_imh_run(log_density, flow, q0, draw, num_samples) -> MHResult:
 
 def run_flow_imh(generator: torch.Generator, log_density: Callable,
                  flow: Bijector, init_positions: torch.Tensor,
-                 num_samples: int = 1000) -> MHResult:
+                 num_samples: int = 1000, mesh=None) -> MHResult:
     """Flow-independence MH over (n_chains, d) chains. No adaptation: the
     proposal is the trained flow, which the adaptive loop retrains. The
-    result's scale and sigma are ones."""
+    result's scale and sigma are ones. `mesh` (`axis_name`): the chains
+    are this rank's block, the generator folded by rank."""
     n, d = init_positions.shape
+    generator = fold_in_axis_index(generator, mesh)
     return _flow_imh_run(log_density, flow, init_positions,
                          _normals_and_uniforms(generator, n, d,
                                                init_positions.device),

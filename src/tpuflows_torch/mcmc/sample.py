@@ -30,9 +30,14 @@ the last draw. Warmup keeps the per-transition path, since dual averaging
 pools the accept statistic between transitions. The draws come from
 another random stream than the per-transition path's.
 
+`mesh=` (the JAX package's `axis_name`; `dist.run_nuts_sharded`): the
+chains are this rank's block, the generator is folded by rank, and the
+pooled accept statistic and the Welford variance are averaged over the
+mesh (`pmean`), so every rank adapts the same step size and metric. A
+transition (K1) runs per chain, unchanged.
+
 Left out of the port: `jit` and `chunk_size` (eager PyTorch compiles
-nothing and runs no device program whose length needs bounding) and
-`axis_name` (waits for `dist/`, ROADMAP Queue 1 item 11).
+nothing and runs no device program whose length needs bounding).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from tpuflows_torch.dist.collectives import fold_in_axis_index, pmean
 from tpuflows_torch.mcmc.dual_averaging import (
     da_init,
     da_step_size,
@@ -104,7 +110,10 @@ class NUTSDriver:
     every chain into `out` (S, n, d) per call
     (`kernels.nuts_window_cuda.fused_nuts_window_for_flow`); when given,
     `draws` runs through it and `num_samples` must be a multiple of S.
-    Pooled step size only."""
+    Pooled step size only.
+
+    `mesh` (what `run_nuts(mesh=)` passes): warmup averages the pooled
+    accept statistic and the Welford variance over the mesh."""
 
     def __init__(self, log_density: Callable | None = None,
                  max_depth: int = 8, target_accept: float = 0.8,
@@ -112,7 +121,7 @@ class NUTSDriver:
                  warmup_schedule: str = "single",
                  logp_and_grad: Callable | None = None,
                  transition: Callable | None = None,
-                 window_transition: Callable | None = None):
+                 window_transition: Callable | None = None, mesh=None):
         if window_transition is not None:
             if per_chain_step_size:
                 raise ValueError("window_transition= (batched kernel) "
@@ -139,6 +148,7 @@ class NUTSDriver:
         self.adapt_mass = adapt_mass
         self.per_chain_step_size = per_chain_step_size
         self.warmup_schedule = warmup_schedule
+        self.mesh = mesh
 
     def warmup(self, generator: torch.Generator,
                init_positions: torch.Tensor, num_warmup: int,
@@ -164,12 +174,12 @@ class NUTSDriver:
             q, info = self.transition(generator, q, da_step_size(da),
                                       inv_mass)
             accept = (info.accept_prob if self.per_chain_step_size
-                      else torch.mean(info.accept_prob))
+                      else pmean(torch.mean(info.accept_prob), self.mesh))
             da = da_update(da, accept, target_accept=self.target_accept)
             if w_start <= step < w_end:
                 wf = welford_update_batch(wf, q)
             if self.adapt_mass and closes[step]:
-                inv_mass = welford_variance(wf)
+                inv_mass = pmean(welford_variance(wf), self.mesh)
                 da = da_init(da_step_size(da))
                 wf = welford_init(d, device=dev)
         return NUTSState(q=q, step_size=da_step_size(da, averaged=True),
@@ -213,7 +223,7 @@ def run_nuts(generator: torch.Generator, log_density: Callable,
              max_depth: int = 8, target_accept: float = 0.8,
              adapt_mass: bool = True, per_chain_step_size: bool = False,
              warmup_schedule: str = "single",
-             transition: Callable | None = None) -> MCMCResult:
+             transition: Callable | None = None, mesh=None) -> MCMCResult:
     """Warmup, then `num_samples` draws of every chain, from one generator.
 
     Step sizes are pooled by default: the chains run in lockstep, so one
@@ -222,14 +232,17 @@ def run_nuts(generator: torch.Generator, log_density: Callable,
     averaging, for chains that start in different curvature regimes.
     `transition=` takes a natively batched transition (pooled step size
     only). With `num_warmup=0` the draws use `initial_step_size` and the
-    unit metric."""
+    unit metric. `mesh` (`axis_name`): `init_positions` is this rank's
+    block of chains, `generator` is folded by rank, and the warmup's
+    pooled statistics are averaged over the mesh."""
     if init_positions.ndim != 2:
         raise ValueError("init_positions must be (n_chains, d)")
+    generator = fold_in_axis_index(generator, mesh)
     driver = NUTSDriver(log_density, max_depth=max_depth,
                         target_accept=target_accept, adapt_mass=adapt_mass,
                         per_chain_step_size=per_chain_step_size,
                         warmup_schedule=warmup_schedule,
-                        transition=transition)
+                        transition=transition, mesh=mesh)
     if num_warmup > 0:
         state = driver.warmup(generator, init_positions, num_warmup,
                               initial_step_size=initial_step_size)

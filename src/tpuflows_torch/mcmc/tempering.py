@@ -16,8 +16,10 @@ toward `target_accept`. As in `mcmc/mh.py`, the move and the exchange are
 math functions of their draws (`pt_move_math`, `pt_swap_math`), and the
 run takes a `draw(t)` callable.
 
-Left out: `jit` and `axis_name` (waits for `dist/`, ROADMAP Queue 1 item
-11).
+`mesh=` (the JAX package's `axis_name`): the chains are this rank's block
+and the generator is folded by rank; each step's acceptance per
+temperature is averaged over the mesh (`pmean`) before the warmup adapts
+on it and the draws record it. Left out: `jit`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpuflows_torch.dist.collectives import fold_in_axis_index, pmean
 from tpuflows_torch.mcmc.mh import (accept_probability, initial_log_scale,
                                     robbins_monro_rate, select)
 from tpuflows_torch.targets.base import std_normal_logpdf
@@ -113,19 +116,21 @@ def _pt_randomness(generator, n_temps, n, d, device):
 
 
 def _pt_step(log_density, log_ref, betas, draw, t, parity, x, logr, logl,
-             log_scales):
-    """Step t: the move, then the exchange at `parity`."""
+             log_scales, mesh=None):
+    """Step t: the move (its acceptance averaged over the mesh), then the
+    exchange at `parity`."""
     eps, u_move, u_swap = draw(t)
     x, logr, logl, acc = pt_move_math(log_density, log_ref, betas, x, logr,
                                       logl, torch.exp(log_scales), eps,
                                       u_move)
+    acc = pmean(acc, mesh)
     x, logr, logl, swap_rate = pt_swap_math(betas, x, logr, logl, u_swap,
                                             parity)
     return x, logr, logl, acc, swap_rate
 
 
 def _pt_warmup(log_density, log_ref, q0, betas, draw, num_warmup,
-               initial_scale, target_accept):
+               initial_scale, target_accept, mesh=None):
     """Steps 0 .. num_warmup - 1 from q0 tiled over the ladder: (x, logr,
     logl, log_scales)."""
     n, d = q0.shape
@@ -137,14 +142,14 @@ def _pt_warmup(log_density, log_ref, q0, betas, draw, num_warmup,
     for t in range(num_warmup):
         x, logr, logl, acc, _ = _pt_step(log_density, log_ref, betas, draw,
                                          t, t % 2, x, logr, logl,
-                                         log_scales)
+                                         log_scales, mesh)
         log_scales = log_scales + robbins_monro_rate(t) * (acc
                                                            - target_accept)
     return x, logr, logl, log_scales
 
 
 def _pt_sample(log_density, log_ref, betas, draw, first, num_samples, x,
-               logr, logl, log_scales):
+               logr, logl, log_scales, mesh=None):
     """Steps first .. first + num_samples - 1, the parity restarting at 0:
     (the beta = 1 draws, stacked PTInfo)."""
     n_temps, n, d = x.shape
@@ -158,7 +163,7 @@ def _pt_sample(log_density, log_ref, betas, draw, first, num_samples, x,
     for s in range(num_samples):
         x, logr, logl, acc, swap_rate = _pt_step(
             log_density, log_ref, betas, draw, first + s, s % 2, x, logr,
-            logl, log_scales)
+            logl, log_scales, mesh)
         samples[s] = x[-1]
         info.accept_prob[s] = acc
         info.swap_accept[s] = swap_rate
@@ -167,13 +172,13 @@ def _pt_sample(log_density, log_ref, betas, draw, first, num_samples, x,
 
 
 def _pt_run(log_density, log_ref, q0, betas, draw, num_warmup, num_samples,
-            initial_scale, target_accept) -> PTResult:
+            initial_scale, target_accept, mesh=None) -> PTResult:
     x, logr, logl, log_scales = _pt_warmup(
         log_density, log_ref, q0, betas, draw, num_warmup, initial_scale,
-        target_accept)
+        target_accept, mesh)
     samples, info = _pt_sample(log_density, log_ref, betas, draw,
                                num_warmup, num_samples, x, logr, logl,
-                               log_scales)
+                               log_scales, mesh)
     return PTResult(samples=samples, info=info, scales=torch.exp(log_scales),
                     betas=betas)
 
@@ -183,17 +188,22 @@ def run_parallel_tempering(generator: torch.Generator, log_density: Callable,
                            num_warmup: int = 1000, num_samples: int = 1000,
                            initial_scale: float = 0.5,
                            target_accept: float = 0.234,
-                           log_ref: Optional[Callable] = None) -> PTResult:
+                           log_ref: Optional[Callable] = None,
+                           mesh=None) -> PTResult:
     """Replica-exchange MH from (n_chains, d) positions, tiled over the
     ascending ladder `betas` (betas[-1] == 1); returns the beta = 1
     replica's draws. Each step's normals and uniforms come from
     `generator` on the chains' device: the move's normals (T, n, d) and
-    uniforms (T, n), then the exchange's uniforms (T, n)."""
+    uniforms (T, n), then the exchange's uniforms (T, n). `mesh`
+    (`axis_name`): the chains are this rank's block, the generator folded
+    by rank, the acceptance per temperature averaged over the mesh."""
     if log_ref is None:
         log_ref = std_normal_logpdf
+    generator = fold_in_axis_index(generator, mesh)
     dev = init_positions.device
     betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
     n, d = init_positions.shape
     return _pt_run(log_density, log_ref, init_positions, betas,
                    _pt_randomness(generator, betas.shape[0], n, d, dev),
-                   num_warmup, num_samples, initial_scale, target_accept)
+                   num_warmup, num_samples, initial_scale, target_accept,
+                   mesh)

@@ -2,6 +2,8 @@
 
     python -m tpuflows_torch.run configs/c2_correlated_rqs.json [...]
     python -m tpuflows_torch.run --device cpu configs/c1_std_normal_affine.json
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \
+        -m tpuflows_torch.run --device cpu configs/c5_hierarchical_smc.json
 
 Runs each `RunConfig` task end to end on one device (default "cuda"),
 writes one JSONL record per task through `MetricsLogger` (stdout, and the
@@ -22,13 +24,15 @@ Randomness comes from three `torch.Generator`s seeded from `cfg.seed`
 draws differ from the JAX package's, so results agree in distribution,
 not in value.
 
-`smc.sharded` (c5 sets it): the port has no mesh yet (ROADMAP Queue 1
-item 11), so one process runs the unsharded SMC. That is the algorithm
-the JAX package's one-device mesh computes: its sharded resampler builds
-the same global CDF as `systematic_indices`, up to the rounding of its
-normalization, and its data-parallel retrain on one device is
-`optimize_flow` with its key folded by 0. Left out: `init_distributed`
-(item 11).
+`main` first joins the world `torchrun` describes (`dist.init_distributed`:
+NCCL, each rank on the CUDA device LOCAL_RANK; gloo under `--device
+cpu`); without one it runs in one process. `smc.sharded` (c5 sets it)
+runs the `smc` task's SMC over `dist.worker_mesh()`: the particles
+row-sharded over that world, or a world of one over an in-process store,
+through the same collectives. Every other task runs whole on each rank,
+as in the JAX runner. Records and files go out from rank 0 only
+(`MetricsLogger`); a sharded run's state is each rank's block of the
+particles (`save_pytree(..., sharded=True)`).
 """
 from __future__ import annotations
 
@@ -145,6 +149,7 @@ def _run_task(cfg, device="cuda") -> dict:
     dim = cfg.target.dim
     g_data, g_build, g_task = _generators(cfg.seed, dev)
     timer = Timer()
+    sharded = False
 
     if cfg.task == "fit":
         samples = target.sample(g_data, cfg.train.n_fit_samples, device=dev)
@@ -225,14 +230,20 @@ def _run_task(cfg, device="cuda") -> dict:
         else:
             init = torch.randn((2048, dim), generator=g_data, device=dev)
             flow = _flow_from_spec(init, g_build, cfg.flow, dev)
+        mesh = None
+        if cfg.smc.sharded:
+            from tpuflows_torch.dist import worker_mesh
+
+            mesh = worker_mesh(device=dev)
         ckpt = f"{cfg.output_dir}/smc_ckpt" if cfg.output_dir else None
         res = run_smc(g_task, target.log_density, flow, dim,
                       cfg.smc.to_smc_config(), verbose=True,
-                      checkpoint_dir=ckpt, device=dev)
+                      checkpoint_dir=ckpt, device=dev, mesh=mesh)
         out = {"n_stages": res.n_stages, "log_z": float(res.log_z),
                "final_beta": float(res.betas[-1]),
                "mean_accept": float(torch.mean(res.accept_hist))}
         state = res.particles
+        sharded = mesh is not None
     else:  # nuts
         q0 = torch.randn((cfg.nuts.n_chains, dim), generator=g_data,
                          device=dev)
@@ -265,13 +276,15 @@ def _run_task(cfg, device="cuda") -> dict:
     out.update({"name": cfg.name, "task": cfg.task,
                 "wall_s": round(timer.stop(sync_on=state), 2)})
     if cfg.output_dir:
-        save_pytree(f"{cfg.output_dir}/{cfg.name}_state", state)
+        save_pytree(f"{cfg.output_dir}/{cfg.name}_state", state,
+                    sharded=sharded)
     _emit(out)
     return out
 
 
 def main(argv=None) -> None:
     from tpuflows_torch.config import RunConfig
+    from tpuflows_torch.dist import init_distributed
 
     parser = argparse.ArgumentParser(
         prog="python -m tpuflows_torch.run",
@@ -280,8 +293,18 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device (default: cuda)")
     args = parser.parse_args(argv)
+    device = torch.device(args.device)
+    joined = torch.distributed.is_initialized()
+    init_distributed(backend="gloo" if device.type == "cpu" else None)
+    if device.type == "cuda" and device.index is None \
+            and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
     for path in args.configs:
-        run(RunConfig.from_json(path), device=args.device)
+        run(RunConfig.from_json(path), device=device)
+    # the world this call formed (torchrun's, or a sharded config's world
+    # of one) ends with it
+    if not joined and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,7 +5,9 @@ Systematic resampling takes one uniform u0; `systematic_indices_math`
 takes it as a tensor, so tests can hand it the JAX package's draw, and
 `systematic_indices` draws it from a `torch.Generator`. Ancestor indices
 come from `searchsorted` on the weights' cumulative sum, as int32 (the
-JAX package's dtype; torch indexes with int32 too).
+JAX package's dtype; torch indexes with int32 too). The cumulative sum
+repeats to the bit on CUDA too (`_cumsum`), so every rank of a sharded
+resample, and every run, draws the same ancestors from the same weights.
 """
 from __future__ import annotations
 
@@ -17,6 +19,17 @@ def normalize_log_weights(log_w: torch.Tensor, dim: int = -1
     return log_w - torch.logsumexp(log_w, dim=dim, keepdim=True)
 
 
+def _cumsum(w: torch.Tensor) -> torch.Tensor:
+    """`torch.cumsum(w, 0)` of a vector, the same to the bit from call to
+    call on CUDA too. There a 1-D cumsum runs CUB's single-pass scan,
+    whose decoupled look-back may associate the sum differently from
+    launch to launch; a row of a 2-D tensor is scanned by one block in a
+    fixed order, so the vector is scanned as the first of two rows."""
+    if w.device.type != "cuda":
+        return torch.cumsum(w, dim=0)
+    return torch.cumsum(torch.stack([w, torch.zeros_like(w)]), dim=1)[0]
+
+
 def systematic_indices_math(u0, log_w: torch.Tensor,
                             n_out: int | None = None) -> torch.Tensor:
     """Systematic ancestors of (n,) log weights for the uniform u0 (0-d):
@@ -26,7 +39,7 @@ def systematic_indices_math(u0, log_w: torch.Tensor,
     n = log_w.shape[0]
     m = n if n_out is None else n_out
     w = torch.exp(normalize_log_weights(log_w))
-    cdf = torch.cumsum(w, dim=0)
+    cdf = _cumsum(w)
     cdf = cdf / cdf[-1]  # an exact 1.0 endpoint despite roundoff
     positions = (u0 + torch.arange(m, dtype=torch.float32,
                                    device=log_w.device)) / m

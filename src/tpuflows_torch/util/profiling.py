@@ -74,6 +74,14 @@ def process_index() -> int:
     return 0
 
 
+def process_count() -> int:
+    """The world size, 1 outside `torch.distributed`."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
 class MetricsLogger:
     """JSONL metrics on process 0. Each record gets a wall timestamp."""
 
