@@ -62,6 +62,30 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                and is not held to the bar: there the trajectories are so
                sensitive that two float32 evaluations of the same math
                disagree on many chains;
+     targets_vs_plain — K1, K2 and K3 over every kind of the target
+               library (csrc/targets.cuh) at the width a config gives it
+               (banana 2, correlated 8, mixture 16, hierarchical 256, the
+               funnel, std_normal, diag_normal, rosenbrock and cauchy 64;
+               K1 on 32 lanes below 32), each under a leading-mask affine
+               flow and a 2-block rqs flow (64 x 64, K = 8), but
+               correlated rqs and hierarchical affine under the flows of
+               the runner's nuts variants that run K1 there (c2's 4 rqs
+               blocks, 64 x 64; c5's 2 leading-mask affine couplings,
+               128 x 128), 1024 chains started at the flow's image of the
+               target's exact draws (the funnel's at N(0, 1), the
+               Cauchy's from its central 99.8%), depth 4: K1 against its
+               plain version run in float64 on the same inputs, within
+               K1's bar or twice the float32 plain version's own distance
+               from float64 where larger, at most 16 flips of 1024 and
+               10 times K1's bar (`refereed_bar`: float32 resolves the
+               spline rows only to that); K2 over a window of 8 slots,
+               every slot equal to the bit to a K1 launch from K2's own
+               previous draw (`bitwise_k1` 0) and its first slot held
+               likewise against float64; K3 against its plain version
+               (`judge`); at the variants' two rows the tile kernels
+               equal to the per-warp ones, and K1 timed beside its
+               bound, whose operations add the target's own
+               (`target_flops`: the correlated precision matvec, 2 d^2);
   6. main_path — config 4 of bench.py (`ceiling` variant): a 6000-step
                reverse-KL/STL fit at batch 1024 of Standardize + one
                leading-mask affine coupling on the 64-d funnel, then NUTS
@@ -78,7 +102,7 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                same bar there. The tile kernel is timed at R = 4 and 8 with
                its weights through the ring and resident in shared memory,
                launched from the host and replayed from a CUDA graph,
-               beside the per-warp affine kernel it replaced (`warp_ms`);
+               beside the per-warp module-list kernel (`warp_ms`);
   8. main_path_generic — the `generic` variant of bench.py: the arqs flow
                (Standardize + 3 x (affine + spline), K = 8, hidden 128 x
                128, mixed masks, clamp 8) fitted the same way for
@@ -178,23 +202,20 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                (also replayed from a CUDA graph), beside its bound, its
                plain version and its launches on the portable path, the
                tile kernel at each R and weight mode beside the per-warp
-               kernel it replaced (`warp_ms`: the affine kernel at the
-               ceiling, the module-list kernel at the generic state); and a
-               portable transition's time beside K1's on the same inputs
-               (at the ceiling also in turns with the same transition
-               through the per-warp affine kernel).
+               module-list kernel (`warp_ms`); and a portable transition's
+               time beside K1's on the same inputs.
  18. window_vs_plain — K2 (a window of S transitions per chain in one
                launch), held slot by slot: slot s of its window against
                one transition from K2's own draw of slot s - 1 on slot s's
                randomness, by K1, by the plain window (`window_math_torch`
                one slot per call) and by K1's plain version, so that no
                rounding difference carries from slot to slot: the bench
-               widths (1024 chains, d = 64, depth 6, unit metric, S = 8),
+               widths (1024 chains, d = 64, depth 6, unit metric, S = 4),
                the seeded arqs flow of phase 5 (S = 2; both to bound the
-               plain versions' time), both kernels at d = 32 and d = 256,
-               all at eps 0.1, and both trained flows at their post-warmup
-               states (S = 32, the first POST_WARMUP_CHECKED_SLOTS = 8
-               slots held slot by slot). K1's bar in every slot (a chain
+               plain versions' time), both kernels at d = 32 and d = 256
+               (S = 4 affine, 2 spline), all at eps 0.1, and both trained
+               flows at their post-warmup states (S = 32, the first
+               POST_WARMUP_CHECKED_SLOTS = 4 slots held slot by slot). K1's bar in every slot (a chain
                flips if it
                differs in leapfrog count, depth, divergence or U-turn, or
                its draw by more than 1e-3, at most 5 of 1024 may; on the
@@ -226,10 +247,8 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                gradient per chain per window plus one per leapfrog) and its
                plain version's time (phase 18); the tile kernel at each R
                (at the ceiling with the ring and resident weights) beside
-               the per-warp kernel it replaced (`warp_ms`: the affine
-               window at the ceiling, the module-list window at the
-               generic state) and the lockstep's efficiency, as phases 7
-               and 9 time K1.
+               the per-warp module-list window (`warp_ms`) and the
+               lockstep's efficiency, as phases 7 and 9 time K1.
  21. run_configs — the config runner, `tpuflows_torch.run.run`, on
                configs/c1_std_normal_affine.json (forward-KL fit),
                c2_correlated_rqs.json (VI of a 4-block spline flow, its
@@ -254,7 +273,15 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                per spline block per step of c2 and for its final ELBO, K5
                inverse once per block per step, nothing forward; c3's
                K4/K5 launches as its path implies (`adaptive_launches`),
-               every direction of both in the variant; and
+               every direction of both in the variant;
+               c2_correlated_rqs_nuts and c5_hierarchical_affine_nuts
+               (RUN_VARIANTS: the `nuts` task with fused_kernel "on" over
+               c2's 8-d AR(1) Gaussian and 4-block rqs flow and c5's
+               256-d hierarchical target and 2-block affine flow, at cut
+               depth), gated against the JAX package's results on three
+               seeds, split-R-hat < 1.05, `moment_gate` against the
+               target's exact moments (c5's family-corrected) and K1
+               launched once per transition; and
                c5_hierarchical_smc.json as written (the 256-d
                hierarchical target, 65,536 particles, annealed SMC from an
                affine flow pretrained on prior draws; its "sharded": true
@@ -297,7 +324,9 @@ Then the card's nvidia-smi line, the kernels' JSON line (the rows of K1,
 K2 and K3 with the tile kernel's device time, its R and weight mode, and
 `earlier_ms` / `earlier_device_ms`, the per-warp kernel's it replaced in
 the same run, K1's affine row with c4's launches through the runner and
-the sharded NUTS's (`launches_dist`);
+the sharded NUTS's (`launches_dist`); K1's rows over the correlated
+d = 8 rqs and the hierarchical d = 256 affine flows of targets_vs_plain
+with the launches of the runner's variant of each;
 K4's and K5's with the one-thread kernels', the cold device time and
 c2's and c3's launches through the runner; K6's and K7's with their
 tile plan, the earlier kernels' times and K7's pass 2 alone) and, last,
@@ -347,12 +376,12 @@ MAX_DENERGY = 0.012
 MAX_DQ = 2.3e-4
 # transitions per K2 launch on the window path (bench.py's window=32)
 WINDOW_SLOTS = 32
-# the post-warmup rows of `window_vs_plain` hold the first 8 of their 32
+# the post-warmup rows of `window_vs_plain` hold the first 4 of their 32
 # slots slot by slot (three plain versions a slot: 54 s of the generic
-# row's 70 s at all 32 on an H100's host), to make room for the
-# distributed phase; the whole window still runs in K2 and in the plain
-# version, which times it
-POST_WARMUP_CHECKED_SLOTS = 8
+# row's 70 s at all 32 on an H100's host; 8 to make room for the
+# distributed phase, 4 for the target library's phase); the whole window
+# still runs in K2 and in the plain version, which times it
+POST_WARMUP_CHECKED_SLOTS = 4
 # the seeded flows' step size in the K2 comparison: at K1's eps 0.3 about
 # half (bench) and three quarters (spline) of the chains diverge in one
 # transition from N(0, 1) starts (the divergent counts of phases 4-5), and
@@ -404,12 +433,16 @@ def _kernel_key(name):
     res = " resident" if re.search(r"ILi\d+ELb1E", name) else ""
     if "nuts_chain_tile_kernel" in name and t:
         return f"chain tile d/32={t.group(1)}{res}"
+    if "nuts_chain_tile_funnel_kernel" in name and t:
+        return f"chain tile funnel d/32={t.group(1)}{res}"
     if "fused_logp_affine_kernel" in name and t:
         return f"K3 d/32={t.group(1)}"
     if "fused_logp_chain_kernel" in name and t:
         return f"K3 chain d/32={t.group(1)}"
     if "fused_logp_tile_kernel" in name and t:
         return f"K3 tile d/32={t.group(1)}{res}"
+    if "fused_logp_tile_funnel_kernel" in name and t:
+        return f"K3 tile funnel d/32={t.group(1)}{res}"
     if "nuts_window_kernel" in name and t:
         return f"K2 d/32={t.group(1)}"
     if "nuts_window_chain_kernel" in name and t:
@@ -1260,19 +1293,23 @@ def bench_flow_with_random_head(device, seed):
 
 def spline_flow_with_random_heads(device, seed, dim=DIM, hidden=HIDDEN,
                                   knots=KNOTS, n_blocks=GENERIC_BLOCKS,
-                                  head=SPLINE_HEAD):
+                                  head=SPLINE_HEAD, kind="arqs",
+                                  mask_scheme="mixed", n_leading=1,
+                                  clamp=CLAMP):
     """The generic path's arqs flow as bench.py builds it on N(0, 1)
-    samples, with every conditioner's last layer random: weights `head`
-    times the He scale, biases 0.1 N(0, 1). Drawn on the CPU, so that the
-    same flow can be carried to the JAX package there."""
+    samples (or another `kind`, `mask_scheme`, `n_leading` and `clamp` of
+    `build_flow`), with every conditioner's last layer random: weights
+    `head` times the He scale, biases 0.1 N(0, 1). Drawn on the CPU, so
+    that the same flow can be carried to the JAX package there."""
     import torch
     from tpuflows_torch.flows import build_flow
 
     g = torch.Generator().manual_seed(seed)
     init = torch.randn((1024, dim), generator=g)
-    flow = build_flow(init, g, kind="arqs", n_blocks=n_blocks, knots=knots,
-                      hidden=hidden, mask_scheme="mixed", clamp=CLAMP,
-                      use_pallas="auto", device=device)
+    flow = build_flow(init, g, kind=kind, n_blocks=n_blocks, knots=knots,
+                      hidden=hidden, mask_scheme=mask_scheme, clamp=clamp,
+                      n_leading=n_leading, use_pallas="auto",
+                      device=device)
     with torch.no_grad():
         for t in flow.transforms[1:]:
             w, b = t.net.weights[-1], t.net.biases[-1]
@@ -1307,13 +1344,8 @@ def compare(plain, kern, max_dq=MAX_DQ):
     divergence or U-turn, or a q difference above 1e-3 that reveals a
     flipped proposal) and the largest differences on the other chains,
     against K1's bar (with `max_dq` for q)."""
-    import torch
-
-    flip = torch.zeros_like(plain[1], dtype=torch.bool)
-    for i in (3, 4, 5, 6):
-        flip |= plain[i] != kern[i]
+    flip = knife_edge(plain, kern)
     dq = (plain[0] - kern[0]).abs().amax(dim=1)
-    flip |= dq > 1e-3
     agree = ~flip
 
     def worst(x):
@@ -1461,6 +1493,394 @@ def kernel_vs_plain_spline(device, shapes=SPLINE_SHAPES,
                      "blocks": nb, "max_depth": depth, "eps": eps,
                      "head_scale": head, "gated": i < len(shapes), **res})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# K1, K2 and K3 over every kind of the target library (csrc/targets.cuh)
+# ---------------------------------------------------------------------------
+# (kind, d): every kind the kernels take, at the width a config gives it
+# (c6's banana, c2's correlated Gaussian, c3's mixture, c5's hierarchical
+# model; c4's 64 for the funnel and the kinds no config sizes)
+TARGET_ROWS = (("banana", 2), ("correlated", 8), ("mixture", 16),
+               ("funnel", 64), ("std_normal", 64), ("diag_normal", 64),
+               ("rosenbrock", 64), ("cauchy", 64), ("hierarchical", 256))
+TARGET_FLOWS = ("affine", "rqs")
+TARGET_HIDDEN = (64, 64)
+TARGET_DEPTH = 4
+TARGET_WINDOW = 8
+# the slots of each window held against float64 (every slot is held to
+# chained K1 launches to the bit)
+TARGET_CHECKED_SLOTS = 1
+# step sizes: a fraction of each target's narrowest scale near its draws
+TARGET_EPS = {"banana": 0.15, "correlated": 0.15, "mixture": 0.3,
+              "funnel": 0.1, "std_normal": 0.3, "diag_normal": 0.3,
+              "rosenbrock": 0.01, "cauchy": 0.05, "hierarchical": 0.05}
+# the rows whose tile kernels are held to the per-warp ones (a non-funnel
+# kind at d = 8 and one at d = 256) and whose K1 is timed for PERF.md, each
+# under the flow of the runner's variant that runs K1 there
+# (`config_flow`): c2's 4 rqs blocks (64 x 64, K = 8) and c5's 2
+# leading-mask affine couplings (128 x 128, the ring: more than one
+# coupling), so that the check, the time and the bound are of the K1 mode
+# whose launches the variant counts
+TARGET_TILE_ROWS = {("correlated", "rqs"): "c2_correlated_rqs_nuts",
+                    ("hierarchical", "affine"): "c5_hierarchical_affine_nuts"}
+# the affine couplings' last layers in `config_flow`: random_flow's scale
+CONFIG_AFFINE_HEAD = 0.3
+# the central share of the Cauchy's draws the phase starts from: past it
+# float32 cannot evaluate the flow and the target to K1's bar (at |x| ~
+# 1e4 an affine shift cancels z, a spline's conditioner sees inputs of
+# 1e4: the float32 plain versions' energies missed float64's by up to 63)
+CAUCHY_START_MASS = 0.998
+
+
+def smoke_target(kind, d, device):
+    """The port's target of `kind` at width d as the runner builds it
+    (`TargetSpec.build`: c2's AR(1) Gaussian, the bimodal mixture, c5's
+    hierarchical data, ...), or a MultimodalCauchy, which no config
+    names."""
+    from tpuflows_torch.config import TargetSpec
+    from tpuflows_torch.targets import MultimodalCauchy
+
+    if kind == "cauchy":
+        return MultimodalCauchy(d)
+    return TargetSpec(kind=kind, dim=d).build(device=device)
+
+
+def target_flow(device, flow_kind, d, seed):
+    """The phase's flows at width d: Standardize + one leading-mask affine
+    coupling (every leaf random, `random_flow`), or Standardize + 2 RQS
+    blocks on alternating masks, K = 8 (random heads,
+    `spline_flow_with_random_heads`); MLPs TARGET_HIDDEN."""
+    from tpuflows_torch.util.shapes import leading_mask
+
+    if flow_kind == "affine":
+        return random_flow(device, seed, d, TARGET_HIDDEN,
+                           leading_mask(d, 2 if d > 2 else 1))
+    return spline_flow_with_random_heads(
+        device, seed, dim=d, hidden=TARGET_HIDDEN, knots=KNOTS, n_blocks=2,
+        kind="rqs", mask_scheme="alternating")
+
+
+def config_flow(device, name, seed):
+    """The flow of the runner's config `name` (`run_config_dict`'s flow
+    section) as `build_flow` builds it, every conditioner's last layer
+    random (`spline_flow_with_random_heads`; CONFIG_AFFINE_HEAD for affine
+    couplings, SPLINE_HEAD for splines)."""
+    from tpuflows_torch.config import FlowSpec
+
+    cfg = run_config_dict(name)
+    spec = FlowSpec(**{**cfg["flow"], "hidden": tuple(cfg["flow"]["hidden"])})
+    return spline_flow_with_random_heads(
+        device, seed, dim=cfg["target"]["dim"], hidden=spec.hidden,
+        knots=spec.knots, n_blocks=spec.n_blocks,
+        head=CONFIG_AFFINE_HEAD if spec.kind == "affine" else SPLINE_HEAD,
+        kind=spec.kind, mask_scheme=spec.mask_scheme,
+        n_leading=spec.n_leading, clamp=spec.clamp)
+
+
+def target_start(target, flow, kind, n, seed, device):
+    """Start points in the flow's latent space: the flow's image of the
+    target's exact draws (the Cauchy's from its central CAUCHY_START_MASS),
+    or N(0, 1) for the funnel (as K1's funnel rows start)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "funnel":
+        return torch.randn((n, target.dim), generator=g, device=device)
+    if kind == "cauchy":
+        u = torch.rand((n, target.dim), generator=g, device=device)
+        u = 0.5 * (1.0 - CAUCHY_START_MASS) + CAUCHY_START_MASS * u
+        heads = torch.rand((n, 2), generator=g, device=device) < 0.5
+        x = target.sample_math(torch.tan(math.pi * (u - 0.5)), heads)
+    else:
+        x = target.sample(g, n, device=device)
+    with torch.no_grad():
+        q, _ = flow.forward_and_ladj(x)
+    return q.contiguous()
+
+
+def target_flops(model):
+    """Operations of one gradient of the target itself per row
+    (csrc/targets.cuh), beside `mlp_flops`: the correlated Gaussian's
+    precision matvec (2 d^2), the mixture's three passes over K
+    components, a few per dim for the rest."""
+    pt = model.packed_target
+    d = pt.dim
+    if pt.kind == 2:
+        return 2 * d * d + 6 * d
+    if pt.kind == 3:
+        K = (pt.params.numel() - 1) // (1 + 2 * pt.d_pad)
+        return 3 * K * 6 * d + 2 * d
+    return {0: 3, 1: 6, 4: 4, 5: 10, 6: 4, 7: 10, 8: 16}[pt.kind] * d
+
+
+def k1_bound(model, q, n_steps, depth):
+    """(bound ms, 'operations' or 'bytes', flops, bytes) of one K1 launch
+    whose chains took `n_steps` leapfrogs: one gradient at q and one per
+    leapfrog, each `mlp_flops` + `target_flops`, against every input read
+    once (q, the randomness, the metric, the packed flow and target) and
+    q' and info written once."""
+    n, d = q.shape
+    flops = (float(n_steps.sum()) + n) * (mlp_flops(model)
+                                          + target_flops(model))
+    n_in = (2 * n * d + 2 * n * depth + n * (1 << depth) + 1 + d
+            + model.params.numel() + model.packed_target.params.numel())
+    nbytes = 4.0 * (n_in + n * d + 7 * n)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def f64_model(flow, target):
+    """The packed flow over a float64 copy of `flow`: its plain version
+    (`nuts_cuda.plain_logp_grad`, the target read from the float32 buffer
+    in float64) is the float64 referee of the float32 evaluations."""
+    import copy
+
+    from tpuflows_torch.kernels import nuts_cuda
+
+    model = nuts_cuda.pack_flow(copy.deepcopy(flow).double(), target)
+    if model.flow_p is not None:  # its relayout is built in float32
+        model = model._replace(flow_p=model.flow_p.double())
+    return model
+
+
+def knife_edge(ref, other):
+    """The chains (per slot of a window) on which `other` takes another
+    tree decision than `ref` (leapfrog count, depth, divergence or
+    U-turn) or ends more than 1e-3 away: `compare`'s flips."""
+    flip = (ref[0] - other[0]).abs().amax(dim=-1) > 1e-3
+    for i in (3, 4, 5, 6):
+        flip |= ref[i] != other[i]
+    return flip
+
+
+def refereed_diff(exact, other, knife):
+    """`other` (K1's or K2's outputs) against the float64 plain version
+    `exact`: its flips against it (the most in a slot) and its largest q
+    and energy differences on the chains outside `knife`, the knife-edge
+    chains of every float32 evaluation compared (a chain that one float32
+    evaluation sends down another tree is held by the flip count, not by
+    its q)."""
+    n = knife.shape[-1]
+    ok = ~knife
+
+    def worst(x):
+        return float(x[ok].max()) if bool(ok.any()) else 0.0
+
+    return {"flips": int(knife_edge(exact, other).reshape(-1, n).sum(1)
+                         .max()),
+            "knife_edge": int(knife.sum()),
+            "max_dq": worst((exact[0] - other[0]).abs().amax(dim=-1)),
+            "max_denergy": worst((exact[7] - other[7]).abs())}
+
+
+# the most refereed_bar widens K1's bar to: flips a share of the chains,
+# the energy and q a factor of K1's bar
+REFEREED_FLIP_SHARE = 1 / 64
+REFEREED_WIDEN = 10.0
+
+
+def refereed_bar(spreads, n):
+    """K1's bar, or twice float32's own distance from float64 where that
+    is larger, for the flips, the energy and q, but at most n
+    REFEREED_FLIP_SHARE flips and REFEREED_WIDEN times K1's bar in energy
+    and q: `spreads` are the `refereed_diff`s of the float32 plain
+    versions of one flow and target (K1's plain transition, K2's plain
+    window). The kernel's distance from float64 must stay within it: as
+    accurate as its float32 plain versions, to a factor of 2 (the rule of
+    K1's bar at the generic state, refereed by float64), and never far
+    from K1's bar, however badly float32 does."""
+    def twice(key):
+        return 2.0 * max(r[key] for r in spreads)
+
+    flips = max(1, n * MAX_FLIPS // 1024)
+    return {"max_flips": max(flips, min(int(twice("flips")),
+                                        int(n * REFEREED_FLIP_SHARE))),
+            "max_denergy": max(MAX_DENERGY, min(
+                twice("max_denergy"), REFEREED_WIDEN * MAX_DENERGY)),
+            "max_dq": max(MAX_DQ, min(twice("max_dq"),
+                                      REFEREED_WIDEN * MAX_DQ))}
+
+
+def refereed(res, bar):
+    """Whether a `refereed_diff` lies within `refereed_bar`."""
+    return bool(res["flips"] <= bar["max_flips"]
+                and not res["max_denergy"] > bar["max_denergy"]
+                and not res["max_dq"] > bar["max_dq"])
+
+
+def targets_vs_plain(device, rows=TARGET_ROWS, flows=TARGET_FLOWS,
+                     n=N_CHAINS, depth=TARGET_DEPTH, window=TARGET_WINDOW,
+                     checked_slots=TARGET_CHECKED_SLOTS,
+                     tile_rows=TARGET_TILE_ROWS, n_reps=20):
+    """Phase targets_vs_plain: for every (kind, d) of `rows` under each
+    flow of `flows`, on n chains started from the flow's image of the
+    target's exact draws (`target_start`):
+      * K1 against its plain version run in float64 on the same inputs
+        (`refereed_diff`), under `refereed_bar`: K1's bar, or twice the
+        float32 plain versions' distance from float64 where that is
+        larger, within a cap; the distance from the float32 plain
+        version is printed (`vs_plain`);
+      * K2 over a window of `window` slots: every slot equal to the bit to
+        one K1 launch from K2's own previous draw (`bitwise_k1` 0, on the
+        card), and its first `checked_slots` slots against the plain
+        transition in float64 from the same draws, under the same bar,
+        which also takes K2's float32 plain version (`window_math_torch`,
+        one slot per call) into float32's distance from float64; the
+        distance from that plain version is printed (`vs_plain`);
+      * K3 against its plain version (`fused_logp_vs_plain`, the spline
+        kernels' `judge`, float64-refereed).
+    The (kind, flow) pairs of `tile_rows` run under the flow of the
+    config it maps them to (`config_flow`), and there also K1's, K2's and
+    K3's tile kernels against the per-warp ones in every mode
+    (`tile_vs_warp`'s rule), and K1 timed against its plain version with
+    its bound (`k1_bound`). Returns (rows, tile rows, timings)."""
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+
+    out, tiles, timings = [], [], []
+    for i, (kind, d) in enumerate(rows):
+        target = smoke_target(kind, d, device)
+        for j, flow_kind in enumerate(flows):
+            seed = 7000 + 10 * i + j
+            config = tile_rows.get((kind, flow_kind))
+            label = f"{kind} d={d} {flow_kind}"
+            if config is None:
+                flow = target_flow(device, flow_kind, d, seed)
+            else:
+                label += f", {config}'s flow"
+                flow = config_flow(device, config, seed)
+            model = nuts_cuda.pack_flow(flow, target)
+            model64 = f64_model(flow, target)
+            q = target_start(target, flow, kind, n, seed, device)
+            g = torch.Generator(device=device).manual_seed(seed)
+            im = 0.5 + torch.rand(d, generator=g, device=device)
+            rnd = nuts_cuda.draw_randomness(g, n, d, depth, im)
+            e = torch.tensor(TARGET_EPS[kind], device=device)
+
+            def plain(z, *r, f64=False):  # K1's plain version
+                if f64:
+                    return nuts_cuda.transition_math_torch(
+                        z.double(), *(t.double() for t in r), e.double(),
+                        im.double(), nuts_cuda.plain_logp_grad(model64),
+                        depth)
+                return nuts_cuda.transition_math_torch(
+                    z, *r, e, im, nuts_cuda.plain_logp_grad(model), depth)
+
+            t_row = time.perf_counter()
+            kern = nuts_cuda.nuts_transition(q, *rnd, e, im, model, depth)
+            for t in kern:
+                if not bool(torch.isfinite(t).all()):
+                    raise RuntimeError(f"K1 returned non-finite values "
+                                       f"({label})")
+            plain32 = plain(q, *rnd)
+            exact = plain(q, *rnd, f64=True)
+            knife = knife_edge(exact, kern) | knife_edge(exact, plain32)
+            k1 = refereed_diff(exact, kern, knife)
+            k1.update(f64_spread=refereed_diff(exact, plain32, knife),
+                      vs_plain=compare(plain32, kern),
+                      depth_histogram=torch.bincount(
+                          plain32[4].long(), minlength=depth + 1).tolist(),
+                      divergent_chains=int(plain32[5].sum()),
+                      seconds=time.perf_counter() - t_row)
+            # K2: the window, then each slot from K2's own previous draw
+            wrnd = window_randomness(device, n, d, window, depth, im,
+                                     seed + 1)
+            win = nw.nuts_window(q, *wrnd, e, im, model, depth, window)
+            for t in win:
+                if not bool(torch.isfinite(t).all()):
+                    raise RuntimeError(f"K2 returned non-finite values "
+                                       f"({label})")
+            chained = nw.chain_slots(
+                lambda z, *r: nuts_cuda.nuts_transition(z, *r, e, im, model,
+                                                        depth),
+                q, *wrnd, window, depth, starts=win[0])
+            bits = {k: value_diff(a, b)
+                    for k, a, b in zip(K2_OUTS, win, chained)}
+            S = min(window, checked_slots)
+            head = [t[:S] for t in win]
+
+            def slots(step):
+                return nw.chain_slots(step, q, *wrnd, S, depth,
+                                      starts=head[0])
+
+            def one_slot(z, *r):  # K2's plain version, one slot a call
+                w = nw.window_math_torch(z, *r, e, im,
+                                         nuts_cuda.plain_logp_grad(model),
+                                         1, depth)
+                w = [x[0] for x in w]
+                w[2] = w[2] * torch.clamp(w[3], min=1.0)
+                return w
+
+            t_k2 = time.perf_counter()
+            w_plain = slots(one_slot)
+            w_exact = slots(lambda z, *r: plain(z, *r, f64=True))
+            w_knife = knife_edge(w_exact, head) | knife_edge(w_exact,
+                                                             w_plain)
+            k2 = {"window": window, "checked_slots": S,
+                  **refereed_diff(w_exact, head, w_knife),
+                  "f64_spread": refereed_diff(w_exact, w_plain, w_knife),
+                  "vs_plain": compare_window(w_plain, head, math.inf,
+                                             math.inf, math.inf),
+                  "bitwise_k1": sum(v[0] + v[1] for v in bits.values()),
+                  "bitwise_k1_by_output": {k: v[0] + v[1]
+                                           for k, v in bits.items()}}
+            # one bar for the row: float32's own distance from float64 in
+            # both plain versions
+            bar = refereed_bar([k1["f64_spread"], k2["f64_spread"]], n)
+            k1["bar"] = k2["bar"] = bar
+            k1["passed"] = refereed(k1, bar)
+            # on the CPU both sides are plain versions, and the plain
+            # window rounds apart from chained plain transitions
+            k2["passed"] = bool(refereed(k2, bar) and (
+                k2["bitwise_k1"] == 0 or device == "cpu"))
+            k2["seconds"] = time.perf_counter() - t_k2
+            t_k3 = time.perf_counter()
+            k3 = fused_logp_vs_plain(device, [(label, flow, n, q,
+                                               target)])[0]
+            k3["seconds"] = time.perf_counter() - t_k3
+            row = {"kind": kind, "d": d, "d_pad": model.d_pad,
+                   "flow": flow_kind, "flow_config": config,
+                   "hidden": list(model.hidden), "eps": float(e), "k1": k1,
+                   "k2": k2,
+                   "k3": {k: k3[k] for k in ("lp", "g", "passed",
+                                             "seconds")}}
+            row["passed"] = k1["passed"] and k2["passed"] and k3["passed"]
+            out.append(row)
+            if config is None:
+                continue
+            for name, res in (
+                    ("K1", k1_tile_vs_warp(flow, q, im, rnd, e, depth,
+                                           target)),
+                    ("K3", k3_tile_vs_warp(flow, q, target)),
+                    ("K2", k2_tile_vs_warp(flow, q, im, wrnd, e, depth,
+                                           window, target))):
+                res = {"kernel": name, "label": label, **res}
+                res["passed"] = bool(res["rows"]) and all(
+                    x["differ"] == 0 for x in res["rows"].values())
+                tiles.append(res)
+            ms, kern = timed(lambda: nuts_cuda.nuts_transition(
+                q, *rnd, e, im, model, depth), n_reps)
+            plain_ms, _ = timed(lambda: plain(q, *rnd), 2, warmup=1)
+            bound, by, flops, nbytes = k1_bound(model, q, kern[3], depth)
+            timings.append({
+                "label": label, "kind": kind, "d": d, "flow": flow_kind,
+                "config": config, "chains": n, "max_depth": depth, "ms": ms,
+                "device_ms": graph_ms(lambda: nuts_cuda.nuts_transition(
+                    q, *rnd, e, im, model, depth)),
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "flops": flops, "bytes": nbytes,
+                "mlp_flops": mlp_flops(model),
+                "target_flops": target_flops(model),
+                "leapfrogs": float(kern[3].sum()),
+                "rows": nuts_cuda.tile_rows(model),
+                "resident": nuts_cuda.launch_resident(
+                    model, nuts_cuda.tile_rows(model)) > 0,
+                "max_abs_err": k1["max_dq"]})
+    return out, tiles, timings
 
 
 def nuts_gated(device, sampler, flow, target, variant, n_chains, num_warmup,
@@ -1689,7 +2109,7 @@ def mlp_flops(model):
     from tpuflows_torch.flows import RQSCouplingBlock, Standardize
 
     total = 0
-    for t in model.flow.transforms:
+    for t in (() if model.flow is None else model.flow.transforms):
         if isinstance(t, Standardize):
             continue
         h1, h2 = t.net.weights[0].shape[1], t.net.weights[1].shape[1]
@@ -1735,9 +2155,8 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False,
     kernel is also timed at each R of TILE_ROWS that fits, with its
     weights through the ring and, where they fit, resident,
     launched from the host and replayed from a CUDA graph, beside the
-    per-warp kernel it replaced (the module-list kernel, or the affine
-    kernel for Standardize + one AffineCoupling: `tile_and_warp_times`),
-    with the tile lockstep's efficiency at each R
+    per-warp module-list kernel (`tile_and_warp_times`), with the tile
+    lockstep's efficiency at each R
     (`lockstep_efficiency`)."""
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
@@ -1780,12 +2199,11 @@ def time_kernel(flow, state, n_reps=50, plain_reps=5, cpu_randomness=False,
                      2.0 * out["plain_vs_plain_at_state"]["max_dq"])
     out["dq_bar"] = max_dq
     out["vs_plain_at_state"] = compare(plain, kern, max_dq)
-    warp = (nuts_cuda.affine_transition_warp if model.affine
-            else nuts_cuda.chain_transition_warp)
     out.update(tile_and_warp_times(
         model, lambda R, resident: nuts_cuda._launch(
             q, *rnd, eps, im, model, MAX_DEPTH, rows=R, resident=resident),
-        lambda: warp(q, *rnd, eps, im, model, MAX_DEPTH),
+        lambda: nuts_cuda.chain_transition_warp(q, *rnd, eps, im, model,
+                                                MAX_DEPTH),
         tile_modes(model, TILE_ROWS), n_reps, graph_reps=graph_reps,
         graph_replays=graph_replays))
     for R, r in (*out["tile"].items(), *out["tile_resident"].items()):
@@ -1824,7 +2242,10 @@ def fused_logp_vs_plain(device, rows):
     and g, under the spline kernels' bar (`judge`): a second float32
     evaluation is autograd through the whole flow on the CPU, and the
     referee the same in float64. `rows`: (label, flow, n, z) with z None
-    for z ~ N(0, 1) drawn from a seed."""
+    for z ~ N(0, 1) drawn from a seed, and optionally the target, then
+    read in both from the packed buffer (`nuts_cuda.packed_log_density`;
+    without it the funnel of the flow's width, through its own
+    `log_density`)."""
     import copy
 
     import torch
@@ -1834,10 +2255,10 @@ def fused_logp_vs_plain(device, rows):
     from tpuflows_torch.targets import NealsFunnel
 
     out = []
-    for i, (label, flow, n, z) in enumerate(rows):
+    for i, (label, flow, n, z, *target) in enumerate(rows):
         d = flow.transforms[0].loc.numel()
-        target = NealsFunnel(dim=d)
-        hook = fused_latent_logp_and_grad(target, flow)
+        hook = fused_latent_logp_and_grad(*target or [NealsFunnel(dim=d)],
+                                          flow)
         if z is None:
             g = torch.Generator(device=device).manual_seed(30 + i)
             z = torch.randn((n, d), generator=g, device=device)
@@ -1845,10 +2266,17 @@ def fused_logp_vs_plain(device, rows):
         kern = hook(z)
         plain = hook.plain(z)
         cpu32 = copy.deepcopy(flow).cpu()
-        oracle = nuts_cuda.autograd_logp_grad(cpu32, target.log_density)(
-            z.cpu())
-        exact = nuts_cuda.autograd_logp_grad(
-            cpu32.double(), target.log_density)(z.cpu().double())
+        packed = hook.model.packed_target._replace(
+            params=hook.model.packed_target.params.cpu())
+
+        def log_density(x):  # the target as the kernel reads it
+            return nuts_cuda.packed_log_density(packed, x)
+
+        if not target:  # the funnel's own, as before targets were packed
+            log_density = hook.model.target.log_density
+        oracle = nuts_cuda.autograd_logp_grad(cpu32, log_density)(z.cpu())
+        exact = nuts_cuda.autograd_logp_grad(cpu32.double(), log_density)(
+            z.cpu().double())
         row = {"label": label, "n": int(z.shape[0]), "d": d,
                "modules": len(flow.transforms)}
         for j, name in enumerate(("lp", "g")):
@@ -2007,14 +2435,10 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
     launched from the host and replayed from a CUDA graph (`graph_ms`),
     beside its bound and its plain version; and one portable transition
     (the host-driven lockstep loop with K3) on the inputs `time_kernel`
-    timed K1 on, beside that time `k1_ms` (for the affine flow, in turns
-    with the same transition through the per-warp affine kernel the tile
-    kernel replaced: `earlier_portable_transition_ms`). The tile kernel
-    is also timed in each mode of `tile_modes` (each R of TILE_ROWS that
-    fits, the ring and, for a flow with one coupling, the resident
-    weights), beside the per-warp kernel it replaced
-    (`tile_and_warp_times`): the affine kernel for the affine flow, the
-    module-list kernel for any other."""
+    timed K1 on, beside that time `k1_ms`. The tile kernel is also timed
+    in each mode of `tile_modes` (each R of TILE_ROWS that fits, the ring
+    and, for a flow with one coupling, the resident weights), beside the
+    per-warp module-list kernel (`tile_and_warp_times`)."""
     from tpuflows_torch.kernels import fused_logp_cuda
     from tpuflows_torch.kernels.fused_logp_cuda import (
         fused_latent_logp_and_grad)
@@ -2047,24 +2471,13 @@ def time_fused_logp(flow, state, k1_ms, n_reps=100, plain_reps=10,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "flops": flops, "bytes": nbytes,
            "k1_transition_ms": k1_ms}
-    if model.affine:  # the same transition through the per-warp yardstick
-        def warp(zz):
-            return fused_logp_cuda.affine_logp_grad_warp(zz, model)
-
-        runs = [transition(f) for f in (hook, warp, warp, hook)]
-        out["portable_transition_ms"] = 0.5 * (runs[0] + runs[3])
-        out["earlier_portable_transition_ms"] = 0.5 * (runs[1] + runs[2])
-        out["portable_transition_runs"] = runs
-    else:
-        out["portable_transition_ms"] = transition(hook)
+    out["portable_transition_ms"] = transition(hook)
     out.update(tile_and_warp_times(
         model, lambda R, res: fused_logp_cuda._launch(z, model, rows=R,
                                                       resident=res),
-        lambda: (fused_logp_cuda.affine_logp_grad_warp if model.affine
-                 else fused_logp_cuda.chain_logp_grad_warp)(z, model),
+        lambda: fused_logp_cuda.chain_logp_grad_warp(z, model),
         tile_modes(model, TILE_ROWS), n_reps))
-    out["earlier"] = ("per-warp affine kernel" if model.affine
-                      else "per-warp module-list kernel")
+    out["earlier"] = "per-warp module-list kernel"
     return out
 
 
@@ -2147,15 +2560,16 @@ def lockstep_efficiency(n_steps, rows):
 
 
 def tile_and_warp_times(model, tile_fn, warp_fn, modes, n_reps,
-                        graph_reps=20, graph_replays=10):
+                        graph_reps=20, graph_replays=10, warp_turns=2):
     """A kernel's tile version at each (R, resident) of `modes`
     (`tile_fn(R, resident)`: the ring at each R that fits, and for K1 and
     K2 the resident weights where they fit, `tile_modes`) and the
     per-warp kernel it replaced (`warp_fn()`), each launched from the host
     (`timed`) and replayed from a CUDA graph (`graph_ms`), on the same
-    inputs, in turns: warp, tiles, warp. `tile` holds the ring's times by
-    R, `tile_resident` the resident weights'; `tile_device_ms` is the
-    mode the wrappers take (`rows`, `resident`)."""
+    inputs, in turns: warp, tiles, warp (warp, tiles with `warp_turns`
+    1). `tile` holds the ring's times by R, `tile_resident` the resident
+    weights'; `tile_device_ms` is the mode the wrappers take (`rows`,
+    `resident`)."""
     from tpuflows_torch.kernels import nuts_cuda
 
     def both(fn):
@@ -2165,7 +2579,7 @@ def tile_and_warp_times(model, tile_fn, warp_fn, modes, n_reps,
 
     first = both(warp_fn)
     times = {m: both(lambda m=m: tile_fn(*m)) for m in modes}
-    last = both(warp_fn)
+    last = both(warp_fn) if warp_turns > 1 else first
     rows = nuts_cuda.tile_rows(model)
     resident = nuts_cuda.launch_resident(model, rows) > 0
     warp = {k: 0.5 * (first[k] + last[k]) for k in first}
@@ -2184,18 +2598,18 @@ def tile_and_warp_times(model, tile_fn, warp_fn, modes, n_reps,
     return out
 
 
-def k1_tile_vs_warp(flow, q, im, rnd, eps, depth):
+def k1_tile_vs_warp(flow, q, im, rnd, eps, depth, target=None):
     """K1's tile kernel (`nuts_cuda._launch(..., rows=R, resident=...)`)
     at each R of TILE_ROWS that fits, with the ring and, where they fit,
     the resident weights (`tile_modes`), against the per-warp module-list
     kernel on the same inputs: per mode, the elements of the eight outputs
     whose bits differ (expected 0) and the largest difference, K1's flips
     and max dq between the two (`compare`), and the tile lockstep's
-    efficiency."""
+    efficiency. `target`: the funnel of q's width unless given."""
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.targets import NealsFunnel
 
-    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=q.shape[1]))
+    model = nuts_cuda.pack_flow(flow, target or NealsFunnel(dim=q.shape[1]))
     warp = nuts_cuda.chain_transition_warp(q, *rnd, eps, im, model, depth)
     out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
            "default_rows": nuts_cuda.tile_rows(model), "rows": {}}
@@ -2216,7 +2630,7 @@ def k1_tile_vs_warp(flow, q, im, rnd, eps, depth):
     return out
 
 
-def k3_tile_vs_warp(flow, z):
+def k3_tile_vs_warp(flow, z, target=None):
     """K3's tile kernel (`fused_logp_cuda._launch(z, model, rows=R,
     resident=...)`) in every mode of `tile_modes` (the affine flow's
     resident weights included) against the per-warp module-list kernel on
@@ -2227,7 +2641,8 @@ def k3_tile_vs_warp(flow, z):
         fused_latent_logp_and_grad)
     from tpuflows_torch.targets import NealsFunnel
 
-    hook = fused_latent_logp_and_grad(NealsFunnel(dim=z.shape[1]), flow)
+    hook = fused_latent_logp_and_grad(target or NealsFunnel(dim=z.shape[1]),
+                                      flow)
     warp = fused_logp_cuda.chain_logp_grad_warp(z, hook.model)
     out = {"n": int(z.shape[0]), "d": int(z.shape[1]),
            "default_rows": nuts_cuda.tile_rows(hook.model), "rows": {}}
@@ -2246,7 +2661,7 @@ def k3_tile_vs_warp(flow, z):
     return out
 
 
-def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window):
+def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window, target=None):
     """K2's tile kernel (`nuts_window_cuda._launch(..., rows=R,
     resident=...)`) in every mode of `tile_modes` against the per-warp
     module-list window (`chain_window_warp`) on the same inputs: per mode,
@@ -2257,7 +2672,7 @@ def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window):
     from tpuflows_torch.kernels import nuts_window_cuda as nw
     from tpuflows_torch.targets import NealsFunnel
 
-    model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=q.shape[1]))
+    model = nuts_cuda.pack_flow(flow, target or NealsFunnel(dim=q.shape[1]))
     warp = nw.chain_window_warp(q, *rnd, eps, im, model, depth, window)
     out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
            "window": window, "default_rows": nuts_cuda.tile_rows(model),
@@ -2450,10 +2865,10 @@ def window_bar(spreads, n):
 def window_rows(device):
     """(label, flow, q, inv_mass, eps, depth, window, seed) of the K2
     comparison on seeded flows: the bench widths (phase 4's flow) at
-    S = 8, the seeded arqs flow of phase 5 at S = 2, and both kernels at
-    d = 32 and d = 256 (S = 8, and 4 for the splines), all at eps
-    WINDOW_EPS; the post-warmup states, added by `main`, hold the main
-    path's S = 32."""
+    S = 4, the seeded arqs flow of phase 5 at S = 2, and both kernels at
+    d = 32 and d = 256 (S = 4, and 2 for the splines; 8 and 4 before the
+    target library's phase took the time), all at eps WINDOW_EPS; the
+    post-warmup states, added by `main`, hold the main path's S = 32."""
     import torch
 
     def start(n, d, seed, unit):
@@ -2463,19 +2878,19 @@ def window_rows(device):
         return q.to(device), im.to(device)
 
     rows = [("bench", bench_flow_with_random_head(device, 2),
-             *start(N_CHAINS, DIM, 3, True), WINDOW_EPS, MAX_DEPTH, 8, 31),
+             *start(N_CHAINS, DIM, 3, True), WINDOW_EPS, MAX_DEPTH, 4, 31),
             ("spline bench", spline_flow_with_random_heads(device, 10 + DIM),
              *start(N_CHAINS, DIM, 20 + DIM, True), WINDOW_EPS, MAX_DEPTH, 2,
              32)]
-    for d, h1, h2, depth, eps, n, S in ((32, 32, 64, 5, 0.1, 256, 8),
-                                        (256, 128, 256, 4, 0.1, 128, 8)):
+    for d, h1, h2, depth, eps, n, S in ((32, 32, 64, 5, 0.1, 256, 4),
+                                        (256, 128, 256, 4, 0.1, 128, 4)):
         mask = tuple(j % 2 for j in range(d))
         rows.append((f"affine d={d}", random_flow(device, d + h1, d,
                                                   (h1, h2), mask),
                      *start(n, d, 40 + d, False), eps, depth, S, 41 + d))
     for d, hidden, K, nb, depth, eps, n, S in (
-            (32, (32, 64), 4, 2, 5, 0.1, 256, 4),
-            (256, (64, 128), 16, 1, 4, 0.1, 128, 4)):
+            (32, (32, 64), 4, 2, 5, 0.1, 256, 2),
+            (256, (64, 128), 16, 1, 4, 0.1, 128, 2)):
         rows.append((f"spline d={d} K={K}", spline_flow_with_random_heads(
             device, 10 + d, dim=d, hidden=hidden, knots=K, n_blocks=nb),
             *start(n, d, 50 + d, False), eps, depth, S, 51 + d))
@@ -2501,7 +2916,8 @@ def window_vs_plain(device, rows, full_plain=False, checked_slots=None):
     by slot, is printed (not gated). `checked_slots` holds only the first
     that many slots of each window slot by slot (K2 still runs the whole
     window, and the free-running plain window too). Each call is timed
-    once with CUDA events on the card."""
+    once with CUDA events on the card. A row may end with its target (the
+    funnel of q's width when it does not)."""
     import torch
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.kernels import nuts_window_cuda as nw
@@ -2517,9 +2933,9 @@ def window_vs_plain(device, rows, full_plain=False, checked_slots=None):
         return 1e3 * (time.perf_counter() - t), out
 
     out = []
-    for label, flow, q, im, eps, depth, S, seed in rows:
+    for label, flow, q, im, eps, depth, S, seed, *target in rows:
         n, d = q.shape
-        model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=d))
+        model = nuts_cuda.pack_flow(flow, *target or [NealsFunnel(dim=d)])
         rnd = window_randomness(device, n, d, S, depth, im, seed)
         e = torch.as_tensor(eps, dtype=torch.float32, device=device)
         logp_grad = nuts_cuda.plain_logp_grad(model)
@@ -2673,7 +3089,7 @@ def check_window(res):
 
 
 def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
-                graph_reps=5, graph_replays=2, seed=8):
+                graph_reps=5, graph_replays=2, seed=8, warp_turns=2):
     """K2 at a main path's post-warmup state with CUDA events, launched
     from the host and replayed from a CUDA graph (`graph_ms`), on the
     randomness of its `window_vs_plain` row; per transition beside K1's
@@ -2717,14 +3133,14 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
            "bytes": nbytes, "gradients": gradients,
            "leapfrogs_per_transition": (gradients - n) / (n * slots),
            "achieved_tflops": flops / (ms * 1e-3) / 1e12}
-    warp = nw.affine_window_warp if model.affine else nw.chain_window_warp
     res.update(tile_and_warp_times(
         model, lambda R, resident: nw._launch(
             q, *rnd, eps, im, model, MAX_DEPTH, slots, None, rows=R,
             resident=resident),
-        lambda: warp(q, *rnd, eps, im, model, MAX_DEPTH, slots),
+        lambda: nw.chain_window_warp(q, *rnd, eps, im, model, MAX_DEPTH,
+                                     slots),
         tile_modes(model, TILE_ROWS), n_reps, graph_reps=graph_reps,
-        graph_replays=graph_replays))
+        graph_replays=graph_replays, warp_turns=warp_turns))
     for R, r in (*res["tile"].items(), *res["tile_resident"].items()):
         r["lockstep_efficiency"] = lockstep_efficiency(steps, R)
     res["lockstep_efficiency"] = res["tile"][res["rows"]][
@@ -2737,7 +3153,8 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
 # ---------------------------------------------------------------------------
 RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts",
                "c6_banana_mh", "c7_mixture_pt", "c3_mixture_adaptive",
-               "c3_mixture_adaptive_two_rounds", "c5_hierarchical_smc")
+               "c3_mixture_adaptive_two_rounds", "c5_hierarchical_smc",
+               "c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts")
 # Variants of a config: (its file, the keys each section changes). c3 as
 # written stops after round 0 in both packages (its raw NUTS draws reach
 # the ESS threshold), so its flow is fitted and scored but never sampled
@@ -2749,24 +3166,48 @@ RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts",
 # variant cuts the depth: 20 warmup steps (fewer leave round 0's step
 # size unadapted: at 10 its chains accept 0.2% of their moves), 5 draws
 # and 20 epochs a round.
+#
+# The two nuts variants run K1 ("on") over a target other than the funnel
+# at its config's own width: c2's AR(1) Gaussian (d = 8, K1 on 32 lanes)
+# under c2's 4-block rqs flow, and c5's 256-d hierarchical model under
+# c5's 2-block leading-mask affine flow, each fitted by VI and sampled by
+# flow-preconditioned NUTS as the `nuts` task does, at a depth cut to
+# under 30 s on the card: 600 VI steps, 256 chains, 150 warmup steps (400
+# for c5's: at 150 its worst variance z-score sat at 3.5-4.5 in the JAX
+# package and on the card) and 150 draws.
+NUTS_VARIANT_DEPTH = {"n_chains": 256, "num_warmup": 150,
+                      "num_samples": 150, "fused_kernel": "on"}
 RUN_VARIANTS = {
     "c3_mixture_adaptive_two_rounds": (
         "c3_mixture_adaptive",
         {"adaptive": {"max_rounds": 2, "ess_threshold": 1e9,
                       "num_warmup": 20, "num_samples": 5,
                       "train_epochs": 20}}),
+    "c2_correlated_rqs_nuts": (
+        "c2_correlated_rqs",
+        {"task": "nuts", "train": {"nsteps": 600},
+         "nuts": NUTS_VARIANT_DEPTH}),
+    "c5_hierarchical_affine_nuts": (
+        "c5_hierarchical_smc",
+        {"task": "nuts", "train": {"nsteps": 600, "batch_size": 512},
+         "nuts": {**NUTS_VARIANT_DEPTH, "num_warmup": 400}}),
 }
+# the variants whose samplers' R-hat is gated as the configs' as written
+# are: the nuts variants, whose depth leaves enough draws for it
+RUN_RHAT_VARIANTS = ("c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts")
 
 
 def run_config_dict(name):
     """The JSON dict of a config of `configs/` or of a `RUN_VARIANTS`
-    entry (named after the variant), for either package's
+    entry (named after the variant; an edit that is not a dict replaces a
+    top-level key, such as the task), for either package's
     `RunConfig.from_dict`."""
     base, edits = RUN_VARIANTS.get(name, (name, {}))
     with open(os.path.join(ROOT, "configs", f"{base}.json")) as f:
         d = json.load(f)
     for section, changes in edits.items():
-        d[section] = {**d.get(section, {}), **changes}
+        d[section] = ({**d.get(section, {}), **changes}
+                      if isinstance(changes, dict) else changes)
     if base != name:
         d["name"] = name
     return d
@@ -2802,6 +3243,18 @@ RUN_REFERENCE = {
                             "flow_is_ess": (0.1964937001466751,
                                             0.15713533759117126,
                                             0.05810265615582466)},
+    "c2_correlated_rqs_nuts": {
+        "min_ess": (41751.84765625, 44921.12890625, 43454.125),
+        "step_size": (0.5646496415138245, 0.5843446850776672,
+                      0.5563716292381287),
+        "divergence_rate": (0.0005729167023673654, 0.0003124999930150807,
+                            0.0003124999930150807)},
+    "c5_hierarchical_affine_nuts": {
+        "min_ess": (38161.65625, 38231.87890625, 38649.09375),
+        "step_size": (0.4020515978336334, 0.40219876170158386,
+                      0.4015480875968933),
+        "divergence_rate": (0.0005989583441987634, 0.0013802084140479565,
+                            0.0012499999720603228)},
     "c3_mixture_adaptive_two_rounds": {
         "n_rounds": (2, 2, 2), "converged": (False, False, False),
         "best_min_ess": (70.8592300415039, 65.95453643798828,
@@ -2813,9 +3266,15 @@ RUN_MARGIN_SIGMAS = 10.0
 # The sampler configs whose draws are held to the target's analytic mean
 # and variance by `moment_gate`, at the n_sigma of the JAX package's own
 # tests of the sampler (tests/test_mh_tempering.py: 3.5 for RWMH, 4 for
-# parallel tempering). The JAX package's draws pass it on all three seeds
+# parallel tempering; tests/test_mcmc.py: 3.5 for NUTS). The JAX package's draws pass it on all three seeds
 # of RUN_REFERENCE (scripts/runner_reference.py).
-RUN_MOMENTS = {"c6_banana_mh": 3.5, "c7_mixture_pt": 4.0}
+RUN_MOMENTS = {"c6_banana_mh": 3.5, "c7_mixture_pt": 4.0,
+               "c2_correlated_rqs_nuts": 3.5,
+               "c5_hierarchical_affine_nuts": 3.5}
+# the configs whose moment gate judges the worst of its 2 d z-scores
+# against the family threshold of its n_sigma (`family_threshold`: at d =
+# 256 the max of 512 null z-scores concentrates near 3)
+RUN_MOMENT_FAMILY = ("c5_hierarchical_affine_nuts",)
 # c1's fit starts at its optimum (the flow's Standardize fits the
 # standard-normal samples), so the window above, which holds the untrained
 # flow's loss too, cannot tell a fit from none. A fit task's final loss is
@@ -3214,9 +3673,9 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
                 <= out["initial_loss"] + FIT_NOISE_MARGIN):
             failures.append(f"final_loss {out['final_loss']} above the "
                             f"initial {out['initial_loss']}")
-        # the R-hat gate holds the configs as written; a variant's cut
-        # depth leaves too few draws for it
-        as_written = name not in RUN_VARIANTS
+        # the R-hat gate holds the configs as written and the nuts
+        # variants; another variant's cut depth leaves too few draws for it
+        as_written = name not in RUN_VARIANTS or name in RUN_RHAT_VARIANTS
         if as_written and cfg.task in ("nuts", "mh", "pt") \
                 and not out["max_rhat"] < RHAT_GATE:
             failures.append(f"max split-R-hat {out['max_rhat']}")
@@ -3224,7 +3683,8 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
             target = cfg.target.build(device=device)
             check = moment_gate(draws, target.mean(device),
                                 torch.diagonal(target.cov(device)),
-                                n_sigma=RUN_MOMENTS[name])
+                                n_sigma=RUN_MOMENTS[name],
+                                family_correction=name in RUN_MOMENT_FAMILY)
             row["moment_gate"] = check._asdict()
             if not check.passed:
                 failures.append(f"moment gate {check}")
@@ -3934,6 +4394,27 @@ def main(argv=None):
                            f"version: {bad}")
 
     t = time.perf_counter()
+    target_rows, target_tiles, target_times = targets_vs_plain(device)
+    emit("targets_vs_plain", t, rows=target_rows, tile_vs_warp=target_tiles,
+         timing=target_times,
+         bar={"k1": {"flips": MAX_FLIPS, "denergy": MAX_DENERGY,
+                     "dq": MAX_DQ},
+              "k1_rule": "against the plain version in float64, "
+                         "refereed_bar: twice the float32 plain "
+                         "version's distance from float64 where larger",
+              "k2": "against the plain transition in float64 slot by "
+                    "slot, window_bar over the float32 plain window's "
+                    "distance from it; bitwise_k1 0 on every slot",
+              "k3": {"atol": RQS_ATOL, "rtol": RQS_RTOL,
+                     "quantile": "block_quantile"},
+              "tile_vs_warp": "equal in value in every mode"})
+    bad = [r for r in target_rows + target_tiles if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"K1, K2 or K3 over the target library disagrees "
+                           f"with its plain version, with K1 or with the "
+                           f"per-warp kernel: {bad}")
+
+    t = time.perf_counter()
     res, flow, warm_state = main_path(device)
     emit("main_path", t, **res)
     check_main_path(res)
@@ -4083,9 +4564,12 @@ def main(argv=None):
                 for r in win_rows if "plain_window_ms" in r}
     k2_tim = {"ceiling": time_window(flow, warm_state, tim["ms"],
                                      plain_at["ceiling"]),
+              # the per-warp yardstick (0.6 s a window) once, not in
+              # turns: 9 s of the phase's 24 s
               "generic": time_window(gflow, gstate, gtim["ms"],
                                      plain_at["generic"], n_reps=3,
-                                     graph_reps=2, graph_replays=1)}
+                                     graph_reps=2, graph_replays=1,
+                                     warp_turns=1)}
     for variant, r in k2_tim.items():
         r["launches_main_path"] = window_paths[variant]["k2_launches"]
         r["library_ms"] = None
@@ -4161,6 +4645,17 @@ def main(argv=None):
         "plain_ms": gtim["plain_ms"], "bound_ms": gtim["bound_ms"],
         "bound_by": gtim["bound_by"], "library_ms": None,
     }]
+    for r in target_times:  # K1 under the runner's nuts variants' flows
+        config = r["config"]
+        kernels.append({
+            "name": f"nuts_transition ({r['label']})", "route": "cuda",
+            "source": "src/tpuflows_torch/csrc/nuts_transition.cu",
+            "replaces": k1, "launches": runner[config]["k1_launches"],
+            "launches_config": config, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "device_ms": r["device_ms"], "rows": r["rows"],
+            "resident": r["resident"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     fit_rows = [r for r in rqs_rows if r["n"] == RQS_SHAPES[0][0]]
     for key, name, replaces in (
             ("k4_forward", "rqs_eval forward (K4)", ":204"),

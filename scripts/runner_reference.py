@@ -12,7 +12,8 @@ and through the port's (`tpuflows_torch.run`, device "cpu"), or through
 the one `--package` names, and prints one JSON line per run. For the
 configs of `chip_smoke.RUN_MOMENTS` the line adds the package's own
 `moment_gate` of the draws against the target's analytic mean and
-variance, at the n_sigma given there. Needs JAX:
+variance, at the n_sigma given there (against its family threshold for
+the configs of `chip_smoke.RUN_MOMENT_FAMILY`). Needs JAX:
 run it where the tests run, not on the card's machine. On 8 CPU cores a
 run takes, JAX / port: c2 about 2 minutes each, c6 and c7 seconds, c3
 about 1 minute / 3 minutes, its two-round variant several minutes.
@@ -53,17 +54,22 @@ def main(argv):
     from tpuflows_torch import run as port_run
     from tpuflows_torch.config import RunConfig as PortConfig
 
+    def family(cfg):
+        return cfg.name in chip_smoke.RUN_MOMENT_FAMILY
+
     def jax_moments(cfg, path, n_sigma):
         t = cfg.target.build()
         return jax_diag.moment_gate(jax_io.load_pytree(path), t.mean(),
-                                    jnp.diagonal(t.cov()), n_sigma=n_sigma)
+                                    jnp.diagonal(t.cov()), n_sigma=n_sigma,
+                                    family_correction=family(cfg))
 
     def port_moments(cfg, path, n_sigma):
         t = cfg.target.build(device="cpu")
         return port_diag.moment_gate(port_io.load_pytree(path),
                                      t.mean("cpu"),
                                      torch.diagonal(t.cov("cpu")),
-                                     n_sigma=n_sigma)
+                                     n_sigma=n_sigma,
+                                     family_correction=family(cfg))
 
     runners = (("tpuflows", JaxConfig, jax_run._run_task, jax_moments),
                ("tpuflows_torch", PortConfig,

@@ -90,8 +90,9 @@ class NUTSSpec:
     # PyTorch, kept so that every config parses
     chunk_size: int = 256
     # the fused transition (K1, kernels/nuts_cuda.py): "auto" takes it
-    # wherever `pack_flow` accepts the flow and the target, "on" requires
-    # it, "off" takes the portable NUTS
+    # wherever `pack_flow` accepts the flow and the target (every target
+    # kind above, at any dim up to 256), "on" requires it, "off" takes the
+    # portable NUTS
     fused_kernel: str = "auto"
 
 

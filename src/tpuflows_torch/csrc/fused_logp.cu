@@ -5,7 +5,9 @@
 // `fused_latent_logp_and_grad` (:188). For each row z of an (n, d) float32
 // batch it computes
 //   lp = log p(f^-1(z)) + ladj(z)   and   g = d lp / dz
-// through a flow over Neal's funnel, in one launch: the flow inverse, the
+// through a flow over any closed-form target of the port (targets.cuh,
+// any d <= 256, z, lp and g at the target's width and the flow at the lane
+// width), in one launch: the flow inverse, the
 // ladj, the target's log density and the whole pullback, with no
 // intermediate leaving the chip. It is the `logp_and_grad` hook of the
 // portable NUTS and HMC (mcmc/nuts.py, mcmc/hmc.py); the plain PyTorch
@@ -15,10 +17,10 @@
 //
 // The JAX kernel traces any log density into its tile body; a kernel
 // written by hand cannot, so this one takes what K1 takes (latent_grad.cuh,
-// where the gradient lives): Standardize + one AffineCoupling
-// (`fused_logp_affine_kernel`, `logp_grad`) or a module list of
-// Standardize, AffineCoupling and RQSCouplingBlock modules
-// (`fused_logp_chain_kernel`, `chain_logp_grad`), with 3-layer silu MLPs.
+// where the gradient lives): the targets whose log density and gradient
+// targets.cuh writes out (not a Posterior's user code), under a module
+// list of Standardize, AffineCoupling and RQSCouplingBlock modules with
+// 3-layer silu MLPs, or none.
 //
 // Design. Every flow runs on the tile kernel (`fused_logp_tile_kernel`),
 // the tile gradient of tile_grad.cuh: one block of R warps per tile of R
@@ -39,11 +41,7 @@
 // can change only a zero's sign). The per-warp kernel
 // (`fused_logp_chain_kernel`, entry point `fused_logp_chain_warp_f32`)
 // stays built as chip_smoke.py's oracle and yardstick for the tile
-// kernel, and the per-warp affine kernel (`fused_logp_affine_kernel`, one
-// warp per row with latent_grad.cuh's `logp_grad` on the `Net` prefix of
-// the packed buffer, entry point `fused_logp_affine_f32`) as the
-// yardstick of the design the tile kernel replaced for the affine flow;
-// no wrapper on a path calls either.
+// kernel; no wrapper on a path calls it.
 //
 // Bound on this card: operations. A row costs one forward and one
 // input-gradient backward of every conditioner MLP, counted over the work
@@ -64,7 +62,10 @@
 
 // Built by kernels/fused_logp_cuda.py (`LIBRARY`, kernels/cuda_build.py)
 // as one translation unit per instantiation (-DLATENT_DPL=1..8, DPL = d /
-// 32 dims per lane), all compiled in parallel, plus one unit without
+// 32 dims per lane), one more per DPL with -DTARGETS_FUNNEL_ONLY that
+// holds the tile kernel with the funnel alone in its target dispatch
+// (`launch_tile_funnel`, which the entry point launches for a funnel:
+// targets.cuh says why), all compiled in parallel, plus one unit without
 // LATENT_DPL that holds the C entry points, linked into one library.
 
 namespace tpuflows_logp {
@@ -73,27 +74,36 @@ using tpuflows_nuts::Args;
 using tpuflows_nuts::ChainList;
 
 template <int DPL>
-cudaError_t launch_affine(const Args& a, cudaStream_t stream);
-template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                         int resident, cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_tile_funnel(const Args& a, const ChainList& c, int rows,
+                               int resident, cudaStream_t stream);
 
 }  // namespace tpuflows_logp
 
 #ifdef LATENT_DPL
 
+#ifdef TARGETS_FUNNEL_ONLY
+#define fused_logp_tile_kernel fused_logp_tile_funnel_kernel
+#define launch_tile launch_tile_funnel
+#endif
+
 namespace {
 
-// z (row `row` of a.q) into the lane's registers
+// z (row `row` of a.q, a.dim wide) into the lane's registers, zeros past
+// a.dim
 template <int DPL>
 __device__ __forceinline__ void load_row(const Args& a, int row, int lane,
                                          float (&z)[DPL]) {
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    z[j] = __ldg(a.q + (size_t)row * a.d + lane + 32 * j);
+    z[j] = lane + 32 * j < a.dim
+               ? __ldg(a.q + (size_t)row * a.dim + lane + 32 * j)
+               : 0.0f;
 }
 
 // g to row `row` of a.q_out, lp to a.info[row]
@@ -102,20 +112,9 @@ __device__ __forceinline__ void store_row(const Args& a, int row, int lane,
                                           float lp, const float (&g)[DPL]) {
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    a.q_out[(size_t)row * a.d + lane + 32 * j] = g[j];
+    if (lane + 32 * j < a.dim)
+      a.q_out[(size_t)row * a.dim + lane + 32 * j] = g[j];
   if (lane == 0) a.info[row] = lp;
-}
-
-template <int DPL>
-__global__ void __launch_bounds__(32) fused_logp_affine_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x;
-  const Net t = unpack(a);
-  float z[DPL], g[DPL];
-  load_row<DPL>(a, row, lane, z);
-  const float lp = logp_grad<DPL>(a, t, smem, z, g, lane);
-  store_row<DPL>(a, row, lane, lp, g);
 }
 
 template <int DPL>
@@ -171,13 +170,6 @@ cudaError_t launch_tile_kernel(const Args& a, const ChainList& c, int rows,
 namespace tpuflows_logp {
 
 template <int DPL>
-cudaError_t launch_affine(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (6 * a.d + 3 * a.h1 + 3 * a.h2);
-  fused_logp_affine_kernel<DPL><<<a.n, 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream) {
   const size_t smem =
@@ -210,9 +202,10 @@ cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                                         tile_smem_bytes(rows, row), stream);
 }
 
-template cudaError_t launch_affine<LATENT_DPL>(const Args&, cudaStream_t);
+#ifndef TARGETS_FUNNEL_ONLY
 template cudaError_t launch_chain<LATENT_DPL>(const Args&, const ChainList&,
                                              cudaStream_t);
+#endif
 template cudaError_t launch_tile<LATENT_DPL>(const Args&, const ChainList&,
                                             int, int, cudaStream_t);
 
@@ -223,57 +216,45 @@ template cudaError_t launch_tile<LATENT_DPL>(const Args&, const ChainList&,
 namespace {
 
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+// a target of width dim on lanes of width d (targets.cuh)
+bool target_ok(int d, int dim, int kind) {
+  return dim >= 1 && dim <= d && d - dim < 32 && kind >= 0 &&
+         kind < kTargetKinds;
+}
 
-tpuflows_nuts::Args rows_args(const void* z, const void* params, int n,
-                              int d, float sigma_v, void* lp, void* g) {
+tpuflows_nuts::Args rows_args(const void* z, const void* params,
+                              const void* target, int n, int d, int dim,
+                              int kind, void* lp, void* g) {
   tpuflows_nuts::Args a = {};
   a.q = static_cast<const float*>(z);
   a.params = static_cast<const float*>(params);
+  a.target = static_cast<const float*>(target);
   a.n = n;
   a.d = d;
-  a.sigma_v = sigma_v;
+  a.dim = dim;
+  a.kind = kind;
   a.q_out = static_cast<float*>(g);
   a.info = static_cast<float*>(lp);
   return a;
 }
 
-}  // namespace
-
-// lp (n,) and g (n, d) of z (n, d) through Standardize + one affine
-// coupling with an MLP d -> h1 -> h2 -> 2d, its leaves packed as
-// latent_grad.cuh's `Net` says, one warp per row (`fused_logp_affine_
-// kernel`): the yardstick of the design the tile kernel replaced for the
-// affine flow, on no path. Returns a cudaError_t (0 = launched).
-// Shapes are checked again here; the Python wrapper checks device, dtype
-// and contiguity before calling.
-extern "C" int fused_logp_affine_f32(const void* z, const void* params,
-                                     int n, int d, int h1, int h2,
-                                     float clamp, float sigma_v, void* lp,
-                                     void* g, void* stream) {
-  using namespace tpuflows_logp;
-  if (n < 1 || !width_ok(d) || !width_ok(h1) || !width_ok(h2))
-    return (int)cudaErrorInvalidValue;
-  Args a = rows_args(z, params, n, d, sigma_v, lp, g);
-  a.h1 = h1;
-  a.h2 = h2;
-  a.clamp = clamp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d / 32) {
-    case 1: return (int)launch_affine<1>(a, s);
-    case 2: return (int)launch_affine<2>(a, s);
-    case 3: return (int)launch_affine<3>(a, s);
-    case 4: return (int)launch_affine<4>(a, s);
-    case 5: return (int)launch_affine<5>(a, s);
-    case 6: return (int)launch_affine<6>(a, s);
-    case 7: return (int)launch_affine<7>(a, s);
-    default: return (int)launch_affine<8>(a, s);
-  }
+// the tile kernel for a.kind: a funnel's from its own units
+template <int DPL>
+cudaError_t launch_tile_for(const tpuflows_nuts::Args& a,
+                            const tpuflows_nuts::ChainList& c, int rows,
+                            int resident, cudaStream_t s) {
+  return a.kind == kFunnel
+             ? tpuflows_logp::launch_tile_funnel<DPL>(a, c, rows, resident, s)
+             : tpuflows_logp::launch_tile<DPL>(a, c, rows, resident, s);
 }
+
+}  // namespace
 
 namespace {
 
-bool chain_ok(int n, int d, int n_mods, int hmax, int head) {
-  return n >= 1 && width_ok(d) && n_mods >= 1 &&
+bool chain_ok(int n, int d, int dim, int kind, int n_mods, int hmax,
+              int head) {
+  return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
          n_mods <= tpuflows_nuts::kMaxModules &&
          (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0;
 }
@@ -290,8 +271,10 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 
 }  // namespace
 
-// The same through any module list, on tiles of `rows` rows (a power of
-// two up to kMaxTileRows, tile_grad.cuh) that share every weight read
+// The same through any module list (none: the target alone), packed at
+// the lane width d, over the target of kind `kind` and width dim (z, lp
+// and g dim wide; targets.cuh), on tiles of `rows` rows (a power of two
+// up to kMaxTileRows, tile_grad.cuh) that share every weight read
 // (`fused_logp_tile_kernel`): `mods` is a device array of n_mods *
 // kModInts ints, hmax the widest hidden layer (0 without couplings), head
 // the widest conditioner output, `resident` the floats of the resident
@@ -299,26 +282,27 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 // the tile's rows leave no room for a weight ring (`tile_ring_stage`) or
 // for the resident layers (`tile_resident_fits`). Returns a cudaError_t.
 extern "C" int fused_logp_chain_f32(const void* z, const void* params,
-                                    const void* mods, int n_mods, int n,
-                                    int d, int hmax, int head, float sigma_v,
-                                    void* lp, void* g, int rows, int resident,
+                                    const void* mods, const void* target,
+                                    int n_mods, int n, int d, int dim,
+                                    int kind, int hmax, int head, void* lp,
+                                    void* g, int rows, int resident,
                                     void* stream) {
   using namespace tpuflows_logp;
-  if (!chain_ok(n, d, n_mods, hmax, head) || rows < 1 ||
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head) || rows < 1 ||
       rows > kMaxTileRows || (rows & (rows - 1)) != 0 || resident < 0)
     return (int)cudaErrorInvalidValue;
-  const Args a = rows_args(z, params, n, d, sigma_v, lp, g);
+  const Args a = rows_args(z, params, target, n, d, dim, kind, lp, g);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
-    case 1: return (int)launch_tile<1>(a, c, rows, resident, s);
-    case 2: return (int)launch_tile<2>(a, c, rows, resident, s);
-    case 3: return (int)launch_tile<3>(a, c, rows, resident, s);
-    case 4: return (int)launch_tile<4>(a, c, rows, resident, s);
-    case 5: return (int)launch_tile<5>(a, c, rows, resident, s);
-    case 6: return (int)launch_tile<6>(a, c, rows, resident, s);
-    case 7: return (int)launch_tile<7>(a, c, rows, resident, s);
-    default: return (int)launch_tile<8>(a, c, rows, resident, s);
+    case 1: return (int)launch_tile_for<1>(a, c, rows, resident, s);
+    case 2: return (int)launch_tile_for<2>(a, c, rows, resident, s);
+    case 3: return (int)launch_tile_for<3>(a, c, rows, resident, s);
+    case 4: return (int)launch_tile_for<4>(a, c, rows, resident, s);
+    case 5: return (int)launch_tile_for<5>(a, c, rows, resident, s);
+    case 6: return (int)launch_tile_for<6>(a, c, rows, resident, s);
+    case 7: return (int)launch_tile_for<7>(a, c, rows, resident, s);
+    default: return (int)launch_tile_for<8>(a, c, rows, resident, s);
   }
 }
 
@@ -326,13 +310,15 @@ extern "C" int fused_logp_chain_f32(const void* z, const void* params,
 // per block: chip_smoke.py's oracle and yardstick for the tile kernel, on
 // no path. Same arguments as fused_logp_chain_f32 without rows.
 extern "C" int fused_logp_chain_warp_f32(const void* z, const void* params,
-                                         const void* mods, int n_mods,
-                                         int n, int d, int hmax, int head,
-                                         float sigma_v, void* lp, void* g,
-                                         void* stream) {
+                                         const void* mods,
+                                         const void* target, int n_mods,
+                                         int n, int d, int dim, int kind,
+                                         int hmax, int head, void* lp,
+                                         void* g, void* stream) {
   using namespace tpuflows_logp;
-  if (!chain_ok(n, d, n_mods, hmax, head)) return (int)cudaErrorInvalidValue;
-  const Args a = rows_args(z, params, n, d, sigma_v, lp, g);
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head))
+    return (int)cudaErrorInvalidValue;
+  const Args a = rows_args(z, params, target, n, d, dim, kind, lp, g);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {

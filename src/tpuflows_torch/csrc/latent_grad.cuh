@@ -1,14 +1,9 @@
 // The latent log density and its gradient, one warp per row:
 //   lp = log p(f^-1(z)) + ladj(z) and g = d lp / dz
-// over Neal's funnel, for two kinds of flow:
-//  * `logp_grad`: Standardize + one AffineCoupling (any 0/1 mask, any
-//    clamp) whose conditioner is an MLP d -> h1 -> h2 -> 2d with silu, its
-//    leaves packed as `Net` says: the per-warp affine kernels of K1, K2
-//    and K3 (nuts_transition.cu, nuts_window.cu, fused_logp.cu), which no
-//    path runs any more and which stay built as chip_smoke.py's
-//    yardstick of that design;
+// over a target of targets.cuh (`target_logp_grad`, on a.kind):
 //  * `chain_logp_grad`: any Chain of Standardize, AffineCoupling and
-//    RQSCouplingBlock modules with such MLPs, given as a module list
+//    RQSCouplingBlock modules with 3-layer silu MLPs d -> h1 -> h2 -> n,
+//    given as a module list
 //    (`ChainList`): the per-warp module-list kernels of K1, K2 and K3,
 //    which no path runs any more and which stay built as chip_smoke.py's
 //    oracle for the tile gradient. It follows
@@ -45,13 +40,19 @@
 // FMA pipes: the bars against the plain versions (q within 2.3e-4, at most
 // 5 flips of 1,024) leave no room for TF32 rounding, and wgmma takes
 // float32 operands only as TF32. The gradients are written out by hand:
-// funnel logp, Standardize inverse, coupling inverse with the tanh clamp,
-// spline inverse and its pullback, and the MLP backward through silu. No
-// autograd.
+// the target's log p (targets.cuh), Standardize inverse, coupling inverse
+// with the tanh clamp, spline inverse and its pullback, and the MLP
+// backward through silu. No autograd.
 //
-// These functions moved here from nuts_transition.cu unchanged, so K1
-// compiles from the same tokens as before and K3 computes the gradient
-// that K1 computes inside its trajectory.
+// Widths. The flow is packed at the lane width d, a multiple of 32 (kernels/
+// nuts_cuda.py `pack_flow` pads it once): a padded dim has Standardize loc
+// 0 and log scale 0, mask 1 (it passes through every coupling), zero rows
+// of W1 and zero head columns, and no place among the compact layers'
+// pass-through dims (tile_grad.cuh). Its lane holds exact zeros throughout:
+// z, x, every cotangent and g; they add exact zeros to every sum.
+//
+// K1, K2 and K3 share these functions, so K3 computes the gradient that K1
+// computes inside its trajectory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -70,15 +71,20 @@ struct Args {
   const float* u_take;    // (n, 2^depth)
   const float* eps;       // (1,)
   const float* inv_mass;  // (d,)
-  const float* params;    // packed flow, see Net
-  int n, d, h1, h2, depth;
-  float clamp, sigma_v, max_delta_energy;
-  float* q_out;  // (n, d)
+  const float* params;    // packed flow, see the module-list gradient
+  const float* target;    // packed target, see targets.cuh
+  // d: the lane width, a multiple of 32 (DPL = d / 32), at which the flow
+  // is packed; dim <= d: the target's width, the row length of q, p0,
+  // inv_mass and q_out, and the width every log normaliser counts. Lanes
+  // at or past dim load zeros and store nothing.
+  int n, d, dim, kind, depth;
+  float max_delta_energy;
+  float* q_out;  // (n, dim)
   float* info;   // (7, n): lp, sum_accept, n_steps, depth, diverging,
                  //         turning, h0
 };
-// K3 fills q (z in), params, n, d, h1, h2, clamp and sigma_v, and writes
-// g to q_out and lp to info (n,).
+// K3 fills q (z in), params, target, n, d, dim and kind, and writes g to
+// q_out and lp to info (n,).
 
 // The module list of the module-list kernels: kModInts ints per module (see
 // the module-list gradient), the widest hidden layer and conditioner output.
@@ -101,34 +107,6 @@ using tpuflows_nuts::kModInts;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2Pi = 1.8378770664093453f;
-
-// The packed parameter buffer, in this order (kernels/nuts_cuda.py
-// `pack_flow` writes it): loc, log_scale, mask (d each);
-// W1 (d, h1), b1; W2 (h1, h2), b2; W3 (h2, 2d), b3; W1^T, W2^T, W3^T.
-struct Net {
-  const float *loc, *log_scale, *mask;
-  const float *w1, *b1, *w2, *b2, *w3, *b3;
-  const float *w1t, *w2t, *w3t;
-};
-
-__device__ __forceinline__ Net unpack(const Args& a) {
-  Net t;
-  const float* p = a.params;
-  const int d = a.d, h1 = a.h1, h2 = a.h2;
-  t.loc = p;       p += d;
-  t.log_scale = p; p += d;
-  t.mask = p;      p += d;
-  t.w1 = p;        p += d * h1;
-  t.b1 = p;        p += h1;
-  t.w2 = p;        p += h1 * h2;
-  t.b2 = p;        p += h2;
-  t.w3 = p;        p += h2 * 2 * d;
-  t.b3 = p;        p += 2 * d;
-  t.w1t = p;       p += h1 * d;
-  t.w2t = p;       p += h2 * h1;
-  t.w3t = p;
-  return t;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -182,98 +160,6 @@ __device__ __forceinline__ void silu_backward(float* g, const float* pre,
     const float s = sigmoid(x);
     g[c] *= s * (1.0f + x * (1.0f - s));
   }
-}
-
-// lp = log p(f^-1(z)) + ladj and g = d lp / dz for the warp's chain.
-// `sm` is the warp's shared buffer of 6 d + 3 h1 + 3 h2 floats.
-template <int DPL>
-__device__ float logp_grad(const Args& a, const Net& t, float* sm,
-                           const float (&z)[DPL], float (&g)[DPL],
-                           int lane) {
-  const int d = a.d, h1 = a.h1, h2 = a.h2;
-  float* xin = sm;
-  float* a1 = xin + d;
-  float* v1 = a1 + h1;
-  float* a2 = v1 + h1;
-  float* v2 = a2 + h2;
-  float* out = v2 + h2;
-  float* gout = out + 2 * d;
-  float* g2 = gout + 2 * d;
-  float* g1 = g2 + h2;
-  float* gin = g1 + h1;
-
-  float m[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int i = lane + 32 * j;
-    m[j] = __ldg(t.mask + i);
-    xin[i] = z[j] * m[j];
-  }
-  __syncwarp();
-  matvec(t.w1, t.b1, xin, d, h1, a1, v1, lane);
-  __syncwarp();
-  matvec(t.w2, t.b2, v1, h1, h2, a2, v2, lane);
-  __syncwarp();
-  matvec(t.w3, t.b3, v2, h2, 2 * d, out, nullptr, lane);
-  __syncwarp();
-
-  // coupling inverse: y = m z + (1 - m) (z - shift) exp(-s),
-  // s = clamp tanh(raw / clamp); then Standardize inverse
-  const float c = a.clamp;
-  float x[DPL], e[DPL], yt[DPL], th[DPL], sc[DPL];
-  float ladj = 0.0f, sq = 0.0f;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int i = lane + 32 * j;
-    const float shift = out[i];
-    th[j] = tanhf(out[d + i] / c);
-    const float s = c * th[j];
-    e[j] = expf(-s);
-    yt[j] = (z[j] - shift) * e[j];
-    const float y = m[j] * z[j] + (1.0f - m[j]) * yt[j];
-    const float ls = __ldg(t.log_scale + i);
-    sc[j] = expf(ls);
-    x[j] = y * sc[j] + __ldg(t.loc + i);
-    ladj += ls - (1.0f - m[j]) * s;
-    if (i != 0) sq += x[j] * x[j];
-  }
-  ladj = warp_sum(ladj);
-  sq = warp_sum(sq);
-
-  // funnel: v = x[0] ~ N(0, sigma_v^2), x[1:] | v ~ N(0, exp(v) I)
-  const float v = __shfl_sync(kFull, x[0], 0);
-  const float sv = a.sigma_v;
-  const float k = (float)(d - 1);
-  const float env = expf(-v);
-  const float vs = v / sv;
-  const float lp_v = -0.5f * vs * vs - logf(sv) - 0.5f * kLog2Pi;
-  const float lp_rest = -0.5f * sq * env - 0.5f * k * v - 0.5f * k * kLog2Pi;
-  const float lp = lp_v + lp_rest + ladj;
-  const float gv = -v / (sv * sv) + 0.5f * sq * env - 0.5f * k;
-
-  // backward: funnel -> Standardize -> coupling (shift, s, tanh) -> z
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int i = lane + 32 * j;
-    const float gx = (i == 0) ? gv : -x[j] * env;
-    const float gy = gx * sc[j];
-    const float om = 1.0f - m[j];
-    gout[i] = -om * gy * e[j];
-    gout[d + i] = -om * (gy * yt[j] + 1.0f) * (1.0f - th[j] * th[j]);
-    g[j] = gy * (m[j] + om * e[j]);
-  }
-  __syncwarp();
-  matvec(t.w3t, nullptr, gout, 2 * d, h2, g2, nullptr, lane);
-  silu_backward(g2, a2, h2, lane);
-  __syncwarp();
-  matvec(t.w2t, nullptr, g2, h2, h1, g1, nullptr, lane);
-  silu_backward(g1, a1, h1, lane);
-  __syncwarp();
-  matvec(t.w1t, nullptr, g1, h1, d, gin, nullptr, lane);
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) g[j] += m[j] * gin[lane + 32 * j];
-  __syncwarp();  // the buffers are written again by the next call
-  return lp;
 }
 
 // ---------------------------------------------------------------------------
@@ -483,41 +369,7 @@ __device__ __noinline__ void module_vjp(const Args& a, const int* md, const Scra
   __syncwarp();  // xin and head are written again by the next module
 }
 
-// funnel logp at x and its gradient. Every product and sum is rounded as
-// written (__fmaf_rn, __fmul_rn, __fadd_rn, __fsub_rn), so that it gives
-// the same bits wherever it is inlined: with plain operators the compiler
-// fused them into FMAs differently at a tree's start and at its leaves,
-// so that K2's carried gradient (a leaf's) parted from K1's at the same
-// point (its start) at rounding level, and the ceiling window's draws by
-// up to 2.4e-4 from K1's in one transition. Now K2 equals chained K1
-// launches to the bit on every flow; not inlining it did that too, but
-// cost K1's tile kernel 5-20% (PERF.md).
-template <int DPL>
-__device__ float funnel_logp_grad(const Args& a, const float (&x)[DPL],
-                                  float (&g)[DPL], int lane) {
-  const int d = a.d;
-  float sq = 0.0f;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j)
-    if (lane + 32 * j != 0) sq = __fmaf_rn(x[j], x[j], sq);
-  sq = warp_sum(sq);
-  const float v = __shfl_sync(kFull, x[0], 0);
-  const float sv = a.sigma_v;
-  const float hk = 0.5f * (float)(d - 1);
-  const float env = expf(-v);
-  const float vs = v / sv;
-  const float hse = __fmul_rn(__fmul_rn(0.5f, sq), env);
-  const float lp_v = __fsub_rn(
-      __fsub_rn(__fmul_rn(__fmul_rn(-0.5f, vs), vs), logf(sv)),
-      0.5f * kLog2Pi);
-  const float lp_rest =
-      __fsub_rn(__fsub_rn(-hse, __fmul_rn(hk, v)), __fmul_rn(hk, kLog2Pi));
-  const float gv = __fsub_rn(__fadd_rn(-v / __fmul_rn(sv, sv), hse), hk);
-#pragma unroll
-  for (int j = 0; j < DPL; ++j)
-    g[j] = (lane + 32 * j == 0) ? gv : __fmul_rn(-x[j], env);
-  return __fadd_rn(lp_v, lp_rest);
-}
+#include "targets.cuh"
 
 // lp = log p(f^-1(z)) + ladj and g = d lp / dz through the module list.
 template <int DPL>
@@ -536,7 +388,7 @@ __device__ float chain_logp_grad(const Args& a, const ChainList& c,
     for (int j = 0; j < DPL; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
     ladj += module_inverse<DPL>(a, c.mods + kModInts * k, s, x, lane);
   }
-  const float lp = funnel_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
+  const float lp = target_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
   // sweep 2: first module first; its conditioner ran last in sweep 1
   bool live = true;
   for (int k = 0; k < c.n_mods; ++k)

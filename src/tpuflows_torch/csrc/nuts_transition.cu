@@ -2,14 +2,17 @@
 //
 // Replaces the Pallas kernel `make_fused_nuts_transition`
 // (src/tpuflows/kernels/nuts_pallas.py:303, pallas_call at :407), built by
-// `fused_nuts_for_flow` (:924), over Neal's funnel. It computes what
+// `fused_nuts_for_flow` (:924), over any closed-form target of the port
+// (targets.cuh, on Args::kind) at any width d <= 256: the flow is packed
+// at the lane width _pad32(d), and lanes at or past d load zeros and store
+// nothing (nuts_tree_body.inc). It computes what
 // `_transition_math` (nuts_pallas.py:83-300) computes, under the same
 // precomputed-randomness contract: momenta p0, direction signs, acceptance
 // uniforms and one uniform per potential leaf come in as inputs, so the
 // kernel is deterministic. The plain PyTorch version is
 // `transition_math_torch` in kernels/nuts_cuda.py.
 //
-// Three kernels share the tree code (nuts_tree_body.inc); the gradients
+// Two kernels share the tree code (nuts_tree_body.inc); the gradients
 // of log p(f^-1(z)) + ladj live in latent_grad.cuh and tile_grad.cuh,
 // which K3 (fused_logp.cu) shares:
 //  * `nuts_chain_tile_kernel`, the one on every path: any Chain of
@@ -23,13 +26,8 @@
 //    (kResident, tile_grad.cuh);
 //  * `nuts_chain_kernel`: the same module list one warp per chain
 //    (`chain_logp_grad`), entry point `nuts_chain_transition_warp_f32`:
-//    kept only as chip_smoke.py's oracle for the tile kernel, on no path;
-//  * `nuts_transition_kernel`: Standardize + one AffineCoupling one warp
-//    per chain (`logp_grad`), entry point `nuts_transition_f32`, which ran
-//    the ceiling path before the tile kernel took it: kept only as
-//    chip_smoke.py's yardstick of that design, on no path. It, K2's and
-//    K3's per-warp affine kernels and `logp_grad`, which only they use,
-//    may go together (ROADMAP).
+//    kept only as chip_smoke.py's oracle and yardstick for the tile
+//    kernel, on no path.
 //
 // Design:
 //  * One warp per chain; each chain's tree state stays in its warp's
@@ -71,7 +69,7 @@
 // at the trained post-warmup states a transition of 1024 chains takes about
 // 8,190 gradients, 1.07 / 14.09 GFLOP, 0.0160 / 0.210 ms at 67 TFLOP/s
 // float32, while it moves only q in and out plus its random inputs (about
-// 1 KB per chain). The per-warp affine kernel reads every weight from L2
+// 1 KB per chain). The per-warp kernel reads every weight from L2
 // for each chain's leapfrog, far from that bound; the tile kernel reads
 // them once per R chains (at the ceiling once per launch), and does the
 // gradients its lockstep adds (chains that wait for their tile-mates).
@@ -82,7 +80,10 @@
 
 // Built by kernels/nuts_cuda.py (`LIBRARY`, kernels/cuda_build.py) as one
 // translation unit per template instantiation (-DNUTS_DPL=1..8, DPL = d /
-// 32 dims per lane), all compiled in parallel, plus one unit without
+// 32 dims per lane), one more per DPL with -DTARGETS_FUNNEL_ONLY that
+// holds the tile kernel with the funnel alone in its target dispatch
+// (`launch_tile_funnel`, which the entry point launches for a funnel:
+// targets.cuh says why), all compiled in parallel, plus one unit without
 // NUTS_DPL that holds the C entry points, linked into one shared library.
 
 namespace tpuflows_nuts {
@@ -90,34 +91,29 @@ namespace tpuflows_nuts {
 constexpr int kMaxDepth = 10;
 
 template <int DPL>
-cudaError_t launch(const Args& a, cudaStream_t stream);
-template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                         int resident, cudaStream_t stream);
+template <int DPL>
+cudaError_t launch_tile_funnel(const Args& a, const ChainList& c, int rows,
+                               int resident, cudaStream_t stream);
 
 }  // namespace tpuflows_nuts
 
 #ifdef NUTS_DPL
+
+#ifdef TARGETS_FUNNEL_ONLY
+#define nuts_chain_tile_kernel nuts_chain_tile_funnel_kernel
+#define launch_tile launch_tile_funnel
+#endif
 
 namespace {
 
 using tpuflows_nuts::kMaxDepth;
 
 #include "nuts_tree.cuh"
-
-template <int DPL>
-__global__ void __launch_bounds__(32) nuts_transition_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int chain = blockIdx.x;
-  const int lane = threadIdx.x;
-  const Net t = unpack(a);
-#define NUTS_LOGP_GRAD(z, g) logp_grad<DPL>(a, t, smem, z, g, lane)
-#include "nuts_tree_body.inc"
-#undef NUTS_LOGP_GRAD
-}
 
 template <int DPL>
 __global__ void __launch_bounds__(32) nuts_chain_kernel(Args a, ChainList c) {
@@ -182,13 +178,6 @@ cudaError_t launch_tile_kernel(const Args& a, const ChainList& c, int rows,
 namespace tpuflows_nuts {
 
 template <int DPL>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (6 * a.d + 3 * a.h1 + 3 * a.h2);
-  nuts_transition_kernel<DPL><<<a.n, 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream) {
   const size_t smem =
@@ -221,9 +210,10 @@ cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                                         tile_smem_bytes(rows, row), stream);
 }
 
-template cudaError_t launch<NUTS_DPL>(const Args&, cudaStream_t);
+#ifndef TARGETS_FUNNEL_ONLY
 template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
                                            cudaStream_t);
+#endif
 template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
                                           int, int, cudaStream_t);
 
@@ -233,51 +223,20 @@ template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
 
 namespace {
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
-}  // namespace
-
-// Returns a cudaError_t (0 = launched). Shapes are checked again here; the
-// Python wrapper checks device, dtype and contiguity before calling.
-extern "C" int nuts_transition_f32(
-    const void* q, const void* p0, const void* dirs, const void* u_acc,
-    const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, int n, int d, int h1, int h2, int depth,
-    float clamp, float sigma_v, float max_delta_energy, void* q_out,
-    void* info, void* stream) {
-  using namespace tpuflows_nuts;
-  if (n < 1 || !width_ok(d) || !width_ok(h1) || !width_ok(h2) || depth < 1 ||
-      depth > kMaxDepth)
-    return (int)cudaErrorInvalidValue;
-  Args a;
-  a.q = static_cast<const float*>(q);
-  a.p0 = static_cast<const float*>(p0);
-  a.dirs = static_cast<const float*>(dirs);
-  a.u_acc = static_cast<const float*>(u_acc);
-  a.u_take = static_cast<const float*>(u_take);
-  a.eps = static_cast<const float*>(eps);
-  a.inv_mass = static_cast<const float*>(inv_mass);
-  a.params = static_cast<const float*>(params);
-  a.n = n; a.d = d; a.h1 = h1; a.h2 = h2; a.depth = depth;
-  a.clamp = clamp; a.sigma_v = sigma_v; a.max_delta_energy = max_delta_energy;
-  a.q_out = static_cast<float*>(q_out);
-  a.info = static_cast<float*>(info);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d / 32) {
-    case 1: return (int)launch<1>(a, s);
-    case 2: return (int)launch<2>(a, s);
-    case 3: return (int)launch<3>(a, s);
-    case 4: return (int)launch<4>(a, s);
-    case 5: return (int)launch<5>(a, s);
-    case 6: return (int)launch<6>(a, s);
-    case 7: return (int)launch<7>(a, s);
-    default: return (int)launch<8>(a, s);
-  }
+// a target of width dim on lanes of width d (targets.cuh)
+bool target_ok(int d, int dim, int kind) {
+  return dim >= 1 && dim <= d && d - dim < 32 && kind >= 0 &&
+         kind < kTargetKinds;
 }
+}  // namespace
 
 namespace {
 
-bool chain_ok(int n, int d, int n_mods, int hmax, int head, int depth) {
+bool chain_ok(int n, int d, int dim, int kind, int n_mods, int hmax,
+              int head, int depth) {
   using namespace tpuflows_nuts;
-  return n >= 1 && width_ok(d) && n_mods >= 1 && n_mods <= kMaxModules &&
+  return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
+         n_mods <= kMaxModules &&
          (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0 &&
          depth >= 1 && depth <= kMaxDepth;
 }
@@ -286,9 +245,9 @@ tpuflows_nuts::Args chain_args(const void* q, const void* p0,
                                const void* dirs, const void* u_acc,
                                const void* u_take, const void* eps,
                                const void* inv_mass, const void* params,
-                               int n, int d, int depth, float sigma_v,
-                               float max_delta_energy, void* q_out,
-                               void* info) {
+                               const void* target, int n, int d, int dim,
+                               int kind, int depth, float max_delta_energy,
+                               void* q_out, void* info) {
   tpuflows_nuts::Args a;
   a.q = static_cast<const float*>(q);
   a.p0 = static_cast<const float*>(p0);
@@ -298,11 +257,22 @@ tpuflows_nuts::Args chain_args(const void* q, const void* p0,
   a.eps = static_cast<const float*>(eps);
   a.inv_mass = static_cast<const float*>(inv_mass);
   a.params = static_cast<const float*>(params);
-  a.n = n; a.d = d; a.h1 = 0; a.h2 = 0; a.depth = depth;
-  a.clamp = 0.0f; a.sigma_v = sigma_v; a.max_delta_energy = max_delta_energy;
+  a.target = static_cast<const float*>(target);
+  a.n = n; a.d = d; a.dim = dim; a.kind = kind; a.depth = depth;
+  a.max_delta_energy = max_delta_energy;
   a.q_out = static_cast<float*>(q_out);
   a.info = static_cast<float*>(info);
   return a;
+}
+
+// the tile kernel for a.kind: a funnel's from its own units
+template <int DPL>
+cudaError_t launch_tile_for(const tpuflows_nuts::Args& a,
+                            const tpuflows_nuts::ChainList& c, int rows,
+                            int resident, cudaStream_t s) {
+  return a.kind == kFunnel
+             ? tpuflows_nuts::launch_tile_funnel<DPL>(a, c, rows, resident, s)
+             : tpuflows_nuts::launch_tile<DPL>(a, c, rows, resident, s);
 }
 
 tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
@@ -318,7 +288,9 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 // A module list on tiles of `rows` chains (a power of two up to
 // kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
 // (nuts_chain_tile_kernel): `mods` is a device array of n_mods * kModInts
-// ints, hmax the widest hidden layer (0 without couplings), head the
+// ints (none for a flow-less transition), packed at the lane width d; the
+// target of kind `kind` (targets.cuh) and width dim, its parameters in
+// `target`; hmax the widest hidden layer (0 without couplings), head the
 // widest conditioner output; `resident` the floats of the resident
 // layers (`tile_resident_floats` of the list's one coupling), 0 for the
 // ring. Refused where the tile's rows leave no room for a weight ring
@@ -327,27 +299,27 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 extern "C" int nuts_chain_transition_f32(
     const void* q, const void* p0, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, const void* mods, int n_mods, int n, int d,
-    int hmax, int head, int depth, float sigma_v, float max_delta_energy,
-    void* q_out, void* info, int rows, int resident, void* stream) {
+    const void* params, const void* mods, const void* target, int n_mods,
+    int n, int d, int dim, int kind, int hmax, int head, int depth,
+    float max_delta_energy, void* q_out, void* info, int rows, int resident, void* stream) {
   using namespace tpuflows_nuts;
-  if (!chain_ok(n, d, n_mods, hmax, head, depth) || rows < 1 ||
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head, depth) || rows < 1 ||
       rows > kMaxTileRows || (rows & (rows - 1)) != 0 || resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
-                            params, n, d, depth, sigma_v, max_delta_energy,
-                            q_out, info);
+                            params, target, n, d, dim, kind, depth,
+                            max_delta_energy, q_out, info);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
-    case 1: return (int)launch_tile<1>(a, c, rows, resident, s);
-    case 2: return (int)launch_tile<2>(a, c, rows, resident, s);
-    case 3: return (int)launch_tile<3>(a, c, rows, resident, s);
-    case 4: return (int)launch_tile<4>(a, c, rows, resident, s);
-    case 5: return (int)launch_tile<5>(a, c, rows, resident, s);
-    case 6: return (int)launch_tile<6>(a, c, rows, resident, s);
-    case 7: return (int)launch_tile<7>(a, c, rows, resident, s);
-    default: return (int)launch_tile<8>(a, c, rows, resident, s);
+    case 1: return (int)launch_tile_for<1>(a, c, rows, resident, s);
+    case 2: return (int)launch_tile_for<2>(a, c, rows, resident, s);
+    case 3: return (int)launch_tile_for<3>(a, c, rows, resident, s);
+    case 4: return (int)launch_tile_for<4>(a, c, rows, resident, s);
+    case 5: return (int)launch_tile_for<5>(a, c, rows, resident, s);
+    case 6: return (int)launch_tile_for<6>(a, c, rows, resident, s);
+    case 7: return (int)launch_tile_for<7>(a, c, rows, resident, s);
+    default: return (int)launch_tile_for<8>(a, c, rows, resident, s);
   }
 }
 
@@ -357,15 +329,15 @@ extern "C" int nuts_chain_transition_f32(
 extern "C" int nuts_chain_transition_warp_f32(
     const void* q, const void* p0, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, const void* mods, int n_mods, int n, int d,
-    int hmax, int head, int depth, float sigma_v, float max_delta_energy,
-    void* q_out, void* info, void* stream) {
+    const void* params, const void* mods, const void* target, int n_mods,
+    int n, int d, int dim, int kind, int hmax, int head, int depth,
+    float max_delta_energy, void* q_out, void* info, void* stream) {
   using namespace tpuflows_nuts;
-  if (!chain_ok(n, d, n_mods, hmax, head, depth))
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head, depth))
     return (int)cudaErrorInvalidValue;
   const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
-                            params, n, d, depth, sigma_v, max_delta_energy,
-                            q_out, info);
+                            params, target, n, d, dim, kind, depth,
+                            max_delta_energy, q_out, info);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas kernel `make_fused_nuts_window`
 // (src/tpuflows/kernels/nuts_pallas.py:744, pallas_call at :831), built by
-// `fused_nuts_window_for_flow` (:883), over Neal's funnel. It computes the S
+// `fused_nuts_window_for_flow` (:883), over the targets and widths K1
+// takes (targets.cuh; lanes past the width masked). It computes the S
 // transitions that `_window_math` (nuts_pallas.py:463-741) computes, under
 // the same precomputed-randomness contract: per chain, slot s takes its
 // momenta from p0c columns s d .., its direction signs and acceptance
@@ -25,7 +26,7 @@
 //    transition). A window computes the gradient at its start point once;
 //    every later slot starts from the carried lp and g, which are the
 //    gradient code's own output at that point.
-//  * Three kernels. `nuts_window_tile_kernel`, the one on every path: the
+//  * Two kernels. `nuts_window_tile_kernel`, the one on every path: the
 //    flow as a module list (the ceiling path's Standardize + one
 //    AffineCoupling, the generic path's arqs flow) on tiles of R chains,
 //    one block of R warps (R from `nuts_cuda.tile_rows`, 8 at both
@@ -44,18 +45,12 @@
 //    `nuts_window_chain_kernel`: the same module list one warp per chain
 //    (latent_grad.cuh `chain_logp_grad`), entry point
 //    `nuts_chain_window_warp_f32`: kept only as chip_smoke.py's oracle
-//    for the tile kernel, on no path. `nuts_window_kernel`: Standardize +
-//    one AffineCoupling one warp per chain (`logp_grad`), entry point
-//    `nuts_window_f32`, which ran the ceiling window before the tile
-//    kernel took it (it equals S chained launches of K1's per-warp affine
-//    kernel bit for bit): kept only as chip_smoke.py's yardstick of that
-//    design, on no path.
+//    and yardstick for the tile kernel, on no path.
 //  * Rounding. A later slot starts from the g of the leaf call that made
 //    its start point, where K1 calls the gradient at its start. The two
 //    calls compute the same arithmetic: the per-module functions are not
-//    inlined, the funnel's gradient (latent_grad.cuh `funnel_logp_grad`)
-//    rounds every operation as written, and the rest only adds and
-//    copies. So the tile
+//    inlined, every target's gradient (targets.cuh) rounds every
+//    operation as written, and the rest only adds and copies. So the tile
 //    window equals chained K1 tile launches to the bit, slot by slot, on
 //    every flow (chip_smoke.py, window_vs_plain: `bitwise_k1`), as the
 //    per-warp windows equal the per-warp K1 kernels. Every window differs
@@ -87,8 +82,6 @@ using tpuflows_nuts::ChainList;
 
 constexpr int kMaxDepth = 10;
 
-template <int DPL>
-cudaError_t launch(const Args& a, int window, cudaStream_t stream);
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
                          cudaStream_t stream);
@@ -125,7 +118,9 @@ __device__ __forceinline__ void window_slots(const Args& a, int window,
   float q_cur[DPL], g_cur[DPL];
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    q_cur[j] = __ldg(a.q + (size_t)chain * a.d + lane + 32 * j);
+    q_cur[j] = lane + 32 * j < a.dim
+                   ? __ldg(a.q + (size_t)chain * a.dim + lane + 32 * j)
+                   : 0.0f;
   float lp_cur = NUTS_LOGP_GRAD(q_cur, g_cur);
   for (int w = 0; w < window; ++w) {
     // the proposal's gradient: the subtree's (st_gp) and the transition's
@@ -148,18 +143,6 @@ __device__ __forceinline__ void window_slots(const Args& a, int window,
 }
 
 template <int DPL>
-struct AffineGrad {  // Standardize + one AffineCoupling (`logp_grad`)
-  const Args& a;
-  const Net& t;
-  float* smem;
-  int lane;
-  __device__ __forceinline__ float operator()(const float (&z)[DPL],
-                                              float (&g)[DPL]) const {
-    return logp_grad<DPL>(a, t, smem, z, g, lane);
-  }
-};
-
-template <int DPL>
 struct ChainGrad {  // a module list (`chain_logp_grad`)
   const Args& a;
   const ChainList& c;
@@ -170,16 +153,6 @@ struct ChainGrad {  // a module list (`chain_logp_grad`)
     return chain_logp_grad<DPL>(a, c, smem, z, g, lane);
   }
 };
-
-template <int DPL>
-__global__ void __launch_bounds__(32) nuts_window_kernel(Args a,
-                                                         int window) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x;
-  const Net t = unpack(a);
-  window_slots<DPL>(a, window, blockIdx.x, lane,
-                    AffineGrad<DPL>{a, t, smem, lane});
-}
 
 template <int DPL>
 __global__ void __launch_bounds__(32) nuts_window_chain_kernel(Args a,
@@ -213,7 +186,9 @@ __global__ void __launch_bounds__(32 * kMaxTileRows)
   float q_cur[DPL], g_cur[DPL];
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    q_cur[j] = __ldg(a.q + (size_t)chain * a.d + lane + 32 * j);
+    q_cur[j] = lane + 32 * j < a.dim
+                   ? __ldg(a.q + (size_t)chain * a.dim + lane + 32 * j)
+                   : 0.0f;
   float lp_cur = NUTS_LOGP_GRAD(q_cur, g_cur);
   for (int w = 0; w < window; ++w) {
     // the proposal's gradient: the subtree's (st_gp) and the transition's
@@ -268,13 +243,6 @@ cudaError_t launch_tile_kernel(const Args& a, const ChainList& c, int rows,
 namespace tpuflows_window {
 
 template <int DPL>
-cudaError_t launch(const Args& a, int window, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (6 * a.d + 3 * a.h1 + 3 * a.h2);
-  nuts_window_kernel<DPL><<<a.n, 32, smem, stream>>>(a, window);
-  return cudaGetLastError();
-}
-
-template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
                          cudaStream_t stream) {
   const size_t smem =
@@ -308,7 +276,6 @@ cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
       a, c, rows, window, tile_smem_bytes(rows, row), stream);
 }
 
-template cudaError_t launch<NUTS_DPL>(const Args&, int, cudaStream_t);
 template cudaError_t launch_chain<NUTS_DPL>(const Args&, const ChainList&,
                                            int, cudaStream_t);
 template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
@@ -321,15 +288,20 @@ template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
 namespace {
 
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+// a target of width dim on lanes of width d (targets.cuh)
+bool target_ok(int d, int dim, int kind) {
+  return dim >= 1 && dim <= d && d - dim < 32 && kind >= 0 &&
+         kind < kTargetKinds;
+}
 
 // Args of a window launch; the shapes are checked by the caller.
 tpuflows_nuts::Args window_args(const void* q, const void* p0c,
                                 const void* dirs, const void* u_acc,
                                 const void* u_take, const void* eps,
                                 const void* inv_mass, const void* params,
-                                int n, int d, int depth, float sigma_v,
-                                float max_delta_energy, void* draws,
-                                void* info) {
+                                const void* target, int n, int d, int dim,
+                                int kind, int depth, float max_delta_energy,
+                                void* draws, void* info) {
   tpuflows_nuts::Args a;
   a.q = static_cast<const float*>(q);
   a.p0 = static_cast<const float*>(p0c);
@@ -339,8 +311,9 @@ tpuflows_nuts::Args window_args(const void* q, const void* p0c,
   a.eps = static_cast<const float*>(eps);
   a.inv_mass = static_cast<const float*>(inv_mass);
   a.params = static_cast<const float*>(params);
-  a.n = n; a.d = d; a.h1 = 0; a.h2 = 0; a.depth = depth;
-  a.clamp = 0.0f; a.sigma_v = sigma_v; a.max_delta_energy = max_delta_energy;
+  a.target = static_cast<const float*>(target);
+  a.n = n; a.d = d; a.dim = dim; a.kind = kind; a.depth = depth;
+  a.max_delta_energy = max_delta_energy;
   a.q_out = static_cast<float*>(draws);
   a.info = static_cast<float*>(info);
   return a;
@@ -348,43 +321,12 @@ tpuflows_nuts::Args window_args(const void* q, const void* p0c,
 
 }  // namespace
 
-// The affine flow (nuts_window_kernel): Standardize + one AffineCoupling,
-// leaves packed as K1's `Net`. draws (window, n, d), info (7, window, n):
-// lp, sum_accept, n_steps, depth, diverging, turning, h0 of every slot.
-// Returns a cudaError_t (0 = launched). Shapes are checked again here; the
-// Python wrapper checks device, dtype and contiguity before calling.
-extern "C" int nuts_window_f32(
-    const void* q, const void* p0c, const void* dirs, const void* u_acc,
-    const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, int n, int d, int h1, int h2, int depth, int window,
-    float clamp, float sigma_v, float max_delta_energy, void* draws,
-    void* info, void* stream) {
-  using namespace tpuflows_window;
-  if (n < 1 || !width_ok(d) || !width_ok(h1) || !width_ok(h2) || depth < 1 ||
-      depth > kMaxDepth || window < 1 || (long long)n * window > (1 << 30))
-    return (int)cudaErrorInvalidValue;
-  Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass, params, n,
-                       d, depth, sigma_v, max_delta_energy, draws, info);
-  a.h1 = h1; a.h2 = h2; a.clamp = clamp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d / 32) {
-    case 1: return (int)launch<1>(a, window, s);
-    case 2: return (int)launch<2>(a, window, s);
-    case 3: return (int)launch<3>(a, window, s);
-    case 4: return (int)launch<4>(a, window, s);
-    case 5: return (int)launch<5>(a, window, s);
-    case 6: return (int)launch<6>(a, window, s);
-    case 7: return (int)launch<7>(a, window, s);
-    default: return (int)launch<8>(a, window, s);
-  }
-}
-
 namespace {
 
-bool chain_window_ok(int n, int d, int n_mods, int hmax, int head,
-                     int depth, int window) {
+bool chain_window_ok(int n, int d, int dim, int kind, int n_mods,
+                     int hmax, int head, int depth, int window) {
   using namespace tpuflows_window;
-  return n >= 1 && width_ok(d) && n_mods >= 1 &&
+  return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
          n_mods <= tpuflows_nuts::kMaxModules &&
          (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0 &&
          depth >= 1 && depth <= kMaxDepth && window >= 1 &&
@@ -403,25 +345,26 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 
 // A module list on tiles of `rows` chains (a power of two up to
 // kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
-// (nuts_window_tile_kernel), as K1's nuts_chain_transition_f32 takes it
-// (`resident` too) plus the window. Refused where the tile's rows leave
+// (nuts_window_tile_kernel), over a target, as K1's
+// nuts_chain_transition_f32 takes them (`resident` too) plus the window. Refused where the tile's rows leave
 // no room for a weight ring (`tile_ring_stage`) or for the resident
 // layers (`tile_resident_fits`). Returns a cudaError_t.
 extern "C" int nuts_chain_window_f32(
     const void* q, const void* p0c, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, const void* mods, int n_mods, int n, int d,
-    int hmax, int head, int depth, int window, float sigma_v,
-    float max_delta_energy, void* draws, void* info, int rows,
+    const void* params, const void* mods, const void* target, int n_mods,
+    int n, int d, int dim, int kind, int hmax, int head, int depth,
+    int window, float max_delta_energy, void* draws, void* info, int rows,
     int resident, void* stream) {
   using namespace tpuflows_window;
-  if (!chain_window_ok(n, d, n_mods, hmax, head, depth, window) ||
+  if (!chain_window_ok(n, d, dim, kind, n_mods, hmax, head, depth,
+                       window) ||
       rows < 1 || rows > kMaxTileRows || (rows & (rows - 1)) != 0 ||
       resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
-                             params, n, d, depth, sigma_v, max_delta_energy,
-                             draws, info);
+                             params, target, n, d, dim, kind, depth,
+                             max_delta_energy, draws, info);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
@@ -442,15 +385,16 @@ extern "C" int nuts_chain_window_f32(
 extern "C" int nuts_chain_window_warp_f32(
     const void* q, const void* p0c, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
-    const void* params, const void* mods, int n_mods, int n, int d,
-    int hmax, int head, int depth, int window, float sigma_v,
-    float max_delta_energy, void* draws, void* info, void* stream) {
+    const void* params, const void* mods, const void* target, int n_mods,
+    int n, int d, int dim, int kind, int hmax, int head, int depth,
+    int window, float max_delta_energy, void* draws, void* info, void* stream) {
   using namespace tpuflows_window;
-  if (!chain_window_ok(n, d, n_mods, hmax, head, depth, window))
+  if (!chain_window_ok(n, d, dim, kind, n_mods, hmax, head, depth,
+                       window))
     return (int)cudaErrorInvalidValue;
   const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
-                             params, n, d, depth, sigma_v, max_delta_energy,
-                             draws, info);
+                             params, target, n, d, dim, kind, depth,
+                             max_delta_energy, draws, info);
   const ChainList c = chain_list(mods, n_mods, hmax, head);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {

@@ -22,8 +22,8 @@
 //    layout: warp b of the block owns row b of the tile and keeps its
 //    d-vectors in registers (lane l holds dims l + 32 j). It runs the
 //    Standardize and coupling inverses with the tanh clamp, the spline
-//    inverse and its pullback (rqs_math.cuh), the funnel log density with
-//    its warp_sum butterfly, and silu_backward.
+//    inverse and its pullback (rqs_math.cuh), the target's log density
+//    with its warp_sum butterflies (targets.cuh), and silu_backward.
 //  * The MLP products are block-wide (`tile_matvec`). Row b's buffers are
 //    latent_grad.cuh's `Scratch` at smem + b ld (ld = the floats one row
 //    needs: (n_mods + 1) d + 4 hmax + head), so a layer's inputs form an
@@ -410,9 +410,9 @@ __device__ __forceinline__ int tile_ld(const Args& a, const ChainList& c) {
 // A coupling's conditioner as the tile kernels run it: W2 as packed, and
 // the compact copies of its first and last layers that `pack_flow` writes
 // after the module's leaves (md[6]: their offset, md[7]: np, the
-// pass-through dims): W1 (n_in x h1) and W1^T (h1 x n_in) over the
-// pass-through dims, W3 (h2 x n_head), b3 and W3^T (n_head x h2) over the
-// transformed dims' head parameters, p-major (column p nt + t); n_in and
+// pass-through dims below the target's width a.dim): W1 (n_in x h1) and
+// W1^T (h1 x n_in) over those dims, W3 (h2 x n_head), b3 and W3^T (n_head
+// x h2) over the transformed dims' head parameters, p-major (column p nt + t); n_in and
 // n_head are np and P nt padded with zeros to multiples of 32.
 struct TileMlp {
   const float *w1, *b1, *w2, *b2, *w3, *b3, *w1t, *w2t, *w3t;
@@ -430,7 +430,7 @@ __device__ __forceinline__ TileMlp tile_mlp_at(const Args& a,
   t.h1 = m.h1;
   t.h2 = m.h2;
   t.np = md[7];
-  t.nt = a.d - t.np;
+  t.nt = a.dim - t.np;
   t.n_in = (t.np + 31) & ~31;
   t.n_head = ((m.n_out / a.d) * t.nt + 31) & ~31;
   const float* p = a.params + md[6];
@@ -595,14 +595,16 @@ __device__ void tile_mlp_backward(const TileMlp& m, const Scratch& s0,
 }
 
 // the conditioner's input for the warp's row: the pass-through dims of y
-// in order (y * mask with the zeros left out), then zeros to n_in
+// in order (y * mask with the zeros left out), then zeros to n_in. The
+// padded dims past the target's width pass through too but come last and
+// have no place (pos >= np): their y is 0 and their W1 rows are zeros.
 template <int DPL>
 __device__ __forceinline__ void write_compact_input(
     const TileMlp& m, const Scratch& s, const float (&y)[DPL],
     const float (&mk)[DPL], const int (&pos)[DPL], int lane) {
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    if (mk[j] != 0.0f) s.xin[pos[j]] = y[j];
+    if (mk[j] != 0.0f && pos[j] < m.np) s.xin[pos[j]] = y[j];
   for (int r = m.np + lane; r < m.n_in; r += 32) s.xin[r] = 0.0f;
 }
 
@@ -735,7 +737,7 @@ __device__ __noinline__ void tile_module_vjp(
   tile_mlp_backward<kResident>(m, s0, s, ld, R, lane);
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
-    g[j] = mk[j] != 0.0f ? gd[j] + s.xin[pos[j]] : gd[j];
+    g[j] = mk[j] != 0.0f && pos[j] < m.np ? gd[j] + s.xin[pos[j]] : gd[j];
 }
 
 // lp = log p(f^-1(z)) + ladj and g = d lp / dz through the module list for
@@ -762,7 +764,7 @@ __device__ float tile_chain_logp_grad(const Args& a, const ChainList& c,
     ladj += tile_module_inverse<DPL, kResident>(a, c.mods + kModInts * k,
                                                 s0, s, ld, R, x, lane);
   }
-  const float lp = funnel_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
+  const float lp = target_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
   // sweep 2: first module first; its conditioner ran last in sweep 1
   bool live = true;
   for (int k = 0; k < c.n_mods; ++k)

@@ -18,22 +18,22 @@ g (n, d)) with
     resident in shared memory where they fit, as K1 and K2 take them (at
     the ceiling's affine flow R = 8, resident);
     `chain_logp_grad_warp` runs the per-warp module-list kernel, on no
-    path: `chip_smoke.py`'s oracle for the tile kernel;
-    `affine_logp_grad_warp` the per-warp affine kernel (one warp per row,
-    `csrc/latent_grad.cuh` `logp_grad`) that the tile kernel replaced for
-    the affine flow, on no path: `chip_smoke.py`'s yardstick;
+    path: `chip_smoke.py`'s oracle and yardstick for the tile kernel;
   * the wrapper (`FusedLatentLogpAndGrad.__call__`): a CPU tensor runs the
     plain version; a CUDA tensor launches the kernel, or the wrapper
     raises. `LAUNCHES` counts the kernel's launches.
 
 A hand-written kernel cannot trace an arbitrary log density into its body
 as the JAX package's does, so this takes what K1 takes (`nuts_cuda.
-pack_flow`): a `NealsFunnel` of the flow's width and a Chain of
-Standardize, AffineCoupling and RQSCouplingBlock modules with 3-layer silu
-MLPs; it raises on anything else. The JAX package's generic tile builder
+pack_flow`): any closed-form target of the port (`nuts_cuda.pack_target`,
+its log density and gradient written out in `csrc/targets.cuh`) of the
+flow's width d <= 256, and a Chain of Standardize, AffineCoupling and
+RQSCouplingBlock modules with 3-layer silu MLPs, or no flow; it raises on
+anything else. The JAX package's generic tile kernel
 `make_fused_logp_and_grad`, whose body is whatever JAX code it is given,
-has no CUDA counterpart: any other target samples through
-`logp_and_grad=None` (autograd) until it has a device logp of its own.
+has no CUDA counterpart: a target whose log density is user code (a
+`Posterior`, a `Target` subclass) samples through `logp_and_grad=None`
+(autograd).
 The library is built with nvcc into `build/kernels/` on first use
 (`cuda_build`); nothing is compiled or loaded at import time.
 """
@@ -46,14 +46,17 @@ import torch
 from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.kernels import nuts_cuda
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
-from tpuflows_torch.targets.funnel import NealsFunnel
 
 # kernel launches since the last reset (the main path's proof of use)
 LAUNCHES = 0
 # one translation unit per instantiation (d / 32 dims per lane) plus the C
-# entry points, compiled in parallel
-_UNITS = [("entry", [])] + [(f"dpl{k}", [f"-DLATENT_DPL={k}"])
-                             for k in range(1, nuts_cuda.MAX_DIM // 32 + 1)]
+# entry points, compiled in parallel; per DPL a unit of every target and
+# one of the funnel's alone (its tile kernel, which the entry point
+# launches for a funnel: csrc/targets.cuh)
+_UNITS = [("entry", [])] + [
+    (f"dpl{k}{f}", [f"-DLATENT_DPL={k}", *flag])
+    for k in range(1, nuts_cuda.MAX_DIM // 32 + 1)
+    for f, flag in (("", []), ("f", ["-DTARGETS_FUNNEL_ONLY"]))]
 
 
 def reset_launches():
@@ -62,21 +65,18 @@ def reset_launches():
 
 
 def _bind(lib):
-    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.fused_logp_affine_f32
-    fn.argtypes = [p, p] + [i32] * 4 + [f32] * 2 + [p] * 3
-    fn.restype = i32
+    p, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.fused_logp_chain_f32
-    fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 2 + [i32, i32, p]
+    fn.argtypes = [p] * 4 + [i32] * 7 + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.fused_logp_chain_warp_f32
-    fn.argtypes = [p] * 3 + [i32] * 5 + [f32] + [p] * 3
+    fn.argtypes = [p] * 4 + [i32] * 7 + [p] * 3
     fn.restype = i32
 
 
 LIBRARY = CudaLibrary("fused_logp", "fused_logp.cu", _UNITS,
-                      ["latent_grad.cuh", "tile_grad.cuh", "rqs_math.cuh"],
-                      _bind)
+                      ["latent_grad.cuh", "targets.cuh", "tile_grad.cuh",
+                       "rqs_math.cuh"], _bind)
 
 
 def _call(name, z, args):
@@ -104,17 +104,17 @@ def _launch(z, model: nuts_cuda.PackedFlow, rows=None, resident=None):
     lp = torch.empty(n, device=z.device, dtype=torch.float32)
     g = torch.empty_like(z)
     _call("fused_logp_chain_f32", z, [
-        z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
-        model.mods.shape[0], n, d, model.hmax, model.head,
-        model.target.sigma_v, lp.data_ptr(), g.data_ptr(), rows,
-        nuts_cuda.launch_resident(model, rows, resident)])
+        z.data_ptr(), model.params.data_ptr(),
+        *nuts_cuda.module_list_args(model, n), lp.data_ptr(), g.data_ptr(),
+        rows, nuts_cuda.launch_resident(model, rows, resident)])
     LAUNCHES += 1
     return lp, g
 
 
 def _check(z, model: nuts_cuda.PackedFlow):
     nuts_cuda.check_widths(model)
-    if model.params.device != z.device or model.mods.device != z.device:
+    if any(t.device != z.device for t in (model.params, model.mods,
+                                          model.packed_target.params)):
         raise ValueError("the packed flow is on another device than z")
 
 
@@ -136,36 +136,20 @@ def chain_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
     lp, g = _yardstick(z, model)
     n, d = z.shape
     _call("fused_logp_chain_warp_f32", z, [
-        z.data_ptr(), model.params.data_ptr(), model.mods.data_ptr(),
-        model.mods.shape[0], n, d, model.hmax, model.head,
-        model.target.sigma_v, lp.data_ptr(), g.data_ptr()])
-    return lp, g
-
-
-def affine_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
-    """The per-warp affine kernel (`fused_logp_affine_kernel`, one warp
-    per row on the packed `Net` prefix) on a contiguous float32 CUDA z and
-    Standardize + one AffineCoupling: the yardstick of the design the tile
-    kernel replaced for the affine flow (`chip_smoke.py` times it beside
-    the tile kernel). On no path, and not counted in LAUNCHES."""
-    if not model.affine:
-        raise ValueError("the per-warp affine kernel takes Standardize + "
-                         "one AffineCoupling, not a module list")
-    lp, g = _yardstick(z, model)
-    n, d = z.shape
-    _call("fused_logp_affine_f32", z, [
-        z.data_ptr(), model.params.data_ptr(), n, d, model.h1, model.h2,
-        model.clamp, model.target.sigma_v, lp.data_ptr(), g.data_ptr()])
+        z.data_ptr(), model.params.data_ptr(),
+        *nuts_cuda.module_list_args(model, n), lp.data_ptr(), g.data_ptr()])
     return lp, g
 
 
 class FusedLatentLogpAndGrad:
-    """The hook z (n, d) -> (lp (n,), g (n, d)) of a flow over a funnel.
+    """The hook z (n, d) -> (lp (n,), g (n, d)) of a flow over a target
+    (`nuts_cuda.pack_flow`: any closed-form target of the port, any d <=
+    256; flow None: the target alone, its packed parameters on `device`).
     The flow is packed for the kernel when this is constructed, so build it
     after the flow is trained."""
 
-    def __init__(self, target: NealsFunnel, flow: Chain):
-        self.model = nuts_cuda.pack_flow(flow, target)
+    def __init__(self, target, flow: Chain | None, device=None):
+        self.model = nuts_cuda.pack_flow(flow, target, device=device)
         self._plain = nuts_cuda.plain_logp_grad(self.model)
 
     def plain(self, z):
@@ -179,9 +163,9 @@ class FusedLatentLogpAndGrad:
                              f"{tuple(z.shape)}")
         if z.dtype != torch.float32:
             raise TypeError(f"z must be float32, got {z.dtype}")
-        if z.device != self.model.params.device:
-            raise ValueError(f"z is on {z.device}, the flow on "
-                             f"{self.model.params.device}")
+        dev = self.model.packed_target.params.device
+        if z.device != dev:
+            raise ValueError(f"z is on {z.device}, the flow on {dev}")
         if z.device.type == "cpu":
             return self.plain(z)
         if z.device.type == "cuda":
@@ -191,7 +175,7 @@ class FusedLatentLogpAndGrad:
         raise ValueError(f"no fused logp_and_grad for device {z.device}")
 
 
-def fused_latent_logp_and_grad(target: NealsFunnel, flow: Chain
+def fused_latent_logp_and_grad(target, flow: Chain | None
                                ) -> FusedLatentLogpAndGrad:
     """`logp_and_grad` for flow-preconditioned MCMC on `target`, K3 on the
     card: pass it as `logp_and_grad=` to `make_nuts_kernel`, `NUTSDriver`

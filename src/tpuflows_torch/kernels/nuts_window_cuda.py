@@ -25,10 +25,8 @@ Four pieces:
     `nuts_cuda.launch_resident`), or the wrapper raises. There is no
     fallback from one to the other. `LAUNCHES` counts the kernel's
     launches. `chain_window_warp` runs the per-warp module-list window
-    (`nuts_window_chain_kernel`) and `affine_window_warp` the per-warp
-    window of Standardize + one AffineCoupling (`nuts_window_kernel`,
-    which ran the ceiling window before the tile kernel took it), on no
-    path: `chip_smoke.py`'s oracle and yardsticks for the tile kernel;
+    (`nuts_window_chain_kernel`), on no path: `chip_smoke.py`'s oracle
+    and yardstick for the tile kernel;
   * `chain_slots` — S chained per-transition calls on the slot columns
     (the equivalence the kernel's design rests on), or S calls each from
     a given window's previous draw, to hold every slot of a window on its
@@ -56,13 +54,14 @@ from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
 from tpuflows_torch.kernels.nuts_cuda import (_UNITS, MAX_DELTA_ENERGY,
                                               PackedFlow, check_inputs,
-                                              check_launch, launch_resident,
-                                              launch_rows, lockstep_gradients,
-                                              pack_flow, plain_logp_grad)
+                                              check_launch,
+                                              launch_resident, launch_rows,
+                                              lockstep_gradients,
+                                              module_list_args, pack_flow,
+                                              plain_logp_grad)
 from tpuflows_torch.mcmc.nuts import (NUTSInfo, _popcount32,
                                       _trailing_zeros32,
                                       draw_window_randomness)
-from tpuflows_torch.targets.funnel import NealsFunnel
 
 # kernel launches since the last reset (the main path's proof of use)
 LAUNCHES = 0
@@ -70,22 +69,20 @@ LAUNCHES = 0
 
 def _bind(lib):
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.nuts_window_f32
-    fn.argtypes = [p] * 8 + [i32] * 6 + [f32] * 3 + [p] * 3
-    fn.restype = i32
     fn = lib.nuts_chain_window_f32
-    fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 2 + [i32, i32, p]
+    fn.argtypes = [p] * 10 + [i32] * 9 + [f32] + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.nuts_chain_window_warp_f32
-    fn.argtypes = [p] * 9 + [i32] * 7 + [f32] * 2 + [p] * 3
+    fn.argtypes = [p] * 10 + [i32] * 9 + [f32] + [p] * 3
     fn.restype = i32
 
 
 # one translation unit per instantiation (d / 32 dims per lane) plus the C
 # entry points, as K1's
 LIBRARY = CudaLibrary("nuts_window", "nuts_window.cu", _UNITS,
-                      ["latent_grad.cuh", "tile_grad.cuh", "nuts_tree.cuh",
-                       "nuts_tree_body.inc", "rqs_math.cuh"], _bind)
+                      ["latent_grad.cuh", "targets.cuh", "tile_grad.cuh",
+                       "nuts_tree.cuh", "nuts_tree_body.inc",
+                       "rqs_math.cuh"], _bind)
 
 
 def window_math_torch(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
@@ -354,9 +351,8 @@ def window_lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
 def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
           max_depth, window, out, extra=()):
     """One entry point of the library on CUDA tensors, with the module
-    list's arguments, or the `Net` widths of the per-warp affine window
-    (`nuts_window_f32`); `extra` goes between info and the stream.
-    Returns `nuts_window`'s outputs."""
+    list's arguments; `extra` goes between info and the stream. Returns
+    `nuts_window`'s outputs."""
     n, d = q.shape
     ins = (q, p0c, dirs, u_acc, u_take, eps, inv_mass, model.params)
     check_launch(q, (*ins, *(() if out is None else (out,))), model)
@@ -367,17 +363,10 @@ def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
     ptrs = [t.data_ptr() for t in ins]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if name == "nuts_window_f32":
-            rc = getattr(lib, name)(
-                *ptrs, n, d, model.h1, model.h2, max_depth, window,
-                model.clamp, model.target.sigma_v, MAX_DELTA_ENERGY,
-                draws.data_ptr(), info.data_ptr(), *extra, stream)
-        else:
-            rc = getattr(lib, name)(
-                *ptrs, model.mods.data_ptr(), model.mods.shape[0], n, d,
-                model.hmax, model.head, max_depth, window,
-                model.target.sigma_v, MAX_DELTA_ENERGY, draws.data_ptr(),
-                info.data_ptr(), *extra, stream)
+        rc = getattr(lib, name)(
+            *ptrs, *module_list_args(model, n), max_depth, window,
+            MAX_DELTA_ENERGY, draws.data_ptr(), info.data_ptr(), *extra,
+            stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     lp, sum_acc, n_steps, depth, div, turn, h0 = info.unbind(0)
@@ -415,22 +404,6 @@ def chain_window_warp(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                  eps, inv_mass, model, max_depth, window, None)
 
 
-def affine_window_warp(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
-                       model: PackedFlow, max_depth: int, window: int):
-    """The per-warp window of Standardize + one AffineCoupling
-    (`nuts_window_kernel`, `logp_grad` on the `Net` prefix of the packed
-    buffer), which ran the ceiling window before the tile kernel:
-    `chip_smoke.py`'s yardstick of the earlier design. On no path, and not
-    counted in LAUNCHES. Same returns as `nuts_window`."""
-    if not model.affine or q.device.type != "cuda":
-        raise ValueError("the per-warp affine window takes Standardize + "
-                         "one AffineCoupling on CUDA tensors")
-    check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
-                 max_depth, window=window)
-    return _call("nuts_window_f32", q, p0c, dirs, u_acc, u_take, eps,
-                 inv_mass, model, max_depth, window, None)
-
-
 def nuts_window(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                 model: PackedFlow, max_depth: int, window: int, out=None):
     """`window` NUTS transitions of every chain, with the randomness given
@@ -465,11 +438,11 @@ class FusedNUTSWindow:
     The flow's parameters are packed for K2 when this is constructed, so
     build it after the flow is trained."""
 
-    def __init__(self, target: NealsFunnel, flow: Chain, window: int = 32,
-                 max_depth: int = 8):
+    def __init__(self, target, flow: Chain | None, window: int = 32,
+                 max_depth: int = 8, device=None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
-        self.model = pack_flow(flow, target)
+        self.model = pack_flow(flow, target, device=device)
         self.window = window
         self.max_depth = max_depth
 
@@ -487,11 +460,12 @@ class FusedNUTSWindow:
             turning=turn > 0.5, energy=h0, logp=lp)
 
 
-def fused_nuts_window_for_flow(target: NealsFunnel, flow: Chain,
+def fused_nuts_window_for_flow(target, flow: Chain | None,
                                window: int = 32,
                                max_depth: int = 8) -> FusedNUTSWindow:
     """The streaming draw window for flow-preconditioned NUTS on `target`,
-    for the flows `fused_nuts_for_flow` takes (spline flows through the
-    p-major relayout and the streamed per-block gradient); pass it to
+    for the targets and flows `fused_nuts_for_flow` takes (spline flows
+    through the p-major relayout and the streamed per-block gradient, any
+    closed-form target at any d <= 256); pass it to
     `NUTSDriver(window_transition=...)`."""
     return FusedNUTSWindow(target, flow, window=window, max_depth=max_depth)

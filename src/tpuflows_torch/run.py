@@ -96,10 +96,15 @@ def _flow_from_spec(samples, generator, spec, device):
 def _nuts_transition(cfg, target, flow):
     """The transition `nuts.fused_kernel` asks for: K1 ("on", or "auto"
     where `pack_flow` accepts the flow and target), else None (the
-    portable NUTS). The choice depends on `pack_flow` alone, not on the
-    device: on a CUDA tensor K1 launches, and its launch checks (widths,
-    tile) raise where it cannot take the packed flow; on the CPU K1's
-    plain version runs, as every kernel tier does."""
+    portable NUTS). `pack_flow` takes every target the runner builds
+    (std_normal, diag_normal, correlated, mixture, funnel, hierarchical,
+    banana, rosenbrock) at the config's own width up to 256, under an
+    affine, rqs or arqs flow of silu MLPs, as the JAX runner hands any
+    target to its fused transition; it refuses a target with no device
+    form (a Posterior, a user Target). The choice depends on `pack_flow`
+    alone, not on the device: on a CUDA tensor K1 launches, and its launch
+    checks (hidden widths, tile) raise where it cannot take the packed
+    flow; on the CPU K1's plain version runs, as every kernel tier does."""
     from tpuflows_torch.kernels import nuts_cuda
 
     fk = cfg.nuts.fused_kernel

@@ -4,9 +4,10 @@ what the design rests on. The kernels run only on the card, where
 `chip_smoke.py` (phase `tile_vs_warp`) holds them, in both weight modes,
 to the per-warp module-list kernels bit for bit.
 
-  * `pack_flow` keeps the per-warp affine kernels' `Net` layout as the
-    prefix of the packed buffer (the yardsticks read it), element for
-    element against a `Net`-only pack, and appends the tile kernels'
+  * `pack_flow` keeps the `Net` layout (loc, log_scale, mask, W1, b1, W2,
+    b2, W3, b3 and the transposes, the order the module-list kernels read
+    a coupling's leaves in) as the prefix of the packed buffer, element
+    for element against a `Net`-only pack, and appends the tile kernels'
     compact layers after it, their offset and the number of pass-through
     dims in columns 6-7 of the coupling's row of the module list;
   * `tile_mirror` (tests/test_torch_tile_grad.py), the tile gradient's
@@ -20,15 +21,14 @@ to the per-warp module-list kernels bit for bit.
     resident weights where they fit, the ring or another R only when
     asked; K3's calls `fused_logp_chain_f32` too, by the same rule.
     Checked with a recorder in
-    place of the library call; the per-warp affine K3, now a yardstick
-    (`affine_logp_grad_warp`), refuses a module list and CPU tensors, and
-    the per-warp module-list oracle takes the affine flow's list;
+    place of the library call; the per-warp module-list oracle takes the
+    affine flow's list;
   * the resident choice (`resident_fits`, the host's copy of
     csrc/tile_grad.cuh `tile_resident_floats` / `tile_resident_fits`):
     true at the ceiling flow at R = 8, false at the generic arqs flow and
     at h = 256, never over SMEM_LIMIT, and sized from the compact layers'
-    own widths; every shape K1's and K2's affine kernels took runs on the
-    tile kernels (`chip_smoke.OTHER_SHAPES` and its window rows);
+    own widths; every affine shape of `chip_smoke.OTHER_SHAPES` and its
+    window rows runs on the tile kernels;
   * `lockstep_gradients` / `window_lockstep_gradients` on affine flows
     with random masks: the plain version's gradient calls, tile by tile;
   * a CPU tensor runs the plain version and counts no launch.
@@ -85,8 +85,8 @@ AFFINE_FLOWS = [(32, (16, 32), "leading", 0), (32, (32, 32), "random", 1),
 # the packed buffer: the `Net` prefix and the compact tail
 # ---------------------------------------------------------------------------
 def _net_only(tf):
-    """The per-warp affine kernels' `Net` (csrc/latent_grad.cuh `unpack`):
-    loc, log_scale, mask, W1, b1, W2, b2, W3, b3, W1^T, W2^T, W3^T."""
+    """The `Net` layout of Standardize + one AffineCoupling: loc,
+    log_scale, mask, W1, b1, W2, b2, W3, b3, W1^T, W2^T, W3^T."""
     std, cp = tf.transforms
     ws, bs = cp.net.weights, cp.net.biases
     parts = [std.loc, std.log_scale, cp.mask_f, ws[0], bs[0], ws[1], bs[1],
@@ -98,7 +98,7 @@ def _net_only(tf):
 def test_net_prefix_is_unchanged_and_the_compact_layers_follow(d, hidden,
                                                                mask, seed):
     _, tf, model = _flows(d, hidden, mask, seed)
-    assert model.affine
+    assert model.mods[:, 0].tolist() == [0, 1]  # Standardize + affine
     net = _net_only(tf)
     p = model.params
     torch.testing.assert_close(p[:net.numel()], net, rtol=0, atol=0)
@@ -276,16 +276,6 @@ def test_k3_module_lists_keep_the_ring_at_tile_rows(monkeypatch):
     assert fused_logp_cuda.LAUNCHES == 0
 
 
-def test_per_warp_affine_k3_refuses_module_lists_and_cpu_tensors():
-    generic = nuts_cuda.pack_flow(_arqs(64, (16, 16), 4, 1),
-                                  NealsFunnel(dim=64))
-    with pytest.raises(ValueError, match="module list"):
-        fused_logp_cuda.affine_logp_grad_warp(torch.zeros((4, 64)), generic)
-    with pytest.raises(ValueError, match="CUDA"):
-        fused_logp_cuda.affine_logp_grad_warp(torch.zeros((4, 64)),
-                                              _ceiling())
-
-
 def test_per_warp_module_list_oracle_takes_the_affine_flow(monkeypatch):
     """`chain_logp_grad_warp` no longer refuses the affine flow's list: on
     a CPU tensor it stops at the device check, and with a recorder in
@@ -304,7 +294,7 @@ def test_per_warp_module_list_oracle_takes_the_affine_flow(monkeypatch):
     lp, g = fused_logp_cuda.chain_logp_grad_warp(torch.zeros((4, 64)),
                                                  model)
     assert [name for name, _ in seen] == ["fused_logp_chain_warp_f32"]
-    assert seen[0][1][3] == model.mods.shape[0] == 2
+    assert seen[0][1][4] == model.mods.shape[0] == 2
     assert fused_logp_cuda.LAUNCHES == 0
 
 
@@ -357,8 +347,9 @@ def _shape_model(d, h1, h2, scheme):
                          chip_smoke.OTHER_SHAPES)
 def test_every_affine_shape_runs_on_the_tile_kernels(d, h1, h2, depth, eps,
                                                      n, scheme):
-    """The shapes K1's per-warp affine kernel took pass the tile kernels'
-    checks at R = tile_rows (8), with the ring or resident weights."""
+    """The affine shapes of `chip_smoke.OTHER_SHAPES` pass the tile
+    kernels' checks at R = tile_rows (8), with the ring or resident
+    weights."""
     model = _shape_model(d, h1, h2, scheme)
     q = torch.zeros((n, d))
     nuts_cuda.check_launch(q, (q,), model)

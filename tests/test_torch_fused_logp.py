@@ -178,8 +178,12 @@ def test_driver_with_k3_gives_the_draws_of_the_autograd_driver():
     flow = build_flow(torch.randn(128, dim, generator=g), g, kind="affine",
                       n_blocks=1, hidden=(16, 16), mask_scheme="leading",
                       clamp=8.0, device="cpu")
-    logp = flow_reparameterized(target.log_density, flow)
     fused = fused_latent_logp_and_grad(target, flow)
+    # the autograd NUTSDriver differentiates the density K3's plain version
+    # reads: the target from its packed buffer
+    logp = flow_reparameterized(
+        lambda x: nuts_cuda.packed_log_density(fused.model.packed_target,
+                                               x), flow)
     q0 = torch.randn(64, dim, generator=torch.Generator().manual_seed(3))
     d_ref = NUTSDriver(logp, max_depth=5)
     d_fus = NUTSDriver(logp, max_depth=5, logp_and_grad=fused)

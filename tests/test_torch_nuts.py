@@ -292,11 +292,13 @@ def test_pack_takes_a_standardize_only_chain():
     flow = Chain([Standardize(torch.from_numpy(lv["loc"]),
                               torch.from_numpy(lv["log_scale"]))])
     model = nuts_cuda.pack_flow(flow, NealsFunnel(dim=D_MODEL))
-    assert not model.affine and model.flow_p is None
+    assert model.flow_p is None and model.hidden == ()
     assert model.mods.tolist() == [[0, 0, 0, 0, 0, 0, 0, 0]]
+    dp = model.d_pad  # loc and log_scale padded with zeros to the lanes
     torch.testing.assert_close(
-        model.params, torch.cat([flow.transforms[0].loc,
-                                 flow.transforms[0].log_scale]).detach())
+        model.params, torch.cat([
+            nuts_cuda.pad_lanes(flow.transforms[0].loc, dp),
+            nuts_cuda.pad_lanes(flow.transforms[0].log_scale, dp)]).detach())
     inp = make_inputs(2)
     out = nuts_cuda.nuts_transition(
         *(torch.from_numpy(inp[k]) for k in ("q", "p0", "dirs", "u_acc",
@@ -306,24 +308,28 @@ def test_pack_takes_a_standardize_only_chain():
 
 
 def test_packed_layout_matches_kernel_order():
-    """The packed buffer holds the leaves in the order the per-warp affine
-    kernels' `Net` reads them, with transposed weight copies at its end,
+    """The packed buffer holds the leaves in the order the module-list
+    kernels read them (the `Net` layout), with transposed weight copies,
     and then the tile kernels' compact first and last layers, at the
     offset column 6 of the coupling's row of the module list holds."""
     model = _model()
     std, cp = model.flow.transforms
-    d, h1, h2 = model.d, model.h1, model.h2
+    # the leaves at the lane width d (the flow's D_MODEL dims padded to 32:
+    # zero W1 rows and zero head columns past them)
+    d, (h1, h2) = model.d_pad, model.hidden
     p = model.params
     off = 3 * d
     w1 = p[off:off + d * h1].reshape(d, h1)
-    torch.testing.assert_close(w1, cp.net.weights[0].detach())
+    torch.testing.assert_close(w1[:D_MODEL], cp.net.weights[0].detach())
+    assert not w1[D_MODEL:].any()
     net = 3 * d + 2 * (d * h1 + h1 * h2 + h2 * 2 * d) + h1 + h2 + 2 * d
-    w3t = p[net - 2 * d * h2:net].reshape(2 * d, h2)
-    torch.testing.assert_close(w3t, cp.net.weights[2].detach().t())
+    w3t = p[net - 2 * d * h2:net].reshape(2, d, h2)[:, :D_MODEL]
+    torch.testing.assert_close(w3t.reshape(2 * D_MODEL, h2),
+                               cp.net.weights[2].detach().t())
     # the compact tail: W1, W1^T over the pass-through dims, W3, b3, W3^T
     # over the transformed dims' head columns, widths padded to 32
     n_p = int(sum(cp.mask))
-    n_in, n_head = -(-n_p // 32) * 32, -(-2 * (d - n_p) // 32) * 32
+    n_in, n_head = -(-n_p // 32) * 32, -(-2 * (D_MODEL - n_p) // 32) * 32
     assert model.mods[1, 6:].tolist() == [net, n_p]
     assert p.numel() == net + 2 * n_in * h1 + 2 * h2 * n_head + n_head
     keep = torch.tensor(cp.mask).bool()

@@ -108,31 +108,36 @@ def test_packer_relayout_matches_permute_for_tiles():
     jf, tf = _flows(4)
     jp = j_permute(jf)
     model = nuts_cuda.pack_flow(tf, NealsFunnel(dim=D))
-    p = model.params
+    p, dp = model.params, model.d_pad  # packed at the lane width
+    assert dp == 32
     rows = model.mods.tolist()
     assert [r[0] for r in rows] == [0, 1, 2, 1, 2]
-    assert model.flow_p is not None and not model.affine
+    assert model.flow_p is not None and model.resident_floats == 0
     for row, jt in zip(rows, jp.transforms):
         kind, off, h1, h2, K = row[:5]
         if kind == 0:
             np.testing.assert_array_equal(p[off:off + D].numpy(),
                                           np.asarray(jt.loc))
+            assert not p[off + D:off + dp].any()
             continue
         c = struct.unpack("<f", struct.pack("<i", row[5]))[0]
         assert c == (jt.range_limit if kind == 2 else jt.clamp)
-        n_out = 2 * D if kind == 1 else (3 * K - 1) * D
-        o = off + D + D * h1 + h1 + h1 * h2 + h2
-        w3 = p[o:o + h2 * n_out].reshape(h2, n_out)
-        b3 = p[o + h2 * n_out:o + h2 * n_out + n_out]
-        np.testing.assert_array_equal(w3.numpy(),
+        n_par = 2 if kind == 1 else 3 * K - 1
+        n_out = n_par * dp
+        o = off + dp + dp * h1 + h1 + h1 * h2 + h2
+        w3 = p[o:o + h2 * n_out].reshape(h2, n_par, dp)
+        b3 = p[o + h2 * n_out:o + h2 * n_out + n_out].reshape(n_par, dp)
+        # each parameter's columns over the flow's D dims, zeros past them
+        np.testing.assert_array_equal(w3[..., :D].reshape(h2, -1).numpy(),
                                       np.asarray(jt.net.weights[-1]))
-        np.testing.assert_array_equal(b3.numpy(),
+        np.testing.assert_array_equal(b3[:, :D].reshape(-1).numpy(),
                                       np.asarray(jt.net.biases[-1]))
-        t_end = o + h2 * n_out + n_out + h1 * D + h2 * h1
+        assert not w3[..., D:].any() and not b3[:, D:].any()
+        t_end = o + h2 * n_out + n_out + h1 * dp + h2 * h1
         np.testing.assert_array_equal(
             p[t_end:t_end + n_out * h2].reshape(n_out, h2).numpy(),
-            np.asarray(jt.net.weights[-1]).T)
-    assert model.head == (3 * 4 - 1) * D and model.hmax == 16
+            w3.reshape(h2, n_out).numpy().T)
+    assert model.head == (3 * 4 - 1) * dp and model.hmax == 16
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +150,10 @@ def _silu_grad(a):
 
 def kernel_chain_logp_grad(model, sigma_v=3.0):
     """z (T, d) -> (lp (T, 1), g (T, d)) the way the module-list kernel
-    computes them, from `model.params` and `model.mods`. No autograd."""
-    p, d = model.params.detach(), model.d
+    computes them, from `model.params` and `model.mods`, at the lane width
+    d_pad the flow is packed at (z padded with zeros, g's first d columns
+    returned). No autograd."""
+    p, d = model.params.detach(), model.d_pad
 
     def leaves(row):
         kind, off, h1, h2, K, cbits = row[:6]
@@ -181,6 +188,7 @@ def kernel_chain_logp_grad(model, sigma_v=3.0):
         return head.reshape(head.shape[0], 3 * K - 1, d).transpose(1, 2)
 
     def fn(z):
+        z = nuts_cuda.pad_lanes(z, d)
         x, ladj, bounds = z, torch.zeros(z.shape[0]), [None] * len(mods)
         for k in range(len(mods) - 1, -1, -1):  # sweep 1
             bounds[k] = x
@@ -203,7 +211,7 @@ def kernel_chain_logp_grad(model, sigma_v=3.0):
         v, rest = x[:, 0], x[:, 1:]
         sq = (rest * rest).sum(-1)
         env = torch.exp(-v)
-        k = float(d - 1)
+        k = float(model.d - 1)
         lp = (-0.5 * (v / sigma_v) ** 2 - math.log(sigma_v)
               - 0.5 * math.log(2 * math.pi) - 0.5 * sq * env - 0.5 * k * v
               - 0.5 * k * math.log(2 * math.pi)) + ladj
@@ -233,7 +241,7 @@ def kernel_chain_logp_grad(model, sigma_v=3.0):
                 draw = torch.where((m == 0)[..., None], draw, 0.0)
                 gh = draw.transpose(1, 2).reshape(y.shape[0], -1)
             g = gd + m * mlp_backward(L, a1, a2, gh)
-        return lp[:, None], g
+        return lp[:, None], g[:, :model.d]
 
     return fn
 

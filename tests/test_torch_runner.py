@@ -356,20 +356,40 @@ def test_auto_takes_k1_where_pack_flow_takes_the_flow():
     cfg = _nuts_cfg("auto")
     tr = trun._nuts_transition(cfg, cfg.target.build("cpu"), _flow(cfg))
     assert isinstance(tr, FusedNUTS) and tr.max_depth == cfg.nuts.max_depth
-    # "auto" does not give way to the portable NUTS where the kernel's
-    # launch checks refuse the packed flow: d = 8 is not a multiple of 32,
-    # so on the card K1's launch raises
-    with pytest.raises(ValueError, match="d % 32"):
-        nuts_cuda.check_widths(tr.model)
+    # K1's launch checks take the d = 8 funnel: the flow is packed once at
+    # the lane width 32, and the kernel masks the lanes past d
+    nuts_cuda.check_widths(tr.model)
+    assert (tr.model.d, tr.model.d_pad) == (8, 32)
     off = _nuts_cfg("off")
     assert trun._nuts_transition(off, off.target.build("cpu"),
                                  _flow(off)) is None
 
 
+def _posterior():
+    from tpuflows_torch.targets import IndependentPrior, Normal, Posterior
+
+    prior = IndependentPrior([Normal(0.0, 1.0)] * 8, device="cpu")
+    return Posterior(lambda theta: -0.5 * torch.sum(theta * theta, -1),
+                     prior)
+
+
 def test_auto_takes_the_portable_nuts_for_other_targets():
-    cfg = _nuts_cfg("auto", kind="correlated")
-    assert trun._nuts_transition(cfg, cfg.target.build("cpu"),
-                                 _flow(cfg)) is None
+    """A target with no device form (a Posterior: its likelihood is user
+    code) takes the portable NUTS under "auto"."""
+    cfg = _nuts_cfg("auto")
+    assert trun._nuts_transition(cfg, _posterior(), _flow(cfg)) is None
+
+
+@pytest.mark.parametrize("kind", ["std_normal", "diag_normal", "correlated",
+                                  "mixture", "funnel", "hierarchical",
+                                  "banana", "rosenbrock"])
+def test_auto_takes_k1_for_every_target_the_runner_builds(kind):
+    cfg = _nuts_cfg("auto", kind=kind)
+    tr = trun._nuts_transition(cfg, cfg.target.build("cpu"), _flow(cfg))
+    assert isinstance(tr, FusedNUTS)
+    nuts_cuda.check_widths(tr.model)
+    assert tr.model.packed_target.kind == nuts_cuda.TARGET_KIND[
+        type(cfg.target.build("cpu"))]
 
 
 def _with_identity(flow):
@@ -377,13 +397,14 @@ def _with_identity(flow):
 
 
 @pytest.mark.parametrize("kind,edit,why", [
-    ("correlated", None, "NealsFunnel"),
+    ("posterior", None, "Posterior"),
     ("funnel", _with_identity, "module Identity")])
 def test_on_raises_naming_the_refusal(kind, edit, why):
-    cfg = _nuts_cfg("on", kind=kind)
+    cfg = _nuts_cfg("on", kind="funnel")
+    target = _posterior() if kind == "posterior" else cfg.target.build("cpu")
     flow = _flow(cfg) if edit is None else edit(_flow(cfg))
     with pytest.raises(ValueError, match="fused_kernel='on'") as err:
-        trun._nuts_transition(cfg, cfg.target.build("cpu"), flow)
+        trun._nuts_transition(cfg, target, flow)
     assert why in str(err.value)
 
 
@@ -469,7 +490,10 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     particles and a 4,096-draw pretrain (c5's epochs, stages and
     equilibration kept): it passes every gate, its log Z against the
     quadrature truth and its moment gate included, and launches no
-    kernel. No config may fail a gate on its record's keys, its phases, a
+    kernel. The nuts variants (K1 over c2's and c5's targets) run 8
+    chains of 10 + 20 transitions at depth 4: their reference windows,
+    R-hat and moment gates, set for the card's depth, may refuse so short
+    a run. No config may fail a gate on its record's keys, its phases, a
     non-finite result or its launches."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -500,6 +524,12 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
                                     num_warmup=40, num_samples=40,
                                     train_epochs=2,
                                     ess_threshold=threshold))
+        if name in chip_smoke.RUN_RHAT_VARIANTS:  # K1 over other targets
+            return dc.replace(
+                cfg, target=dc.replace(cfg.target, dim=8),
+                train=dc.replace(cfg.train, nsteps=10, batch_size=64),
+                nuts=dc.replace(cfg.nuts, n_chains=8, num_warmup=10,
+                                num_samples=20, max_depth=4))
         return dc.replace(
             cfg, target=dc.replace(cfg.target, dim=8),
             train=dc.replace(cfg.train, nsteps=100, batch_size=128),
@@ -538,10 +568,18 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     assert c5["smc"]["moment_gate"]["passed"]
     assert not any(f.startswith(("record keys", "phases", "K4/K5",
                                  "a non-finite", "moment gate"))
-                   for r in rows.values() for f in r["failures"])
+                   for r in rows.values() for f in r["failures"]
+                   if r["config"] not in chip_smoke.RUN_RHAT_VARIANTS)
+    assert not any(f.startswith(("record keys", "phases", "a non-finite"))
+                   for n in chip_smoke.RUN_RHAT_VARIANTS
+                   for f in rows[n]["failures"])
     for r in rows.values():
         assert r["k1_launches"] == 0 and not any(r["rqs_launches"].values())
         assert r["record"]["name"] == r["config"]
+    for name in chip_smoke.RUN_RHAT_VARIANTS:  # K1's plain version ran
+        assert rows[name]["record"]["transition"] == "fused"
+        assert set(rows[name]["reference"]) == set(
+            chip_smoke.RUN_REFERENCE[name])
 
 
 def test_adaptive_launches_follow_the_path():

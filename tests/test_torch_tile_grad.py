@@ -255,8 +255,10 @@ def _pad32(n):
 def _tile_leaves(model):
     """Each module's leaves as the tile kernels read them: Standardize's
     loc and log_scale; a coupling's mask, b1, W2, b2, W2^T from its packed
-    leaves and the compact W1, W1^T, W3, b3, W3^T at row[6]."""
-    p, d = model.params.detach(), model.d
+    leaves and the compact W1, W1^T, W3, b3, W3^T at row[6]. The leaves
+    are packed at the lane width d_pad; the compact layers count the
+    flow's d dims only."""
+    p, d = model.params.detach(), model.d_pad
     out = []
     for row in model.mods.tolist():
         kind, off, h1, h2, K, cbits, coff, n_p = row
@@ -265,7 +267,7 @@ def _tile_leaves(model):
                                "ls": p[off + d:off + 2 * d]}))
             continue
         n_param = 2 if kind == 1 else 3 * K - 1
-        n_t = d - n_p
+        n_t = model.d - n_p
         n_in, n_head = _pad32(n_p), _pad32(n_param * n_t)
         L = {"c": struct.unpack("<f", struct.pack("<i", cbits))[0], "K": K,
              "P": n_param, "np": n_p, "nt": n_t, "n_in": n_in,
@@ -294,9 +296,12 @@ def tile_mirror(model, sigma_v=3.0):
     conditioner sees the pass-through dims only, its head holds the
     transformed dims' parameters p-major (p nt + t), the backward carries
     only their cotangents and returns the pass-through dims' input
-    cotangents. No autograd."""
-    d = model.d
+    cotangents. No autograd. It runs at the lane width d_pad, on z with
+    zeros appended, as the kernels hold a row, and returns g's first d
+    columns."""
+    d, dp = model.d, model.d_pad
     mods = _tile_leaves(model)
+    real = torch.arange(dp) < d  # a padded dim has no compact place
     silu = torch.nn.functional.silu
 
     def mlp(L, y, keep):
@@ -309,6 +314,7 @@ def tile_mirror(model, sigma_v=3.0):
         return a1, a2, used.reshape(-1, L["P"], L["nt"])  # (T, P, nt)
 
     def fn(z):
+        z = nuts_cuda.pad_lanes(z, dp)
         x, ladj, bounds = z, torch.zeros(z.shape[0]), [None] * len(mods)
         for k in range(len(mods) - 1, -1, -1):  # sweep 1
             bounds[k] = x
@@ -317,7 +323,7 @@ def tile_mirror(model, sigma_v=3.0):
                 x = x * torch.exp(L["ls"]) + L["loc"]
                 ladj = ladj + L["ls"].sum()
                 continue
-            keep, moved = L["mask"] != 0, L["mask"] == 0
+            keep, moved = (L["mask"] != 0) & real, L["mask"] == 0
             _, _, head = mlp(L, x, keep)
             x = x.clone()
             if kind == 1:
@@ -344,7 +350,7 @@ def tile_mirror(model, sigma_v=3.0):
             if kind == 0:
                 g = g * torch.exp(L["ls"])
                 continue
-            keep, moved = L["mask"] != 0, L["mask"] == 0
+            keep, moved = (L["mask"] != 0) & real, L["mask"] == 0
             a1, a2, head = mlp(L, y, keep)
             gt, gd = g[:, moved], g.clone()
             if kind == 1:
@@ -367,7 +373,7 @@ def tile_mirror(model, sigma_v=3.0):
             gx = g1 @ L["cw1t"]
             g = gd
             g[:, keep] = gd[:, keep] + gx[:, :L["np"]]
-        return lp[:, None], g
+        return lp[:, None], g[:, :d]
 
     return fn
 
@@ -379,14 +385,15 @@ def test_packer_writes_the_compact_layers(d, knots, blocks):
     for kind, L in _tile_leaves(model):
         if kind == 0:
             continue
-        keep = torch.nonzero(L["mask"] != 0).flatten()
+        keep = torch.nonzero(L["mask"][:d] != 0).flatten()
         moved = torch.nonzero(L["mask"] == 0).flatten()
         assert L["np"] == keep.numel() and L["n_in"] % 32 == 0
         assert L["n_head"] % 32 == 0
         torch.testing.assert_close(L["cw1"][:L["np"]], L["w1"][keep],
                                    rtol=0, atol=0)
         torch.testing.assert_close(L["cw1t"], L["cw1"].t(), rtol=0, atol=0)
-        cols = (torch.arange(L["P"])[:, None] * d + moved).reshape(-1)
+        cols = (torch.arange(L["P"])[:, None] * model.d_pad
+                + moved).reshape(-1)
         used = L["P"] * L["nt"]
         torch.testing.assert_close(L["cw3"][:, :used], L["w3"][:, cols],
                                    rtol=0, atol=0)
@@ -419,13 +426,13 @@ def test_affine_only_flow_packs_no_compact_layers():
     and the coupling's row of the module list holds their offset and the
     number of pass-through dims in columns 6-7 (Standardize's stay 0)."""
     model = _model(_affine(D, (16, 16)))
-    assert model.affine
-    d, h1, h2 = D, 16, 16
+    assert model.mods[:, 0].tolist() == [0, 1]  # Standardize + affine
+    d, h1, h2 = model.d_pad, 16, 16  # the leaves at the lane width
     n = 2 * d + d + d * h1 + h1 + h1 * h2 + h2 + h2 * 2 * d + 2 * d + \
         h1 * d + h2 * h1 + 2 * d * h2
     n_p = int(sum(model.flow.transforms[1].mask))
     assert model.mods[:, 6:].tolist() == [[0, 0], [n, n_p]]
-    n_in, n_head = _pad32(n_p), _pad32(2 * (d - n_p))
+    n_in, n_head = _pad32(n_p), _pad32(2 * (D - n_p))
     assert model.params.numel() == n + 2 * n_in * h1 + 2 * h2 * n_head + \
         n_head
     (_, std), (kind, L) = _tile_leaves(model)

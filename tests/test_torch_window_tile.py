@@ -208,7 +208,7 @@ def test_module_list_window_refuses_what_check_tile_refuses(monkeypatch,
 
 def test_affine_window_keeps_its_kernel(monkeypatch):
     """The ceiling's affine flow runs on K2's tile kernel at R = 8, its
-    weights resident; the per-warp affine window is on no path."""
+    weights resident; the per-warp window is on no path."""
     model = _model(_affine(64, (128, 128)))
     assert _launched(monkeypatch, _affine(64, (128, 128))) == (
         "nuts_chain_window_f32", (8, model.resident_floats), 1)
