@@ -215,7 +215,7 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                plain versions' time), both kernels at d = 32 and d = 256
                (S = 4 affine, 2 spline), all at eps 0.1, and both trained
                flows at their post-warmup states (S = 32, the first
-               POST_WARMUP_CHECKED_SLOTS = 4 slots held slot by slot). K1's bar in every slot (a chain
+               POST_WARMUP_CHECKED_SLOTS = 2 slots held slot by slot). K1's bar in every slot (a chain
                flips if it
                differs in leapfrog count, depth, divergence or U-turn, or
                its draw by more than 1e-3, at most 5 of 1024 may; on the
@@ -376,12 +376,16 @@ MAX_DENERGY = 0.012
 MAX_DQ = 2.3e-4
 # transitions per K2 launch on the window path (bench.py's window=32)
 WINDOW_SLOTS = 32
-# the post-warmup rows of `window_vs_plain` hold the first 4 of their 32
+# the post-warmup rows of `window_vs_plain` hold the first 2 of their 32
 # slots slot by slot (three plain versions a slot: 54 s of the generic
 # row's 70 s at all 32 on an H100's host; 8 to make room for the
-# distributed phase, 4 for the target library's phase); the whole window
-# still runs in K2 and in the plain version, which times it
-POST_WARMUP_CHECKED_SLOTS = 4
+# distributed phase, 4 for the target library's phase, 2 for the
+# conditioners' phase); the whole window still runs in K2 and in the
+# plain version, which times it
+POST_WARMUP_CHECKED_SLOTS = 2
+# warmup and draw steps of `test_only_modules`' bounded-posterior NUTS
+# (the JAX test's 200 + 200 cut to pay for the conditioners' phase)
+POSTERIOR_NUTS_STEPS = 100
 # the seeded flows' step size in the K2 comparison: at K1's eps 0.3 about
 # half (bench) and three quarters (spline) of the chains diverge in one
 # transition from N(0, 1) starts (the divergent counts of phases 4-5), and
@@ -449,11 +453,13 @@ def _kernel_key(name):
         return f"K2 chain d/32={t.group(1)}"
     if "nuts_window_tile_kernel" in name and t:
         return f"K2 tile d/32={t.group(1)}{res}"
-    rows = re.search(r"coupling_tile_(fwd|bwd)_kernelILb(\d)ELi(\d+)E", name)
+    rows = re.search(
+        r"coupling_tile_(fwd|bwd)_kernelILb(\d)ELi(\d+)E(?:Lb(\d)E)?", name)
     if rows:
         label = "K6 tile" if rows.group(1) == "fwd" else "K7 tile pass 1"
         direction = "inverse" if rows.group(2) == "1" else "forward"
-        return f"{label} {direction} R={rows.group(3)}"
+        dtype = " bf16" if rows.group(4) == "1" else ""
+        return f"{label} {direction} R={rows.group(3)}{dtype}"
     lanes = re.search(r"rqs_(eval|grad)_lanes_kernelILb(\d)ELi(\d+)E", name)
     if lanes:
         label = "K4" if lanes.group(1) == "eval" else "K5"
@@ -473,8 +479,9 @@ def _kernel_key(name):
 
 
 def ptxas_summary(log):
-    """Registers, shared memory and spills of each kernel (K1's keyed by
-    its template argument d / 32), from nvcc -Xptxas -v."""
+    """Registers, shared memory, spills and ptxas' compile time of each
+    kernel (K1's keyed by its template argument d / 32), from nvcc
+    -Xptxas -v."""
     rows, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -494,6 +501,9 @@ def ptxas_summary(log):
             rows[cur]["registers"] = int(m.group(1))
             s = re.search(r"(\d+) bytes smem", line)
             rows[cur]["static_smem"] = int(s.group(1)) if s else 0
+        m = re.search(r"Compile time = ([\d.]+) ms", line)
+        if m:
+            rows[cur]["compile_ms"] = float(m.group(1))
     return rows
 
 
@@ -636,6 +646,40 @@ def judge(kern, plain, oracle, exact, quantile=0.999):
             "passed": bool(torch.isfinite(kern).all()
                            and miss["kernel"] <= 1.25 * worst_miss + 1
                            and q["kernel"] <= 1.25 * worst_q + 0.1)}
+
+
+def judge_rows(kern, plain, oracle, exact, quantile=0.999):
+    """`judge` for an output of a bf16 conditioner, by row (a row's lp and
+    g). An operand on a bf16 rounding edge rounds to one bf16 value in one
+    evaluation and to its neighbour in another, and moves most of its
+    row's values past the bar together, so misses come in rows, a few per
+    1024 in every float32 evaluation. A row misses where any of its values
+    lies beyond the bar of float64. The kernel's missed rows may number
+    at most `refereed_bar`'s flips for the worse float32 plain version's
+    (twice its count, at least 5 of 1024 and at most 1/64 of the rows),
+    or that count itself where it is more; on the rows that no
+    evaluation misses, `judge` holds as before."""
+    import torch
+
+    ex = exact.float()
+    n = kern.shape[0]
+
+    def missed(t):
+        return (_units(t, ex).reshape(n, -1) > 1.0).any(dim=1)
+
+    rows = {k: missed(t) for k, t in (("kernel", kern), ("plain", plain),
+                                      ("oracle", oracle))}
+    counts = {k: int(v.sum()) for k, v in rows.items()}
+    spread = {"flips": max(counts["plain"], counts["oracle"]),
+              "max_denergy": 0.0, "max_dq": 0.0}
+    bar = max(spread["flips"], refereed_bar([spread], n)["max_flips"])
+    ok = ~(rows["kernel"] | rows["plain"] | rows["oracle"])
+    rest = judge(kern[ok], plain[ok], oracle[ok], exact[ok], quantile) \
+        if bool(ok.any()) else {"passed": True}
+    return {"rows_missed": counts, "max_rows_missed": bar,
+            "max_abs": float((kern - plain).abs().max()), "rest": rest,
+            "passed": bool(torch.isfinite(kern).all()
+                           and counts["kernel"] <= bar and rest["passed"])}
 
 
 def oracle_eval(x, raw, inverse):
@@ -870,6 +914,15 @@ COUPLING_SHAPES = [
     (300, 32, (64,), 4, "alternating0", "n0.1", "tanh"),
     (513, 96, (96, 48, 80), 12, "block0", "he0.01", "relu"),
     (45, DIM, (3200,), KNOTS, "alternating1", "he0.01", "silu")]
+# the conditioners the earlier kernels refuse (no earlier column), at the
+# fused fit's shape: gelu, and bf16 operands (a row's compute_dtype after
+# its activation)
+COUPLING_FORM_SHAPES = [
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0", "n0.1", "gelu"),
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0", "n0.1", "silu",
+     "bf16"),
+    (TRAIN_BATCH, DIM, HIDDEN, KNOTS, "alternating0", "n0.1", "gelu",
+     "bf16")]
 COUPLING_PARAMS = ("w0", "b0", "w1", "b1", "w2", "b2")
 
 
@@ -917,21 +970,30 @@ def coupling_inputs(device, n, d, hidden, K, head, seed):
     return 2.0 * randn(n, d), tuple(params), randn(n, d), randn(n)
 
 
-def oracle_block(x, params, mask, K, inverse, activation="silu"):
+def oracle_block(x, params, mask, K, inverse, activation="silu",
+                 compute_dtype="f32"):
     """The block through the oracle spline (`flows/rqs_ref.py`) on the
-    same flat p-major parameters: a float32 evaluation independent of the
-    tile math. Returns (z, ladj (T,))."""
+    same flat p-major parameters (bf16 operands for a bf16 conditioner):
+    a float32 evaluation independent of the tile math. Returns (z, ladj
+    (T,))."""
     import torch
     from tpuflows_torch.flows import rqs_ref
-    from tpuflows_torch.flows.nets import _ACTIVATIONS
+    from tpuflows_torch.flows.nets import _ACTIVATIONS, _bf16_operand
 
     act = _ACTIVATIONS[activation]
     T, d = x.shape
     ws, bs = params[0::2], params[1::2]
+
+    def dot(a, w):
+        if compute_dtype == "bf16":
+            return _bf16_operand(a) @ _bf16_operand(w)
+        return a @ w
+
     h = x * mask
     for w, b in zip(ws[:-1], bs[:-1]):
-        h = act(h @ w + b)
-    raw = (h @ ws[-1] + bs[-1]).reshape(T, 3 * K - 1, d).transpose(1, 2)
+        h = act(dot(h, w) + b)
+    raw = (dot(h, ws[-1]) + bs[-1]).reshape(T, 3 * K - 1, d).transpose(1,
+                                                                       2)
     fn = rqs_ref.rqs_inverse_from_raw if inverse else \
         rqs_ref.rqs_forward_from_raw
     y, ladj_el = fn(x, raw, 4.0)
@@ -939,13 +1001,15 @@ def oracle_block(x, params, mask, K, inverse, activation="silu"):
     return z, torch.sum((1.0 - mask) * ladj_el, dim=-1)
 
 
-def oracle_block_vjp(x, params, mask, K, inverse, gz, gl, activation):
+def oracle_block_vjp(x, params, mask, K, inverse, gz, gl, activation,
+                     compute_dtype="f32"):
     import torch
 
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         pg = [p.detach().requires_grad_(True) for p in params]
-        out = oracle_block(xg, pg, mask, K, inverse, activation)
+        out = oracle_block(xg, pg, mask, K, inverse, activation,
+                           compute_dtype)
         return torch.autograd.grad(out, (xg, *pg), (gz, gl))
 
 
@@ -1005,7 +1069,8 @@ def earlier_diffs(names, new, old):
             "bitwise": all(torch.equal(a, b) for a, b in zip(new, old))}
 
 
-def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
+def coupling_vs_plain(device, shapes=(*COUPLING_SHAPES,
+                                      *COUPLING_FORM_SHAPES)):
     """K6 and K7 against their plain versions, both directions, on z, ladj,
     dx and every weight's and bias's cotangent, refereed by the plain
     version in float64 (`judge`, the spline kernels' bar, at the quantile
@@ -1019,13 +1084,17 @@ def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
     yardstick) part from the new ones: a second reference, not a bar.
     Where no K7 plan fits the shared memory (a hidden layer of 3200
     units), the row holds K6 alone, and on the card K7's wrapper and the
-    earlier K7 must both refuse the block."""
+    earlier K7 must both refuse the block. A row may name the
+    conditioner's compute_dtype after its activation ("bf16"); the
+    earlier kernels, which refuse gelu and bf16, have no column there."""
     import torch
     from tpuflows_torch.kernels import coupling_cuda as cc
 
     on_card = torch.device(device).type == "cuda"
     rows = []
-    for n, d, hidden, K, mask_name, head, act in shapes:
+    for n, d, hidden, K, mask_name, head, act, *dtype in shapes:
+        dtype = dtype[0] if dtype else "f32"
+        earlier = act in cc.EARLIER_ACTIVATIONS and dtype == "f32"
         mask_t = coupling_mask(mask_name, d)
         x, params, gz, gl = coupling_inputs(device, n, d, hidden, K, head,
                                             seed=n + d + K)
@@ -1037,13 +1106,15 @@ def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
         plans = tile_plans(cc, widths, K, nt, n, device)
         with_k7 = "refused" not in plans["k7"]
         for inverse in (False, True):
-            spec = cc.BlockSpec(mask_t, K, 4.0, act, inverse)
+            spec = cc.BlockSpec(mask_t, K, 4.0, act, inverse, dtype)
             kz = cc.block_eval(x, params, spec)
-            pz = cc.plain_block(x, params, m32, K, 4.0, act, inverse)
-            oz = oracle_block(x, params, m32, K, inverse, act)
-            ez = cc.plain_block(x64, p64, m32.double(), K, 4.0, act, inverse)
+            pz = cc.plain_block(x, params, m32, K, 4.0, act, inverse, dtype)
+            oz = oracle_block(x, params, m32, K, inverse, act, dtype)
+            ez = cc.plain_block(x64, p64, m32.double(), K, 4.0, act, inverse,
+                                dtype)
             row = {"n": n, "d": d, "hidden": list(hidden), "knots": K,
                    "mask": mask_name, "head": head, "activation": act,
+                   "compute_dtype": dtype,
                    "direction": "inverse" if inverse else "forward",
                    "plans": plans}
             outs = [("z", kz[0], pz[0], oz[0], ez[0]),
@@ -1054,25 +1125,26 @@ def coupling_vs_plain(device, shapes=COUPLING_SHAPES):
                 odx, _ = cc.block_grad(x, params, spec, gz, gl,
                                        need_params=False)
                 pdx, pdp = cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
-                                              act, inverse)
+                                              act, inverse, dtype)
                 odx2, *odp = oracle_block_vjp(x, params, m32, K, inverse, gz,
-                                              gl, act)
+                                              gl, act, dtype)
                 edx, edp = cc.plain_block_vjp(x64, p64, m32.double(), gz64,
-                                              gl64, K, 4.0, act, inverse)
+                                              gl64, K, 4.0, act, inverse,
+                                              dtype)
                 outs += [("dx", kdx, pdx, odx2, edx)]
                 outs += [(name, k, p, o, e) for name, k, p, o, e in zip(
                     param_names(len(params)), kdp, pdp, odp, edp)]
                 row["repeats_bitwise"] = bool(
                     torch.equal(kdx, rdx) and torch.equal(kdx, odx)
                     and all(torch.equal(a, b) for a, b in zip(kdp, rdp)))
-            elif on_card:  # K7 and the earlier K7 both refuse the block
+            elif on_card and earlier:  # K7 and the earlier K7 both refuse
                 row["k7_refused_by_both"] = refuses(
                     lambda: cc.block_grad(x, params, spec, gz, gl)) and \
                     refuses(lambda: cc.earlier_block_grad(x, params, spec,
                                                           gz, gl))
             for name, k, p, o, e in outs:
                 row[name] = judge(k, p, o, e, block_quantile(k.numel()))
-            if on_card:
+            if on_card and earlier:
                 new, old = list(kz), list(cc.earlier_block_eval(x, params,
                                                                 spec))
                 if with_k7:
@@ -1267,6 +1339,61 @@ def time_coupling(device, shapes=COUPLING_TIMING_SHAPES, n_reps=200,
     return rows
 
 
+# the conditioners K6/K7 take beyond float32 silu, tanh and relu, timed at
+# the fused fit's shape: (activation, compute_dtype)
+COUPLING_FORMS = (("gelu", "f32"), ("silu", "bf16"), ("gelu", "bf16"))
+
+
+def time_coupling_forms(device, forms=COUPLING_FORMS, n_reps=50,
+                        plain_reps=5):
+    """K6 and K7 on the conditioners of `forms` at the fit's shape (1024 x
+    64, hidden 128 x 128, K = 8, alternating mask), both directions, K7
+    as the fit runs it (the weights' pass in the inverse direction):
+    launched from the host (`timed`) and replayed from a CUDA graph
+    (`graph_ms`), beside the bound (`coupling_work`) and the plain
+    version. No earlier kernel takes them."""
+    import torch
+    from tpuflows_torch.kernels import coupling_cuda as cc
+
+    n, d, hidden, K, mask_name = COUPLING_TIMING_SHAPES[0]
+    mask_t = coupling_mask(mask_name, d)
+    nt = sum(1 for m in mask_t if m == 0)
+    x, params, gz, gl = coupling_inputs(device, n, d, hidden, K, "n0.1",
+                                        seed=n + d + K)
+    m32 = torch.tensor(mask_t, dtype=torch.float32, device=device)
+    k6_ops, k6_bytes, k7_ops, k7_bytes, k7a_ops, k7a_bytes = \
+        coupling_work(n, d, hidden, K, nt)
+    rows = []
+    for act, dtype in forms:
+        row = {"activation": act, "compute_dtype": dtype, "n": n, "d": d,
+               "hidden": list(hidden), "knots": K, "mask": mask_name,
+               "plans": tile_plans(cc, [d, *hidden, (3 * K - 1) * d], K,
+                                   nt, n, device)}
+        for inverse in (False, True):
+            direction = "inverse" if inverse else "forward"
+            spec = cc.BlockSpec(mask_t, K, 4.0, act, inverse, dtype)
+            cases = (
+                ("k6", k6_ops, k6_bytes,
+                 lambda: cc.block_eval(x, params, spec),
+                 lambda: cc.plain_block(x, params, m32, K, 4.0, act,
+                                        inverse, dtype)),
+                ("k7", *((k7_ops, k7_bytes) if inverse
+                         else (k7a_ops, k7a_bytes)),
+                 lambda: cc.block_grad(x, params, spec, gz, gl,
+                                       need_params=inverse),
+                 lambda: cc.plain_block_vjp(x, params, m32, gz, gl, K, 4.0,
+                                            act, inverse, dtype)))
+            for kname, ops, nbytes, kern, plain in cases:
+                bound_ms, bound_by = _bound(ops, nbytes)
+                row[f"{kname}_{direction}"] = {
+                    "ms": timed(kern, n_reps)[0], "device_ms": graph_ms(kern),
+                    "plain_ms": timed(plain, plain_reps)[0],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "with_weight_pass": kname == "k7" and inverse}
+        rows.append(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # K1
 # ---------------------------------------------------------------------------
@@ -1295,10 +1422,11 @@ def spline_flow_with_random_heads(device, seed, dim=DIM, hidden=HIDDEN,
                                   knots=KNOTS, n_blocks=GENERIC_BLOCKS,
                                   head=SPLINE_HEAD, kind="arqs",
                                   mask_scheme="mixed", n_leading=1,
-                                  clamp=CLAMP):
+                                  clamp=CLAMP, activation="silu"):
     """The generic path's arqs flow as bench.py builds it on N(0, 1)
-    samples (or another `kind`, `mask_scheme`, `n_leading` and `clamp` of
-    `build_flow`), with every conditioner's last layer random: weights
+    samples (or another `kind`, `mask_scheme`, `n_leading`, `clamp` and
+    `activation` of `build_flow`), with every conditioner's last layer
+    random: weights
     `head` times the He scale, biases 0.1 N(0, 1). Drawn on the CPU, so
     that the same flow can be carried to the JAX package there."""
     import torch
@@ -1308,8 +1436,8 @@ def spline_flow_with_random_heads(device, seed, dim=DIM, hidden=HIDDEN,
     init = torch.randn((1024, dim), generator=g)
     flow = build_flow(init, g, kind=kind, n_blocks=n_blocks, knots=knots,
                       hidden=hidden, mask_scheme=mask_scheme, clamp=clamp,
-                      n_leading=n_leading, use_pallas="auto",
-                      device=device)
+                      n_leading=n_leading, activation=activation,
+                      use_pallas="auto", device=device)
     with torch.no_grad():
         for t in flow.transforms[1:]:
             w, b = t.net.weights[-1], t.net.biases[-1]
@@ -1319,9 +1447,11 @@ def spline_flow_with_random_heads(device, seed, dim=DIM, hidden=HIDDEN,
     return flow
 
 
-def random_flow(device, seed, dim, hidden, mask):
+def random_flow(device, seed, dim, hidden, mask, activation="silu",
+                compute_dtype="f32"):
     """Standardize + one affine coupling with every leaf random from
-    `seed` (non-zero last layer)."""
+    `seed` (non-zero last layer), its MLP of `activation` and
+    `compute_dtype`."""
     import torch
     from tpuflows_torch.flows import AffineCoupling, Chain, MLP, Standardize
 
@@ -1336,7 +1466,9 @@ def random_flow(device, seed, dim, hidden, mask):
     ws[-1] = 0.3 * ws[-1]
     bs = [0.1 * randn(b) for b in sizes[1:]]
     return Chain([Standardize(0.3 * randn(dim), 0.2 * randn(dim)),
-                  AffineCoupling(mask, MLP(ws, bs), clamp=CLAMP)])
+                  AffineCoupling(mask, MLP(ws, bs, activation=activation,
+                                           compute_dtype=compute_dtype),
+                                 clamp=CLAMP)])
 
 
 def compare(plain, kern, max_dq=MAX_DQ):
@@ -1646,17 +1778,30 @@ def f64_model(flow, target):
     return model
 
 
-def knife_edge(ref, other):
+def knife_edge(ref, other, edge=None):
     """The chains (per slot of a window) on which `other` takes another
     tree decision than `ref` (leapfrog count, depth, divergence or
-    U-turn) or ends more than 1e-3 away: `compare`'s flips."""
+    U-turn) or ends more than 1e-3 away: `compare`'s flips; and those
+    `edge(ref, other)` marks (`bf16_edge_chains`), where given."""
     flip = (ref[0] - other[0]).abs().amax(dim=-1) > 1e-3
     for i in (3, 4, 5, 6):
         flip |= ref[i] != other[i]
+    if edge is not None:
+        flip |= edge(ref, other)
     return flip
 
 
-def refereed_diff(exact, other, knife):
+def bf16_edge_chains(exact, other):
+    """The chains whose start energy `other` takes past K1's energy bar
+    (MAX_DENERGY) from the float64 `exact`: under a bf16 conditioner, a
+    chain with an operand on a bf16 rounding edge, which float32 rounds
+    to one bf16 value and float64 to its neighbour (PERF.md: 0.51 in the
+    energy of one chain of 1024 on the card, both float32 evaluations
+    alike, 0.011 apart)."""
+    return (exact[7] - other[7]).abs() > MAX_DENERGY
+
+
+def refereed_diff(exact, other, knife, edge=None):
     """`other` (K1's or K2's outputs) against the float64 plain version
     `exact`: its flips against it (the most in a slot) and its largest q
     and energy differences on the chains outside `knife`, the knife-edge
@@ -1669,8 +1814,8 @@ def refereed_diff(exact, other, knife):
     def worst(x):
         return float(x[ok].max()) if bool(ok.any()) else 0.0
 
-    return {"flips": int(knife_edge(exact, other).reshape(-1, n).sum(1)
-                         .max()),
+    return {"flips": int(knife_edge(exact, other, edge).reshape(-1, n)
+                         .sum(1).max()),
             "knife_edge": int(knife.sum()),
             "max_dq": worst((exact[0] - other[0]).abs().amax(dim=-1)),
             "max_denergy": worst((exact[7] - other[7]).abs())}
@@ -1709,6 +1854,125 @@ def refereed(res, bar):
     return bool(res["flips"] <= bar["max_flips"]
                 and not res["max_denergy"] > bar["max_denergy"]
                 and not res["max_dq"] > bar["max_dq"])
+
+
+def refereed_row(device, label, kind, target, flow, n, depth, window,
+                 checked_slots, seed, eps, start=None):
+    """One row of `targets_vs_plain` (and of `conditioners_vs_plain`): K1,
+    K2 and K3 under `flow` over `target` (of kind `kind`) on n chains
+    started from `start`, or from `target_start(..., seed)`, held as
+    `targets_vs_plain` says. Returns (row, (q, inv_mass, K1's randomness,
+    K2's, eps, the packed flow))."""
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+
+    d = target.dim
+    model = nuts_cuda.pack_flow(flow, target)
+    model64 = f64_model(flow, target)
+    q = (target_start(target, flow, kind, n, seed, device) if start is None
+         else start)
+    g = torch.Generator(device=device).manual_seed(seed)
+    im = 0.5 + torch.rand(d, generator=g, device=device)
+    rnd = nuts_cuda.draw_randomness(g, n, d, depth, im)
+    e = torch.tensor(eps, device=device)
+
+    def plain(z, *r, f64=False):  # K1's plain version
+        if f64:
+            return nuts_cuda.transition_math_torch(
+                z.double(), *(t.double() for t in r), e.double(),
+                im.double(), nuts_cuda.plain_logp_grad(model64),
+                depth)
+        return nuts_cuda.transition_math_torch(
+            z, *r, e, im, nuts_cuda.plain_logp_grad(model), depth)
+
+    # a bf16 conditioner's rounding edges: a chain whose start energy a
+    # float32 evaluation takes past K1's energy bar from float64's is on
+    # one (an operand that rounds to one bf16 value in float32 and to its
+    # neighbour in float64); it counts as a knife-edge chain
+    bf16 = bool((model.forms[:, 2] & nuts_cuda.FORM_BF16).any())
+    edge = bf16_edge_chains if bf16 else None
+    t_row = time.perf_counter()
+    kern = nuts_cuda.nuts_transition(q, *rnd, e, im, model, depth)
+    for t in kern:
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"K1 returned non-finite values "
+                               f"({label})")
+    plain32 = plain(q, *rnd)
+    exact = plain(q, *rnd, f64=True)
+    knife = (knife_edge(exact, kern, edge)
+             | knife_edge(exact, plain32, edge))
+    k1 = refereed_diff(exact, kern, knife, edge)
+    k1.update(f64_spread=refereed_diff(exact, plain32, knife, edge),
+              vs_plain=compare(plain32, kern),
+              depth_histogram=torch.bincount(
+                  plain32[4].long(), minlength=depth + 1).tolist(),
+              divergent_chains=int(plain32[5].sum()),
+              seconds=time.perf_counter() - t_row)
+    # K2: the window, then each slot from K2's own previous draw
+    wrnd = window_randomness(device, n, d, window, depth, im,
+                             seed + 1)
+    win = nw.nuts_window(q, *wrnd, e, im, model, depth, window)
+    for t in win:
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"K2 returned non-finite values "
+                               f"({label})")
+    chained = nw.chain_slots(
+        lambda z, *r: nuts_cuda.nuts_transition(z, *r, e, im, model,
+                                                depth),
+        q, *wrnd, window, depth, starts=win[0])
+    bits = {k: value_diff(a, b)
+            for k, a, b in zip(K2_OUTS, win, chained)}
+    S = min(window, checked_slots)
+    head = [t[:S] for t in win]
+
+    def slots(step):
+        return nw.chain_slots(step, q, *wrnd, S, depth,
+                              starts=head[0])
+
+    def one_slot(z, *r):  # K2's plain version, one slot a call
+        w = nw.window_math_torch(z, *r, e, im,
+                                 nuts_cuda.plain_logp_grad(model),
+                                 1, depth)
+        w = [x[0] for x in w]
+        w[2] = w[2] * torch.clamp(w[3], min=1.0)
+        return w
+
+    t_k2 = time.perf_counter()
+    w_plain = slots(one_slot)
+    w_exact = slots(lambda z, *r: plain(z, *r, f64=True))
+    w_knife = (knife_edge(w_exact, head, edge)
+               | knife_edge(w_exact, w_plain, edge))
+    k2 = {"window": window, "checked_slots": S,
+          **refereed_diff(w_exact, head, w_knife, edge),
+          "f64_spread": refereed_diff(w_exact, w_plain, w_knife, edge),
+          "vs_plain": compare_window(w_plain, head, math.inf,
+                                     math.inf, math.inf),
+          "bitwise_k1": sum(v[0] + v[1] for v in bits.values()),
+          "bitwise_k1_by_output": {k: v[0] + v[1]
+                                   for k, v in bits.items()}}
+    # one bar for the row: float32's own distance from float64 in
+    # both plain versions
+    bar = refereed_bar([k1["f64_spread"], k2["f64_spread"]], n)
+    k1["bar"] = k2["bar"] = bar
+    k1["passed"] = refereed(k1, bar)
+    # on the CPU both sides are plain versions, and the plain
+    # window rounds apart from chained plain transitions
+    k2["passed"] = bool(refereed(k2, bar) and (
+        k2["bitwise_k1"] == 0 or device == "cpu"))
+    k2["seconds"] = time.perf_counter() - t_k2
+    t_k3 = time.perf_counter()
+    k3 = fused_logp_vs_plain(device, [(label, flow, n, q, target)],
+                             by_row=edge is not None)[0]
+    k3["seconds"] = time.perf_counter() - t_k3
+    row = {"kind": kind, "d": d, "d_pad": model.d_pad,
+           "hidden": list(model.hidden), "eps": float(e),
+           "bf16_edges": edge is not None, "k1": k1,
+           "k2": k2,
+           "k3": {k: k3[k] for k in ("lp", "g", "passed",
+                                     "seconds")}}
+    row["passed"] = k1["passed"] and k2["passed"] and k3["passed"]
+    return row, (q, im, rnd, wrnd, e, model)
 
 
 def targets_vs_plain(device, rows=TARGET_ROWS, flows=TARGET_FLOWS,
@@ -1753,133 +2017,194 @@ def targets_vs_plain(device, rows=TARGET_ROWS, flows=TARGET_FLOWS,
             else:
                 label += f", {config}'s flow"
                 flow = config_flow(device, config, seed)
-            model = nuts_cuda.pack_flow(flow, target)
-            model64 = f64_model(flow, target)
-            q = target_start(target, flow, kind, n, seed, device)
-            g = torch.Generator(device=device).manual_seed(seed)
-            im = 0.5 + torch.rand(d, generator=g, device=device)
-            rnd = nuts_cuda.draw_randomness(g, n, d, depth, im)
-            e = torch.tensor(TARGET_EPS[kind], device=device)
-
-            def plain(z, *r, f64=False):  # K1's plain version
-                if f64:
-                    return nuts_cuda.transition_math_torch(
-                        z.double(), *(t.double() for t in r), e.double(),
-                        im.double(), nuts_cuda.plain_logp_grad(model64),
-                        depth)
-                return nuts_cuda.transition_math_torch(
-                    z, *r, e, im, nuts_cuda.plain_logp_grad(model), depth)
-
-            t_row = time.perf_counter()
-            kern = nuts_cuda.nuts_transition(q, *rnd, e, im, model, depth)
-            for t in kern:
-                if not bool(torch.isfinite(t).all()):
-                    raise RuntimeError(f"K1 returned non-finite values "
-                                       f"({label})")
-            plain32 = plain(q, *rnd)
-            exact = plain(q, *rnd, f64=True)
-            knife = knife_edge(exact, kern) | knife_edge(exact, plain32)
-            k1 = refereed_diff(exact, kern, knife)
-            k1.update(f64_spread=refereed_diff(exact, plain32, knife),
-                      vs_plain=compare(plain32, kern),
-                      depth_histogram=torch.bincount(
-                          plain32[4].long(), minlength=depth + 1).tolist(),
-                      divergent_chains=int(plain32[5].sum()),
-                      seconds=time.perf_counter() - t_row)
-            # K2: the window, then each slot from K2's own previous draw
-            wrnd = window_randomness(device, n, d, window, depth, im,
-                                     seed + 1)
-            win = nw.nuts_window(q, *wrnd, e, im, model, depth, window)
-            for t in win:
-                if not bool(torch.isfinite(t).all()):
-                    raise RuntimeError(f"K2 returned non-finite values "
-                                       f"({label})")
-            chained = nw.chain_slots(
-                lambda z, *r: nuts_cuda.nuts_transition(z, *r, e, im, model,
-                                                        depth),
-                q, *wrnd, window, depth, starts=win[0])
-            bits = {k: value_diff(a, b)
-                    for k, a, b in zip(K2_OUTS, win, chained)}
-            S = min(window, checked_slots)
-            head = [t[:S] for t in win]
-
-            def slots(step):
-                return nw.chain_slots(step, q, *wrnd, S, depth,
-                                      starts=head[0])
-
-            def one_slot(z, *r):  # K2's plain version, one slot a call
-                w = nw.window_math_torch(z, *r, e, im,
-                                         nuts_cuda.plain_logp_grad(model),
-                                         1, depth)
-                w = [x[0] for x in w]
-                w[2] = w[2] * torch.clamp(w[3], min=1.0)
-                return w
-
-            t_k2 = time.perf_counter()
-            w_plain = slots(one_slot)
-            w_exact = slots(lambda z, *r: plain(z, *r, f64=True))
-            w_knife = knife_edge(w_exact, head) | knife_edge(w_exact,
-                                                             w_plain)
-            k2 = {"window": window, "checked_slots": S,
-                  **refereed_diff(w_exact, head, w_knife),
-                  "f64_spread": refereed_diff(w_exact, w_plain, w_knife),
-                  "vs_plain": compare_window(w_plain, head, math.inf,
-                                             math.inf, math.inf),
-                  "bitwise_k1": sum(v[0] + v[1] for v in bits.values()),
-                  "bitwise_k1_by_output": {k: v[0] + v[1]
-                                           for k, v in bits.items()}}
-            # one bar for the row: float32's own distance from float64 in
-            # both plain versions
-            bar = refereed_bar([k1["f64_spread"], k2["f64_spread"]], n)
-            k1["bar"] = k2["bar"] = bar
-            k1["passed"] = refereed(k1, bar)
-            # on the CPU both sides are plain versions, and the plain
-            # window rounds apart from chained plain transitions
-            k2["passed"] = bool(refereed(k2, bar) and (
-                k2["bitwise_k1"] == 0 or device == "cpu"))
-            k2["seconds"] = time.perf_counter() - t_k2
-            t_k3 = time.perf_counter()
-            k3 = fused_logp_vs_plain(device, [(label, flow, n, q,
-                                               target)])[0]
-            k3["seconds"] = time.perf_counter() - t_k3
-            row = {"kind": kind, "d": d, "d_pad": model.d_pad,
-                   "flow": flow_kind, "flow_config": config,
-                   "hidden": list(model.hidden), "eps": float(e), "k1": k1,
-                   "k2": k2,
-                   "k3": {k: k3[k] for k in ("lp", "g", "passed",
-                                             "seconds")}}
-            row["passed"] = k1["passed"] and k2["passed"] and k3["passed"]
+            row, ctx = refereed_row(device, label, kind, target, flow, n,
+                                    depth, window, checked_slots, seed,
+                                    TARGET_EPS[kind])
+            row.update(flow=flow_kind, flow_config=config)
             out.append(row)
             if config is None:
                 continue
-            for name, res in (
-                    ("K1", k1_tile_vs_warp(flow, q, im, rnd, e, depth,
-                                           target)),
-                    ("K3", k3_tile_vs_warp(flow, q, target)),
-                    ("K2", k2_tile_vs_warp(flow, q, im, wrnd, e, depth,
-                                           window, target))):
-                res = {"kernel": name, "label": label, **res}
-                res["passed"] = bool(res["rows"]) and all(
-                    x["differ"] == 0 for x in res["rows"].values())
-                tiles.append(res)
-            ms, kern = timed(lambda: nuts_cuda.nuts_transition(
-                q, *rnd, e, im, model, depth), n_reps)
-            plain_ms, _ = timed(lambda: plain(q, *rnd), 2, warmup=1)
-            bound, by, flops, nbytes = k1_bound(model, q, kern[3], depth)
-            timings.append({
-                "label": label, "kind": kind, "d": d, "flow": flow_kind,
-                "config": config, "chains": n, "max_depth": depth, "ms": ms,
-                "device_ms": graph_ms(lambda: nuts_cuda.nuts_transition(
-                    q, *rnd, e, im, model, depth)),
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                "flops": flops, "bytes": nbytes,
-                "mlp_flops": mlp_flops(model),
-                "target_flops": target_flops(model),
-                "leapfrogs": float(kern[3].sum()),
-                "rows": nuts_cuda.tile_rows(model),
-                "resident": nuts_cuda.launch_resident(
-                    model, nuts_cuda.tile_rows(model)) > 0,
-                "max_abs_err": k1["max_dq"]})
+            row_tiles, timing = tiles_and_timing(label, flow, target, ctx,
+                                                 depth, window, n_reps)
+            tiles += row_tiles
+            timing.update(kind=kind, flow=flow_kind, config=config,
+                          max_abs_err=row["k1"]["max_dq"])
+            timings.append(timing)
+    return out, tiles, timings
+
+
+def tiles_and_timing(label, flow, target, ctx, depth, window, n_reps,
+                     candidates=None):
+    """On a `refereed_row`'s inputs (`ctx`): K1's, K3's and K2's tile
+    kernels against the per-warp ones in every mode of `tile_modes` over
+    `candidates` (TILE_ROWS unless given; `tile_vs_warp`'s rule), and K1
+    timed against its plain version with its bound (`k1_bound`). Returns
+    (tile rows, timing)."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    q, im, rnd, wrnd, e, model = ctx
+    candidates = candidates or TILE_ROWS
+    tiles = []
+    for name, res in (
+            ("K1", k1_tile_vs_warp(flow, q, im, rnd, e, depth, target,
+                                   candidates)),
+            ("K3", k3_tile_vs_warp(flow, q, target, candidates)),
+            ("K2", k2_tile_vs_warp(flow, q, im, wrnd, e, depth, window,
+                                   target, candidates))):
+        res = {"kernel": name, "label": label, **res}
+        res["passed"] = bool(res["rows"]) and all(
+            x["differ"] == 0 for x in res["rows"].values())
+        tiles.append(res)
+    ms, kern = timed(lambda: nuts_cuda.nuts_transition(
+        q, *rnd, e, im, model, depth), n_reps)
+    # one timed call after one warmup (two before the conditioners' phase)
+    plain_ms, _ = timed(lambda: nuts_cuda.transition_math_torch(
+        q, *rnd, e, im, nuts_cuda.plain_logp_grad(model), depth), 1,
+        warmup=1)
+    bound, by, flops, nbytes = k1_bound(model, q, kern[3], depth)
+    rows = nuts_cuda.tile_rows(model)
+    return tiles, {
+        "label": label, "d": int(q.shape[1]), "chains": int(q.shape[0]),
+        "max_depth": depth, "ms": ms,
+        "device_ms": graph_ms(lambda: nuts_cuda.nuts_transition(
+            q, *rnd, e, im, model, depth)),
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "flops": flops, "bytes": nbytes, "mlp_flops": mlp_flops(model),
+        "target_flops": target_flops(model),
+        "leapfrogs": float(kern[3].sum()), "rows": rows,
+        "resident": nuts_cuda.launch_resident(model, rows) > 0,
+        "general": bool(model.general)}
+
+
+# conditioners_vs_plain: the conditioners and modules the JAX package's
+# in-kernel flow math takes beyond the main paths' 3-layer float32 silu
+# MLPs, at the main paths' width (the 64-d funnel, 1024 chains): a
+# leading-mask affine coupling 64 -> 128 -> 128 -> 128 with each other
+# activation, with bf16 operands, at 2 and 4 layers; Whiten (fitted from
+# the target's draws) before that coupling and before a 2-block rqs flow
+# (64 x 64, K = 8); a 2-block rqs flow of 4-layer gelu conditioners; and
+# c1's own flow (one affine coupling of a 2-layer conditioner, hidden 32)
+# over c1's target, the flow of the runner's variant
+# `c1_std_normal_affine_nuts` ("auto" must take K1 for it). (label, flow
+# kind, `conditioner_flow` options and a step size where the row's is
+# not TARGET_EPS's: the Whiten rows' latent space is the funnel's draws'
+# scale, where TARGET_EPS's 0.1 diverges half the chains); the c1 row's
+# flow is `config_flow`'s
+CONDITIONER_DIM = 64
+CONDITIONER_HIDDEN = {"affine": (128, 128), "rqs": (64, 64)}
+CONDITIONER_ROWS = (
+    ("affine tanh", "affine", {"activation": "tanh"}),
+    ("affine relu", "affine", {"activation": "relu"}),
+    ("affine gelu", "affine", {"activation": "gelu"}),
+    ("affine bf16 silu", "affine", {"compute_dtype": "bf16"}),
+    ("affine bf16 gelu", "affine", {"activation": "gelu",
+                                    "compute_dtype": "bf16"}),
+    ("affine 2 layers", "affine", {"hidden": (128,)}),
+    ("affine 4 layers", "affine", {"hidden": (128, 128, 128)}),
+    ("Whiten + affine", "affine", {"whiten": True, "eps": 0.02}),
+    ("Whiten + rqs", "rqs", {"whiten": True, "eps": 0.02}),
+    ("rqs gelu 4 layers", "rqs", {"activation": "gelu",
+                                  "hidden": (64, 64, 64)}),
+    ("c1_std_normal_affine_nuts's flow", "config", {}))
+CONDITIONER_VARIANT = "c1_std_normal_affine_nuts"
+# the phase's depth: K2's window and the tile rows held to the per-warp
+# kernels (the wrappers' default R, and 8), K1's timing repetitions
+CONDITIONER_WINDOW = 4
+CONDITIONER_TILE_ROWS = (8,)
+CONDITIONER_REPS = 10
+# draws the Whiten modules are fitted from
+WHITEN_DRAWS = 4096
+
+
+def conditioner_flow(device, flow_kind, seed, target, activation="silu",
+                     compute_dtype="f32", hidden=None, whiten=False):
+    """A flow of `conditioners_vs_plain` at CONDITIONER_DIM: Standardize +
+    one leading-mask affine coupling with every leaf random
+    (`random_flow`), or Standardize + 2 rqs blocks on alternating masks, K
+    = 8, random heads (`spline_flow_with_random_heads`), of `activation`,
+    `compute_dtype` and `hidden` (CONDITIONER_HIDDEN by default); with
+    `whiten`, a Whiten fitted from WHITEN_DRAWS of the target's draws in
+    the Standardize's place."""
+    import torch
+    from tpuflows_torch.flows import Chain, Whiten
+    from tpuflows_torch.util.shapes import leading_mask
+
+    d = CONDITIONER_DIM
+    hidden = hidden or CONDITIONER_HIDDEN[flow_kind]
+    if flow_kind == "affine":
+        flow = random_flow(device, seed, d, hidden, leading_mask(d),
+                           activation=activation,
+                           compute_dtype=compute_dtype)
+    else:
+        flow = spline_flow_with_random_heads(
+            device, seed, dim=d, hidden=hidden, knots=KNOTS, n_blocks=2,
+            kind="rqs", mask_scheme="alternating", activation=activation)
+    if whiten:
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        w = Whiten.from_samples(target.sample(g, WHITEN_DRAWS,
+                                              device=device))
+        flow = Chain([w, *flow.transforms[1:]])
+    return flow
+
+
+def conditioners_vs_plain(device, rows=CONDITIONER_ROWS, n=N_CHAINS,
+                          depth=TARGET_DEPTH, window=CONDITIONER_WINDOW,
+                          checked_slots=TARGET_CHECKED_SLOTS,
+                          candidates=CONDITIONER_TILE_ROWS,
+                          n_reps=CONDITIONER_REPS, ptxas=None,
+                          tile_checks=True):
+    """Phase conditioners_vs_plain: each flow of `rows` over the 64-d
+    funnel (c1's row over c1's target) on n chains started from the flow's
+    image of the target's exact draws, held as `targets_vs_plain` holds
+    its rows (`refereed_row`: K1 against float64 under `refereed_bar`, K2
+    equal to chained K1 to the bit and its first slots against float64,
+    K3 by `judge`), its tile kernels against the per-warp ones at the
+    default R and at `candidates` (`tiles_and_timing`), and K1 timed with
+    its bound, its tile rows and the ptxas registers and spills of the
+    kernels it ran (the per-warp kernels and the timing need the card:
+    `tile_checks` False leaves them out, for a CPU rehearsal). Returns
+    (rows, tile rows, timings)."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    ptxas = ptxas or {}
+    out, tiles, timings = [], [], []
+    for i, (label, flow_kind, opts) in enumerate(rows):
+        seed = 9000 + 10 * i
+        if flow_kind == "config":
+            cfg = run_config_dict(CONDITIONER_VARIANT)
+            kind, d = cfg["target"]["kind"], cfg["target"]["dim"]
+            target = smoke_target(kind, d, device)
+            flow = config_flow(device, CONDITIONER_VARIANT, seed)
+        else:
+            kind, d = "funnel", CONDITIONER_DIM
+            target = smoke_target(kind, d, device)
+            flow = conditioner_flow(device, flow_kind, seed, target,
+                                    **{k: v for k, v in opts.items()
+                                       if k != "eps"})
+        start = target_start(target, flow, "draws", n, seed, device)
+        row, ctx = refereed_row(device, label, kind, target, flow, n, depth,
+                                window, checked_slots, seed,
+                                opts.get("eps", TARGET_EPS[kind]),
+                                start=start)
+        model = ctx[-1]
+        row.update(flow=flow_kind, options={k: list(v) if isinstance(
+            v, tuple) else v for k, v in opts.items()},
+            layers=model.forms[:, 0].tolist(), general=bool(model.general))
+        out.append(row)
+        if not tile_checks:
+            continue
+        row_tiles, timing = tiles_and_timing(label, flow, target, ctx, depth,
+                                             window, n_reps, candidates)
+        tiles += row_tiles
+        dpl = model.d_pad // 32
+        res = " resident" if timing["resident"] else ""
+        timing.update(kind=kind, flow=flow_kind,
+                      max_abs_err=row["k1"]["max_dq"],
+                      smem_bytes_row=nuts_cuda.smem_bytes(model),
+                      ptxas={k: ptxas.get(f"{k} d/32={dpl}{res}")
+                             for k in ("chain tile", "K2 tile",
+                                       "K3 tile")})
+        timings.append(timing)
     return out, tiles, timings
 
 
@@ -2100,24 +2425,28 @@ def check_main_path(res):
 
 def mlp_flops(model):
     """Flops one latent gradient needs in its MLPs: every conditioner's
-    forward and input-gradient backward, 2 x 2 x (n_in h1 + h1 h2 + h2
-    n_out) each. n_in counts the mask's pass-through dims only (the
-    conditioner sees z * mask, so the other rows of W1 multiply zeros and
-    their input gradient is dropped); n_out counts the head columns of the
-    transformed dims only (2 per dim affine, 3K - 1 per dim spline), the
-    only ones that reach lp or g."""
-    from tpuflows_torch.flows import RQSCouplingBlock, Standardize
+    forward and input-gradient backward, 2 x 2 x (n_in h_1 + h_1 h_2 + ...
+    + h_{L-1} n_out) each, at any depth. n_in counts the mask's
+    pass-through dims only (the conditioner sees z * mask, so the other
+    rows of the first layer multiply zeros and their input gradient is
+    dropped); n_out counts the head columns of the transformed dims only
+    (2 per dim affine, 3K - 1 per dim spline), the only ones that reach lp
+    or g. A Whiten costs its d x d product each way: 2 x 2 x d^2."""
+    from tpuflows_torch.flows import RQSCouplingBlock, Standardize, Whiten
 
     total = 0
     for t in (() if model.flow is None else model.flow.transforms):
         if isinstance(t, Standardize):
             continue
-        h1, h2 = t.net.weights[0].shape[1], t.net.weights[1].shape[1]
+        if isinstance(t, Whiten):
+            total += 4 * t.loc.numel() ** 2
+            continue
         n_in = sum(t.mask)
         per_dim = (3 * t.knots - 1 if isinstance(t, RQSCouplingBlock)
                    else 2)
-        n_out = per_dim * (len(t.mask) - n_in)
-        total += 4 * (n_in * h1 + h1 * h2 + h2 * n_out)
+        widths = [n_in, *(w.shape[1] for w in t.net.weights[:-1]),
+                  per_dim * (len(t.mask) - n_in)]
+        total += 4 * sum(a * b for a, b in zip(widths[:-1], widths[1:]))
     return total
 
 
@@ -2237,9 +2566,10 @@ def fused_logp_rows(device):
     return [(label, flow, n, None) for label, flow, n in rows]
 
 
-def fused_logp_vs_plain(device, rows):
+def fused_logp_vs_plain(device, rows, by_row=False):
     """K3 against its plain version (`FusedLatentLogpAndGrad.plain`) on lp
-    and g, under the spline kernels' bar (`judge`): a second float32
+    and g, under the spline kernels' bar (`judge`, or `judge_rows` with
+    `by_row`, for a bf16 conditioner): a second float32
     evaluation is autograd through the whole flow on the CPU, and the
     referee the same in float64. `rows`: (label, flow, n, z) with z None
     for z ~ N(0, 1) drawn from a seed, and optionally the target, then
@@ -2283,7 +2613,8 @@ def fused_logp_vs_plain(device, rows):
             k = kern[j].reshape(plain[j].shape)
             o, e = (t[j].reshape(plain[j].shape).to(z.device)
                     for t in (oracle, exact))
-            row[name] = judge(k, plain[j], o, e, block_quantile(k.numel()))
+            rule = judge_rows if by_row else judge
+            row[name] = rule(k, plain[j], o, e, block_quantile(k.numel()))
         row["passed"] = row["lp"]["passed"] and row["g"]["passed"]
         out.append(row)
     return out
@@ -2598,7 +2929,8 @@ def tile_and_warp_times(model, tile_fn, warp_fn, modes, n_reps,
     return out
 
 
-def k1_tile_vs_warp(flow, q, im, rnd, eps, depth, target=None):
+def k1_tile_vs_warp(flow, q, im, rnd, eps, depth, target=None,
+                    candidates=TILE_ROWS):
     """K1's tile kernel (`nuts_cuda._launch(..., rows=R, resident=...)`)
     at each R of TILE_ROWS that fits, with the ring and, where they fit,
     the resident weights (`tile_modes`), against the per-warp module-list
@@ -2613,7 +2945,7 @@ def k1_tile_vs_warp(flow, q, im, rnd, eps, depth, target=None):
     warp = nuts_cuda.chain_transition_warp(q, *rnd, eps, im, model, depth)
     out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
            "default_rows": nuts_cuda.tile_rows(model), "rows": {}}
-    for R, resident in tile_modes(model, TILE_ROWS):
+    for R, resident in tile_modes(model, candidates):
         tile = nuts_cuda._launch(q, *rnd, eps, im, model, depth, rows=R,
                                  resident=resident)
         diffs = {k: value_diff(t, w)
@@ -2630,7 +2962,7 @@ def k1_tile_vs_warp(flow, q, im, rnd, eps, depth, target=None):
     return out
 
 
-def k3_tile_vs_warp(flow, z, target=None):
+def k3_tile_vs_warp(flow, z, target=None, candidates=TILE_ROWS):
     """K3's tile kernel (`fused_logp_cuda._launch(z, model, rows=R,
     resident=...)`) in every mode of `tile_modes` (the affine flow's
     resident weights included) against the per-warp module-list kernel on
@@ -2646,7 +2978,7 @@ def k3_tile_vs_warp(flow, z, target=None):
     warp = fused_logp_cuda.chain_logp_grad_warp(z, hook.model)
     out = {"n": int(z.shape[0]), "d": int(z.shape[1]),
            "default_rows": nuts_cuda.tile_rows(hook.model), "rows": {}}
-    for R, resident in tile_modes(hook.model, TILE_ROWS):
+    for R, resident in tile_modes(hook.model, candidates):
         tile = fused_logp_cuda._launch(z, hook.model, rows=R,
                                        resident=resident)
         diffs = {k: value_diff(t, w)
@@ -2661,7 +2993,8 @@ def k3_tile_vs_warp(flow, z, target=None):
     return out
 
 
-def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window, target=None):
+def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window, target=None,
+                    candidates=TILE_ROWS):
     """K2's tile kernel (`nuts_window_cuda._launch(..., rows=R,
     resident=...)`) in every mode of `tile_modes` against the per-warp
     module-list window (`chain_window_warp`) on the same inputs: per mode,
@@ -2677,7 +3010,7 @@ def k2_tile_vs_warp(flow, q, im, rnd, eps, depth, window, target=None):
     out = {"chains": int(q.shape[0]), "d": int(q.shape[1]),
            "window": window, "default_rows": nuts_cuda.tile_rows(model),
            "rows": {}}
-    for R, resident in tile_modes(model, TILE_ROWS):
+    for R, resident in tile_modes(model, candidates):
         tile = nw._launch(q, *rnd, eps, im, model, depth, window, None,
                           rows=R, resident=resident)
         diffs = {k: value_diff(t, w)
@@ -3154,7 +3487,8 @@ def time_window(flow, state, k1_ms, plain_ms, slots=WINDOW_SLOTS, n_reps=5,
 RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts",
                "c6_banana_mh", "c7_mixture_pt", "c3_mixture_adaptive",
                "c3_mixture_adaptive_two_rounds", "c5_hierarchical_smc",
-               "c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts")
+               "c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts",
+               "c1_std_normal_affine_nuts")
 # Variants of a config: (its file, the keys each section changes). c3 as
 # written stops after round 0 in both packages (its raw NUTS draws reach
 # the ESS threshold), so its flow is fitted and scored but never sampled
@@ -3177,7 +3511,15 @@ RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts",
 # package and on the card) and 150 draws.
 NUTS_VARIANT_DEPTH = {"n_chains": 256, "num_warmup": 150,
                       "num_samples": 150, "fused_kernel": "on"}
+# c1's own target and flow (std_normal, d = 2; one affine coupling of a
+# 2-layer conditioner, hidden [32]) sampled as a `nuts` task at the depth
+# above, with fused_kernel back at "auto": the runner must take K1 for a
+# conditioner that is not the 3-layer silu one
 RUN_VARIANTS = {
+    "c1_std_normal_affine_nuts": (
+        "c1_std_normal_affine",
+        {"task": "nuts", "train": {"nsteps": 600},
+         "nuts": {**NUTS_VARIANT_DEPTH, "fused_kernel": "auto"}}),
     "c3_mixture_adaptive_two_rounds": (
         "c3_mixture_adaptive",
         {"adaptive": {"max_rounds": 2, "ess_threshold": 1e9,
@@ -3194,7 +3536,8 @@ RUN_VARIANTS = {
 }
 # the variants whose samplers' R-hat is gated as the configs' as written
 # are: the nuts variants, whose depth leaves enough draws for it
-RUN_RHAT_VARIANTS = ("c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts")
+RUN_RHAT_VARIANTS = ("c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts",
+                     "c1_std_normal_affine_nuts")
 
 
 def run_config_dict(name):
@@ -3255,6 +3598,11 @@ RUN_REFERENCE = {
                       0.4015480875968933),
         "divergence_rate": (0.0005989583441987634, 0.0013802084140479565,
                             0.0012499999720603228)},
+    "c1_std_normal_affine_nuts": {
+        "min_ess": (38869.15234375, 37570.26953125, 38694.93359375),
+        "step_size": (1.2468318939208984, 1.2617747783660889,
+                      1.250554084777832),
+        "divergence_rate": (0.0, 0.0, 0.0)},
     "c3_mixture_adaptive_two_rounds": {
         "n_rounds": (2, 2, 2), "converged": (False, False, False),
         "best_min_ess": (70.8592300415039, 65.95453643798828,
@@ -3270,7 +3618,8 @@ RUN_MARGIN_SIGMAS = 10.0
 # of RUN_REFERENCE (scripts/runner_reference.py).
 RUN_MOMENTS = {"c6_banana_mh": 3.5, "c7_mixture_pt": 4.0,
                "c2_correlated_rqs_nuts": 3.5,
-               "c5_hierarchical_affine_nuts": 3.5}
+               "c5_hierarchical_affine_nuts": 3.5,
+               "c1_std_normal_affine_nuts": 3.5}
 # the configs whose moment gate judges the worst of its 2 d z-scores
 # against the family threshold of its n_sigma (`family_threshold`: at d =
 # 256 the max of 512 null z-scores concentrates near 3)
@@ -3838,8 +4187,9 @@ def evidence_c5(device, res, target, n_is=65536, n_proposal=16384, seed=13):
 DIST_RTOL = 1e-6
 DIST_STAGE_BAR = 1e-5
 DIST_STEP_BAR = 1e-6
-# repeats of each way in the phase's stage and retrain timings
-DIST_REPEATS = 3
+# repeats of each way in the phase's stage and retrain timings (3 before
+# the conditioners' phase, cut to pay for it; a timing, not a gate)
+DIST_REPEATS = 2
 
 
 def _bits_differ(a, b):
@@ -4260,8 +4610,11 @@ def test_only_modules(device, seed=0):
         post = T.Posterior(loglik, T.IndependentPrior([T.LogNormal(0.0, 1.0)],
                                                       device=dev))
         q0 = post.sample_prior(gen(11), 32)
-        res = run_nuts(gen(12), post.log_density, q0, num_warmup=200,
-                       num_samples=200, max_depth=6,
+        # the JAX test's 32 chains at half its 200 + 200 steps (a host-paced
+        # loop: 21.6 s at 200 + 200 on an H100's host, PERF.md)
+        res = run_nuts(gen(12), post.log_density, q0,
+                       num_warmup=POSTERIOR_NUTS_STEPS,
+                       num_samples=POSTERIOR_NUTS_STEPS, max_depth=6,
                        per_chain_step_size=True)
         sig = post.constrain(res.samples.reshape(-1, 1))[:, 0]
         err = abs(float(sig.mean()) - float(y.std()))
@@ -4415,6 +4768,20 @@ def main(argv=None):
                            f"per-warp kernel: {bad}")
 
     t = time.perf_counter()
+    cond_rows, cond_tiles, cond_times = conditioners_vs_plain(device,
+                                                              ptxas=ptxas)
+    emit("conditioners_vs_plain", t, rows=cond_rows, tile_vs_warp=cond_tiles,
+         timing=cond_times,
+         bar="as targets_vs_plain: K1 refereed_bar against float64, K2 "
+             "bitwise_k1 0 and refereed slots, K3 judge; tile_vs_warp "
+             "equal in value in every mode")
+    bad = [r for r in cond_rows + cond_tiles if not r["passed"]]
+    if bad:
+        raise RuntimeError(f"K1, K2 or K3 under a conditioner of another "
+                           f"form disagrees with its plain version, with K1 "
+                           f"or with the per-warp kernel: {bad}")
+
+    t = time.perf_counter()
     res, flow, warm_state = main_path(device)
     emit("main_path", t, **res)
     check_main_path(res)
@@ -4463,6 +4830,7 @@ def main(argv=None):
     t = time.perf_counter()
     block_tim = time_coupling(device)
     emit("timing_coupling", t, rows=block_tim,
+         forms=time_coupling_forms(device),
          fit_step_launches={k: v // fres["train_steps"] for k, v in
                             fres["coupling_launches_fit"].items()})
 
@@ -4645,8 +5013,8 @@ def main(argv=None):
         "plain_ms": gtim["plain_ms"], "bound_ms": gtim["bound_ms"],
         "bound_by": gtim["bound_by"], "library_ms": None,
     }]
-    for r in target_times:  # K1 under the runner's nuts variants' flows
-        config = r["config"]
+    for r in [*target_times, cond_times[-1]]:  # the nuts variants' flows
+        config = r.get("config", CONDITIONER_VARIANT)
         kernels.append({
             "name": f"nuts_transition ({r['label']})", "route": "cuda",
             "source": "src/tpuflows_torch/csrc/nuts_transition.cu",

@@ -32,8 +32,10 @@ What is ported so far:
     (`adaptive`), and the evidence estimators (`integration`);
   - NUTS and HMC, both the portable samplers (`mcmc`) and the fused
     transition and window, with the hand-written CUDA kernels K1-K7
-    (`kernels`), which refuse gelu and bf16 conditioners, Whiten,
-    Identity and ScannedRepeat (ROADMAP Queue 2 item B);
+    (`kernels`), which take every conditioner the JAX package's kernels
+    take (silu, tanh, relu and gelu, float32 and bf16 operands, 1 to 8
+    layers) and, in K1-K3, Whiten, and refuse Identity and ScannedRepeat
+    as the JAX package's in-kernel flow math does;
   - `util` (shapes, `VariateShape`, `Timer`, `MetricsLogger`, `trace`),
     `io` (checkpoints, per-rank shards that reshard on load), `config` and
     the runner `run`;

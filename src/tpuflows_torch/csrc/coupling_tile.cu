@@ -19,6 +19,21 @@
 // K7 does about three times that. Float32 on the FMA pipes: TF32 on the
 // tensor cores keeps too few digits for the spline's bars.
 //
+// Conditioners: 1 to 8 layers, silu, tanh, relu or gelu (jax.nn.gelu's
+// tanh approximation), float32 or bf16 operands. A bf16 conditioner rounds
+// where the JAX package's `MLP` and the plain `block_math` round and
+// nowhere else: the wrapper passes the weights rounded to bf16
+// (kernels/coupling_cuda.py `kernel_params`), the kernels round each
+// layer's input (x b and every hidden activation) when they store it, and
+// sum the products in float32; K7 rounds each input cotangent once after
+// its float32 sum (over the cluster's partials for the last layer), and
+// pass 2 rounds each weight's cotangent once after the sum over all rows,
+// as the plain version's autograd does over the whole batch (the JAX
+// kernel rounds per grid step of 128 rows and sums those in float32). The
+// biases, the activations' derivatives and the spline stay float32. K6
+// and K7's pass 1 are instantiated for float32 and for bf16 (template
+// argument kBf16): the float32 kernels hold none of the rounding.
+//
 // Design.
 //  * A cluster of 2 CTAs owns a tile of R rows (16, halved to 8 where
 //    the shared memory requires it; a template parameter that
@@ -80,6 +95,7 @@
 //    spline columns, about half of those products' time.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "rqs_math.cuh"
@@ -99,7 +115,10 @@ constexpr int kWTile = 64;          // pass 2's output tile edge
 constexpr int kWRows = 32;          // pass 2's rows per step
 constexpr int kWPitch = kWTile + 4;
 
-enum Activation { kSilu = 0, kTanh = 1, kRelu = 2 };
+enum Activation { kSilu = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
+// jax.nn.gelu's default, the tanh approximation
+constexpr float kGeluK0 = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluK1 = 0.044715f;
 
 // -DCOUPLING_TILE_PROFILE: thread 0 of each CTA stamps clock64() at the
 // phase marks below (coupling_tile_profile reads them back); a
@@ -133,6 +152,7 @@ struct Block {
   const float* mask;  // (d,), 0 or 1
   const int* idx;     // (nt,) the spline dims (mask 0), increasing
   int N, d, nt, K, act;
+  int bf16;           // 1: bf16 operands (weights rounded by the wrapper)
   float B;
   int R, dc;          // rows of a tile, spline dims of a chunk
   int stage;          // floats of a ring stage, 0 without a ring (K6)
@@ -227,10 +247,12 @@ __host__ __device__ inline Layout make_layout(const int* width, int n, int P,
 __device__ __forceinline__ float activate(float a, int act) {
   if (act == kSilu) return a / (1.0f + expf(-a));
   if (act == kTanh) return tanhf(a);
+  if (act == kGelu)
+    return 0.5f * a * (1.0f + tanhf(kGeluK0 * (a + kGeluK1 * a * a * a)));
   return a > 0.0f ? a : 0.0f;
 }
 
-// d act / da, as torch's (and jax.grad's) silu, tanh and relu give it
+// d act / da, as torch's (and jax.grad's) silu, tanh, relu and gelu give it
 __device__ __forceinline__ float activate_grad(float a, int act) {
   if (act == kSilu) {
     const float s = 1.0f / (1.0f + expf(-a));
@@ -240,7 +262,26 @@ __device__ __forceinline__ float activate_grad(float a, int act) {
     const float t = tanhf(a);
     return 1.0f - t * t;
   }
+  if (act == kGelu) {
+    const float t = tanhf(kGeluK0 * (a + kGeluK1 * a * a * a));
+    return 0.5f * (1.0f + t) + 0.5f * a * (1.0f - t * t) * kGeluK0 *
+                                   (1.0f + 3.0f * kGeluK1 * a * a);
+  }
   return a > 0.0f ? 1.0f : 0.0f;
+}
+
+// x rounded to the nearest bfloat16 (ties to even), held as a float
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// a layer input (or an input's cotangent) as a bf16 conditioner rounds
+// it; K6 and K7's pass 1 take kBf16 as a template argument, so that their
+// float32 instantiations hold none of the rounding
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (kBf16) return bf16_round(x);
+  return x;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -589,12 +630,13 @@ __device__ __forceinline__ void gather(cg::cluster_group& cl, float* buf,
 }
 
 // The tile's conditioner input h0 = x b, transposed (0 past N).
+template <bool kBf16>
 __device__ __forceinline__ void load_input(const Block& bk, float* X0,
                                            int row0) {
   for (int e = threadIdx.x; e < bk.R * bk.d; e += kThreads) {
     const int r = e / bk.d, j = e - r * bk.d, row = row0 + r;
     const float v = row < bk.N ? bk.x[(size_t)row * bk.d + j] : 0.0f;
-    X0[j * bk.R + r] = v * bk.mask[j];
+    X0[j * bk.R + r] = operand<kBf16>(v * bk.mask[j]);
   }
 }
 
@@ -612,7 +654,7 @@ __device__ __forceinline__ void chunk_cols(int* cols, const Block& bk,
 // gathered; with `grad`, act'(a) of each layer over this CTA's slice to
 // lay.dl[l], and with Hs (scratch), each layer's output to Hs[l + 1].
 // Returns the buffer holding the last layer's input.
-template <int R>
+template <int R, bool kBf16>
 __device__ __forceinline__ int hidden_forward(cg::cluster_group& cl,
                                               const Layers& L,
                                               const Block& bk, float** X,
@@ -633,7 +675,7 @@ __device__ __forceinline__ int hidden_forward(cg::cluster_group& cl,
                   [&](int o) { return __ldg(bias + lo + o); },
                   [&](int r, int o, float v, float b) {
                     const float a = v + b;
-                    const float h = activate(a, act);
+                    const float h = operand<kBf16>(activate(a, act));
                     out[(lo + o) * R + r] = h;
                     if (D) D[o * R + r] = activate_grad(a, act);
                     if (H && row0 + r < N) H[(size_t)(lo + o) * N + row0 + r] = h;
@@ -648,7 +690,7 @@ __device__ __forceinline__ int hidden_forward(cg::cluster_group& cl,
   return cur;
 }
 
-template <bool kInverse, int R>
+template <bool kInverse, int R, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     coupling_tile_fwd_kernel(Layers L, Block bk, float* __restrict__ z,
                              float* __restrict__ ladj) {
@@ -665,12 +707,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int row0 = (blockIdx.x / kCluster) * R, tid = threadIdx.x;
 
   TILE_MARK(0);
-  load_input(bk, X[0], row0);
+  load_input<kBf16>(bk, X[0], row0);
   for (int e = tid; e < R * dc; e += kThreads) lacc[e] = 0.0f;
   __syncthreads();
   TILE_MARK(1);
   const int cur =
-      hidden_forward<R>(cl, L, bk, X, smem, lay, false, nullptr, row0, rank);
+      hidden_forward<R, kBf16>(cl, L, bk, X, smem, lay, false, nullptr, row0,
+                               rank);
   TILE_MARK(20);
 
   // this CTA's spline dims, in chunks of dc
@@ -734,7 +777,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   TILE_MARK(26);
 }
 
-template <bool kInverse, int R>
+template <bool kInverse, int R, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     coupling_tile_bwd_kernel(Layers L, Block bk, Scratch S,
                              const float* __restrict__ gz,
@@ -752,19 +795,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bool wgrad = S.G[0] != nullptr;
 
   TILE_MARK(0);
-  load_input(bk, X[0], row0);
+  load_input<kBf16>(bk, X[0], row0);
   if (wgrad) {  // H_0 = x b over this CTA's slice of dims
     const int sw = slice_width(d);
     const int lo = min(d, rank * sw), hi = min(d, lo + sw);
     for (int e = tid; e < R * (hi - lo); e += kThreads) {
       const int j = lo + e / R, r = e % R, row = row0 + r;
       if (row < N)
-        S.H[0][(size_t)j * N + row] = bk.x[(size_t)row * d + j] * bk.mask[j];
+        S.H[0][(size_t)j * N + row] =
+            operand<kBf16>(bk.x[(size_t)row * d + j] * bk.mask[j]);
     }
   }
   __syncthreads();
   TILE_MARK(1);
-  const int cur = hidden_forward<R>(cl, L, bk, X, smem, lay, true,
+  const int cur = hidden_forward<R, kBf16>(cl, L, bk, X, smem, lay, true,
                                  wgrad ? S.H : nullptr, row0, rank);
   TILE_MARK(20);
   float* H = X[cur];
@@ -844,6 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       float v = 0.0f;
 #pragma unroll
       for (int q = 0; q < kCluster; ++q) v += part[q];
+      v = operand<kBf16>(v);  // the input cotangent, rounded once
       const int k = e / R, r = e % R, row = row0 + r;
       if (last > 0) {
         const float g = v * D[e - lo * R];
@@ -873,6 +918,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   BSrc{L.w[l], L.width[l + 1], lo, nullptr}, smem + lay.ring, bk.stage,
                   NoColV{}, [&](int r, int o, float v, float) {
                     const int k = lo + o, row = row0 + r;
+                    v = operand<kBf16>(v);  // rounded once
                     if (l > 0) {
                       const float g = v * D[o * R + r];
                       out[k * R + r] = g;
@@ -900,6 +946,7 @@ struct WeightGrad {
   int n_in[kMaxLayers], n_out[kMaxLayers], tiles_c[kMaxLayers];
   int first[kMaxLayers + 1];
   int n, N, d, nt, S;
+  int bf16;  // 1: each weight's cotangent rounded once (not the biases')
   const int* idx;
 };
 
@@ -1007,7 +1054,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       col = p * a.d + a.idx[c - p * a.nt];
     }
     if (i < n_in)
-      a.dW[l][(size_t)i * ldw + col] = v;
+      a.dW[l][(size_t)i * ldw + col] = a.bf16 ? bf16_round(v) : v;
     else
       a.db[l][col] = v;
   }
@@ -1044,10 +1091,13 @@ bool plan_ok(int R, int dc, int stage, bool grad) {
 
 bool block_of(const void* x, const void* mask, const void* idx,
               long long N, int d, int nt, int knots, float B, int act,
-              int R, int dc, int stage, bool grad, Block& bk) {
+              int bf16, int R, int dc, int stage, bool grad, Block& bk) {
   if (N < 0 || N > (1LL << 30) || d <= 0 || nt < 0 || nt > d) return false;
   if (knots < 2 || knots > kMaxKnots || !(B > 0.0f)) return false;
-  if (act < kSilu || act > kRelu || !plan_ok(R, dc, stage, grad)) return false;
+  if (act < kSilu || act > kGelu || (bf16 != 0 && bf16 != 1) ||
+      !plan_ok(R, dc, stage, grad))
+    return false;
+  bk.bf16 = bf16;
   bk.x = static_cast<const float*>(x);
   bk.mask = static_cast<const float*>(mask);
   bk.idx = static_cast<const int*>(idx);
@@ -1094,7 +1144,8 @@ cudaError_t launch(Kernel kernel, unsigned grid, int cluster, size_t smem,
 // The entry points. Each returns a cudaError_t (0 = launched). ws, bs and
 // widths are host arrays of n_layers (n_layers + 1) entries; the weight
 // and bias pointers, x, mask (d floats), idx (nt ints), z, ladj, gz,
-// gladj and dx are device pointers. rows, dc and stage are the launch
+// gladj and dx are device pointers; bf16 1 for a bf16 conditioner, whose
+// weights come rounded. rows, dc and stage are the launch
 // plan (`tile_plan` in kernels/coupling_cuda.py). The Python wrapper checks
 // device, dtype, shapes and contiguity before calling.
 
@@ -1119,42 +1170,65 @@ extern "C" long long coupling_tile_smem(const int* widths, int n_layers,
                    .total;
 }
 
-// K6's instantiation for R rows, forward or inverse.
+// K6's instantiation for R rows, forward or inverse, float32 or bf16.
+template <int R, bool kBf16>
+cudaError_t launch_fwd_as(bool inverse, unsigned grid, size_t smem,
+                          cudaStream_t s, const Layers& L, const Block& bk,
+                          float* z, float* ladj) {
+  if (inverse)
+    return launch(coupling_tile_fwd_kernel<true, R, kBf16>, grid, kCluster,
+                  smem, s, L, bk, z, ladj);
+  return launch(coupling_tile_fwd_kernel<false, R, kBf16>, grid, kCluster,
+                smem, s, L, bk, z, ladj);
+}
+
 template <int R>
 cudaError_t launch_fwd(bool inverse, unsigned grid, size_t smem,
                        cudaStream_t s, const Layers& L, const Block& bk,
                        float* z, float* ladj) {
-  if (inverse)
-    return launch(coupling_tile_fwd_kernel<true, R>, grid, kCluster, smem, s,
-                  L, bk, z, ladj);
-  return launch(coupling_tile_fwd_kernel<false, R>, grid, kCluster, smem, s,
-                L, bk, z, ladj);
+  if (bk.bf16)
+    return launch_fwd_as<R, true>(inverse, grid, smem, s, L, bk, z, ladj);
+  return launch_fwd_as<R, false>(inverse, grid, smem, s, L, bk, z, ladj);
 }
 
-// K7 pass 1's instantiation for R rows, forward or inverse.
+// K7 pass 1's instantiation for R rows, forward or inverse, float32 or
+// bf16.
+template <int R, bool kBf16>
+cudaError_t launch_bwd_as(bool inverse, unsigned grid, size_t smem,
+                          cudaStream_t s, const Layers& L, const Block& bk,
+                          const Scratch& S, const float* gz, const float* gl,
+                          float* dx) {
+  if (inverse)
+    return launch(coupling_tile_bwd_kernel<true, R, kBf16>, grid, kCluster,
+                  smem, s, L, bk, S, gz, gl, dx);
+  return launch(coupling_tile_bwd_kernel<false, R, kBf16>, grid, kCluster,
+                smem, s, L, bk, S, gz, gl, dx);
+}
+
 template <int R>
 cudaError_t launch_bwd(bool inverse, unsigned grid, size_t smem,
                        cudaStream_t s, const Layers& L, const Block& bk,
                        const Scratch& S, const float* gz, const float* gl,
                        float* dx) {
-  if (inverse)
-    return launch(coupling_tile_bwd_kernel<true, R>, grid, kCluster, smem, s,
-                  L, bk, S, gz, gl, dx);
-  return launch(coupling_tile_bwd_kernel<false, R>, grid, kCluster, smem, s,
-                L, bk, S, gz, gl, dx);
+  if (bk.bf16)
+    return launch_bwd_as<R, true>(inverse, grid, smem, s, L, bk, S, gz, gl,
+                                  dx);
+  return launch_bwd_as<R, false>(inverse, grid, smem, s, L, bk, S, gz, gl,
+                                 dx);
 }
 
 // K6: (z, ladj) of the block, forward or inverse.
 extern "C" int coupling_tile_fwd_f32(
     const void* x, const void* mask, const void* idx, const void* const* ws,
     const void* const* bs, const int* widths, int n_layers, long long N,
-    int d, int nt, int knots, float range_limit, int act, int inverse,
-    int rows, int dc, int stage, void* z, void* ladj, void* stream) {
+    int d, int nt, int knots, float range_limit, int act, int bf16,
+    int inverse, int rows, int dc, int stage, void* z, void* ladj,
+    void* stream) {
   Layers L;
   Block bk;
   if (!layers_of(ws, bs, widths, n_layers, d, knots, L) ||
-      !block_of(x, mask, idx, N, d, nt, knots, range_limit, act, rows, dc,
-                stage, false, bk))
+      !block_of(x, mask, idx, N, d, nt, knots, range_limit, act, bf16, rows,
+                dc, stage, false, bk))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   const size_t smem =
@@ -1176,14 +1250,15 @@ extern "C" int coupling_tile_fwd_f32(
 extern "C" int coupling_tile_bwd_f32(
     const void* x, const void* mask, const void* idx, const void* const* ws,
     const void* const* bs, const int* widths, int n_layers, long long N,
-    int d, int nt, int knots, float range_limit, int act, int inverse,
-    int rows, int dc, int stage, const void* gz, const void* gladj, void* dx,
-    void* const* Hs, void* const* Gs, void* stream) {
+    int d, int nt, int knots, float range_limit, int act, int bf16,
+    int inverse, int rows, int dc, int stage, const void* gz,
+    const void* gladj, void* dx, void* const* Hs, void* const* Gs,
+    void* stream) {
   Layers L;
   Block bk;
   if (!layers_of(ws, bs, widths, n_layers, d, knots, L) ||
-      !block_of(x, mask, idx, N, d, nt, knots, range_limit, act, rows, dc,
-                stage, true, bk) ||
+      !block_of(x, mask, idx, N, d, nt, knots, range_limit, act, bf16, rows,
+                dc, stage, true, bk) ||
       (Hs == nullptr) != (Gs == nullptr))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
@@ -1211,18 +1286,21 @@ extern "C" int coupling_tile_bwd_f32(
 // K7, pass 2: dW_l = H_l^T G_l and db_l = sum_rows G_l for every layer,
 // the rows split over clusters of `slices` CTAs; the last layer's written
 // to the columns p d + idx[t] of its p-major dW and db (the wrapper zeroes
-// the others: pass-through dims get no cotangent).
+// the others: pass-through dims get no cotangent); bf16 1 rounds each
+// weight's cotangent once.
 extern "C" int coupling_tile_wgrad_f32(
     void* const* Hs, void* const* Gs, void* const* dWs, void* const* dbs,
     const int* widths, int n_layers, long long N, int d, int nt, int knots,
-    const void* idx, int slices, void* stream) {
+    const void* idx, int slices, int bf16, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || N < 0 || N > (1LL << 30) ||
       nt < 0 || nt > d || knots < 2 ||
       widths[n_layers] != (3 * knots - 1) * d ||
-      !(slices == 1 || slices == 2 || slices == 4 || slices == 8))
+      !(slices == 1 || slices == 2 || slices == 4 || slices == 8) ||
+      (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
   WeightGrad a;
   a.n = n_layers;
+  a.bf16 = bf16;
   a.N = (int)N;
   a.d = d;
   a.nt = nt;

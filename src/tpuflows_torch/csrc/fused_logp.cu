@@ -19,8 +19,9 @@
 // written by hand cannot, so this one takes what K1 takes (latent_grad.cuh,
 // where the gradient lives): the targets whose log density and gradient
 // targets.cuh writes out (not a Posterior's user code), under a module
-// list of Standardize, AffineCoupling and RQSCouplingBlock modules with
-// 3-layer silu MLPs, or none.
+// list of Standardize, Whiten, AffineCoupling and RQSCouplingBlock modules
+// whose conditioners are MLPs of 1 to 8 layers with a silu, tanh, relu or
+// gelu activation and float32 or bf16 operands, or none.
 //
 // Design. Every flow runs on the tile kernel (`fused_logp_tile_kernel`),
 // the tile gradient of tile_grad.cuh: one block of R warps per tile of R
@@ -31,8 +32,8 @@
 // with one coupling whose compact forward layers fit beside the rows (the
 // ceiling's affine flow), they are copied once per launch behind the rows
 // (template argument kResident, `tile_load_resident`, as K1 and K2 do).
-// The block's dynamic shared memory is R rows of (n_mods + 1) d + 4 hmax
-// + head floats and the 96 KB ring (176 KB at the generic flow; less
+// The block's dynamic shared memory is R rows of (n_mods + 1) d + 2 nhid
+// hmax + head floats (`row_floats`) and the 96 KB ring (176 KB at the generic flow; less
 // where one row leaves less room, tile_grad.cuh `tile_ring_stage`), or
 // the rows padded by one float and the resident layers. Rows past n in
 // the last tile compute on a copy of row n - 1 and store nothing. Its lp
@@ -64,8 +65,9 @@
 // as one translation unit per instantiation (-DLATENT_DPL=1..8, DPL = d /
 // 32 dims per lane), one more per DPL with -DTARGETS_FUNNEL_ONLY that
 // holds the tile kernel with the funnel alone in its target dispatch
-// (`launch_tile_funnel`, which the entry point launches for a funnel:
-// targets.cuh says why), all compiled in parallel, plus one unit without
+// (`launch_tile_funnel`, which the entry point launches for a funnel whose
+// flow has the main paths' form, ChainList::general 0: targets.cuh and
+// tile_grad.cuh say why), all compiled in parallel, plus one unit without
 // LATENT_DPL that holds the C entry points, linked into one library.
 
 namespace tpuflows_logp {
@@ -172,8 +174,7 @@ namespace tpuflows_logp {
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head);
+  const size_t smem = sizeof(float) * tpuflows_nuts::row_floats(a, c);
   if (smem > 48 * 1024) {  // above 48 KB only when asked for
     const cudaError_t e = cudaFuncSetAttribute(
         fused_logp_chain_kernel<DPL>,
@@ -190,7 +191,7 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                         int resident, cudaStream_t stream) {
-  const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  const size_t row = tpuflows_nuts::row_floats(a, c);
   if (resident > 0) {
     if (!tile_resident_fits(rows, row, resident))
       return cudaErrorInvalidValue;
@@ -243,7 +244,7 @@ template <int DPL>
 cudaError_t launch_tile_for(const tpuflows_nuts::Args& a,
                             const tpuflows_nuts::ChainList& c, int rows,
                             int resident, cudaStream_t s) {
-  return a.kind == kFunnel
+  return a.kind == kFunnel && !c.general
              ? tpuflows_logp::launch_tile_funnel<DPL>(a, c, rows, resident, s)
              : tpuflows_logp::launch_tile<DPL>(a, c, rows, resident, s);
 }
@@ -253,20 +254,11 @@ cudaError_t launch_tile_for(const tpuflows_nuts::Args& a,
 namespace {
 
 bool chain_ok(int n, int d, int dim, int kind, int n_mods, int hmax,
-              int head) {
+              int nhid, int head) {
   return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
          n_mods <= tpuflows_nuts::kMaxModules &&
-         (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0;
-}
-
-tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
-                                    int head) {
-  tpuflows_nuts::ChainList c;
-  c.mods = static_cast<const int*>(mods);
-  c.n_mods = n_mods;
-  c.hmax = hmax;
-  c.head = head;
-  return c;
+         (hmax == 0 || width_ok(hmax)) && nhid >= 0 &&
+         nhid < tpuflows_nuts::kMaxLayers && head >= 0 && head % 32 == 0;
 }
 
 }  // namespace
@@ -275,24 +267,29 @@ tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
 // the lane width d, over the target of kind `kind` and width dim (z, lp
 // and g dim wide; targets.cuh), on tiles of `rows` rows (a power of two
 // up to kMaxTileRows, tile_grad.cuh) that share every weight read
-// (`fused_logp_tile_kernel`): `mods` is a device array of n_mods *
-// kModInts ints, hmax the widest hidden layer (0 without couplings), head
-// the widest conditioner output, `resident` the floats of the resident
+// (`fused_logp_tile_kernel`): `mods` and `forms` are device arrays of
+// n_mods * kModInts and n_mods * kFormInts ints, hmax the widest hidden
+// layer (0 without couplings), nhid the most hidden layers of a
+// conditioner, head the widest conditioner output, general 1 where a
+// module leaves the main paths' form (latent_grad.cuh `ChainList`),
+// `resident` the floats of the resident
 // layers (the host's `resident_floats`) or 0 for the ring. Refused where
 // the tile's rows leave no room for a weight ring (`tile_ring_stage`) or
 // for the resident layers (`tile_resident_fits`). Returns a cudaError_t.
 extern "C" int fused_logp_chain_f32(const void* z, const void* params,
                                     const void* mods, const void* target,
                                     int n_mods, int n, int d, int dim,
-                                    int kind, int hmax, int head, void* lp,
-                                    void* g, int rows, int resident,
-                                    void* stream) {
+                                    int kind, int hmax, int head,
+                                    const void* forms, int nhid,
+                                    int general, void* lp, void* g,
+                                    int rows, int resident, void* stream) {
   using namespace tpuflows_logp;
-  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head) || rows < 1 ||
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, nhid, head) || rows < 1 ||
       rows > kMaxTileRows || (rows & (rows - 1)) != 0 || resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = rows_args(z, params, target, n, d, dim, kind, lp, g);
-  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  const ChainList c = tpuflows_nuts::chain_list(mods, forms, n_mods, hmax,
+                                                nhid, head, general);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_tile_for<1>(a, c, rows, resident, s);
@@ -313,13 +310,16 @@ extern "C" int fused_logp_chain_warp_f32(const void* z, const void* params,
                                          const void* mods,
                                          const void* target, int n_mods,
                                          int n, int d, int dim, int kind,
-                                         int hmax, int head, void* lp,
-                                         void* g, void* stream) {
+                                         int hmax, int head,
+                                         const void* forms, int nhid,
+                                         int general, void* lp, void* g,
+                                         void* stream) {
   using namespace tpuflows_logp;
-  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head))
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, nhid, head))
     return (int)cudaErrorInvalidValue;
   const Args a = rows_args(z, params, target, n, d, dim, kind, lp, g);
-  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  const ChainList c = tpuflows_nuts::chain_list(mods, forms, n_mods, hmax,
+                                                nhid, head, general);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_chain<1>(a, c, s);

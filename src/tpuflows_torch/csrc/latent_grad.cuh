@@ -1,9 +1,10 @@
 // The latent log density and its gradient, one warp per row:
 //   lp = log p(f^-1(z)) + ladj(z) and g = d lp / dz
 // over a target of targets.cuh (`target_logp_grad`, on a.kind):
-//  * `chain_logp_grad`: any Chain of Standardize, AffineCoupling and
-//    RQSCouplingBlock modules with 3-layer silu MLPs d -> h1 -> h2 -> n,
-//    given as a module list
+//  * `chain_logp_grad`: any Chain of Standardize, Whiten, AffineCoupling
+//    and RQSCouplingBlock modules whose conditioners are MLPs of 1 to 8
+//    layers d -> h_1 -> ... -> n with a silu, tanh, relu or gelu
+//    activation and float32 or bf16 operands, given as a module list
 //    (`ChainList`): the per-warp module-list kernels of K1, K2 and K3,
 //    which no path runs any more and which stay built as chip_smoke.py's
 //    oracle for the tile gradient. It follows
@@ -40,9 +41,17 @@
 // FMA pipes: the bars against the plain versions (q within 2.3e-4, at most
 // 5 flips of 1,024) leave no room for TF32 rounding, and wgmma takes
 // float32 operands only as TF32. The gradients are written out by hand:
-// the target's log p (targets.cuh), Standardize inverse, coupling inverse
-// with the tanh clamp, spline inverse and its pullback, and the MLP
-// backward through silu. No autograd.
+// the target's log p (targets.cuh), Standardize and Whiten inverses,
+// coupling inverse with the tanh clamp, spline inverse and its pullback,
+// and the MLP backward through the activation. No autograd.
+//
+// bf16 conditioners round where the JAX package's `MLP` rounds
+// (jax.lax.dot_general of bf16 operands with float32 accumulation) and
+// nowhere else: the weights are packed already rounded, each layer's input
+// is rounded to bf16 (`bf16_round`) and the product summed in float32; in
+// the backward pass each layer's input cotangent is the float32 sum of the
+// unrounded cotangent times the rounded weights, rounded once. Biases,
+// activations and their derivatives stay float32.
 //
 // Widths. The flow is packed at the lane width d, a multiple of 32 (kernels/
 // nuts_cuda.py `pack_flow` pads it once): a padded dim has Standardize loc
@@ -55,6 +64,7 @@
 // computes inside its trajectory.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -86,16 +96,50 @@ struct Args {
 // K3 fills q (z in), params, target, n, d, dim and kind, and writes g to
 // q_out and lp to info (n,).
 
-// The module list of the module-list kernels: kModInts ints per module (see
-// the module-list gradient), the widest hidden layer and conditioner output.
+// The module list of the module-list kernels: kModInts ints per module and
+// kFormInts ints of its conditioner's form (see the module-list gradient),
+// the widest hidden layer, the most hidden layers of any conditioner
+// (nhid), the widest conditioner output (at least d with a Whiten), and
+// whether any module leaves the main paths' form (`general`: a Whiten, or
+// a conditioner that is not a 3-layer float32 silu MLP), which the
+// funnel's own units (-DTARGETS_FUNNEL_ONLY) do not compute.
 struct ChainList {
   const int* mods;
-  int n_mods, hmax, head;
+  const int* forms;
+  int n_mods, hmax, nhid, head, general;
 };
 
 constexpr int kMaxModules = 16;
 constexpr int kModInts = 8;
-enum ModuleKind { kStandardize = 0, kAffine = 1, kSpline = 2 };
+constexpr int kFormInts = 10;
+constexpr int kMaxLayers = 8;
+enum ModuleKind { kStandardize = 0, kAffine = 1, kSpline = 2, kWhiten = 3 };
+// the activations (kernels/nuts_cuda.py ACTIVATION_CODES)
+enum Activation { kSilu = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
+// a conditioner's flags (forms column 2; kernels/nuts_cuda.py FORM_BF16,
+// FORM_GENERAL)
+constexpr int kFormBf16 = 1;
+constexpr int kFormGeneral = 2;
+
+// floats of one row's scratch (`Scratch`): each module's input and the
+// conditioner's, two buffers of hmax per hidden layer, the head
+__host__ __device__ inline size_t row_floats(const Args& a,
+                                             const ChainList& c) {
+  return (size_t)(c.n_mods + 1) * a.d + 2 * (size_t)c.nhid * c.hmax + c.head;
+}
+
+inline ChainList chain_list(const void* mods, const void* forms, int n_mods,
+                            int hmax, int nhid, int head, int general) {
+  ChainList c;
+  c.mods = static_cast<const int*>(mods);
+  c.forms = static_cast<const int*>(forms);
+  c.n_mods = n_mods;
+  c.hmax = hmax;
+  c.nhid = nhid;
+  c.head = head;
+  c.general = general;
+  return c;
+}
 
 }  // namespace tpuflows_nuts
 
@@ -103,6 +147,7 @@ namespace {
 
 using tpuflows_nuts::Args;
 using tpuflows_nuts::ChainList;
+using tpuflows_nuts::kFormInts;
 using tpuflows_nuts::kModInts;
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -118,13 +163,83 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// x rounded to the nearest bfloat16 (ties to even), held as a float
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// jax.nn.gelu's default, the tanh approximation
+constexpr float kGeluK0 = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluK1 = 0.044715f;
+
+__device__ __forceinline__ float activate(float x, int act) {
+  if (act == tpuflows_nuts::kTanh) return tanhf(x);
+  if (act == tpuflows_nuts::kRelu) return x > 0.0f ? x : 0.0f;
+  if (act == tpuflows_nuts::kGelu)
+    return 0.5f * x * (1.0f + tanhf(kGeluK0 * (x + kGeluK1 * x * x * x)));
+  return x * sigmoid(x);
+}
+
+// d act / dx, as jax.grad and torch.autograd give it (relu's 0 at 0)
+__device__ __forceinline__ float activate_grad(float x, int act) {
+  if (act == tpuflows_nuts::kTanh) {
+    const float t = tanhf(x);
+    return 1.0f - t * t;
+  }
+  if (act == tpuflows_nuts::kRelu) return x > 0.0f ? 1.0f : 0.0f;
+  if (act == tpuflows_nuts::kGelu) {
+    const float t = tanhf(kGeluK0 * (x + kGeluK1 * x * x * x));
+    return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * kGeluK0 *
+                                   (1.0f + 3.0f * kGeluK1 * x * x);
+  }
+  const float s = sigmoid(x);
+  return s * (1.0f + x * (1.0f - s));
+}
+
+// A layer's product on the general path (`matvec`, tile_grad.cuh's
+// `tile_matvec_any`): mode's low bits the activation, and flags: kRoundAct
+// rounds the activation a forward layer hands on to bf16 (the next layer's
+// operand), kRoundOut rounds a backward product (an input's cotangent) to
+// bf16, kWide sums the product in double (every product of the general
+// path: a funnel-fitted Whiten hands the coupling behind it cotangents of
+// 1e4, where the float32 sums in the main paths' order lost twice the
+// float32 plain version's accuracy on the card, PERF.md; the rounding
+// points stay JAX's).
+constexpr int kActBits = 7;
+constexpr int kRoundAct = 8;
+constexpr int kRoundOut = 16;
+constexpr int kWide = 32;
+
+__device__ __forceinline__ float epilogue_out(float v, int mode) {
+  return (mode & kRoundOut) ? bf16_round(v) : v;
+}
+
+__device__ __forceinline__ float epilogue_act(float v, int mode) {
+  const float h = activate(v, mode & kActBits);
+  return (mode & kRoundAct) ? bf16_round(h) : h;
+}
+
 // out[c] = bias[c] + sum_r in[r] * W[r * n_out + c] for the lane's columns
 // c = c0 + lane + 32 k; `in` is the warp's shared buffer. When `act` is
-// given it also receives silu(out[c]). n_out is a multiple of 32.
+// given it also receives the activation of out[c] (in a loop of its own,
+// each activation's code once); `mode` as `epilogue_out` /
+// `epilogue_act` take it, kWide summing in double. n_out is a multiple of
+// 32.
 __device__ void matvec(const float* __restrict__ W,
                        const float* __restrict__ bias, const float* in,
-                       int n_in, int n_out, float* out, float* act,
+                       int n_in, int n_out, float* out, float* act, int mode,
                        int lane) {
+  if (mode & kWide) {  // the bias (or 0), then fma over r ascending, in double
+    for (int c = lane; c < n_out; c += 32) {
+      double acc = bias != nullptr ? (double)__ldg(bias + c) : 0.0;
+      for (int r = 0; r < n_in; ++r)
+        acc = fma((double)in[r], (double)__ldg(W + (size_t)r * n_out + c),
+                  acc);
+      out[c] = epilogue_out((float)acc, mode);
+      if (act != nullptr) act[c] = epilogue_act(out[c], mode);
+    }
+    return;
+  }
   for (int c0 = 0; c0 < n_out; c0 += 256) {
     const int kc = min(8, (n_out - c0) >> 5);
     float acc[8];
@@ -144,11 +259,12 @@ __device__ void matvec(const float* __restrict__ W,
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       if (k < kc) {
-        const int c = c0 + lane + 32 * k;
-        out[c] = acc[k];
-        if (act != nullptr) act[c] = acc[k] * sigmoid(acc[k]);
+        out[c0 + lane + 32 * k] = epilogue_out(acc[k], mode);
       }
     }
+    if (act != nullptr)
+      for (int c = c0 + lane; c < c0 + 32 * kc; c += 32)
+        act[c] = epilogue_act(out[c], mode);
   }
 }
 
@@ -162,18 +278,35 @@ __device__ __forceinline__ void silu_backward(float* g, const float* pre,
   }
 }
 
+// g[c] *= act'(pre[c]) on the lane's units: silu_backward for any
+// activation
+__device__ __forceinline__ void act_backward(float* g, const float* pre,
+                                             int n, int act, int lane) {
+  for (int c = lane; c < n; c += 32) g[c] *= activate_grad(pre[c], act);
+}
+
 // ---------------------------------------------------------------------------
 // The module-list gradient (nuts_chain_kernel)
 // ---------------------------------------------------------------------------
 //
 // Module k of the chain (in the chain's forward order) is described by
-// mods[kModInts k + .]: kind, offset of its leaves in `params`, h1, h2,
-// knots (splines), and a float's bits: the clamp (affine) or the range B
-// (spline). Its leaves, as kernels/nuts_cuda.py `pack_flow` writes them:
+// mods[kModInts k + .]: kind, offset of its leaves in `params`, h1 and h2
+// (its conditioner's first and last hidden widths), knots (splines), and
+// a float's bits: the clamp (affine), the range B (spline) or the
+// constant ladj sum(log diag chol) (Whiten); and its conditioner by
+// forms[kFormInts k + .]: the number of layers L (1 to kMaxLayers), the
+// activation, flags (kFormBf16: bf16 operands; kFormGeneral: the module
+// belongs to a flow of another form than the main paths', whose every
+// coupling runs the general path) and the hidden widths h_1 .. h_{L-1}.
+// Its leaves, as kernels/nuts_cuda.py `pack_flow` writes them:
 //   Standardize:  loc, log_scale (d each);
-//   coupling:     mask (d); W1 (d, h1), b1; W2 (h1, h2), b2; W3 (h2, n),
-//                 b3 (n); W1^T, W2^T, W3^T, with n = 2d (affine) or
-//                 (3K-1) d (spline, p-major columns p d + i).
+//   Whiten:       loc (d), chol^T (d, d), chol (d, d): x = z chol^T + loc;
+//   coupling:     mask (d); W_1 (d, h_1), b_1; ...; W_L (h_{L-1}, n), b_L
+//                 (n); W_1^T, ..., W_L^T, with n = 2d (affine) or (3K-1) d
+//                 (spline, p-major columns p d + i); bf16 weights rounded.
+// `Mlp` / `mlp_at` read the 3-layer layout (the main paths' form, which
+// the funnel's own units compute), and the mask and n_out of any depth;
+// `mlp_layer` reads any layer of any depth.
 
 struct Mlp {
   const float *mask, *w1, *b1, *w2, *b2, *w3, *b3, *w1t, *w2t, *w3t;
@@ -200,9 +333,54 @@ __device__ __forceinline__ Mlp mlp_at(const Args& a, const int* md) {
   return m;
 }
 
-// the warp's scratch: each module's input (sweep 1), then the MLP buffers
+// Layer k (0 .. L-1) of a coupling's conditioner as packed: its weight W
+// (n_in x n_out, row-major), bias and transposed copy W^T.
+struct Layer {
+  const float *w, *b, *wt;
+  int n_in, n_out;
+};
+
+// width k of the conditioner d -> h_1 -> ... -> h_{L-1} -> n_out
+__device__ __forceinline__ int mlp_width(const int* fm, int k, int d,
+                                         int n_out) {
+  return k == 0 ? d : (k == fm[0] ? n_out : fm[2 + k]);
+}
+
+__device__ __forceinline__ int head_width(const Args& a, const int* md) {
+  return md[0] == tpuflows_nuts::kAffine ? 2 * a.d : (3 * md[4] - 1) * a.d;
+}
+
+__device__ __forceinline__ Layer mlp_layer(const Args& a, const int* md,
+                                           const int* fm, int k) {
+  const int d = a.d, L = fm[0], n_out = head_width(a, md);
+  size_t before = 0, all = 0, before_t = 0;
+  for (int j = 0; j < L; ++j) {
+    const size_t i = mlp_width(fm, j, d, n_out);
+    const size_t o = mlp_width(fm, j + 1, d, n_out);
+    if (j < k) {
+      before += i * o + o;
+      before_t += i * o;
+    }
+    all += i * o + o;
+  }
+  const float* p = a.params + md[1] + d;  // past the mask
+  Layer y;
+  y.n_in = mlp_width(fm, k, d, n_out);
+  y.n_out = mlp_width(fm, k + 1, d, n_out);
+  y.w = p + before;
+  y.b = y.w + (size_t)y.n_in * y.n_out;
+  y.wt = p + all + before_t;
+  return y;
+}
+
+// the warp's scratch: each module's input (sweep 1), the conditioner's
+// input xin, then for each hidden layer k = 1 .. nhid its pre-activation
+// (`hidden_pre`) and activation (`hidden_act`), hmax floats each, and the
+// head; a1, v1, a2, v2 are the first two hidden layers' buffers, which
+// the 3-layer functions of tile_grad.cuh name
 struct Scratch {
   float *bounds, *xin, *a1, *v1, *a2, *v2, *head;
+  int hmax;
 };
 
 __device__ __forceinline__ Scratch scratch_at(const Args& a,
@@ -214,34 +392,88 @@ __device__ __forceinline__ Scratch scratch_at(const Args& a,
   s.v1 = s.a1 + c.hmax;
   s.a2 = s.v1 + c.hmax;
   s.v2 = s.a2 + c.hmax;
-  s.head = s.v2 + c.hmax;
+  s.head = s.a1 + 2 * c.nhid * c.hmax;
+  s.hmax = c.hmax;
   return s;
 }
 
-// head = MLP(xin), keeping the pre-activations a1, a2 for the backward
-__device__ void mlp_forward(const Mlp& m, int d, const Scratch& s,
-                            int lane) {
-  __syncwarp();
-  matvec(m.w1, m.b1, s.xin, d, m.h1, s.a1, s.v1, lane);
-  __syncwarp();
-  matvec(m.w2, m.b2, s.v1, m.h1, m.h2, s.a2, s.v2, lane);
-  __syncwarp();
-  matvec(m.w3, m.b3, s.v2, m.h2, m.n_out, s.head, nullptr, lane);
-  __syncwarp();
+__device__ __forceinline__ float* hidden_pre(const Scratch& s, int k) {
+  return s.a1 + 2 * (k - 1) * s.hmax;
 }
 
-// xin = d (head . MLP) / d input for the cotangent in head; v2 and v1
-// hold the hidden cotangents on the way
-__device__ void mlp_backward(const Mlp& m, int d, const Scratch& s,
-                             int lane) {
+__device__ __forceinline__ float* hidden_act(const Scratch& s, int k) {
+  return s.a1 + (2 * k - 1) * s.hmax;
+}
+
+// the products' mode of a conditioner's forward pass: its activation, bf16
+// rounding of each layer's input, double sums on the general path
+__device__ __forceinline__ int forward_mode(const int* fm) {
+  return fm[1] | ((fm[2] & tpuflows_nuts::kFormBf16) ? kRoundAct : 0) |
+         ((fm[2] & tpuflows_nuts::kFormGeneral) ? kWide : 0);
+}
+
+// ... and of its backward pass: bf16 rounding of each input cotangent
+__device__ __forceinline__ int backward_mode(const int* fm) {
+  return ((fm[2] & tpuflows_nuts::kFormBf16) ? kRoundOut : 0) |
+         ((fm[2] & tpuflows_nuts::kFormGeneral) ? kWide : 0);
+}
+
+// head = MLP(xin), keeping each hidden layer's pre-activation for the
+// backward; a bf16 conditioner rounds xin first (each lane its own units,
+// those it wrote)
+__device__ void mlp_forward(const Args& a, const int* md, const int* fm,
+                            const Scratch& s, int lane) {
+  const int L = fm[0];
+  const int mode = forward_mode(fm);
+  if (fm[2] & tpuflows_nuts::kFormBf16)
+    for (int c = lane; c < a.d; c += 32) s.xin[c] = bf16_round(s.xin[c]);
   __syncwarp();
-  matvec(m.w3t, nullptr, s.head, m.n_out, m.h2, s.v2, nullptr, lane);
-  silu_backward(s.v2, s.a2, m.h2, lane);
+  const float* in = s.xin;
+  for (int k = 0; k < L; ++k) {
+    const Layer y = mlp_layer(a, md, fm, k);
+    const bool last = k == L - 1;
+    float* pre = last ? s.head : hidden_pre(s, k + 1);
+    float* act = last ? nullptr : hidden_act(s, k + 1);
+    matvec(y.w, y.b, in, y.n_in, y.n_out, pre, act, mode, lane);
+    __syncwarp();
+    in = act;
+  }
+}
+
+// xin = d (head . MLP) / d input for the cotangent in head; the hidden
+// activations' buffers hold the hidden cotangents on the way
+__device__ void mlp_backward(const Args& a, const int* md, const int* fm,
+                             const Scratch& s, int lane) {
+  const int L = fm[0], act = fm[1];
+  const int mode = backward_mode(fm);
   __syncwarp();
-  matvec(m.w2t, nullptr, s.v2, m.h2, m.h1, s.v1, nullptr, lane);
-  silu_backward(s.v1, s.a1, m.h1, lane);
+  const float* g = s.head;
+  for (int k = L - 1; k >= 0; --k) {
+    const Layer y = mlp_layer(a, md, fm, k);
+    float* out = k > 0 ? hidden_act(s, k) : s.xin;
+    matvec(y.wt, nullptr, g, y.n_out, y.n_in, out, nullptr, mode, lane);
+    if (k > 0) act_backward(out, hidden_pre(s, k), y.n_in, act, lane);
+    __syncwarp();
+    g = out;
+  }
+}
+
+// y = y chol^T + loc (Whiten's inverse, W = chol^T and bias = loc; its
+// constant ladj comes from the host) or g = g chol (its pullback, W =
+// chol, no bias) on the lane's dims, through xin and head, summed in
+// double as the general path's products
+template <int DPL>
+__device__ __forceinline__ void whiten_matvec(const float* W,
+                                              const float* bias, int d,
+                                              const Scratch& s,
+                                              float (&y)[DPL], int lane) {
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) s.xin[lane + 32 * j] = y[j];
   __syncwarp();
-  matvec(m.w1t, nullptr, s.v1, m.h1, d, s.xin, nullptr, lane);
+  matvec(W, bias, s.xin, d, d, s.head, nullptr, kWide, lane);
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) y[j] = s.head[lane + 32 * j];
   __syncwarp();
 }
 
@@ -251,11 +483,15 @@ __device__ void mlp_backward(const Mlp& m, int d, const Scratch& s,
 // of the time (PERF.md).
 template <int DPL>
 __device__ __noinline__ float module_inverse(const Args& a, const int* md,
-                                const Scratch& s, float (&y)[DPL],
-                                int lane) {
+                                const int* fm, const Scratch& s,
+                                float (&y)[DPL], int lane) {
   const int d = a.d;
   const float* p = a.params + md[1];
   float ladj = 0.0f;
+  if (md[0] == tpuflows_nuts::kWhiten) {
+    whiten_matvec<DPL>(p + d, p, d, s, y, lane);
+    return lane == 0 ? __int_as_float(md[5]) : 0.0f;  // once a row
+  }
   if (md[0] == tpuflows_nuts::kStandardize) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
@@ -274,7 +510,7 @@ __device__ __noinline__ float module_inverse(const Args& a, const int* md,
     mk[j] = __ldg(m.mask + i);
     s.xin[i] = y[j] * mk[j];
   }
-  mlp_forward(m, d, s, lane);
+  mlp_forward(a, md, fm, s, lane);
   const float c = __int_as_float(md[5]);
   if (md[0] == tpuflows_nuts::kAffine) {
     // y' = m y + (1 - m) (y - shift) exp(-s), s = clamp tanh(raw / clamp)
@@ -308,10 +544,17 @@ __device__ __noinline__ float module_inverse(const Args& a, const int* md,
 // (ladj's cotangent is 1). Recomputes the conditioner unless `live` says
 // that its buffers still hold it.
 template <int DPL>
-__device__ __noinline__ void module_vjp(const Args& a, const int* md, const Scratch& s,
+__device__ __noinline__ void module_vjp(const Args& a, const int* md,
+                           const int* fm, const Scratch& s,
                            const float* y_in, bool& live, float (&g)[DPL],
                            int lane) {
   const int d = a.d;
+  if (md[0] == tpuflows_nuts::kWhiten) {  // g_z = g_x chol
+    const float* p = a.params + md[1];
+    whiten_matvec<DPL>(p + d + d * d, nullptr, d, s, g, lane);
+    live = false;  // xin and head no longer hold a conditioner
+    return;
+  }
   if (md[0] == tpuflows_nuts::kStandardize) {
     const float* p = a.params + md[1];
 #pragma unroll
@@ -330,7 +573,7 @@ __device__ __noinline__ void module_vjp(const Args& a, const int* md, const Scra
   if (!live) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) s.xin[lane + 32 * j] = y[j] * mk[j];
-    mlp_forward(m, d, s, lane);
+    mlp_forward(a, md, fm, s, lane);
   }
   live = false;
   const float c = __int_as_float(md[5]);
@@ -363,7 +606,7 @@ __device__ __noinline__ void module_vjp(const Args& a, const int* md, const Scra
       }
     }
   }
-  mlp_backward(m, d, s, lane);
+  mlp_backward(a, md, fm, s, lane);
 #pragma unroll
   for (int j = 0; j < DPL; ++j) g[j] = gd[j] + mk[j] * s.xin[lane + 32 * j];
   __syncwarp();  // xin and head are written again by the next module
@@ -386,14 +629,15 @@ __device__ float chain_logp_grad(const Args& a, const ChainList& c,
   for (int k = c.n_mods - 1; k >= 0; --k) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
-    ladj += module_inverse<DPL>(a, c.mods + kModInts * k, s, x, lane);
+    ladj += module_inverse<DPL>(a, c.mods + kModInts * k,
+                                c.forms + kFormInts * k, s, x, lane);
   }
   const float lp = target_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
   // sweep 2: first module first; its conditioner ran last in sweep 1
   bool live = true;
   for (int k = 0; k < c.n_mods; ++k)
-    module_vjp<DPL>(a, c.mods + kModInts * k, s, s.bounds + k * d, live, g,
-                    lane);
+    module_vjp<DPL>(a, c.mods + kModInts * k, c.forms + kFormInts * k, s,
+                    s.bounds + k * d, live, g, lane);
   return lp;
 }
 

@@ -16,8 +16,10 @@
 // of log p(f^-1(z)) + ladj live in latent_grad.cuh and tile_grad.cuh,
 // which K3 (fused_logp.cu) shares:
 //  * `nuts_chain_tile_kernel`, the one on every path: any Chain of
-//    Standardize, AffineCoupling and RQSCouplingBlock modules with silu
-//    MLPs d -> h1 -> h2 -> n, given as a module list (the ceiling path's
+//    Standardize, Whiten, AffineCoupling and RQSCouplingBlock modules
+//    whose conditioners are MLPs of 1 to 8 layers with a silu, tanh, relu
+//    or gelu activation and float32 or bf16 operands (latent_grad.cuh),
+//    given as a module list (the ceiling path's
 //    Standardize + one AffineCoupling and the generic path's arqs flow),
 //    on tiles of R chains whose gradients share every weight read
 //    (`tile_chain_logp_grad`). Two instantiations: the weights through a
@@ -82,8 +84,9 @@
 // translation unit per template instantiation (-DNUTS_DPL=1..8, DPL = d /
 // 32 dims per lane), one more per DPL with -DTARGETS_FUNNEL_ONLY that
 // holds the tile kernel with the funnel alone in its target dispatch
-// (`launch_tile_funnel`, which the entry point launches for a funnel:
-// targets.cuh says why), all compiled in parallel, plus one unit without
+// (`launch_tile_funnel`, which the entry point launches for a funnel whose
+// flow has the main paths' form, ChainList::general 0: targets.cuh and
+// tile_grad.cuh say why), all compiled in parallel, plus one unit without
 // NUTS_DPL that holds the C entry points, linked into one shared library.
 
 namespace tpuflows_nuts {
@@ -180,8 +183,7 @@ namespace tpuflows_nuts {
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c,
                          cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head);
+  const size_t smem = sizeof(float) * row_floats(a, c);
   if (smem > 48 * 1024) {  // above 48 KB only when asked for
     const cudaError_t e = cudaFuncSetAttribute(
         nuts_chain_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -198,7 +200,7 @@ cudaError_t launch_chain(const Args& a, const ChainList& c,
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                         int resident, cudaStream_t stream) {
-  const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  const size_t row = row_floats(a, c);
   if (resident > 0) {
     if (!tile_resident_fits(rows, row, resident))
       return cudaErrorInvalidValue;
@@ -233,11 +235,11 @@ bool target_ok(int d, int dim, int kind) {
 namespace {
 
 bool chain_ok(int n, int d, int dim, int kind, int n_mods, int hmax,
-              int head, int depth) {
+              int nhid, int head, int depth) {
   using namespace tpuflows_nuts;
   return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
-         n_mods <= kMaxModules &&
-         (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0 &&
+         n_mods <= kMaxModules && (hmax == 0 || width_ok(hmax)) &&
+         nhid >= 0 && nhid < kMaxLayers && head >= 0 && head % 32 == 0 &&
          depth >= 1 && depth <= kMaxDepth;
 }
 
@@ -270,28 +272,23 @@ template <int DPL>
 cudaError_t launch_tile_for(const tpuflows_nuts::Args& a,
                             const tpuflows_nuts::ChainList& c, int rows,
                             int resident, cudaStream_t s) {
-  return a.kind == kFunnel
+  return a.kind == kFunnel && !c.general
              ? tpuflows_nuts::launch_tile_funnel<DPL>(a, c, rows, resident, s)
              : tpuflows_nuts::launch_tile<DPL>(a, c, rows, resident, s);
-}
-
-tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
-                                    int head) {
-  tpuflows_nuts::ChainList c;
-  c.mods = static_cast<const int*>(mods);
-  c.n_mods = n_mods; c.hmax = hmax; c.head = head;
-  return c;
 }
 
 }  // namespace
 
 // A module list on tiles of `rows` chains (a power of two up to
 // kMaxTileRows, tile_grad.cuh) in lockstep, sharing every weight read
-// (nuts_chain_tile_kernel): `mods` is a device array of n_mods * kModInts
-// ints (none for a flow-less transition), packed at the lane width d; the
-// target of kind `kind` (targets.cuh) and width dim, its parameters in
-// `target`; hmax the widest hidden layer (0 without couplings), head the
-// widest conditioner output; `resident` the floats of the resident
+// (nuts_chain_tile_kernel): `mods` and `forms` are device arrays of n_mods
+// * kModInts and n_mods * kFormInts ints (none for a flow-less
+// transition), packed at the lane width d; the target of kind `kind`
+// (targets.cuh) and width dim, its parameters in `target`; hmax the widest
+// hidden layer (0 without couplings), nhid the most hidden layers of a
+// conditioner, head the widest conditioner output, general 1 where a
+// module leaves the main paths' form (ChainList); `resident` the floats of
+// the resident
 // layers (`tile_resident_floats` of the list's one coupling), 0 for the
 // ring. Refused where the tile's rows leave no room for a weight ring
 // (`tile_ring_stage`) or for the resident layers (`tile_resident_fits`).
@@ -300,16 +297,20 @@ extern "C" int nuts_chain_transition_f32(
     const void* q, const void* p0, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, const void* target, int n_mods,
-    int n, int d, int dim, int kind, int hmax, int head, int depth,
-    float max_delta_energy, void* q_out, void* info, int rows, int resident, void* stream) {
+    int n, int d, int dim, int kind, int hmax, int head, const void* forms,
+    int nhid, int general, int depth,
+    float max_delta_energy, void* q_out, void* info, int rows, int resident,
+    void* stream) {
   using namespace tpuflows_nuts;
-  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head, depth) || rows < 1 ||
-      rows > kMaxTileRows || (rows & (rows - 1)) != 0 || resident < 0)
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, nhid, head, depth) ||
+      rows < 1 || rows > kMaxTileRows || (rows & (rows - 1)) != 0 ||
+      resident < 0)
     return (int)cudaErrorInvalidValue;
   const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                             params, target, n, d, dim, kind, depth,
                             max_delta_energy, q_out, info);
-  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  const ChainList c = chain_list(mods, forms, n_mods, hmax, nhid, head,
+                                 general);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_tile_for<1>(a, c, rows, resident, s);
@@ -330,15 +331,17 @@ extern "C" int nuts_chain_transition_warp_f32(
     const void* q, const void* p0, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, const void* target, int n_mods,
-    int n, int d, int dim, int kind, int hmax, int head, int depth,
+    int n, int d, int dim, int kind, int hmax, int head, const void* forms,
+    int nhid, int general, int depth,
     float max_delta_energy, void* q_out, void* info, void* stream) {
   using namespace tpuflows_nuts;
-  if (!chain_ok(n, d, dim, kind, n_mods, hmax, head, depth))
+  if (!chain_ok(n, d, dim, kind, n_mods, hmax, nhid, head, depth))
     return (int)cudaErrorInvalidValue;
   const Args a = chain_args(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                             params, target, n, d, dim, kind, depth,
                             max_delta_energy, q_out, info);
-  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  const ChainList c = chain_list(mods, forms, n_mods, hmax, nhid, head,
+                                 general);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_chain<1>(a, c, s);

@@ -245,8 +245,7 @@ namespace tpuflows_window {
 template <int DPL>
 cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
                          cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head);
+  const size_t smem = sizeof(float) * tpuflows_nuts::row_floats(a, c);
   if (smem > 48 * 1024) {  // above 48 KB only when asked for
     const cudaError_t e = cudaFuncSetAttribute(
         nuts_window_chain_kernel<DPL>,
@@ -263,7 +262,7 @@ cudaError_t launch_chain(const Args& a, const ChainList& c, int window,
 template <int DPL>
 cudaError_t launch_tile(const Args& a, const ChainList& c, int rows,
                         int resident, int window, cudaStream_t stream) {
-  const size_t row = (size_t)(c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  const size_t row = tpuflows_nuts::row_floats(a, c);
   if (resident > 0) {
     if (!tile_resident_fits(rows, row, resident))
       return cudaErrorInvalidValue;
@@ -324,21 +323,14 @@ tpuflows_nuts::Args window_args(const void* q, const void* p0c,
 namespace {
 
 bool chain_window_ok(int n, int d, int dim, int kind, int n_mods,
-                     int hmax, int head, int depth, int window) {
+                     int hmax, int nhid, int head, int depth, int window) {
   using namespace tpuflows_window;
   return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
          n_mods <= tpuflows_nuts::kMaxModules &&
-         (hmax == 0 || width_ok(hmax)) && head >= 0 && head % 32 == 0 &&
+         (hmax == 0 || width_ok(hmax)) && nhid >= 0 &&
+         nhid < tpuflows_nuts::kMaxLayers && head >= 0 && head % 32 == 0 &&
          depth >= 1 && depth <= kMaxDepth && window >= 1 &&
          (long long)n * window <= (1 << 30);
-}
-
-tpuflows_nuts::ChainList chain_list(const void* mods, int n_mods, int hmax,
-                                    int head) {
-  tpuflows_nuts::ChainList c;
-  c.mods = static_cast<const int*>(mods);
-  c.n_mods = n_mods; c.hmax = hmax; c.head = head;
-  return c;
 }
 
 }  // namespace
@@ -353,11 +345,12 @@ extern "C" int nuts_chain_window_f32(
     const void* q, const void* p0c, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, const void* target, int n_mods,
-    int n, int d, int dim, int kind, int hmax, int head, int depth,
-    int window, float max_delta_energy, void* draws, void* info, int rows,
-    int resident, void* stream) {
+    int n, int d, int dim, int kind, int hmax, int head, const void* forms,
+    int nhid, int general, int depth, int window,
+    float max_delta_energy, void* draws, void* info, int rows, int resident,
+    void* stream) {
   using namespace tpuflows_window;
-  if (!chain_window_ok(n, d, dim, kind, n_mods, hmax, head, depth,
+  if (!chain_window_ok(n, d, dim, kind, n_mods, hmax, nhid, head, depth,
                        window) ||
       rows < 1 || rows > kMaxTileRows || (rows & (rows - 1)) != 0 ||
       resident < 0)
@@ -365,7 +358,8 @@ extern "C" int nuts_chain_window_f32(
   const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                              params, target, n, d, dim, kind, depth,
                              max_delta_energy, draws, info);
-  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  const ChainList c = tpuflows_nuts::chain_list(mods, forms, n_mods, hmax,
+                                                nhid, head, general);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_tile<1>(a, c, rows, resident, window, s);
@@ -386,16 +380,18 @@ extern "C" int nuts_chain_window_warp_f32(
     const void* q, const void* p0c, const void* dirs, const void* u_acc,
     const void* u_take, const void* eps, const void* inv_mass,
     const void* params, const void* mods, const void* target, int n_mods,
-    int n, int d, int dim, int kind, int hmax, int head, int depth,
-    int window, float max_delta_energy, void* draws, void* info, void* stream) {
+    int n, int d, int dim, int kind, int hmax, int head, const void* forms,
+    int nhid, int general, int depth, int window,
+    float max_delta_energy, void* draws, void* info, void* stream) {
   using namespace tpuflows_window;
-  if (!chain_window_ok(n, d, dim, kind, n_mods, hmax, head, depth,
+  if (!chain_window_ok(n, d, dim, kind, n_mods, hmax, nhid, head, depth,
                        window))
     return (int)cudaErrorInvalidValue;
   const Args a = window_args(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
                              params, target, n, d, dim, kind, depth,
                              max_delta_energy, draws, info);
-  const ChainList c = chain_list(mods, n_mods, hmax, head);
+  const ChainList c = tpuflows_nuts::chain_list(mods, forms, n_mods, hmax,
+                                                nhid, head, general);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d / 32) {
     case 1: return (int)launch_chain<1>(a, c, window, s);

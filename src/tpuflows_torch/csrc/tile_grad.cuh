@@ -79,7 +79,23 @@
 //    of times with the same module list: the control flow here is uniform
 //    over the block, and K1's tree loops run in tile lockstep
 //    (nuts_tree_body.inc's hooks).
+//  * Conditioners of any form (latent_grad.cuh): in a flow that is not of
+//    the main paths' form (a Whiten, or a coupling that is not a 3-layer
+//    float32 silu MLP), every coupling runs the general path, a loop over
+//    its layers (`tile_layer`, `tile_mlp_forward_any` /
+//    `tile_mlp_backward_any`, the products summed in double, their
+//    activation and bf16 rounding chosen by the form's uniform ints in
+//    `tile_matvec_any`), and a Whiten module a d x d product through the
+//    ring (`tile_whiten`). A flow of the main paths' form keeps the 3-layer
+//    float32 functions (`tile_mlp_forward` / `tile_mlp_backward`,
+//    `TileMlp`, `main_form`), and the funnel's own units
+//    (-DTARGETS_FUNNEL_ONLY), which the host sends no other flow
+//    (`ChainList::general`), compile only those. The per-warp kernels sum
+//    each product in the same order, in float32 or double alike, and stay
+//    the tile kernels' oracle.
 #pragma once
+
+#include <type_traits>
 
 #include "latent_grad.cuh"
 
@@ -198,23 +214,64 @@ __device__ __forceinline__ void fma_quad(float (&acc)[KC][RPT],
   }
 }
 
+// The same with double accumulators (`tile_matvec_any`: the products are
+// exact, the sums rounded in double)
+template <int RPT, int KC>
+__device__ __forceinline__ void fma_quad(double (&acc)[KC][RPT],
+                                         const float (&w)[4][KC],
+                                         const float* x0, int ld, int r) {
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float4 x = lds4(x0 + (size_t)i * ld + r);
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      acc[k][i] = fma((double)x.x, (double)w[0][k], acc[k][i]);
+      acc[k][i] = fma((double)x.y, (double)w[1][k], acc[k][i]);
+      acc[k][i] = fma((double)x.z, (double)w[2][k], acc[k][i]);
+      acc[k][i] = fma((double)x.w, (double)w[3][k], acc[k][i]);
+    }
+  }
+}
+
+// The activations of a pass of `tile_matvec_part<..., kAny>` (`mode`'s,
+// latent_grad.cuh `epilogue_act`), from the outputs the thread has just
+// stored: a loop that is not unrolled, so that each product's code holds
+// one copy of every activation, not one a (column, row) it owns.
+template <int RPT, int KC>
+__device__ __forceinline__ void tile_epilogue_act(const float* out,
+                                                  float* act, int ld,
+                                                  int n_out, int c0, int b0,
+                                                  int ct, int nct,
+                                                  int mode) {
+#pragma unroll 1
+  for (int e = 0; e < KC * RPT; ++e) {
+    const int k = e / RPT, i = e - k * RPT;
+    const int c = c0 + ct + nct * k;
+    if (c < n_out) {
+      const size_t o = (size_t)(b0 + i) * ld + c;
+      act[o] = epilogue_act(out[o], mode);
+    }
+  }
+}
+
 // Columns c0 + ct + nct k (k < KC) of rows b0 .. b0 + RPT - 1 of one
 // layer, for c0 = 0, KC nct, ... < n_out: out = bias + sum_r in W, act =
 // silu(out) when given. Rows lie ld floats apart in `in`, `out` and `act`;
 // `ring` is the weight ring behind the tile's rows, of stages of `stage`
 // floats.
-template <int RPT, int KC>
+template <int RPT, int KC, bool kAny = false>
 __device__ __forceinline__ void tile_matvec_part(
     const float* __restrict__ W, const float* __restrict__ bias,
     const float* in, int n_in, int n_out, float* out, float* act, int ld,
-    int b0, int ct, int nct, float* ring, int stage) {
+    int b0, int ct, int nct, float* ring, int stage, int mode = 0) {
+  using Acc = std::conditional_t<kAny, double, float>;  // the general path
   const float* x0 = in + (size_t)b0 * ld;
   const int pw = KC * nct;  // a pass's panel of columns
   const int rc = stage / pw;  // rows a chunk, a multiple of 4
   const int n_chunks = (n_in + rc - 1) / rc;  // the last one may be short
   for (int c0 = 0; c0 < n_out; c0 += pw) {
     bool on[KC];
-    float acc[KC][RPT];
+    Acc acc[KC][RPT];
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
       const int c = c0 + ct + nct * k;
@@ -267,10 +324,18 @@ __device__ __forceinline__ void tile_matvec_part(
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const size_t o = (size_t)(b0 + i) * ld + c;
-          out[o] = acc[k][i];
-          if (act != nullptr) act[o] = acc[k][i] * sigmoid(acc[k][i]);
+          if constexpr (kAny) {
+            out[o] = epilogue_out((float)acc[k][i], mode);
+          } else {
+            out[o] = acc[k][i];
+            if (act != nullptr) act[o] = acc[k][i] * sigmoid(acc[k][i]);
+          }
         }
       }
+    }
+    if constexpr (kAny) {
+      if (act != nullptr) tile_epilogue_act<RPT, KC>(out, act, ld, n_out, c0,
+                                                     b0, ct, nct, mode);
     }
   }
 }
@@ -322,20 +387,58 @@ __device__ __noinline__ void tile_matvec(const float* __restrict__ W,
 #undef TILE_PART
 }
 
+// `tile_matvec` on the general path: the sums in double (latent_grad.cuh
+// kWide), `mode`'s epilogue (`epilogue_out`, `epilogue_act`): any
+// activation, bf16 rounding where the form asks
+__device__ __noinline__ void tile_matvec_any(const float* __restrict__ W,
+                                             const float* __restrict__ bias,
+                                             const float* in, int n_in,
+                                             int n_out, float* out,
+                                             float* act, int ld, int R,
+                                             int mode) {
+  extern __shared__ float4 tile_dynamic_smem[];
+  float* ring = reinterpret_cast<float*>(tile_dynamic_smem) + (size_t)R * ld;
+  const int stage = tile_ring_stage(R, ld);
+  const int rpt = tile_rpt(n_out, R);
+  const int nct = 32 * rpt;
+  const int t = threadIdx.x;
+  const int b0 = (t / nct) * rpt, ct = t % nct;
+  const bool two = n_out >= 2 * nct;
+#define TILE_PART(RPT_)                                                    \
+  case RPT_:                                                               \
+    if (two)                                                               \
+      tile_matvec_part<RPT_, 2, true>(                             \
+          W, bias, in, n_in, n_out, out, act, ld, b0, ct, nct, ring, stage, \
+          mode);                                                           \
+    else                                                                   \
+      tile_matvec_part<RPT_, 1, true>(                             \
+          W, bias, in, n_in, n_out, out, act, ld, b0, ct, nct, ring, stage, \
+          mode);                                                           \
+    break;
+  switch (rpt) {
+    TILE_PART(1)
+    TILE_PART(2)
+    TILE_PART(4)
+    TILE_PART(8)
+  }
+#undef TILE_PART
+}
+
 // `tile_matvec_part` on a layer resident in shared memory: its element
 // (r, c) at Ws[r sr + c sc] (sr = n_out + 1, sc = 1 for a stored layer;
 // sr = 1, sc = its row stride for the transpose of one). No ring and no
 // barrier: the same threads, columns, rows and order of every sum.
-template <int RPT, int KC>
+template <int RPT, int KC, bool kAny = false>
 __device__ __forceinline__ void tile_matvec_resident_part(
     const float* Ws, int sr, int sc, const float* __restrict__ bias,
     const float* in, int n_in, int n_out, float* out, float* act, int ld,
-    int b0, int ct, int nct) {
+    int b0, int ct, int nct, int mode = 0) {
+  using Acc = std::conditional_t<kAny, double, float>;  // the general path
   const float* x0 = in + (size_t)b0 * ld;
   const int pw = KC * nct;
   for (int c0 = 0; c0 < n_out; c0 += pw) {
     bool on[KC];
-    float acc[KC][RPT];
+    Acc acc[KC][RPT];
     const float* wc[KC];
 #pragma unroll
     for (int k = 0; k < KC; ++k) {
@@ -365,10 +468,18 @@ __device__ __forceinline__ void tile_matvec_resident_part(
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const size_t o = (size_t)(b0 + i) * ld + c;
-          out[o] = acc[k][i];
-          if (act != nullptr) act[o] = acc[k][i] * sigmoid(acc[k][i]);
+          if constexpr (kAny) {
+            out[o] = epilogue_out((float)acc[k][i], mode);
+          } else {
+            out[o] = acc[k][i];
+            if (act != nullptr) act[o] = acc[k][i] * sigmoid(acc[k][i]);
+          }
         }
       }
+    }
+    if constexpr (kAny) {
+      if (act != nullptr) tile_epilogue_act<RPT, KC>(out, act, ld, n_out, c0,
+                                                     b0, ct, nct, mode);
     }
   }
 }
@@ -402,9 +513,39 @@ __device__ __noinline__ void tile_matvec_resident(
 #undef TILE_PART
 }
 
+// `tile_matvec_resident` on the general path, as `tile_matvec_any`
+__device__ __noinline__ void tile_matvec_resident_any(
+    const float* Ws, int sr, int sc, const float* __restrict__ bias,
+    const float* in, int n_in, int n_out, float* out, float* act, int ld,
+    int R, int mode) {
+  const int rpt = tile_rpt(n_out, R);
+  const int nct = 32 * rpt;
+  const int t = threadIdx.x;
+  const int b0 = (t / nct) * rpt, ct = t % nct;
+  const bool two = n_out >= 2 * nct;
+#define TILE_PART(RPT_)                                                    \
+  case RPT_:                                                               \
+    if (two)                                                               \
+      tile_matvec_resident_part<RPT_, 2, true>(                    \
+          Ws, sr, sc, bias, in, n_in, n_out, out, act, ld, b0, ct, nct,    \
+          mode);                                                           \
+    else                                                                   \
+      tile_matvec_resident_part<RPT_, 1, true>(                    \
+          Ws, sr, sc, bias, in, n_in, n_out, out, act, ld, b0, ct, nct,    \
+          mode);                                                           \
+    break;
+  switch (rpt) {
+    TILE_PART(1)
+    TILE_PART(2)
+    TILE_PART(4)
+    TILE_PART(8)
+  }
+#undef TILE_PART
+}
+
 // floats of one row's scratch (latent_grad.cuh `Scratch`)
 __device__ __forceinline__ int tile_ld(const Args& a, const ChainList& c) {
-  return (c.n_mods + 1) * a.d + 4 * c.hmax + c.head;
+  return (int)tpuflows_nuts::row_floats(a, c);
 }
 
 // A coupling's conditioner as the tile kernels run it: W2 as packed, and
@@ -442,8 +583,77 @@ __device__ __forceinline__ TileMlp tile_mlp_at(const Args& a,
   return t;
 }
 
+// Layer k of a coupling's conditioner of any depth as the tile kernels run
+// it: the compact first layer (its n_in rows over the pass-through dims)
+// and last layer (its n_head columns over the transformed dims' head
+// parameters) from the compact block at md[6], the layers between as
+// packed. Of L >= 2 layers the compact block holds W_1 (n_in x h_1),
+// W_1^T, W_L (h_{L-1} x n_head), b_L and W_L^T; of one layer W (n_in x
+// n_head), b and W^T (kernels/nuts_cuda.py `_compact_leaves`).
+__device__ __forceinline__ Layer tile_layer(const Args& a, const int* md,
+                                            const int* fm, const TileMlp& m,
+                                            int k) {
+  const int L = fm[0];
+  const float* p = a.params + md[6];
+  Layer y;
+  if (k > 0 && k < L - 1) return mlp_layer(a, md, fm, k);
+  if (L == 1) {
+    y.n_in = m.n_in;
+    y.n_out = m.n_head;
+    y.w = p;
+    y.b = p + (size_t)m.n_in * m.n_head;
+    y.wt = y.b + m.n_head;
+    return y;
+  }
+  const int h1 = fm[3], hl = fm[1 + L];
+  if (k == 0) {
+    y.n_in = m.n_in;
+    y.n_out = h1;
+    y.w = p;
+    y.wt = p + (size_t)m.n_in * h1;
+    y.b = mlp_layer(a, md, fm, 0).b;
+    return y;
+  }
+  y.n_in = hl;
+  y.n_out = m.n_head;
+  y.w = p + 2 * (size_t)m.n_in * h1;
+  y.b = y.w + (size_t)hl * m.n_head;
+  y.wt = y.b + m.n_head;
+  return y;
+}
+
+// floats of the resident copy of layers 0 .. k - 1 (rows of n_out + 1)
+__device__ __forceinline__ size_t tile_resident_before(const Args& a,
+                                                       const int* md,
+                                                       const int* fm,
+                                                       const TileMlp& m,
+                                                       int k) {
+  size_t n = 0;
+  for (int j = 0; j < k; ++j) {
+    const Layer y = tile_layer(a, md, fm, m, j);
+    n += (size_t)y.n_in * (y.n_out + 1);
+  }
+  return n;
+}
+
+// Whether a coupling belongs to a flow of the main paths' form (every
+// coupling a 3-layer float32 silu MLP, no Whiten), which the 3-layer
+// functions (`TileMlp`, `tile_mlp_forward`, `tile_mlp_backward`,
+// `tile_resident_floats`) compute with float32 sums: always in the
+// funnel's own units, which the host sends no other flow; else the form's
+// flag (kFormGeneral, set on every coupling of any other flow) decides, so
+// that a flow runs the same code in every unit.
+__device__ __forceinline__ bool main_form(const int* fm) {
+#ifdef TARGETS_FUNNEL_ONLY
+  return true;
+#else
+  return (fm[2] & tpuflows_nuts::kFormGeneral) == 0;
+#endif
+}
+
 // The resident copy of the one coupling's compact forward layers, behind
-// the tile's R rows of ld floats: W1, W2, W3 with rows of n_out + 1.
+// the tile's R rows of ld floats: W1, W2, W3 with rows of n_out + 1 (any
+// depth: each layer in turn, `tile_resident_before`).
 struct TileResident {
   const float *w1, *w2, *w3;
 };
@@ -482,29 +692,47 @@ __device__ __forceinline__ void copy_padded(float* dst, const float* src,
 // behind the R rows (`tile_resident_at`), once per launch. Traps where the
 // list has another number of couplings or the launch gave too little
 // shared memory: the host's `resident_floats` disagrees with the device.
+// (A Whiten counts as a module that needs the ring: the host keeps a flow
+// with one on the ring.)
 __device__ void tile_load_resident(const Args& a, const ChainList& c,
                                    int R) {
-  const int* md = nullptr;
+  int k1 = -1;
   int couplings = 0;
   for (int k = 0; k < c.n_mods; ++k) {
     if (c.mods[kModInts * k] != tpuflows_nuts::kStandardize) {
-      md = c.mods + kModInts * k;
+      k1 = k;
       ++couplings;
     }
   }
-  if (couplings != 1) __trap();
+  if (couplings != 1 || c.mods[kModInts * k1] == tpuflows_nuts::kWhiten)
+    __trap();
+  const int* md = c.mods + kModInts * k1;
+  const int* fm = c.forms + kFormInts * k1;
   const TileMlp m = tile_mlp_at(a, md);
   const int ld = tile_ld(a, c);
   unsigned bytes;
   asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
-  if (tile_resident_smem_bytes(
-          R, ld, tile_resident_floats(m.n_in, m.h1, m.h2, m.n_head)) >
-      bytes)
-    __trap();
-  const TileResident w = tile_resident_at(m, ld, R);
-  copy_padded(const_cast<float*>(w.w1), m.w1, m.n_in, m.h1, R);
-  copy_padded(const_cast<float*>(w.w2), m.w2, m.h1, m.h2, R);
-  copy_padded(const_cast<float*>(w.w3), m.w3, m.h2, m.n_head, R);
+  if (main_form(fm)) {
+    if (tile_resident_smem_bytes(
+            R, ld, tile_resident_floats(m.n_in, m.h1, m.h2, m.n_head)) >
+        bytes)
+      __trap();
+    const TileResident w = tile_resident_at(m, ld, R);
+    copy_padded(const_cast<float*>(w.w1), m.w1, m.n_in, m.h1, R);
+    copy_padded(const_cast<float*>(w.w2), m.w2, m.h1, m.h2, R);
+    copy_padded(const_cast<float*>(w.w3), m.w3, m.h2, m.n_head, R);
+  } else {
+    const int L = fm[0];
+    if (tile_resident_smem_bytes(R, ld, tile_resident_before(a, md, fm, m,
+                                                             L)) > bytes)
+      __trap();
+    float* dst = const_cast<float*>(tile_resident_at(m, ld, R).w1);
+    for (int k = 0; k < L; ++k) {
+      const Layer y = tile_layer(a, md, fm, m, k);
+      copy_padded(dst, y.w, y.n_in, y.n_out, R);
+      dst += (size_t)y.n_in * (y.n_out + 1);
+    }
+  }
   cp_async_commit();
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
@@ -594,6 +822,91 @@ __device__ void tile_mlp_backward(const TileMlp& m, const Scratch& s0,
   __syncthreads();
 }
 
+// `tile_mlp_forward` for a conditioner of any form (`fm`): its L layers in
+// turn, each hidden layer's pre-activation kept; a bf16 one rounds each
+// row's input first (every warp its own row)
+template <bool kResident = false>
+__device__ void tile_mlp_forward_any(const Args& a, const int* md,
+                                     const int* fm, const TileMlp& m,
+                                     const Scratch& s0, const Scratch& s,
+                                     int ld, int R, int lane) {
+  const int L = fm[0];
+  const int mode = forward_mode(fm);
+  __syncthreads();
+  if (fm[2] & tpuflows_nuts::kFormBf16) {
+    for (int r = lane; r < m.n_in; r += 32) s.xin[r] = bf16_round(s.xin[r]);
+    __syncthreads();
+  }
+  const float* wres = kResident ? tile_resident_at(m, ld, R).w1 : nullptr;
+  const float* in = s0.xin;
+  for (int k = 0; k < L; ++k) {
+    const Layer y = tile_layer(a, md, fm, m, k);
+    const bool last = k == L - 1;
+    float* pre = last ? s0.head : hidden_pre(s0, k + 1);
+    float* act = last ? nullptr : hidden_act(s0, k + 1);
+    if constexpr (kResident) {
+      tile_matvec_resident_any(wres, y.n_out + 1, 1, y.b, in, y.n_in,
+                               y.n_out, pre, act, ld, R, mode);
+      wres += (size_t)y.n_in * (y.n_out + 1);
+    } else {
+      tile_matvec_any(y.w, y.b, in, y.n_in, y.n_out, pre, act, ld, R, mode);
+    }
+    __syncthreads();
+    in = act;
+  }
+}
+
+// `tile_mlp_backward` for a conditioner of any form: act' per warp on its
+// own row s; a bf16 one rounds each input cotangent once
+template <bool kResident = false>
+__device__ void tile_mlp_backward_any(const Args& a, const int* md,
+                                      const int* fm, const TileMlp& m,
+                                      const Scratch& s0, const Scratch& s,
+                                      int ld, int R, int lane) {
+  const int L = fm[0], act = fm[1];
+  const int mode = backward_mode(fm);
+  __syncthreads();
+  const float* g = s0.head;
+  for (int k = L - 1; k >= 0; --k) {
+    const Layer y = tile_layer(a, md, fm, m, k);
+    float* out = k > 0 ? hidden_act(s0, k) : s0.xin;
+    if constexpr (kResident) {
+      const float* w = tile_resident_at(m, ld, R).w1 +
+                       tile_resident_before(a, md, fm, m, k);
+      tile_matvec_resident_any(w, 1, y.n_out + 1, nullptr, g, y.n_out,
+                               y.n_in, out, nullptr, ld, R, mode);
+    } else {
+      tile_matvec_any(y.wt, nullptr, g, y.n_out, y.n_in, out, nullptr, ld,
+                      R, mode);
+    }
+    __syncthreads();
+    if (k > 0) {
+      act_backward(hidden_act(s, k), hidden_pre(s, k), y.n_in, act, lane);
+      __syncthreads();
+    }
+    g = out;
+  }
+}
+
+// Whiten for the warp's row of the tile: y = y W + bias over the ring (W
+// = chol^T and bias = loc for the inverse, W = chol and no bias for the
+// pullback), through each row's xin and head, summed in double as the
+// general path's products (`tile_matvec_any`)
+template <int DPL>
+__device__ __forceinline__ void tile_whiten(const float* W,
+                                            const float* bias, int d,
+                                            const Scratch& s0,
+                                            const Scratch& s, int ld, int R,
+                                            float (&y)[DPL], int lane) {
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) s.xin[lane + 32 * j] = y[j];
+  __syncthreads();
+  tile_matvec_any(W, bias, s0.xin, d, d, s0.head, nullptr, ld, R, kWide);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) y[j] = s.head[lane + 32 * j];
+}
+
 // the conditioner's input for the warp's row: the pass-through dims of y
 // in order (y * mask with the zeros left out), then zeros to n_in. The
 // padded dims past the target's width pass through too but come last and
@@ -616,11 +929,17 @@ __device__ __forceinline__ void write_compact_input(
 // of a zero against `module_inverse`.
 template <int DPL, bool kResident = false>
 __device__ __noinline__ float tile_module_inverse(
-    const Args& a, const int* md, const Scratch& s0, const Scratch& s,
-    int ld, int R, float (&y)[DPL], int lane) {
+    const Args& a, const int* md, const int* fm, const Scratch& s0,
+    const Scratch& s, int ld, int R, float (&y)[DPL], int lane) {
   const int d = a.d;
   const float* p = a.params + md[1];
   float ladj = 0.0f;
+#ifndef TARGETS_FUNNEL_ONLY
+  if (md[0] == tpuflows_nuts::kWhiten) {
+    tile_whiten<DPL>(p + d, p, d, s0, s, ld, R, y, lane);
+    return lane == 0 ? __int_as_float(md[5]) : 0.0f;  // once a row
+  }
+#endif
   if (md[0] == tpuflows_nuts::kStandardize) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
@@ -639,7 +958,10 @@ __device__ __noinline__ float tile_module_inverse(
   for (int j = 0; j < DPL; ++j) mk[j] = __ldg(mm.mask + lane + 32 * j);
   compact_positions<DPL>(mk, pos, lane);
   write_compact_input<DPL>(m, s, y, mk, pos, lane);
-  tile_mlp_forward<kResident>(m, s0, ld, R);
+  if (main_form(fm))
+    tile_mlp_forward<kResident>(m, s0, ld, R);
+  else
+    tile_mlp_forward_any<kResident>(a, md, fm, m, s0, s, ld, R, lane);
   const float c = __int_as_float(md[5]);
   if (md[0] == tpuflows_nuts::kAffine) {
     // y' = (y - shift) exp(-s), s = clamp tanh(raw / clamp), on the
@@ -674,10 +996,18 @@ __device__ __noinline__ float tile_module_inverse(
 // computed): it can change only the sign of a zero against `module_vjp`.
 template <int DPL, bool kResident = false>
 __device__ __noinline__ void tile_module_vjp(
-    const Args& a, const int* md, const Scratch& s0, const Scratch& s,
-    int ld, int R, const float* y_in, bool& live, float (&g)[DPL],
-    int lane) {
+    const Args& a, const int* md, const int* fm, const Scratch& s0,
+    const Scratch& s, int ld, int R, const float* y_in, bool& live,
+    float (&g)[DPL], int lane) {
   const int d = a.d;
+#ifndef TARGETS_FUNNEL_ONLY
+  if (md[0] == tpuflows_nuts::kWhiten) {  // g_z = g_x chol
+    const float* p = a.params + md[1];
+    tile_whiten<DPL>(p + d + d * d, nullptr, d, s0, s, ld, R, g, lane);
+    live = false;  // xin and head no longer hold a conditioner
+    return;
+  }
+#endif
   if (md[0] == tpuflows_nuts::kStandardize) {
     const float* p = a.params + md[1];
 #pragma unroll
@@ -698,7 +1028,10 @@ __device__ __noinline__ void tile_module_vjp(
   compact_positions<DPL>(mk, pos, lane);
   if (!live) {
     write_compact_input<DPL>(m, s, y, mk, pos, lane);
-    tile_mlp_forward<kResident>(m, s0, ld, R);
+    if (main_form(fm))
+      tile_mlp_forward<kResident>(m, s0, ld, R);
+    else
+      tile_mlp_forward_any<kResident>(a, md, fm, m, s0, s, ld, R, lane);
   }
   live = false;
   const float c = __int_as_float(md[5]);
@@ -734,7 +1067,10 @@ __device__ __noinline__ void tile_module_vjp(
     }
   }
   for (int r = used + lane; r < m.n_head; r += 32) s.head[r] = 0.0f;
-  tile_mlp_backward<kResident>(m, s0, s, ld, R, lane);
+  if (main_form(fm))
+    tile_mlp_backward<kResident>(m, s0, s, ld, R, lane);
+  else
+    tile_mlp_backward_any<kResident>(a, md, fm, m, s0, s, ld, R, lane);
 #pragma unroll
   for (int j = 0; j < DPL; ++j)
     g[j] = mk[j] != 0.0f && pos[j] < m.np ? gd[j] + s.xin[pos[j]] : gd[j];
@@ -761,15 +1097,17 @@ __device__ float tile_chain_logp_grad(const Args& a, const ChainList& c,
   for (int k = c.n_mods - 1; k >= 0; --k) {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
-    ladj += tile_module_inverse<DPL, kResident>(a, c.mods + kModInts * k,
-                                                s0, s, ld, R, x, lane);
+    ladj += tile_module_inverse<DPL, kResident>(
+        a, c.mods + kModInts * k, c.forms + kFormInts * k, s0, s, ld, R, x,
+        lane);
   }
   const float lp = target_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
   // sweep 2: first module first; its conditioner ran last in sweep 1
   bool live = true;
   for (int k = 0; k < c.n_mods; ++k)
-    tile_module_vjp<DPL, kResident>(a, c.mods + kModInts * k, s0, s, ld,
-                                    R, s.bounds + k * d, live, g, lane);
+    tile_module_vjp<DPL, kResident>(a, c.mods + kModInts * k,
+                                    c.forms + kFormInts * k, s0, s, ld, R,
+                                    s.bounds + k * d, live, g, lane);
   return lp;
 }
 

@@ -2,9 +2,10 @@
 
 Parameters are float32. `compute_dtype="bf16"` (opt-in) rounds each
 matmul's operands to bfloat16 and accumulates in float32; the biases and
-activations stay float32. Only the plain PyTorch paths honour it: the
-kernel tiers that run a conditioner themselves (K1, K2, K3, K6/K7) refuse
-a bf16 or gelu MLP (ROADMAP Queue 2 item B).
+activations stay float32. The kernel tiers that run a conditioner
+themselves (K1, K2, K3, K6/K7) round where this does: weights packed
+rounded, each layer's input rounded, and, under autograd, each input
+cotangent rounded once after its float32 sum.
 """
 from __future__ import annotations
 
@@ -26,11 +27,12 @@ COMPUTE_DTYPES = ("f32", "bf16")
 
 
 def _bf16_operand(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bfloat16 and held as float32: a product of two such
-    values is exact in float32, so a float32 matmul of them accumulates
-    bf16 operands in float32 (`x.bfloat16() @ w.bfloat16()` would round
-    the result to bf16)."""
-    return t.bfloat16().float()
+    """t rounded to bfloat16 and held in its own dtype (float32, or
+    float64 for a float64 referee): a product of two such values is exact
+    in float32, so a float32 matmul of them accumulates bf16 operands in
+    float32 (`x.bfloat16() @ w.bfloat16()` would round the result to
+    bf16)."""
+    return t.bfloat16().to(t.dtype)
 
 
 class MLP(nn.Module):

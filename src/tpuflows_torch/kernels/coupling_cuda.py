@@ -26,12 +26,12 @@ its pullback (port of `tpuflows/kernels/coupling_pallas.py`).
     and whose backward is K7, and `fused_coupling_forward` /
     `fused_coupling_inverse` with the JAX package's signatures.
 
-The plain version takes every activation of `flows/nets.py` (gelu
-included) and the conditioner's `compute_dtype` (bf16 operands with float32
-accumulation, as `MLP` computes). The kernels compute in float32 with silu,
-tanh or relu only: a gelu or bf16 conditioner on a CUDA tensor raises
-(`check_kernel_spec`; ROADMAP Queue 2 item B) rather than run in float32.
-Importing this module compiles nothing.
+The plain version and the kernels take every activation of
+`flows/nets.py` (silu, tanh, relu and gelu) and the conditioner's
+`compute_dtype`: bf16 operands with float32 accumulation, as `MLP`
+computes them, the weights handed to the kernels rounded
+(`kernel_params`). The earlier kernels, a yardstick only, refuse gelu and
+bf16. Importing this module compiles nothing.
 """
 from __future__ import annotations
 
@@ -65,7 +65,9 @@ EARLIER_LAUNCHES = dict(LAUNCHES)
 K7_LAUNCHES = {False: 1, True: 2}
 MAX_LAYERS = 8
 MAX_SMEM = 232448  # bytes of shared memory a block may opt in to
-ACTIVATION_CODES = {"silu": 0, "tanh": 1, "relu": 2}
+ACTIVATION_CODES = {"silu": 0, "tanh": 1, "relu": 2, "gelu": 3}
+# the earlier kernels' activations: float32 only
+EARLIER_ACTIVATIONS = ("silu", "tanh", "relu")
 
 
 def _bind(lib):
@@ -75,15 +77,15 @@ def _bind(lib):
     lib.coupling_tile_smem.argtypes = [p] + [i32] * 6
     lib.coupling_tile_smem.restype = i64
     # x, mask, idx, ws, bs, widths, n_layers, N, d, nt, knots, range_limit,
-    # activation, inverse, rows, dc, stage
+    # activation, bf16, inverse, rows, dc, stage
     block = [p, p, p, p, p, p, i32, i64, i32, i32, i32, f32, i32, i32, i32,
-             i32, i32]
+             i32, i32, i32]
     lib.coupling_tile_fwd_f32.argtypes = block + [p, p, p]
     lib.coupling_tile_fwd_f32.restype = i32
     lib.coupling_tile_bwd_f32.argtypes = block + [p] * 6
     lib.coupling_tile_bwd_f32.restype = i32
     lib.coupling_tile_wgrad_f32.argtypes = [p] * 5 + [i32, i64, i32, i32,
-                                                      i32, p, i32, p]
+                                                      i32, p, i32, i32, p]
     lib.coupling_tile_wgrad_f32.restype = i32
 
 
@@ -125,19 +127,27 @@ def _activation(name):
 
 
 def check_kernel_spec(spec):
-    """Raises ValueError unless the kernels compute the block of `spec`:
-    float32 operands and a silu, tanh or relu conditioner (gelu and bf16
-    on the kernels are ROADMAP Queue 2 item B)."""
+    """Raises ValueError unless the kernels compute the block of `spec`: a
+    silu, tanh, relu or gelu conditioner with float32 or bf16 operands,
+    every conditioner `flows/nets.py` builds."""
     if spec.activation not in ACTIVATION_CODES:
         raise ValueError(
-            f"the coupling-block kernels take silu, tanh or relu "
-            f"conditioners, not {spec.activation!r} (ROADMAP Queue 2 item "
-            f"B); use_pallas=True or False runs it")
-    if spec.compute_dtype != "f32":
+            f"the coupling-block kernels take silu, tanh, relu or gelu "
+            f"conditioners, not {spec.activation!r}")
+    if spec.compute_dtype not in ("f32", "bf16"):
         raise ValueError(
-            f"the coupling-block kernels compute in float32, not "
-            f"compute_dtype={spec.compute_dtype!r} (ROADMAP Queue 2 item "
-            f"B); use_pallas=True or False runs it")
+            f"the coupling-block kernels take compute_dtype 'f32' or "
+            f"'bf16', not {spec.compute_dtype!r}")
+
+
+def kernel_params(params, spec):
+    """The flat parameters as the kernels read them: a bf16 conditioner's
+    weights rounded to bf16 (held as float32), as `MLP` rounds its
+    operands; the biases, and a float32 conditioner's weights, as given."""
+    if spec.compute_dtype != "bf16":
+        return tuple(params)
+    return tuple(p.bfloat16().float().contiguous() if i % 2 == 0 else p
+                 for i, p in enumerate(params))
 
 
 def flatten_params(net, d: int, knots: int) -> tuple:
@@ -440,15 +450,17 @@ def _launched(rc, name, key, counts=LAUNCHES):
     counts[key] += 1
 
 
-def _common(x2d, params, spec, widths):
-    """The leading arguments shared by K6 and K7 pass 1."""
+def _common(x2d, params, spec, widths, earlier=False):
+    """The leading arguments shared by K6 and K7 pass 1 (of the earlier
+    kernels when `earlier`: without the bf16 flag)."""
     N, d = x2d.shape
     mask, idx = _mask_tensors(spec.mask, x2d.device, torch.float32)
     ws, bs = params[0::2], params[1::2]
+    dtype = [] if earlier else [int(spec.compute_dtype == "bf16")]
     return [x2d.data_ptr(), mask.data_ptr(), idx.data_ptr(), _ptrs(ws),
             _ptrs(bs), _ints(widths), len(ws), N, d, idx.numel(),
             spec.knots, float(spec.range_limit),
-            ACTIVATION_CODES[spec.activation], int(spec.inverse)]
+            ACTIVATION_CODES[spec.activation], *dtype, int(spec.inverse)]
 
 
 def _spline_dims(spec, device):
@@ -458,6 +470,7 @@ def _spline_dims(spec, device):
 def _launch_eval(x2d, params, spec, widths):
     check_kernel_spec(spec)
     _check_kernel(x2d, params)
+    params = kernel_params(params, spec)
     z = torch.empty_like(x2d)
     ladj = torch.empty(x2d.shape[0], dtype=x2d.dtype, device=x2d.device)
     N = x2d.shape[0]
@@ -518,7 +531,8 @@ def _pass2(x2d, params, spec, widths, plan, Hs, Gs):
         rc = lib.coupling_tile_wgrad_f32(
             _ptrs(Hs), _ptrs(Gs), _ptrs(dps[0::2]), _ptrs(dps[1::2]),
             _ints(widths), len(Hs), N, d, idx.numel(), spec.knots,
-            idx.data_ptr(), plan.slices, _stream(x2d))
+            idx.data_ptr(), plan.slices, int(spec.compute_dtype == "bf16"),
+            _stream(x2d))
     _launched(rc, "coupling_tile_wgrad_f32 (K7, pass 2)", _k7_key(spec))
     return tuple(dps)
 
@@ -526,6 +540,7 @@ def _pass2(x2d, params, spec, widths, plan, Hs, Gs):
 def _launch_grad(x2d, params, spec, widths, gz, gladj, need_params):
     check_kernel_spec(spec)
     _check_kernel(x2d, params, gz, gladj)
+    params = kernel_params(params, spec)
     N = x2d.shape[0]
     if N == 0:
         return (torch.empty_like(x2d),
@@ -561,10 +576,15 @@ def _rows8_dc(lib, widths, d, K, grad):
 
 def _earlier_check(x2d, params, spec, *cots):
     widths = _check(x2d, params, spec, *cots)
+    if (spec.activation not in EARLIER_ACTIVATIONS
+            or spec.compute_dtype != "f32"):
+        raise ValueError(
+            f"the earlier coupling-block kernels take float32 silu, tanh or "
+            f"relu conditioners, not {spec.activation!r} with "
+            f"compute_dtype={spec.compute_dtype!r}")
     if x2d.device.type != "cuda":
         raise ValueError("the earlier coupling-block kernels run on a CUDA "
                          f"device only, not {x2d.device}")
-    check_kernel_spec(spec)
     _check_kernel(x2d, params, *cots)
     return widths
 
@@ -580,7 +600,8 @@ def earlier_block_eval(x2d, params, spec: BlockSpec):
     dc = _rows8_dc(lib, widths, x2d.shape[1], spec.knots, False)
     with torch.cuda.device(x2d.device):
         rc = lib.coupling_rows8_fwd_f32(
-            *_common(x2d, params, spec, widths), dc, z.data_ptr(),
+            *_common(x2d, params, spec, widths, earlier=True), dc,
+            z.data_ptr(),
             ladj.data_ptr(), _stream(x2d))
     _launched(rc, "coupling_rows8_fwd_f32 (earlier K6)",
               "k6_inverse" if spec.inverse else "k6_forward",
@@ -612,7 +633,8 @@ def earlier_block_grad(x2d, params, spec: BlockSpec, gz, gladj,
               for w in outs]
     with torch.cuda.device(x2d.device):
         rc = lib.coupling_rows8_bwd_f32(
-            *_common(x2d, params, spec, widths), dc, gz.data_ptr(),
+            *_common(x2d, params, spec, widths, earlier=True), dc,
+            gz.data_ptr(),
             gladj.data_ptr(), dx.data_ptr(),
             _ptrs(Hs) if Hs else None, _ptrs(Gs) if Gs else None,
             _stream(x2d))

@@ -27,9 +27,11 @@ A hand-written kernel cannot trace an arbitrary log density into its body
 as the JAX package's does, so this takes what K1 takes (`nuts_cuda.
 pack_flow`): any closed-form target of the port (`nuts_cuda.pack_target`,
 its log density and gradient written out in `csrc/targets.cuh`) of the
-flow's width d <= 256, and a Chain of Standardize, AffineCoupling and
-RQSCouplingBlock modules with 3-layer silu MLPs, or no flow; it raises on
-anything else. The JAX package's generic tile kernel
+flow's width d <= 256, and a Chain of Standardize, Whiten, AffineCoupling
+and RQSCouplingBlock modules whose conditioners are MLPs of 1 to 8 layers
+with any activation of `flows/nets.py` and float32 or bf16 operands, as
+the JAX package's in-kernel flow math takes them, or no flow; it raises on
+anything else (Identity and ScannedRepeat, which that math refuses too). The JAX package's generic tile kernel
 `make_fused_logp_and_grad`, whose body is whatever JAX code it is given,
 has no CUDA counterpart: a target whose log density is user code (a
 `Posterior`, a `Target` subclass) samples through `logp_and_grad=None`
@@ -66,11 +68,12 @@ def reset_launches():
 
 def _bind(lib):
     p, i32 = ctypes.c_void_p, ctypes.c_int
+    ml = [p] * 2 + [i32] * 7 + [p] + [i32] * 2  # module_list_args
     fn = lib.fused_logp_chain_f32
-    fn.argtypes = [p] * 4 + [i32] * 7 + [p] * 2 + [i32, i32, p]
+    fn.argtypes = [p] * 2 + ml + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.fused_logp_chain_warp_f32
-    fn.argtypes = [p] * 4 + [i32] * 7 + [p] * 3
+    fn.argtypes = [p] * 2 + ml + [p] * 3
     fn.restype = i32
 
 

@@ -26,11 +26,14 @@ Three pieces:
     calls the wrapper.
 
 `pack_flow` checks a flow and packs its leaves for the kernel: any Chain
-of Standardize, AffineCoupling and RQSCouplingBlock modules (or none: the
-flow-less transition) goes to `nuts_chain_tile_kernel` as a module list,
-padded once to the lane width `_pad32(d)`, over any closed-form target of
-the port (`pack_target`: `csrc/targets.cuh` on the card, its mirror
-`packed_log_density` in the plain version), at any d <= 256.
+of Standardize, Whiten, AffineCoupling and RQSCouplingBlock modules whose
+conditioners are MLPs of 1 to 8 layers with any activation of
+`flows/nets.py` and float32 or bf16 operands, as the JAX package's
+in-kernel flow math takes them (or none: the flow-less transition), goes
+to `nuts_chain_tile_kernel` as a module list, padded once to the lane
+width `_pad32(d)`, over any closed-form target of the port (`pack_target`:
+`csrc/targets.cuh` on the card, its mirror `packed_log_density` in the
+plain version), at any d <= 256.
 `chain_transition_warp` runs the per-warp module-list kernel
 (`nuts_chain_kernel`), on no path: `chip_smoke.py`'s oracle and
 yardstick for the tile kernel.
@@ -47,7 +50,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from tpuflows_torch.flows.affine import AffineCoupling, Standardize
+from tpuflows_torch.flows.affine import AffineCoupling, Standardize, Whiten
 from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.flows.coupling import RQSCouplingBlock
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
@@ -70,7 +73,17 @@ MAX_DIM = 256
 MAX_DEPTH = 10
 MAX_MODULES = 16
 MOD_INTS = 8  # ints per module in the kernel's module list
-KIND = {Standardize: 0, AffineCoupling: 1, RQSCouplingBlock: 2}
+# ints per module of its conditioner's form: layers, activation, flags, and
+# the hidden widths h_1 .. h_7 (csrc/latent_grad.cuh kFormInts); the flags:
+# bf16 operands, and a flow not of the main paths' form, whose every
+# coupling runs the general path (double sums; kFormBf16, kFormGeneral)
+FORM_INTS = 10
+FORM_BF16 = 1
+FORM_GENERAL = 2
+MAX_LAYERS = 8  # layers of a conditioner (K6/K7's MAX_LAYERS)
+KIND = {Standardize: 0, AffineCoupling: 1, RQSCouplingBlock: 2, Whiten: 3}
+# csrc/latent_grad.cuh Activation (coupling_cuda.ACTIVATION_CODES)
+ACTIVATION_CODES = {"silu": 0, "tanh": 1, "relu": 2, "gelu": 3}
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use (bytes)
 # the most rows (chains) of a tile of the module-list kernels: 8 warps of
 # K1's up to 255 registers a thread fill the SM's 65,536
@@ -101,11 +114,12 @@ _UNITS = [("entry", [])] + [
 
 def _bind(lib):
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ml = [p] * 2 + [i32] * 7 + [p] + [i32] * 2  # module_list_args
     fn = lib.nuts_chain_transition_f32
-    fn.argtypes = [p] * 10 + [i32] * 8 + [f32] + [p] * 2 + [i32, i32, p]
+    fn.argtypes = [p] * 8 + ml + [i32, f32] + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.nuts_chain_transition_warp_f32
-    fn.argtypes = [p] * 10 + [i32] * 8 + [f32] + [p] * 3
+    fn.argtypes = [p] * 8 + ml + [i32, f32] + [p] * 3
     fn.restype = i32
 
 
@@ -137,28 +151,33 @@ class PackedFlow(NamedTuple):
 
     flow: Chain | None  # None: the flow-less transition
     target: object
-    params: torch.Tensor  # packed leaves at d_pad, see csrc/nuts_transition.cu
+    params: torch.Tensor  # packed leaves at d_pad, see csrc/latent_grad.cuh
     mods: torch.Tensor  # (n_modules, MOD_INTS) int32: the module list
     d: int  # the target's width, the row length of q and p0
     hidden: tuple  # every coupling's hidden widths
     hmax: int  # widest hidden layer
-    head: int  # widest conditioner output
+    head: int  # widest conditioner output, at least d_pad with a Whiten
     flow_p: Chain | None  # p-major relayout (flows with splines)
     resident_floats: int  # the resident layers' floats, 0 if not one coupling
     packed_target: PackedTarget
     d_pad: int  # the lane width, _pad32(d): the kernels' layout
+    forms: torch.Tensor  # (n_modules, FORM_INTS) int32: the conditioners
+    nhid: int  # the most hidden layers of any conditioner
+    general: bool  # a Whiten, or a conditioner not 3-layer float32 silu
 
 
 def _unsupported(msg):
     return ValueError(
-        "the fused NUTS kernel takes a Chain of Standardize, AffineCoupling "
-        f"and RQSCouplingBlock with 3-layer float32 silu MLPs: {msg}")
+        "the fused NUTS kernel takes a Chain of Standardize, Whiten, "
+        "AffineCoupling and RQSCouplingBlock modules whose conditioners are "
+        f"MLPs of 1 to {MAX_LAYERS} layers: {msg}")
 
 
-def _unported(what):
-    """A module or conditioner the JAX package's in-kernel flow math takes
-    and the port's does not yet (ROADMAP Queue 2 item B)."""
-    return _unsupported(f"{what} (ROADMAP Queue 2 item B)")
+def _not_in_kernel(what):
+    """A module that neither the JAX package's in-kernel flow math
+    (`tile_flow._block_inverse_2d`) nor the port's kernels compute."""
+    return _unsupported(f"{what}, which the JAX package's in-kernel flow "
+                        f"math does not take either")
 
 
 def _pad32(n: int) -> int:
@@ -326,46 +345,91 @@ def packed_log_density(pt: PackedTarget, x: torch.Tensor) -> torch.Tensor:
     return torch.sum(bimodal, -1) + torch.sum(rest, -1) + c0
 
 
+def _operand(w, net):
+    """A weight as the kernels read it: rounded to bf16 (held as float32)
+    for a bf16 conditioner, as `MLP` rounds its operands."""
+    w = w.detach().float()
+    return w.bfloat16().float() if net.compute_dtype == "bf16" else w
+
+
 def _coupling_leaves(t, d):
-    """(leaves, h1, h2, n_out) of a coupling, the spline's last layer
-    relaid out p-major; transposed weight copies for the backward."""
-    ws, bs = list(t.net.weights), list(t.net.biases)
-    if t.net.compute_dtype != "f32":
-        raise _unported(f"a conditioner with compute_dtype="
-                        f"{t.net.compute_dtype!r}")
-    if t.net.activation not in ("silu", "tanh", "relu"):
-        raise _unported(f"a {t.net.activation} conditioner")
-    if len(ws) != 3 or t.net.activation != "silu":
-        raise _unsupported("its conditioner must be a 3-layer silu MLP")
+    """(leaves, widths) of a coupling at flow width d: its mask, each
+    layer's weight and bias, then each weight transposed (for the
+    backward), the spline's last layer relaid out p-major and a bf16
+    conditioner's weights rounded (`_operand`); widths [d, h_1, ...,
+    n_out]. Raises ValueError where the kernels do not take the
+    conditioner (`MLP` admits only the activations and compute dtypes the
+    kernels take)."""
+    net = t.net
+    ws, bs = list(net.weights), list(net.biases)
+    if not 1 <= len(ws) <= MAX_LAYERS:
+        raise _unsupported(f"a conditioner of {len(ws)} layers, past the "
+                           f"limit of {MAX_LAYERS}")
     if len(t.mask) != d:
         raise _unsupported(f"a mask of width {len(t.mask)} in a flow of "
                            f"width {d}")
-    h1, h2 = ws[0].shape[1], ws[1].shape[1]
     spline = isinstance(t, RQSCouplingBlock)
     n_out = (3 * t.knots - 1) * d if spline else 2 * d
-    if (ws[0].shape != (d, h1) or ws[1].shape != (h1, h2)
-            or ws[2].shape != (h2, n_out)):
+    widths = [d] + [int(w.shape[1]) for w in ws[:-1]] + [n_out]
+    if any(tuple(w.shape) != (a, b) or b_.numel() != b
+           for w, b_, a, b in zip(ws, bs, widths[:-1], widths[1:])):
         raise _unsupported(f"MLP widths {[tuple(w.shape) for w in ws]} do "
                            f"not match the flow width d={d}")
-    w3, b3 = ws[2], bs[2]
+    ws = [_operand(w, net) for w in ws]
+    bs = [b.detach().float() for b in bs]
     if spline:
-        w3, b3 = p_major(w3, d, 3 * t.knots - 1), p_major(b3, d,
-                                                         3 * t.knots - 1)
-    leaves = [t.mask_f, ws[0], bs[0], ws[1], bs[1], w3, b3, ws[0].t(),
-              ws[1].t(), w3.t()]
-    return leaves, h1, h2, n_out
+        P = 3 * t.knots - 1
+        ws[-1], bs[-1] = p_major(ws[-1], d, P), p_major(bs[-1], d, P)
+    leaves = [t.mask_f] + [x for w, b in zip(ws, bs) for x in (w, b)]
+    return leaves + [w.t() for w in ws], widths
+
+
+def _form_row(t, widths, general):
+    """A coupling's row of the conditioners' forms: layers, activation
+    code, flags (FORM_BF16, and FORM_GENERAL in a flow that is not of the
+    main paths' form), hidden widths (zeros past them)."""
+    hidden = widths[1:-1]
+    flags = ((FORM_BF16 if t.net.compute_dtype == "bf16" else 0)
+             | (FORM_GENERAL if general else 0))
+    row = [len(widths) - 1, ACTIVATION_CODES[t.net.activation], flags,
+           *hidden]
+    return row + [0] * (FORM_INTS - len(row))
+
+
+def _main_form(t) -> bool:
+    """Whether a module has the main paths' form: a coupling with a 3-layer
+    float32 silu conditioner, or a Standardize. A flow of such modules
+    alone runs the 3-layer code with float32 sums (the funnel's own units
+    of K1 and K3 compute only those: csrc/tile_grad.cuh `main_form`); any
+    other flow runs the general path in every coupling."""
+    if isinstance(t, Standardize):
+        return True
+    if isinstance(t, Whiten):
+        return False
+    return (len(t.net.weights) == 3 and t.net.activation == "silu"
+            and t.net.compute_dtype == "f32")
 
 
 @torch.no_grad()
 def _pad_module(t, d: int, dp: int):
     """Module t of a flow of width d at the lane width dp: a padded dim
-    has Standardize loc 0 and log scale 0, mask 1 (it passes through
-    every coupling), a zero row of W1 and zero head columns, so that it
-    holds exact zeros throughout."""
+    has Standardize loc 0 and log scale 0, Whiten loc 0 and the identity's
+    row and column in chol and its inverse (log 1 = 0 to the ladj), mask 1
+    (it passes through every coupling), a zero row of the first layer's
+    weight and zero head columns at any depth, so that it holds exact
+    zeros throughout."""
     if isinstance(t, Standardize):
         return Standardize(_padded(t.loc, dp, 0.0).float(),
                            _padded(t.log_scale, dp, 0.0).float()).to(
                                t.loc.device)
+    if isinstance(t, Whiten):
+        def square(m):
+            out = torch.eye(dp, dtype=torch.float64)
+            out[:d, :d] = m.detach().to("cpu", torch.float64)
+            return out.float()
+
+        return Whiten(_padded(t.loc, dp, 0.0).float(), square(t.inv_chol),
+                      square(t.chol)).to(t.loc.device)
     ws = [w.detach() for w in t.net.weights]
     bs = [b.detach() for b in t.net.biases]
     P = 3 * t.knots - 1 if isinstance(t, RQSCouplingBlock) else None
@@ -383,8 +447,9 @@ def _pad_module(t, d: int, dp: int):
 
     w1 = ws[0].new_zeros((dp, ws[0].shape[1]))
     w1[:d] = ws[0]
-    net = MLP([w1, ws[1], head(ws[2])], [bs[0], bs[1], head(bs[2])],
-              activation=t.net.activation,
+    ws[0] = w1
+    ws[-1], bs[-1] = head(ws[-1]), head(bs[-1])
+    net = MLP(ws, bs, activation=t.net.activation,
               compute_dtype=t.net.compute_dtype)
     mask = tuple(t.mask) + (1,) * (dp - d)
     if P is None:
@@ -394,81 +459,105 @@ def _pad_module(t, d: int, dp: int):
                             use_pallas=t.use_pallas)
 
 
-def _compact_leaves(t, d, w3, b3, dim):
+def _compact_leaves(t, d, w_first, w_last, b_last, dim):
     """The tile kernels' copies of a coupling's first and last layers,
     without the work that cannot reach lp or g (the conditioner sees
-    z * mask; only the transformed dims' head parameters are used): W1's
-    rows and W1^T's columns of the pass-through dims below the target's
-    width `dim` in dim order (a padded dim past it has none), and
-    W3's columns, b3's entries and W3^T's rows of the transformed dims'
-    head parameters, p-major over those dims (column p n_t + t for the
-    t-th transformed dim; w3, b3 come p-major over all d dims). Each
-    compact width is padded with zeros to a multiple of 32. Returns
-    (leaves, number of pass-through dims)."""
-    dev = w3.device
+    z * mask; only the transformed dims' head parameters are used): the
+    first layer's rows (and its transpose's columns) of the pass-through
+    dims below the target's width `dim` in dim order (a padded dim past it
+    has none), and the last layer's columns, bias entries and transposed
+    rows of the transformed dims' head parameters, p-major over those dims
+    (column p n_t + t for the t-th transformed dim; w_last, b_last come
+    p-major over all d dims), both as packed (a bf16 conditioner's
+    rounded). Each compact width is padded with zeros to a multiple of 32.
+    Of a conditioner of L >= 2 layers: [W_1, W_1^T, W_L, b_L, W_L^T]; of
+    one layer, the layer compact both ways: [W, b, W^T]. Returns (leaves,
+    number of pass-through dims)."""
+    dev = w_last.device
     mask = torch.as_tensor(t.mask, device=dev).bool()
     keep = torch.nonzero(mask[:dim]).flatten()
     moved = torch.nonzero(~mask).flatten()
     n_p, n_t = keep.numel(), moved.numel()
-    n_param = w3.shape[1] // d
+    n_param = w_last.shape[1] // d
     cols = (torch.arange(n_param, device=dev)[:, None] * d
             + moved[None, :]).reshape(-1)
-    w1 = t.net.weights[0].detach().float()
-    w1c = torch.zeros((_pad32(n_p), w1.shape[1]), device=dev)
-    w1c[:n_p] = w1[keep]
-    w3c = torch.zeros((w3.shape[0], _pad32(n_param * n_t)), device=dev)
-    w3c[:, :cols.numel()] = w3.detach().float()[:, cols]
-    b3c = torch.zeros(w3c.shape[1], device=dev)
-    b3c[:cols.numel()] = b3.detach().float()[cols]
-    return [w1c, w1c.t(), w3c, b3c, w3c.t()], n_p
+
+    def rows(w):
+        out = torch.zeros((_pad32(n_p), w.shape[1]), device=dev)
+        out[:n_p] = w[keep]
+        return out
+
+    def columns(w, b):
+        wc = torch.zeros((w.shape[0], _pad32(n_param * n_t)), device=dev)
+        wc[:, :cols.numel()] = w[:, cols]
+        bc = torch.zeros(wc.shape[1], device=dev)
+        bc[:cols.numel()] = b[cols]
+        return wc, bc
+
+    if w_first is w_last:  # one layer
+        wc, bc = columns(rows(w_last), b_last)
+        return [wc, bc, wc.t()], n_p
+    w1c = rows(w_first)
+    wlc, blc = columns(w_last, b_last)
+    return [w1c, w1c.t(), wlc, blc, wlc.t()], n_p
 
 
-def _resident_floats(n_in: int, h1: int, h2: int, n_head: int) -> int:
+def _resident_floats(*widths: int) -> int:
     """Floats of the resident copy of a coupling's compact forward layers
-    (csrc/tile_grad.cuh `tile_resident_floats`): W1 (n_in x h1), W2 (h1 x
-    h2) and W3 (h2 x n_head), each row padded by one float so that a warp
-    reading a layer transposed hits 32 banks."""
-    return n_in * (h1 + 1) + h1 * (h2 + 1) + h2 * (n_head + 1)
+    of widths [n_in, h_1, ..., n_head] (csrc/tile_grad.cuh
+    `tile_resident_floats` for 3 layers, `tile_resident_before` for any):
+    each layer (widths[k] x widths[k + 1]) with its rows padded by one
+    float, so that a warp reading a layer transposed hits 32 banks."""
+    return sum(a * (b + 1) for a, b in zip(widths[:-1], widths[1:]))
 
 
 def _flow_width(ts, target) -> int:
     if not ts:
         return int(target.dim)
     first = ts[0]
-    return (first.loc.numel() if isinstance(first, Standardize)
+    return (first.loc.numel() if isinstance(first, (Standardize, Whiten))
             else len(getattr(first, "mask", ())))
 
 
 def pack_flow(flow: Chain | None, target, device=None) -> PackedFlow:
     """Check that K1 computes `flow` over `target` and pack both. `flow`:
-    a Chain of Standardize, AffineCoupling and RQSCouplingBlock modules
-    whose conditioners are 3-layer float32 silu MLPs (any other module,
-    Whiten, Identity and ScannedRepeat included, and a gelu or bf16
-    conditioner raise ValueError, naming ROADMAP Queue 2 item B where the
-    JAX package's kernel takes them), or None for the flow-less
+    a Chain of Standardize, Whiten, AffineCoupling and RQSCouplingBlock
+    modules whose conditioners are MLPs of 1 to MAX_LAYERS layers, each
+    hidden width a multiple of 32 up to 256 (`check_widths`), with a
+    silu, tanh, relu or gelu activation and float32 or bf16 operands, as
+    the JAX package's in-kernel flow math takes them (Identity and
+    ScannedRepeat, which that math refuses too, and any other module raise
+    ValueError naming it; so do more layers), or None for the flow-less
     transition (an empty module list); `target`: any target that
     `pack_target` packs, of the flow's width d <= 256 (else ValueError,
     naming it). The flow is padded once to the lane width d_pad =
     `_pad32(d)` (`_pad_module`) and its leaves packed at d_pad in chain
-    order: Standardize loc, log_scale; a coupling's mask, W1, b1, W2, b2,
-    W3, b3, W1^T, W2^T, W3^T, a spline's last layer in p-major columns;
-    each coupling's leaves are followed by the tile kernels' compact
-    copies of its first and last layers (`_compact_leaves`), at the
-    offset its row of the module list holds in column 6, with the number
-    of pass-through dims below d in column 7; the per-warp kernels read
-    neither. The packed tensors live on the flow's device, or on `device`
-    for the flow-less transition."""
+    order: Standardize loc, log_scale; Whiten loc, chol^T, chol, its
+    constant ladj sum(log diag chol) (as `Whiten.inverse_and_ladj`
+    computes it, at the true width) in the bits of its row's column 5; a
+    coupling's mask, W_1, b_1, ..., W_L, b_L, W_1^T, ..., W_L^T
+    (`_coupling_leaves`), a spline's last layer in p-major columns, a
+    bf16 conditioner's weights rounded; each coupling's leaves are
+    followed by the tile kernels' compact copies of its first and last
+    layers (`_compact_leaves`), at the offset its row of the module list
+    holds in column 6, with the number of pass-through dims below d in
+    column 7; the per-warp kernels read neither. Each module's row of
+    `forms` holds its conditioner's layers, activation, flags (FORM_BF16;
+    FORM_GENERAL on every coupling of a flow that is not of the main
+    paths' form, `_main_form`) and hidden widths. The packed tensors live
+    on the flow's device, or on `device` for the flow-less transition."""
     if flow is None:
         ts = []
     elif not isinstance(flow, Chain):
-        raise _unported(f"a {type(flow).__name__} that is not in a Chain")
+        raise _not_in_kernel(f"a {type(flow).__name__} that is not in a "
+                             f"Chain")
     else:
         ts = list(flow.transforms)
         if not 1 <= len(ts) <= MAX_MODULES:
             raise _unsupported(f"{len(ts)} modules (1 to {MAX_MODULES})")
         for t in ts:
             if type(t) not in KIND:
-                raise _unported(f"module {type(t).__name__}")
+                raise _not_in_kernel(f"module {type(t).__name__}")
     d = _flow_width(ts, target)
     if d > MAX_DIM:
         raise _unsupported(f"a flow of width {d} (at most {MAX_DIM})")
@@ -480,33 +569,48 @@ def pack_flow(flow: Chain | None, target, device=None) -> PackedFlow:
         raise _unsupported(f"a {type(target).__name__} of width {pt.dim} "
                            f"under a flow of width {d}")
     for t in ts:
-        width = t.loc.numel() if isinstance(t, Standardize) else None
-        if width is not None and width != d:
-            raise _unsupported(f"a Standardize of width {width} in a flow "
-                               f"of width {d}")
-        if width is None:
+        if isinstance(t, (Standardize, Whiten)):
+            width = t.loc.numel()
+            if width != d:
+                raise _unsupported(f"a {type(t).__name__} of width {width} "
+                                   f"in a flow of width {d}")
+        else:
             _coupling_leaves(t, d)  # checks the conditioner at width d
     padded = [_pad_module(t, d, dp) for t in ts] if dp != d else ts
-    parts, rows, widths, resident, off = [], [], [], [], 0
-    for t in padded:
+    general = not all(_main_form(t) for t in ts)
+    parts, rows, forms, widths, resident, off = [], [], [], [], [], 0
+    head = 0
+    for t, t_true in zip(padded, ts):
         kind = KIND[type(t)]
+        form = [0] * FORM_INTS
         if kind == 0:
             leaves, row = [t.loc, t.log_scale], [0, off, 0, 0, 0, 0]
+        elif kind == 3:
+            with torch.no_grad():
+                ladj = torch.sum(torch.log(torch.diagonal(t_true.chol)))
+            leaves = [t.loc, t.chol.t(), t.chol]
+            row = [3, off, 0, 0, 0, _float_bits(float(ladj))]
+            head = max(head, dp)
         else:
-            leaves, h1, h2, n_out = _coupling_leaves(t, dp)
+            leaves, w = _coupling_leaves(t, dp)
             spline = kind == 2
-            row = [kind, off, h1, h2, t.knots if spline else 0,
+            L = len(w) - 1
+            row = [kind, off, w[1] if L > 1 else 0, w[-2] if L > 1 else 0,
+                   t.knots if spline else 0,
                    _float_bits(t.range_limit if spline else t.clamp)]
-            compact, n_pass = _compact_leaves(t, dp, leaves[5], leaves[6],
-                                              d)
+            compact, n_pass = _compact_leaves(
+                t, dp, leaves[1], leaves[2 * L - 1], leaves[2 * L], d)
             row += [off + sum(x.numel() for x in leaves), n_pass]
             leaves = leaves + compact
-            widths.append((h1, h2, n_out))
+            widths.append(w)
+            form = _form_row(t, w, general)
+            head = max(head, w[-1])
             resident.append(_resident_floats(
-                _pad32(n_pass), h1, h2,
-                _pad32(n_out // dp * (d - n_pass))))
+                _pad32(n_pass), *w[1:-1],
+                _pad32(w[-1] // dp * (d - n_pass))))
         parts += leaves
         rows.append(row + [0] * (MOD_INTS - len(row)))
+        forms.append(form)
         off += sum(x.numel() for x in leaves)
     if off >= 2 ** 31:
         raise _unsupported(f"{off} parameters (the kernel indexes them "
@@ -516,13 +620,19 @@ def pack_flow(flow: Chain | None, target, device=None) -> PackedFlow:
                   if parts else torch.zeros(0, device=pt.params.device))
     mods = torch.tensor(rows, dtype=torch.int32,
                         device=params.device).reshape(-1, MOD_INTS)
+    form_t = torch.tensor(forms, dtype=torch.int32,
+                          device=params.device).reshape(-1, FORM_INTS)
     has_spline = any(isinstance(t, RQSCouplingBlock) for t in ts)
-    hidden = tuple(h for w in widths for h in w[:2])
+    hidden = tuple(h for w in widths for h in w[1:-1])
+    # the resident mode: one module besides Standardize, and a coupling
+    others = [t for t in ts if not isinstance(t, Standardize)]
+    one = len(others) == 1 and len(resident) == 1
     return PackedFlow(
         flow, target, params.contiguous(), mods, d, hidden,
-        max(hidden, default=0), max((w[2] for w in widths), default=0),
+        max(hidden, default=0), head,
         permute_for_tiles(flow) if has_spline else None,
-        resident[0] if len(resident) == 1 else 0, pt, dp)
+        resident[0] if one else 0, pt, dp, form_t,
+        max((len(w) - 2 for w in widths), default=0), general)
 
 
 def autograd_logp_grad(flow: Chain | None,
@@ -596,6 +706,7 @@ def check_launch(q, tensors, model: PackedFlow):
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
     if any(t.device != q.device for t in (model.params, model.mods,
+                                          model.forms,
                                           model.packed_target.params)):
         raise ValueError("the packed flow is on another device than q")
 
@@ -603,9 +714,11 @@ def check_launch(q, tensors, model: PackedFlow):
 def smem_bytes(model: PackedFlow) -> int:
     """Dynamic shared memory of one row of the module-list kernels (one
     warp of the per-warp kernels, one row of a tile of the tile kernels:
-    K1's, K2's and K3's)."""
-    return 4 * ((model.mods.shape[0] + 1) * model.d_pad + 4 * model.hmax
-                + model.head)
+    K1's, K2's and K3's; csrc/latent_grad.cuh `row_floats`): each module's
+    input and the conditioner's, two buffers of the widest hidden layer
+    for each hidden layer of the deepest conditioner, and the head."""
+    return 4 * ((model.mods.shape[0] + 1) * model.d_pad
+                + 2 * model.nhid * model.hmax + model.head)
 
 
 def ring_stage_floats(model: PackedFlow, rows: int) -> int:
@@ -717,9 +830,9 @@ def lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
 def check_widths(model: PackedFlow):
     """Raises unless the warp-per-row device code (K1's, and K3's, which
     shares its gradient) takes the packed flow's widths: any d up to
-    MAX_DIM (packed at the lane width `_pad32(d)`), hidden widths that are
-    multiples of 32 up to MAX_DIM, and one row's scratch within
-    SMEM_LIMIT."""
+    MAX_DIM (packed at the lane width `_pad32(d)`), every hidden width of
+    every conditioner a multiple of 32 up to MAX_DIM, and one row's
+    scratch within SMEM_LIMIT."""
     if not 1 <= model.d <= MAX_DIM or model.d_pad != _pad32(model.d):
         raise ValueError(f"the kernel takes d <= {MAX_DIM} packed at "
                          f"{_pad32(model.d)} lanes, got d={model.d} at "
@@ -730,16 +843,20 @@ def check_widths(model: PackedFlow):
                              f"<= {MAX_DIM}, got {w}")
     if smem_bytes(model) > SMEM_LIMIT:
         raise ValueError(f"the flow needs {smem_bytes(model)} bytes of "
-                         f"shared memory per chain, over {SMEM_LIMIT}")
+                         f"shared memory per chain, over the limit of "
+                         f"{SMEM_LIMIT}")
 
 
 def module_list_args(model: PackedFlow, n: int) -> list:
-    """The module-list entry points' arguments from `mods` to `head` for
-    n rows (K1's, K2's and K3's): the module list, the packed target, the
-    lane width, the target's width and kind, the widest layers."""
+    """The module-list entry points' arguments from `mods` to `general`
+    for n rows (K1's, K2's and K3's): the module list, the packed target,
+    the lane width, the target's width and kind, the widest layers, then
+    the conditioners' forms, the most hidden layers of one and whether a
+    module leaves the main paths' form."""
     pt = model.packed_target
     return [model.mods.data_ptr(), pt.params.data_ptr(), model.mods.shape[0],
-            n, model.d_pad, model.d, pt.kind, model.hmax, model.head]
+            n, model.d_pad, model.d, pt.kind, model.hmax, model.head,
+            model.forms.data_ptr(), model.nhid, int(model.general)]
 
 
 def _call(name, q, args):

@@ -69,11 +69,12 @@ LAUNCHES = 0
 
 def _bind(lib):
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ml = [p] * 2 + [i32] * 7 + [p] + [i32] * 2  # module_list_args
     fn = lib.nuts_chain_window_f32
-    fn.argtypes = [p] * 10 + [i32] * 9 + [f32] + [p] * 2 + [i32, i32, p]
+    fn.argtypes = [p] * 8 + ml + [i32] * 2 + [f32] + [p] * 2 + [i32, i32, p]
     fn.restype = i32
     fn = lib.nuts_chain_window_warp_f32
-    fn.argtypes = [p] * 10 + [i32] * 9 + [f32] + [p] * 3
+    fn.argtypes = [p] * 8 + ml + [i32] * 2 + [f32] + [p] * 3
     fn.restype = i32
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from tpuflows_torch.flows.affine import AffineCoupling, Standardize
+from tpuflows_torch.flows.affine import AffineCoupling, Standardize, Whiten
 from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.flows.coupling import RQSCouplingBlock
 from tpuflows_torch.flows.nets import MLP
@@ -41,7 +41,8 @@ def permute_for_tiles(flow: Chain) -> Chain:
             ws[-1] = p_major(ws[-1], d, P)
             bs[-1] = p_major(bs[-1], d, P)
             out.append(RQSCouplingBlock(
-                t.mask, MLP(ws, bs, activation=t.net.activation),
+                t.mask, MLP(ws, bs, activation=t.net.activation,
+                            compute_dtype=t.net.compute_dtype),
                 knots=t.knots, range_limit=t.range_limit,
                 use_pallas=t.use_pallas))
         else:
@@ -65,7 +66,7 @@ def _rqs_block_inverse_2d(blk: RQSCouplingBlock, z2d):
 def _block_inverse_2d(t, x):
     if isinstance(t, RQSCouplingBlock):
         return _rqs_block_inverse_2d(t, x)
-    if isinstance(t, (AffineCoupling, Standardize)):
+    if isinstance(t, (AffineCoupling, Standardize, Whiten)):
         return t.inverse_and_ladj(x)
     raise NotImplementedError(
         f"tile flow math: unsupported module {type(t).__name__}")
@@ -110,7 +111,7 @@ def tile_logp_and_grad_streamed(flow_p: Chain, z2d, log_density):
         with torch.enable_grad():
             y = ys[i].detach().requires_grad_(True)
             out, ladj = _block_inverse_2d(ts[i], y)
-            # a Standardize's ladj does not depend on y
+            # a Standardize's or Whiten's ladj does not depend on y
             pairs = [(o, c) for o, c in ((out, g), (ladj, one_ladj))
                      if o.requires_grad]
             (g,) = torch.autograd.grad([o for o, _ in pairs], y,

@@ -99,8 +99,9 @@ def _nuts_transition(cfg, target, flow):
     portable NUTS). `pack_flow` takes every target the runner builds
     (std_normal, diag_normal, correlated, mixture, funnel, hierarchical,
     banana, rosenbrock) at the config's own width up to 256, under an
-    affine, rqs or arqs flow of silu MLPs, as the JAX runner hands any
-    target to its fused transition; it refuses a target with no device
+    affine, rqs or arqs flow of any `hidden` (MLPs of 1 to 8 layers, each
+    width a multiple of 32 up to 256), as the JAX runner hands any target
+    to its fused transition; it refuses a target with no device
     form (a Posterior, a user Target). The choice depends on `pack_flow`
     alone, not on the device: on a CUDA tensor K1 launches, and its launch
     checks (hidden widths, tile) raise where it cannot take the packed

@@ -420,11 +420,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
             p.detach().to("meta") for p in params), spec)
     with pytest.raises(TypeError, match="float64"):
         coupling_cuda.block_eval(x.double(), params, spec)
-    # gelu is plain math in the plain version; the kernels refuse it
+    # gelu is plain math in the plain version, and the kernels take it
+    # (and bf16); they refuse what `flows/nets.py` does not build
     coupling_cuda.block_math(x, params, torch.zeros(6), 4, 4.0, "gelu",
                              False)
-    with pytest.raises(ValueError, match="gelu"):
-        coupling_cuda.check_kernel_spec(spec._replace(activation="gelu"))
+    coupling_cuda.check_kernel_spec(spec._replace(activation="gelu"))
+    coupling_cuda.check_kernel_spec(spec._replace(compute_dtype="bf16"))
+    with pytest.raises(ValueError, match="swish"):
+        coupling_cuda.check_kernel_spec(spec._replace(activation="swish"))
+    with pytest.raises(ValueError, match="f16"):
+        coupling_cuda.check_kernel_spec(spec._replace(compute_dtype="f16"))
     with pytest.raises(ValueError, match="swish"):
         coupling_cuda.block_math(x, params, torch.zeros(6), 4, 4.0, "swish",
                                  False)

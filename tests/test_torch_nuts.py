@@ -262,9 +262,11 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 def test_pack_rejects_other_flows_and_targets():
     """What K1 does not compute is refused when the flow is packed: a
-    target of another width, a module of another kind, a conditioner that
-    is not a 3-layer MLP. (A Standardize-only chain packs since the
-    module-list kernel: `test_pack_takes_a_standardize_only_chain`.)"""
+    target of another width, a module of another kind, a conditioner of
+    more layers than the kernels take (MAX_LAYERS; any depth up to it
+    packs since conditioners of every form did). (A Standardize-only
+    chain packs since the module-list kernel:
+    `test_pack_takes_a_standardize_only_chain`.)"""
     from tpuflows_torch.flows import AffineCoupling, Chain, Inverted, MLP
 
     tf = torch_flow(jax_flow(flow_leaves(0)))
@@ -276,8 +278,9 @@ def test_pack_rejects_other_flows_and_targets():
                             NealsFunnel(dim=D_MODEL))
     g = torch.Generator().manual_seed(0)
     deep = AffineCoupling(tf.transforms[1].mask,
-                          MLP.init((D_MODEL, 8, 8, 8, 2 * D_MODEL), g))
-    with pytest.raises(ValueError):
+                          MLP.init((D_MODEL, *[8] * nuts_cuda.MAX_LAYERS,
+                                    2 * D_MODEL), g))
+    with pytest.raises(ValueError, match="past the limit of 8"):
         nuts_cuda.pack_flow(Chain([tf.transforms[0], deep]),
                             NealsFunnel(dim=D_MODEL))
 

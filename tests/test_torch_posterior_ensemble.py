@@ -229,7 +229,8 @@ def test_odd_walker_counts_are_refused():
 
 def test_the_jax_packages_checks_on_the_port():
     """Each check of `chip_smoke.test_only_modules` passes on the CPU at
-    the JAX tests' sizes."""
+    the JAX tests' sizes (the bounded posterior's NUTS at half its steps,
+    `chip_smoke.POSTERIOR_NUTS_STEPS`)."""
     rows = chip_smoke.test_only_modules("cpu")
     assert len(rows) == 9
     for row in rows:

@@ -373,6 +373,46 @@ def _posterior():
                      prior)
 
 
+def test_auto_takes_k1_for_the_c1_nuts_variant():
+    """chip_smoke.py's `c1_std_normal_affine_nuts` (c1's target and flow,
+    a 2-layer conditioner, under the `nuts` task with fused_kernel
+    "auto"): the runner takes FusedNUTS (K1's plain version on the CPU),
+    whose module list carries the 2-layer form, and one transition runs
+    through it."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    cfg = tconfig.RunConfig.from_dict(
+        chip_smoke.run_config_dict("c1_std_normal_affine_nuts"))
+    assert (cfg.task, cfg.nuts.fused_kernel) == ("nuts", "auto")
+    assert tuple(cfg.flow.hidden) == (32,)
+    g = torch.Generator().manual_seed(0)
+    flow = trun._flow_from_spec(torch.randn(64, 2, generator=g), g,
+                                cfg.flow, "cpu")
+    tr = trun._nuts_transition(cfg, cfg.target.build("cpu"), flow)
+    assert isinstance(tr, FusedNUTS)
+    nuts_cuda.check_widths(tr.model)
+    layers = [r[0] for r, m in zip(tr.model.forms.tolist(),
+                                   tr.model.mods.tolist()) if m[0] in (1, 2)]
+    assert layers == [2] and tr.model.general
+    q = torch.randn(16, 2, generator=g)
+    q_new, info = tr(g, q, torch.tensor(0.5), torch.ones(2))
+    assert q_new.shape == (16, 2) and bool(torch.isfinite(q_new).all())
+
+
+def test_auto_takes_k1_for_a_four_layer_conditioner():
+    """A `hidden` of three widths (a 4-layer conditioner) goes to K1 under
+    "auto" as the main paths' 3-layer one does."""
+    cfg = _nuts_cfg("auto")
+    cfg = dc.replace(cfg, flow=dc.replace(cfg.flow, hidden=(32, 32, 32)))
+    tr = trun._nuts_transition(cfg, cfg.target.build("cpu"), _flow(cfg))
+    assert isinstance(tr, FusedNUTS)
+    nuts_cuda.check_widths(tr.model)
+    assert tr.model.nhid == 3 and tr.model.general
+    assert {r[0] for r, m in zip(tr.model.forms.tolist(),
+                                 tr.model.mods.tolist()) if m[0]} == {4}
+
+
 def test_auto_takes_the_portable_nuts_for_other_targets():
     """A target with no device form (a Posterior: its likelihood is user
     code) takes the portable NUTS under "auto"."""
@@ -490,7 +530,8 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     particles and a 4,096-draw pretrain (c5's epochs, stages and
     equilibration kept): it passes every gate, its log Z against the
     quadrature truth and its moment gate included, and launches no
-    kernel. The nuts variants (K1 over c2's and c5's targets) run 8
+    kernel. The nuts variants (K1 over c2's, c5's and c1's targets, at
+    their widths cut to 8 at most) run 8
     chains of 10 + 20 transitions at depth 4: their reference windows,
     R-hat and moment gates, set for the card's depth, may refuse so short
     a run. No config may fail a gate on its record's keys, its phases, a
@@ -526,7 +567,8 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
                                     ess_threshold=threshold))
         if name in chip_smoke.RUN_RHAT_VARIANTS:  # K1 over other targets
             return dc.replace(
-                cfg, target=dc.replace(cfg.target, dim=8),
+                cfg, target=dc.replace(cfg.target,
+                                       dim=min(cfg.target.dim, 8)),
                 train=dc.replace(cfg.train, nsteps=10, batch_size=64),
                 nuts=dc.replace(cfg.nuts, n_chains=8, num_warmup=10,
                                 num_samples=20, max_depth=4))
