@@ -86,6 +86,20 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                equal to the per-warp ones, and K1 timed beside its
                bound, whose operations add the target's own
                (`target_flops`: the correlated precision matvec, 2 d^2);
+     reach_vs_plain — the reach past the register units (`REACH_ROWS`,
+               held as targets_vs_plain holds its rows): hidden widths
+               [48, 48], [100] and [512, 512] on the tile kernels (each
+               padded to a multiple of 32 with zero units), max_depth 12
+               at c1_std_normal_h48_depth12_nuts's own shape (c1's
+               std_normal, its flow at hidden [48], 256 chains) and on
+               the ceiling flow with a step small enough that trees pass
+               depth 10, c5's flow over the hierarchical model at d = 514
+               and 2 rqs blocks over the funnel at d = 288 on the wide
+               units (csrc/*_wide.cu, built here first: their build
+               seconds), which must also equal the per-warp kernels in
+               value in K1, K2 and K3 on every target kind under a tanh
+               flow (`wide_vs_warp_targets`); K1 timed beside its bound
+               on every row, K2 and K3 too past d = 256;
   6. main_path — config 4 of bench.py (`ceiling` variant): a 6000-step
                reverse-KL/STL fit at batch 1024 of Standardize + one
                leading-mask affine coupling on the 64-d funnel, then NUTS
@@ -262,7 +276,10 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                rounds forced (RUN_VARIANTS: the second round samples in
                the flow's latent space, K4/K5 inverse), each record
                captured through a `MetricsLogger` into this phase's line,
-               with the wall times of the fits, warmups and draws.
+               with the wall times of the fits, warmups and draws; c3
+               and its variant each run in a process of this script of
+               its own beside the rest (`run_aside`: all three lists are
+               paced by the host).
                Gates: the JAX runner's record keys; every phase timed;
                finite results; each result of RUN_REFERENCE within
                RUN_MARGIN_SIGMAS standard deviations of the JAX package's
@@ -281,7 +298,11 @@ Phases, one JSON line each on stdout with its wall time in seconds:
                depth), gated against the JAX package's results on three
                seeds, split-R-hat < 1.05, `moment_gate` against the
                target's exact moments (c5's family-corrected) and K1
-               launched once per transition; and
+               launched once per transition; c1_std_normal_affine_nuts
+               and c1_std_normal_h48_depth12_nuts (c1's target and flow,
+               "auto"; the second with hidden [48] and max_depth 12, so
+               that K1 runs its wide unit, `k1_wide_launches`), gated
+               alike; and
                c5_hierarchical_smc.json as written (the 256-d
                hierarchical target, 65,536 particles, annealed SMC from an
                affine flow pretrained on prior draws; its "sharded": true
@@ -326,7 +347,10 @@ K2 and K3 with the tile kernel's device time, its R and weight mode, and
 the same run, K1's affine row with c4's launches through the runner and
 the sharded NUTS's (`launches_dist`); K1's rows over the correlated
 d = 8 rqs and the hierarchical d = 256 affine flows of targets_vs_plain
-with the launches of the runner's variant of each;
+with the launches of the runner's variant of each; K1's on every
+reach_vs_plain row (the wide unit's where `wide_path` sends it), K2's
+and K3's wide units past d = 256, launches 0 but on the row at
+c1_std_normal_h48_depth12_nuts's shape, which carries that variant's;
 K4's and K5's with the one-thread kernels', the cold device time and
 c2's and c3's launches through the runner; K6's and K7's with their
 tile plan, the earlier kernels' times and K7's pass 2 alone) and, last,
@@ -1858,11 +1882,14 @@ def refereed(res, bar):
 
 def refereed_row(device, label, kind, target, flow, n, depth, window,
                  checked_slots, seed, eps, start=None):
-    """One row of `targets_vs_plain` (and of `conditioners_vs_plain`): K1,
-    K2 and K3 under `flow` over `target` (of kind `kind`) on n chains
-    started from `start`, or from `target_start(..., seed)`, held as
-    `targets_vs_plain` says. Returns (row, (q, inv_mass, K1's randomness,
-    K2's, eps, the packed flow))."""
+    """One row of `targets_vs_plain` (and of `conditioners_vs_plain` and
+    `reach_vs_plain`): K1, K2 and K3 under `flow` over `target` (of kind
+    `kind`) on n chains started from `start`, or from `target_start(...,
+    seed)`, held as `targets_vs_plain` says; with `checked_slots` 0, K2 by
+    `bitwise_k1` alone (each slot equal to a K1 launch, itself held to
+    float64). Returns (row, (q, inv_mass, K1's randomness, K2's, eps, the
+    packed flow)); the row's k1 has the float32 plain version's time
+    (`plain_ms`)."""
     import torch
     from tpuflows_torch.kernels import nuts_cuda
     from tpuflows_torch.kernels import nuts_window_cuda as nw
@@ -1898,7 +1925,12 @@ def refereed_row(device, label, kind, target, flow, n, depth, window,
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"K1 returned non-finite values "
                                f"({label})")
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    sync()
+    t_plain = time.perf_counter()
     plain32 = plain(q, *rnd)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t_plain)
     exact = plain(q, *rnd, f64=True)
     knife = (knife_edge(exact, kern, edge)
              | knife_edge(exact, plain32, edge))
@@ -1908,7 +1940,7 @@ def refereed_row(device, label, kind, target, flow, n, depth, window,
               depth_histogram=torch.bincount(
                   plain32[4].long(), minlength=depth + 1).tolist(),
               divergent_chains=int(plain32[5].sum()),
-              seconds=time.perf_counter() - t_row)
+              plain_ms=plain_ms, seconds=time.perf_counter() - t_row)
     # K2: the window, then each slot from K2's own previous draw
     wrnd = window_randomness(device, n, d, window, depth, im,
                              seed + 1)
@@ -1925,6 +1957,10 @@ def refereed_row(device, label, kind, target, flow, n, depth, window,
             for k, a, b in zip(K2_OUTS, win, chained)}
     S = min(window, checked_slots)
     head = [t[:S] for t in win]
+    k2 = {"window": window, "checked_slots": S,
+          "bitwise_k1": sum(v[0] + v[1] for v in bits.values()),
+          "bitwise_k1_by_output": {k: v[0] + v[1]
+                                   for k, v in bits.items()}}
 
     def slots(step):
         return nw.chain_slots(step, q, *wrnd, S, depth,
@@ -1939,26 +1975,26 @@ def refereed_row(device, label, kind, target, flow, n, depth, window,
         return w
 
     t_k2 = time.perf_counter()
-    w_plain = slots(one_slot)
-    w_exact = slots(lambda z, *r: plain(z, *r, f64=True))
-    w_knife = (knife_edge(w_exact, head, edge)
-               | knife_edge(w_exact, w_plain, edge))
-    k2 = {"window": window, "checked_slots": S,
-          **refereed_diff(w_exact, head, w_knife, edge),
-          "f64_spread": refereed_diff(w_exact, w_plain, w_knife, edge),
-          "vs_plain": compare_window(w_plain, head, math.inf,
-                                     math.inf, math.inf),
-          "bitwise_k1": sum(v[0] + v[1] for v in bits.values()),
-          "bitwise_k1_by_output": {k: v[0] + v[1]
-                                   for k, v in bits.items()}}
+    spreads = [k1["f64_spread"]]
+    if S:  # slots held against float64; else K2 is held by K1's bits
+        w_plain = slots(one_slot)
+        w_exact = slots(lambda z, *r: plain(z, *r, f64=True))
+        w_knife = (knife_edge(w_exact, head, edge)
+                   | knife_edge(w_exact, w_plain, edge))
+        k2.update(refereed_diff(w_exact, head, w_knife, edge),
+                  f64_spread=refereed_diff(w_exact, w_plain, w_knife,
+                                           edge),
+                  vs_plain=compare_window(w_plain, head, math.inf,
+                                          math.inf, math.inf))
+        spreads.append(k2["f64_spread"])
     # one bar for the row: float32's own distance from float64 in
     # both plain versions
-    bar = refereed_bar([k1["f64_spread"], k2["f64_spread"]], n)
+    bar = refereed_bar(spreads, n)
     k1["bar"] = k2["bar"] = bar
     k1["passed"] = refereed(k1, bar)
     # on the CPU both sides are plain versions, and the plain
     # window rounds apart from chained plain transitions
-    k2["passed"] = bool(refereed(k2, bar) and (
+    k2["passed"] = bool((not S or refereed(k2, bar)) and (
         k2["bitwise_k1"] == 0 or device == "cpu"))
     k2["seconds"] = time.perf_counter() - t_k2
     t_k3 = time.perf_counter()
@@ -2055,25 +2091,11 @@ def tiles_and_timing(label, flow, target, ctx, depth, window, n_reps,
         res["passed"] = bool(res["rows"]) and all(
             x["differ"] == 0 for x in res["rows"].values())
         tiles.append(res)
-    ms, kern = timed(lambda: nuts_cuda.nuts_transition(
-        q, *rnd, e, im, model, depth), n_reps)
-    # one timed call after one warmup (two before the conditioners' phase)
-    plain_ms, _ = timed(lambda: nuts_cuda.transition_math_torch(
-        q, *rnd, e, im, nuts_cuda.plain_logp_grad(model), depth), 1,
-        warmup=1)
-    bound, by, flops, nbytes = k1_bound(model, q, kern[3], depth)
     rows = nuts_cuda.tile_rows(model)
-    return tiles, {
-        "label": label, "d": int(q.shape[1]), "chains": int(q.shape[0]),
-        "max_depth": depth, "ms": ms,
-        "device_ms": graph_ms(lambda: nuts_cuda.nuts_transition(
-            q, *rnd, e, im, model, depth)),
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "flops": flops, "bytes": nbytes, "mlp_flops": mlp_flops(model),
-        "target_flops": target_flops(model),
-        "leapfrogs": float(kern[3].sum()), "rows": rows,
-        "resident": nuts_cuda.launch_resident(model, rows) > 0,
-        "general": bool(model.general)}
+    timing = k1_timing(label, q, im, rnd, e, model, depth, n_reps)
+    timing.update(rows=rows,
+                  resident=nuts_cuda.launch_resident(model, rows) > 0)
+    return tiles, timing
 
 
 # conditioners_vs_plain: the conditioners and modules the JAX package's
@@ -2206,6 +2228,299 @@ def conditioners_vs_plain(device, rows=CONDITIONER_ROWS, n=N_CHAINS,
                                        "K3 tile")})
         timings.append(timing)
     return out, tiles, timings
+
+
+# reach_vs_plain: the reach the kernels gained past the register units of
+# the tile kernels (d <= 256, max_depth <= 10, hidden widths multiples of
+# 32 up to 256), each row held as `conditioners_vs_plain` holds its rows:
+# hidden widths that are not multiples of 32 ([48, 48], [100], padded with
+# zero units) and past 256 ([512, 512]) on the tile kernels; max_depth 12
+# on the wide units at the runner variant's own shape (c1's std_normal, d
+# = 2 on 32 lanes, its one affine coupling at hidden [48], 256 chains)
+# and with a step small enough that trees pass depth 10; d = 514 and 288
+# on the wide units. (label, target kind, d, flow kind, hidden, depth,
+# chains, step size or None for TARGET_EPS's, deep); "ceiling" is the
+# ceiling path's flow (`bench_flow_with_random_head`), "c5" c5's form at
+# the row's width (2 leading-mask affine couplings, n_leading 2),
+# "variant" REACH_VARIANT's flow (`config_flow`).
+# A deep row's chains all start at the flow's image of the funnel's
+# centre (x = 0), where trees turn after a similar length: at this step a
+# few pass depth 10 and none needs more than 2,047 leapfrogs, the plain
+# versions' lockstep length (from the funnel's draws at 0.003 six of 16
+# chains ran to depth 12, 4,095 leapfrogs: 23 s a plain transition); it
+# must reach trees deeper than 10, and its K2 is held by `bitwise_k1`
+# alone.
+REACH_DEEP_EPS = 0.0005
+REACH_DEEP_CHAINS = 16
+REACH_VARIANT = "c1_std_normal_h48_depth12_nuts"
+REACH_ROWS = (
+    ("funnel d=64 affine [48, 48]", "funnel", 64, "affine", (48, 48), 4,
+     N_CHAINS, None, False),
+    ("funnel d=64 rqs [100]", "funnel", 64, "rqs", (100,), 4, N_CHAINS,
+     None, False),
+    ("funnel d=64 affine [512, 512]", "funnel", 64, "affine", (512, 512), 4,
+     N_CHAINS, None, False),
+    ("funnel d=64 ceiling flow, depth 12", "funnel", 64, "ceiling", HIDDEN,
+     12, REACH_DEEP_CHAINS, REACH_DEEP_EPS, True),
+    ("hierarchical d=514 c5's flow", "hierarchical", 514, "c5", (128, 128),
+     4, N_CHAINS, None, False),
+    ("funnel d=288 rqs [64, 64]", "funnel", 288, "rqs", (64, 64), 4,
+     N_CHAINS, None, False),
+    (f"std_normal d=2, {REACH_VARIANT}'s flow", "std_normal", 2, "variant",
+     (48,), 12, 256, None, False))
+# the row that runs at the variant's shape: its K1 row carries the
+# variant's launches in the kernels line
+REACH_VARIANT_ROW = 6
+REACH_WINDOW = 4
+REACH_DEEP_WINDOW = 2
+REACH_REPS = 10
+
+
+def reach_flow(device, flow_kind, d, hidden, seed):
+    """A flow of `reach_vs_plain`: Standardize + one leading-mask affine
+    coupling (`random_flow`), Standardize + 2 rqs blocks on alternating
+    masks, K = 8 (`spline_flow_with_random_heads`), the ceiling path's flow,
+    c5's form, at width d with conditioners of `hidden`, or REACH_VARIANT's
+    flow (`config_flow`)."""
+    from tpuflows_torch.util.shapes import leading_mask
+
+    if flow_kind == "variant":
+        return config_flow(device, REACH_VARIANT, seed)
+    if flow_kind == "affine":
+        return random_flow(device, seed, d, hidden, leading_mask(d))
+    if flow_kind == "ceiling":
+        return bench_flow_with_random_head(device, seed)
+    if flow_kind == "c5":
+        return spline_flow_with_random_heads(
+            device, seed, dim=d, hidden=hidden, knots=KNOTS, n_blocks=2,
+            head=CONFIG_AFFINE_HEAD, kind="affine", mask_scheme="leading",
+            n_leading=2, clamp=CLAMP)
+    return spline_flow_with_random_heads(
+        device, seed, dim=d, hidden=hidden, knots=KNOTS, n_blocks=2,
+        kind="rqs", mask_scheme="alternating")
+
+
+def k1_timing(label, q, im, rnd, e, model, depth, n_reps, plain_ms=None,
+              graph=(20, 10)):
+    """K1 through its wrapper (the tile kernel or the wide unit, as
+    `nuts_cuda.wide_path` picks) timed from the host and on the device
+    (`graph_ms` with `graph`'s reps and replays), beside its bound
+    (`k1_bound`) and its plain version's time: `plain_ms`, or one timed
+    call after one warmup (two before the conditioners' phase)."""
+    from tpuflows_torch.kernels import nuts_cuda
+
+    def fn():
+        return nuts_cuda.nuts_transition(q, *rnd, e, im, model, depth)
+
+    ms, kern = timed(fn, n_reps)
+    if plain_ms is None:
+        plain_ms, _ = timed(lambda: nuts_cuda.transition_math_torch(
+            q, *rnd, e, im, nuts_cuda.plain_logp_grad(model), depth), 1,
+            warmup=1)
+    bound, by, flops, nbytes = k1_bound(model, q, kern[3], depth)
+    return {"label": label, "d": int(q.shape[1]), "chains": int(q.shape[0]),
+            "max_depth": depth, "ms": ms,
+            "device_ms": graph_ms(fn, *graph),
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "flops": flops, "bytes": nbytes, "mlp_flops": mlp_flops(model),
+            "target_flops": target_flops(model),
+            "leapfrogs": float(kern[3].sum()),
+            "wide": nuts_cuda.wide_path(model, depth),
+            "general": bool(model.general)}
+
+
+def wide_k2_k3_timing(label, q, im, wrnd, e, model, depth, window,
+                      n_reps):
+    """K2 (a window of `window` slots) and K3 at q through their wrappers
+    (the wide units past d = 256), each timed from the host and on the
+    device beside its plain version and its bound: K2's as `time_window`
+    counts it (a gradient at the start and one a leapfrog; q, the
+    randomness, the flow in, the draws and the info out), K3's one
+    gradient a row (z, the flow in, lp and g out)."""
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+    from tpuflows_torch.kernels.fused_logp_cuda import (
+        fused_latent_logp_and_grad)
+
+    n, d = q.shape
+    flow_floats = model.params.numel() + model.packed_target.params.numel()
+    per = mlp_flops(model) + target_flops(model)
+
+    def k2():
+        return nw.nuts_window(q, *wrnd, e, im, model, depth, window)
+
+    ms, out = timed(k2, 2, warmup=1)
+    plain_ms, _ = timed(lambda: nw.window_math_torch(
+        q, *wrnd, e, im, nuts_cuda.plain_logp_grad(model), window, depth),
+        1, warmup=0)
+    D = depth
+    flops = (float(out[3].sum()) + n) * per
+    nbytes = 4.0 * (n * d + n * window * (d + 2 * D + (1 << D)) + 1 + d
+                    + flow_floats + window * n * d + 7 * window * n)
+    bound, by = _bound(flops, nbytes)
+    k2_res = {"label": label, "window": window, "ms": ms,
+              "device_ms": graph_ms(k2, reps=2, replays=2),
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+              "flops": flops, "bytes": nbytes,
+              "wide": nuts_cuda.wide_path(model, depth)}
+    hook = fused_latent_logp_and_grad(model.target, model.flow)
+    z = q.contiguous()
+    ms, _ = timed(lambda: hook(z), n_reps)
+    plain_ms, _ = timed(lambda: hook.plain(z), 1)
+    bound, by = _bound(float(n * per), 4.0 * (2 * n * d + n + flow_floats))
+    k3_res = {"label": label, "ms": ms, "device_ms": graph_ms(lambda: hook(z)),
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+              "wide": nuts_cuda.wide_path(model)}
+    return k2_res, k3_res
+
+
+def wide_vs_warp(q, im, rnd, wrnd, e, model, depth, window):
+    """The wide units (asked for on a flow the tile kernels take) against
+    the per-warp kernels on the same inputs. On a flow of the general
+    path's form both compute the same operations in the same order (the
+    targets and modules are written once over a row view, csrc/
+    latent_grad.cuh `InRegs` / `InMem`; on the main paths' form the
+    per-warp kernels sum in float32 and the wide units in double), so the
+    gate: per output of K1, K2 and K3 no element whose value differs.
+    K1's bar between the two for K1 and for K2's first slot (`compare`)
+    is printed beside it."""
+    from tpuflows_torch.kernels import fused_logp_cuda, nuts_cuda
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+
+    out = {}
+    wide = nuts_cuda._launch(q, *rnd, e, im, model, depth, wide=True)
+    warp = nuts_cuda.chain_transition_warp(q, *rnd, e, im, model, depth)
+    w2 = nw._launch(q, *wrnd, e, im, model, depth, window, None, wide=True)
+    p2 = nw.chain_window_warp(q, *wrnd, e, im, model, depth, window)
+    w3 = fused_logp_cuda._launch(q, model, wide=True)
+    p3 = fused_logp_cuda.chain_logp_grad_warp(q, model)
+    for name, a, b, keys in (("K1", wide, warp, K1_OUTS),
+                             ("K2", w2, p2, K2_OUTS),
+                             ("K3", w3, p3, ("lp", "g"))):
+        diffs = {k: value_diff(x, y) for k, x, y in zip(keys, a, b)}
+        out[name] = {"differ": sum(v[0] for v in diffs.values()),
+                     "max_abs": max(v[2] for v in diffs.values()),
+                     "differ_by_output": {k: v[0] for k, v in diffs.items()}}
+    out["K1"]["vs_warp"] = compare(warp, wide)
+    out["K2"]["vs_warp"] = compare([x[0] for x in p2], [x[0] for x in w2])
+    out["passed"] = all(out[k]["differ"] == 0 for k in ("K1", "K2", "K3"))
+    return out
+
+
+def wide_vs_warp_targets(device, rows=TARGET_ROWS, hidden=(48, 48),
+                         n=N_CHAINS, depth=TARGET_DEPTH,
+                         window=REACH_WINDOW):
+    """`wide_vs_warp` once per target kind that `pack_target` packs, at
+    its (kind, d) of `rows`, under Standardize + one leading-mask affine
+    coupling of tanh conditioners `hidden` (the general path's form, every
+    leaf random), from the flow's image of the target's draws at
+    TARGET_EPS's step. Returns one row per kind."""
+    import torch
+    from tpuflows_torch.kernels import nuts_cuda
+    from tpuflows_torch.util.shapes import leading_mask
+
+    out = []
+    for i, (kind, d) in enumerate(rows):
+        seed = 12000 + 10 * i
+        target = smoke_target(kind, d, device)
+        flow = random_flow(device, seed, d, hidden,
+                           leading_mask(d, 2 if d > 2 else 1),
+                           activation="tanh")
+        model = nuts_cuda.pack_flow(flow, target)
+        q = target_start(target, flow, kind, n, seed, device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        im = 0.5 + torch.rand(d, generator=g, device=device)
+        rnd = nuts_cuda.draw_randomness(g, n, d, depth, im)
+        wrnd = window_randomness(device, n, d, window, depth, im, seed + 1)
+        e = torch.tensor(TARGET_EPS[kind], device=device)
+        row = wide_vs_warp(q, im, rnd, wrnd, e, model, depth, window)
+        out.append({"kind": kind, "d": d, "d_pad": model.d_pad,
+                    "hidden": list(model.hidden), **row})
+    return out
+
+
+def reach_vs_plain(device, rows=REACH_ROWS, window=REACH_WINDOW,
+                   deep_window=REACH_DEEP_WINDOW,
+                   checked_slots=TARGET_CHECKED_SLOTS, n_reps=REACH_REPS,
+                   tile_checks=True, chains=None):
+    """Phase reach_vs_plain: each row of `rows` held as
+    `conditioners_vs_plain` holds its rows (`refereed_row`: K1 against its
+    plain version in float64 under `refereed_bar`, K2 equal to chained K1
+    launches to the bit and its first slots against float64, K3 by
+    `judge`), on `chains` chains where given (a CPU rehearsal) and the
+    row's own count otherwise; the rows the tile kernels take also their
+    tile kernels against the per-warp ones (`tiles_and_timing`); K1 timed
+    beside its bound on every row, K2 and K3 too on the wide units' rows
+    past d = 256. A deep row starts every chain at the flow's image of x =
+    0, holds K2 by `bitwise_k1` alone (its plain window would run a few
+    thousand ticks) and must reach trees deeper than 10. On the card it
+    builds the wide units first (their build seconds) and holds them
+    against the per-warp kernels on every target kind
+    (`wide_vs_warp_targets`). `tile_checks` False leaves out what needs
+    the card. Returns (rows, tile rows, timings, the wide units' checks,
+    build seconds)."""
+    import torch
+    from tpuflows_torch.kernels import (cuda_build, fused_logp_cuda,
+                                        nuts_cuda)
+    from tpuflows_torch.kernels import nuts_window_cuda as nw
+
+    build_seconds, wide_checks = None, []
+    if tile_checks:
+        t = time.perf_counter()
+        infos = cuda_build.build(nuts_cuda.WIDE_LIBRARY, nw.WIDE_LIBRARY,
+                                 fused_logp_cuda.WIDE_LIBRARY)
+        build_seconds = {"wall": time.perf_counter() - t,
+                         "nvcc": max(i.seconds for i in infos.values()),
+                         "ptxas": {k: v for i in infos.values()
+                                   for k, v in ptxas_summary(i.log).items()}}
+        wide_checks = wide_vs_warp_targets(device)
+    out, tiles, timings = [], [], []
+    for i, (label, kind, d, flow_kind, hidden, depth, n, eps, deep) in \
+            enumerate(rows):
+        seed = 11000 + 10 * i
+        n = chains or n
+        target = smoke_target(kind, d, device)
+        flow = reach_flow(device, flow_kind, d, hidden, seed)
+        if deep:  # every chain from the flow's image of x = 0
+            with torch.no_grad():
+                q0, _ = flow.forward_and_ladj(torch.zeros((1, d),
+                                                          device=device))
+            start = q0.expand(n, d).contiguous()
+        else:
+            start = target_start(target, flow, "draws", n, seed, device)
+        row, ctx = refereed_row(device, label, kind, target, flow, n, depth,
+                                deep_window if deep else window,
+                                0 if deep else checked_slots, seed,
+                                eps or TARGET_EPS[kind], start=start)
+        q, im, rnd, wrnd, e, model = ctx
+        wide = nuts_cuda.wide_path(model, depth)
+        hist = row["k1"]["depth_histogram"]
+        row.update(flow=flow_kind, max_depth=depth, wide=wide, deep=deep,
+                   deeper_than_10=sum(hist[nuts_cuda.TILE_MAX_DEPTH + 1:]))
+        if deep and not row["deeper_than_10"]:
+            row["passed"] = False
+        out.append(row)
+        if not tile_checks:
+            continue
+        if wide:
+            timing = k1_timing(label, q, im, rnd, e, model, depth,
+                               2 if deep else n_reps,
+                               row["k1"]["plain_ms"], (2, 1 if deep else 2))
+            if model.d_pad > nuts_cuda.TILE_MAX_DIM:
+                timing["k2"], timing["k3"] = wide_k2_k3_timing(
+                    label, q, im, wrnd, e, model, depth, window, n_reps)
+                timing["k2"]["max_abs_err"] = row["k2"]["max_dq"]
+                timing["k3"]["max_abs_err"] = max(
+                    row["k3"][k]["max_abs"] for k in ("lp", "g"))
+        else:
+            row_tiles, timing = tiles_and_timing(label, flow, target, ctx,
+                                                 depth, window, n_reps)
+            tiles += row_tiles
+        timing.update(kind=kind, flow=flow_kind, hidden=list(model.hidden),
+                      max_abs_err=row["k1"]["max_dq"],
+                      variant_shape=i == REACH_VARIANT_ROW)
+        timings.append(timing)
+    return out, tiles, timings, wide_checks, build_seconds
 
 
 def nuts_gated(device, sampler, flow, target, variant, n_chains, num_warmup,
@@ -3488,7 +3803,14 @@ RUN_CONFIGS = ("c1_std_normal_affine", "c2_correlated_rqs", "c4_funnel_nuts",
                "c6_banana_mh", "c7_mixture_pt", "c3_mixture_adaptive",
                "c3_mixture_adaptive_two_rounds", "c5_hierarchical_smc",
                "c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts",
-               "c1_std_normal_affine_nuts")
+               "c1_std_normal_affine_nuts", "c1_std_normal_h48_depth12_nuts")
+# the configs run in processes of their own beside the others, one
+# process a group (`run_aside`): c3's NUTS is paced by the host (its raw
+# warmup alone took 73-134 s), as are the other configs' fits and SMC
+# stages, so the processes share the card's idle time and the phase takes
+# about the longest of the three lists (c3 96 s, its variant 68 s, the
+# rest 141 s on an H100's host) instead of their sum
+RUN_ASIDE = (("c3_mixture_adaptive",), ("c3_mixture_adaptive_two_rounds",))
 # Variants of a config: (its file, the keys each section changes). c3 as
 # written stops after round 0 in both packages (its raw NUTS draws reach
 # the ESS threshold), so its flow is fitted and scored but never sampled
@@ -3514,12 +3836,20 @@ NUTS_VARIANT_DEPTH = {"n_chains": 256, "num_warmup": 150,
 # c1's own target and flow (std_normal, d = 2; one affine coupling of a
 # 2-layer conditioner, hidden [32]) sampled as a `nuts` task at the depth
 # above, with fused_kernel back at "auto": the runner must take K1 for a
-# conditioner that is not the 3-layer silu one
+# conditioner that is not the 3-layer silu one; and the same with a hidden
+# width that is not a multiple of 32 ([48], padded to 64 with zero units)
+# and max_depth 12, past the register units' 10: "auto" must take K1 (its
+# wide unit) there too
 RUN_VARIANTS = {
     "c1_std_normal_affine_nuts": (
         "c1_std_normal_affine",
         {"task": "nuts", "train": {"nsteps": 600},
          "nuts": {**NUTS_VARIANT_DEPTH, "fused_kernel": "auto"}}),
+    "c1_std_normal_h48_depth12_nuts": (
+        "c1_std_normal_affine",
+        {"task": "nuts", "flow": {"hidden": [48]}, "train": {"nsteps": 600},
+         "nuts": {**NUTS_VARIANT_DEPTH, "fused_kernel": "auto",
+                  "max_depth": 12}}),
     "c3_mixture_adaptive_two_rounds": (
         "c3_mixture_adaptive",
         {"adaptive": {"max_rounds": 2, "ess_threshold": 1e9,
@@ -3537,7 +3867,8 @@ RUN_VARIANTS = {
 # the variants whose samplers' R-hat is gated as the configs' as written
 # are: the nuts variants, whose depth leaves enough draws for it
 RUN_RHAT_VARIANTS = ("c2_correlated_rqs_nuts", "c5_hierarchical_affine_nuts",
-                     "c1_std_normal_affine_nuts")
+                     "c1_std_normal_affine_nuts",
+                     "c1_std_normal_h48_depth12_nuts")
 
 
 def run_config_dict(name):
@@ -3603,6 +3934,11 @@ RUN_REFERENCE = {
         "step_size": (1.2468318939208984, 1.2617747783660889,
                       1.250554084777832),
         "divergence_rate": (0.0, 0.0, 0.0)},
+    "c1_std_normal_h48_depth12_nuts": {
+        "min_ess": (39813.140625, 37597.87109375, 38315.57421875),
+        "step_size": (1.2511907815933228, 1.2596187591552734,
+                      1.2440900802612305),
+        "divergence_rate": (0.0, 0.0, 0.0)},
     "c3_mixture_adaptive_two_rounds": {
         "n_rounds": (2, 2, 2), "converged": (False, False, False),
         "best_min_ess": (70.8592300415039, 65.95453643798828,
@@ -3619,7 +3955,8 @@ RUN_MARGIN_SIGMAS = 10.0
 RUN_MOMENTS = {"c6_banana_mh": 3.5, "c7_mixture_pt": 4.0,
                "c2_correlated_rqs_nuts": 3.5,
                "c5_hierarchical_affine_nuts": 3.5,
-               "c1_std_normal_affine_nuts": 3.5}
+               "c1_std_normal_affine_nuts": 3.5,
+               "c1_std_normal_h48_depth12_nuts": 3.5}
 # the configs whose moment gate judges the worst of its 2 d z-scores
 # against the family threshold of its n_sigma (`family_threshold`: at d =
 # 256 the max of 512 null z-scores concentrates near 3)
@@ -3819,13 +4156,17 @@ class SMCProbe:
 
 
 def kernel_launches():
-    """Every kernel's launch count (K1-K7) since its last reset."""
+    """Every kernel's launch count (K1-K7, and K1's, K2's and K3's wide
+    units) since its last reset."""
     from tpuflows_torch.kernels import (coupling_cuda, fused_logp_cuda,
                                         nuts_cuda, nuts_window_cuda,
                                         rqs_cuda)
 
     return {"k1": nuts_cuda.LAUNCHES, "k2": nuts_window_cuda.LAUNCHES,
-            "k3": fused_logp_cuda.LAUNCHES, **rqs_cuda.LAUNCHES,
+            "k3": fused_logp_cuda.LAUNCHES,
+            "k1_wide": nuts_cuda.WIDE_LAUNCHES,
+            "k2_wide": nuts_window_cuda.WIDE_LAUNCHES,
+            "k3_wide": fused_logp_cuda.WIDE_LAUNCHES, **rqs_cuda.LAUNCHES,
             **coupling_cuda.LAUNCHES}
 
 
@@ -3834,8 +4175,8 @@ def reset_kernel_launches():
                                         nuts_cuda, nuts_window_cuda,
                                         rqs_cuda)
 
-    nuts_cuda.LAUNCHES = 0
-    nuts_window_cuda.LAUNCHES = 0
+    nuts_cuda.LAUNCHES = nuts_cuda.WIDE_LAUNCHES = 0
+    nuts_window_cuda.LAUNCHES = nuts_window_cuda.WIDE_LAUNCHES = 0
     fused_logp_cuda.reset_launches()
     rqs_cuda.reset_launches()
     coupling_cuda.reset_launches()
@@ -3974,7 +4315,8 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
         row = {"config": name, "task": cfg.task, "record": record,
                "seconds": seconds, "phase_seconds": clock.seconds,
                "phase_calls": clock.counts,
-               "k1_launches": nuts_cuda.LAUNCHES,
+               "k1_launches": nuts_cuda.LAUNCHES + nuts_cuda.WIDE_LAUNCHES,
+               "k1_wide_launches": nuts_cuda.WIDE_LAUNCHES,
                "rqs_launches": dict(rqs_cuda.LAUNCHES),
                "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                                   if device != "cpu" else None)}
@@ -4043,8 +4385,8 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
             if cfg.nuts.preconditioned and out["transition"] != "fused":
                 failures.append(f"the {out['transition']} NUTS ran, not "
                                 f"K1's transition")
-            if nuts_cuda.LAUNCHES != row["k1_launches_expected"]:
-                failures.append(f"K1 launched {nuts_cuda.LAUNCHES} times "
+            if row["k1_launches"] != row["k1_launches_expected"]:
+                failures.append(f"K1 launched {row['k1_launches']} times "
                                 f"for {want} transitions")
         want = None
         if cfg.task == "vi" and cfg.flow.kind == "rqs":
@@ -4106,6 +4448,30 @@ def run_configs(device, names=RUN_CONFIGS, overrides=None, results=None):
         if device != "cpu":
             torch.cuda.empty_cache()
     return rows
+
+
+def run_aside(groups=RUN_ASIDE):
+    """Starts `run_configs` on each group of configs of `groups` in a
+    process of its own (this script with --run-configs, on the same card
+    and the kernels this one built). Returns the processes and a function
+    that waits for them and returns their rows; the caller kills those it
+    does not wait for."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--run-configs",
+         ",".join(names)], stdout=subprocess.PIPE, text=True)
+        for names in groups]
+
+    def wait():
+        rows = []
+        for names, proc in zip(groups, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"run_configs on {names} in its own "
+                                   f"process exited {proc.returncode}")
+            rows += json.loads(out.strip().splitlines()[-1])["run_configs"]
+        return rows
+
+    return procs, wait
 
 
 def logmeanexp_se(log_w):
@@ -4665,12 +5031,16 @@ def save_generic_state(path, flow, state, max_depth=MAX_DEPTH):
 
 def main(argv=None):
     """`--save-generic-state PATH` also writes the generic path's trained
-    flow and post-warmup state to PATH."""
+    flow and post-warmup state to PATH. `--run-configs NAMES` runs only
+    `run_configs` on the comma-separated configs NAMES, on kernels built
+    already, and prints its rows as one JSON object (`run_aside`)."""
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--save-generic-state", metavar="PATH")
-    save_state = parser.parse_args(argv).save_generic_state
+    parser.add_argument("--run-configs", metavar="NAMES")
+    args = parser.parse_args(argv)
+    save_state = args.save_generic_state
     t = time.perf_counter()
     import torch
 
@@ -4678,6 +5048,10 @@ def main(argv=None):
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    if args.run_configs:
+        rows = run_configs("cuda", names=tuple(args.run_configs.split(",")))
+        print(json.dumps({"run_configs": rows}), flush=True)
+        return 0
     from tpuflows_torch.kernels import (coupling_cuda, cuda_build,
                                         fused_logp_cuda, nuts_cuda,
                                         nuts_window_cuda, rqs_cuda)
@@ -4780,6 +5154,24 @@ def main(argv=None):
         raise RuntimeError(f"K1, K2 or K3 under a conditioner of another "
                            f"form disagrees with its plain version, with K1 "
                            f"or with the per-warp kernel: {bad}")
+
+    t = time.perf_counter()
+    reach_rows, reach_tiles, reach_times, wide_checks, wide_build = \
+        reach_vs_plain(device)
+    emit("reach_vs_plain", t, rows=reach_rows, tile_vs_warp=reach_tiles,
+         timing=reach_times, wide_vs_warp=wide_checks,
+         wide_build=wide_build,
+         bar="as targets_vs_plain: K1 refereed_bar against float64, K2 "
+             "bitwise_k1 0 and refereed slots, K3 judge; tile_vs_warp "
+             "equal in value in every mode; the deep row deeper than 10; "
+             "the wide units equal in value to the per-warp kernels in "
+             "K1, K2 and K3 on every target kind")
+    bad = [r for r in reach_rows + reach_tiles + wide_checks
+           if not r["passed"]]
+    if bad or len(wide_checks) != len(TARGET_ROWS):
+        raise RuntimeError(f"K1, K2 or K3 past the register units' reach "
+                           f"disagrees with its plain version, with K1 or "
+                           f"with the per-warp kernel: {bad}")
 
     t = time.perf_counter()
     res, flow, warm_state = main_path(device)
@@ -4945,7 +5337,19 @@ def main(argv=None):
 
     t = time.perf_counter()
     smc_results = {}
-    run_rows = run_configs(device, results=smc_results)
+    aside, wait_aside = run_aside()
+    try:
+        here = run_configs(device, results=smc_results,
+                           names=tuple(c for c in RUN_CONFIGS if not any(
+                               c in g for g in RUN_ASIDE)))
+        there = wait_aside()
+    finally:
+        for proc in aside:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    run_rows = sorted(here + there,
+                      key=lambda r: RUN_CONFIGS.index(r["config"]))
     emit("run_configs", t, rows=run_rows,
          bar={"margin_sigmas": RUN_MARGIN_SIGMAS, "max_rhat": RHAT_GATE,
               "smc_log_z": f"{SMC_LOGZ_SIGMAS} sigma + {SMC_LOGZ_SLACK}",
@@ -5013,6 +5417,34 @@ def main(argv=None):
         "plain_ms": gtim["plain_ms"], "bound_ms": gtim["bound_ms"],
         "bound_by": gtim["bound_by"], "library_ms": None,
     }]
+    wide_src = "src/tpuflows_torch/csrc/{}_wide.cu"
+    for r in reach_times:  # K1 on every reach row; K2, K3 past d = 256
+        kernels.append({
+            "name": f"nuts_transition{' wide' if r['wide'] else ''} "
+                    f"({r['label']})", "route": "cuda",
+            "source": (wide_src.format("nuts_transition") if r["wide"]
+                       else "src/tpuflows_torch/csrc/nuts_transition.cu"),
+            "replaces": k1,
+            "launches": (runner[REACH_VARIANT]["k1_wide_launches"]
+                         if r["variant_shape"] else 0),
+            "launches_config": REACH_VARIANT if r["variant_shape"] else None,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+        for key, src, replaces in (
+                ("k2", "nuts_window", "nuts_pallas.py:831"),
+                ("k3", "fused_logp", "fused_logp.py:140")):
+            if key in r:
+                x = r[key]
+                kernels.append({
+                    "name": f"{src} wide ({r['label']})", "route": "cuda",
+                    "source": wide_src.format(src),
+                    "replaces": "src/tpuflows/kernels/" + replaces,
+                    "launches": 0, "max_abs_err": x["max_abs_err"],
+                    "ms": x["ms"], "device_ms": x["device_ms"],
+                    "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+                    "bound_by": x["bound_by"], "library_ms": None})
     for r in [*target_times, cond_times[-1]]:  # the nuts variants' flows
         config = r.get("config", CONDITIONER_VARIANT)
         kernels.append({

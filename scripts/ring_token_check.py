@@ -7,8 +7,8 @@
 Preprocesses every unit of K1 (nuts_transition.cu), K2 (nuts_window.cu)
 and K3 (fused_logp.cu), per DPL and the entry unit, and the single units
 of K4/K5 (rqs_spline.cu) and K6/K7 (coupling_tile.cu), at the old and the
-current revision (`g++ -E -P` with empty `cuda_runtime.h` and
-`cooperative_groups.h`), specializes the current tokens to the tile
+current revision (`g++ -E -P` with empty `cuda_runtime.h`,
+`cuda_bf16.h` and `cooperative_groups.h`), specializes the current tokens to the tile
 kernels' ring instantiation (kResident = false: `if constexpr (kResident)
 {...}` and the template parameter dropped, as csrc/tile_grad.cuh writes
 them; not with `--as-is`, for an old revision that has the resident
@@ -120,7 +120,8 @@ def check(unit, defs, old_dir, new_dir, stub, as_is):
 
 def main(old_dir, new_dir, as_is):
     with tempfile.TemporaryDirectory() as stub:
-        for header in ("cuda_runtime.h", "cooperative_groups.h"):
+        for header in ("cuda_runtime.h", "cooperative_groups.h",
+                       "cuda_bf16.h"):
             (Path(stub) / header).touch()
         for unit, macro in (("nuts_transition.cu", "NUTS_DPL"),
                             ("nuts_window.cu", "NUTS_DPL"),

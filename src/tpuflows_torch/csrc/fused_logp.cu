@@ -7,7 +7,8 @@
 //   lp = log p(f^-1(z)) + ladj(z)   and   g = d lp / dz
 // through a flow over any closed-form target of the port (targets.cuh,
 // any d <= 256, z, lp and g at the target's width and the flow at the lane
-// width), in one launch: the flow inverse, the
+// width; past that, or for a row past shared memory, K3's wide unit
+// fused_logp_wide.cu), in one launch: the flow inverse, the
 // ladj, the target's log density and the whole pullback, with no
 // intermediate leaving the chip. It is the `logp_and_grad` hook of the
 // portable NUTS and HMC (mcmc/nuts.py, mcmc/hmc.py); the plain PyTorch
@@ -217,6 +218,9 @@ template cudaError_t launch_tile<LATENT_DPL>(const Args&, const ChainList&,
 namespace {
 
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+// a hidden width: any multiple of 32 up to 4096 (kernels/nuts_cuda.py
+// MAX_HIDDEN); the launch checks that the rows fit beside the ring
+bool hidden_ok(int w) { return w >= 32 && w <= 4096 && w % 32 == 0; }
 // a target of width dim on lanes of width d (targets.cuh)
 bool target_ok(int d, int dim, int kind) {
   return dim >= 1 && dim <= d && d - dim < 32 && kind >= 0 &&
@@ -257,7 +261,7 @@ bool chain_ok(int n, int d, int dim, int kind, int n_mods, int hmax,
               int nhid, int head) {
   return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
          n_mods <= tpuflows_nuts::kMaxModules &&
-         (hmax == 0 || width_ok(hmax)) && nhid >= 0 &&
+         (hmax == 0 || hidden_ok(hmax)) && nhid >= 0 &&
          nhid < tpuflows_nuts::kMaxLayers && head >= 0 && head % 32 == 0;
 }
 

@@ -420,11 +420,12 @@ __device__ __forceinline__ int backward_mode(const int* fm) {
 
 // head = MLP(xin), keeping each hidden layer's pre-activation for the
 // backward; a bf16 conditioner rounds xin first (each lane its own units,
-// those it wrote)
+// those it wrote). `sums`: flags added to every product's mode (kWide on
+// the wide units)
 __device__ void mlp_forward(const Args& a, const int* md, const int* fm,
-                            const Scratch& s, int lane) {
+                            const Scratch& s, int lane, int sums = 0) {
   const int L = fm[0];
-  const int mode = forward_mode(fm);
+  const int mode = forward_mode(fm) | sums;
   if (fm[2] & tpuflows_nuts::kFormBf16)
     for (int c = lane; c < a.d; c += 32) s.xin[c] = bf16_round(s.xin[c]);
   __syncwarp();
@@ -443,9 +444,9 @@ __device__ void mlp_forward(const Args& a, const int* md, const int* fm,
 // xin = d (head . MLP) / d input for the cotangent in head; the hidden
 // activations' buffers hold the hidden cotangents on the way
 __device__ void mlp_backward(const Args& a, const int* md, const int* fm,
-                             const Scratch& s, int lane) {
+                             const Scratch& s, int lane, int sums = 0) {
   const int L = fm[0], act = fm[1];
-  const int mode = backward_mode(fm);
+  const int mode = backward_mode(fm) | sums;
   __syncwarp();
   const float* g = s.head;
   for (int k = L - 1; k >= 0; --k) {
@@ -458,43 +459,86 @@ __device__ void mlp_backward(const Args& a, const int* md, const int* fm,
   }
 }
 
+// A d-vector of one row as lane `lane` of the row's warp holds it:
+// element j < count(a) is dim lane + 32 j. The per-warp and tile kernels
+// hold it in registers, DPL = d / 32 elements a lane (`InRegs`); the wide
+// units (wide_grad.cuh) in memory at the runtime lane width a.d
+// (`InMem`). targets.cuh and the module functions below are written once
+// over either, so that the wide units compute what the register units
+// compute, operation for operation. kSums: the flags a row's conditioner
+// products add to their mode (`matvec`): the wide units sum every product
+// in double.
+template <int DPL, class T = float>
+struct InRegs {
+  static constexpr int kSums = 0;
+  T (&v)[DPL];
+  __device__ __forceinline__ int count(const Args&) const { return DPL; }
+  __device__ __forceinline__ T& operator[](int j) const { return v[j]; }
+};
+
+template <class T = float>
+struct InMem {
+  static constexpr int kSums = kWide;
+  T* v;
+  int lane;
+  __device__ __forceinline__ int count(const Args& a) const {
+    return a.d >> 5;
+  }
+  __device__ __forceinline__ T& operator[](int j) const {
+    return v[lane + 32 * j];
+  }
+};
+
+// a view's elements read-only: every caller passes the targets x so, so
+// that a unit compiles each target function once for its views
+template <int DPL, class T>
+__device__ __forceinline__ InRegs<DPL, const T> read_only(InRegs<DPL, T> r) {
+  return {r.v};
+}
+
+template <class T>
+__device__ __forceinline__ InMem<const T> read_only(InMem<T> r) {
+  return {r.v, r.lane};
+}
+
 // y = y chol^T + loc (Whiten's inverse, W = chol^T and bias = loc; its
 // constant ladj comes from the host) or g = g chol (its pullback, W =
 // chol, no bias) on the lane's dims, through xin and head, summed in
 // double as the general path's products
-template <int DPL>
-__device__ __forceinline__ void whiten_matvec(const float* W,
-                                              const float* bias, int d,
-                                              const Scratch& s,
-                                              float (&y)[DPL], int lane) {
+template <class Y>
+__device__ __forceinline__ void whiten_matvec(const Args& a, const float* W,
+                                              const float* bias,
+                                              const Scratch& s, Y y,
+                                              int lane) {
+  const int n = y.count(a);
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) s.xin[lane + 32 * j] = y[j];
+  for (int j = 0; j < n; ++j) s.xin[lane + 32 * j] = y[j];
   __syncwarp();
-  matvec(W, bias, s.xin, d, d, s.head, nullptr, kWide, lane);
+  matvec(W, bias, s.xin, a.d, a.d, s.head, nullptr, kWide, lane);
   __syncwarp();
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) y[j] = s.head[lane + 32 * j];
+  for (int j = 0; j < n; ++j) y[j] = s.head[lane + 32 * j];
   __syncwarp();
 }
 
-// One module's inverse on the lane's dims, in place; returns the lane's
-// part of its ladj. Not inlined (nor module_vjp): with the tree state
-// live around the call, inlining both into the kernel cost spills and 30%
-// of the time (PERF.md).
-template <int DPL>
+// One module's inverse on the lane's dims of y, in place; returns the
+// lane's part of its ladj. Not inlined (nor module_vjp): with the tree
+// state live around the call, inlining both into the kernel cost spills
+// and 30% of the time (PERF.md).
+template <class Y>
 __device__ __noinline__ float module_inverse(const Args& a, const int* md,
-                                const int* fm, const Scratch& s,
-                                float (&y)[DPL], int lane) {
-  const int d = a.d;
+                                             const int* fm, const Scratch& s,
+                                             Y y, int lane) {
+  const int d = a.d, n = y.count(a);
   const float* p = a.params + md[1];
   float ladj = 0.0f;
   if (md[0] == tpuflows_nuts::kWhiten) {
-    whiten_matvec<DPL>(p + d, p, d, s, y, lane);
+    whiten_matvec(a, p + d, p, s, y, lane);
     return lane == 0 ? __int_as_float(md[5]) : 0.0f;  // once a row
   }
   if (md[0] == tpuflows_nuts::kStandardize) {
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
+    for (int j = 0; j < n; ++j) {
       const int i = lane + 32 * j;
       const float ls = __ldg(p + d + i);
       y[j] = y[j] * expf(ls) + __ldg(p + i);
@@ -503,34 +547,33 @@ __device__ __noinline__ float module_inverse(const Args& a, const int* md,
     return ladj;
   }
   const Mlp m = mlp_at(a, md);
-  float mk[DPL];
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) {
+  for (int j = 0; j < n; ++j) {
     const int i = lane + 32 * j;
-    mk[j] = __ldg(m.mask + i);
-    s.xin[i] = y[j] * mk[j];
+    s.xin[i] = y[j] * __ldg(m.mask + i);
   }
-  mlp_forward(a, md, fm, s, lane);
+  mlp_forward(a, md, fm, s, lane, Y::kSums);
   const float c = __int_as_float(md[5]);
   if (md[0] == tpuflows_nuts::kAffine) {
     // y' = m y + (1 - m) (y - shift) exp(-s), s = clamp tanh(raw / clamp)
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
+    for (int j = 0; j < n; ++j) {
       const int i = lane + 32 * j;
-      const float om = 1.0f - mk[j];
+      const float mk = __ldg(m.mask + i);
+      const float om = 1.0f - mk;
       const float sc = c * tanhf(s.head[d + i] / c);
-      y[j] = mk[j] * y[j] + om * ((y[j] - s.head[i]) * expf(-sc));
+      y[j] = mk * y[j] + om * ((y[j] - s.head[i]) * expf(-sc));
       ladj -= om * sc;
     }
   } else {
     // the spline on the transformed dims; pass-through dims keep y
     const int K = md[4];
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      if (mk[j] == 0.0f) {
+    for (int j = 0; j < n; ++j) {
+      const int i = lane + 32 * j;
+      if (__ldg(m.mask + i) == 0.0f) {
         float x, l;
-        tpuflows_rqs::rqs_inverse(y[j], s.head + lane + 32 * j, d, K, c, x,
-                                  l);
+        tpuflows_rqs::rqs_inverse(y[j], s.head + i, d, K, c, x, l);
         y[j] = x;
         ladj += l;
       }
@@ -541,104 +584,119 @@ __device__ __noinline__ float module_inverse(const Args& a, const int* md,
 }
 
 // Pulls g (the cotangent of a module's output) back to its input y_in
-// (ladj's cotangent is 1). Recomputes the conditioner unless `live` says
-// that its buffers still hold it.
-template <int DPL>
+// (ladj's cotangent is 1), in place; the input dims' direct part is kept
+// in g while the MLP's backward runs. Recomputes the conditioner unless
+// `live` says that its buffers still hold it.
+template <class G>
 __device__ __noinline__ void module_vjp(const Args& a, const int* md,
-                           const int* fm, const Scratch& s,
-                           const float* y_in, bool& live, float (&g)[DPL],
-                           int lane) {
-  const int d = a.d;
+                                        const int* fm, const Scratch& s,
+                                        const float* y_in, bool& live, G g,
+                                        int lane) {
+  const int d = a.d, n = g.count(a);
   if (md[0] == tpuflows_nuts::kWhiten) {  // g_z = g_x chol
     const float* p = a.params + md[1];
-    whiten_matvec<DPL>(p + d + d * d, nullptr, d, s, g, lane);
+    whiten_matvec(a, p + d + d * d, nullptr, s, g, lane);
     live = false;  // xin and head no longer hold a conditioner
     return;
   }
   if (md[0] == tpuflows_nuts::kStandardize) {
     const float* p = a.params + md[1];
 #pragma unroll
-    for (int j = 0; j < DPL; ++j)
+    for (int j = 0; j < n; ++j)
       g[j] *= expf(__ldg(p + d + lane + 32 * j));
     return;
   }
   const Mlp m = mlp_at(a, md);
-  float y[DPL], mk[DPL], gd[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int i = lane + 32 * j;
-    y[j] = y_in[i];
-    mk[j] = __ldg(m.mask + i);
-  }
   if (!live) {
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) s.xin[lane + 32 * j] = y[j] * mk[j];
-    mlp_forward(a, md, fm, s, lane);
+    for (int j = 0; j < n; ++j) {
+      const int i = lane + 32 * j;
+      s.xin[i] = y_in[i] * __ldg(m.mask + i);
+    }
+    mlp_forward(a, md, fm, s, lane, G::kSums);
   }
   live = false;
   const float c = __int_as_float(md[5]);
   if (md[0] == tpuflows_nuts::kAffine) {
     // the head's cotangent is written over the head, lane by lane
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
+    for (int j = 0; j < n; ++j) {
       const int i = lane + 32 * j;
-      const float om = 1.0f - mk[j];
+      const float mk = __ldg(m.mask + i);
+      const float om = 1.0f - mk;
       const float shift = s.head[i];
       const float th = tanhf(s.head[d + i] / c);
       const float e = expf(-(c * th));
-      const float yt = (y[j] - shift) * e;
+      const float yt = (y_in[i] - shift) * e;
       const float gy = g[j];
       s.head[i] = -om * gy * e;
       s.head[d + i] = -om * (gy * yt + 1.0f) * (1.0f - th * th);
-      gd[j] = gy * (mk[j] + om * e);
+      g[j] = gy * (mk + om * e);
     }
   } else {
     const int K = md[4], P = 3 * K - 1;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      float* col = s.head + lane + 32 * j;
-      if (mk[j] == 0.0f) {
-        tpuflows_rqs::rqs_inverse_vjp(y[j], col, d, K, c, g[j], 1.0f, gd[j],
-                                      col, d);
+    for (int j = 0; j < n; ++j) {
+      const int i = lane + 32 * j;
+      float* col = s.head + i;
+      if (__ldg(m.mask + i) == 0.0f) {
+        float gd;
+        tpuflows_rqs::rqs_inverse_vjp(y_in[i], col, d, K, c, g[j], 1.0f,
+                                      gd, col, d);
+        g[j] = gd;
       } else {
-        gd[j] = g[j];
         for (int q = 0; q < P; ++q) col[q * d] = 0.0f;
       }
     }
   }
-  mlp_backward(a, md, fm, s, lane);
+  mlp_backward(a, md, fm, s, lane, G::kSums);
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) g[j] = gd[j] + mk[j] * s.xin[lane + 32 * j];
+  for (int j = 0; j < n; ++j) {
+    const int i = lane + 32 * j;
+    g[j] = g[j] + __ldg(m.mask + i) * s.xin[i];
+  }
   __syncwarp();  // xin and head are written again by the next module
 }
 
 #include "targets.cuh"
 
-// lp = log p(f^-1(z)) + ladj and g = d lp / dz through the module list.
+// lp = log p(f^-1(z)) + ladj and g = d lp / dz through the module list, z,
+// g and x (the inverse's working row) distinct rows of one view type
+template <class Z, class G>
+__device__ __forceinline__ float row_logp_grad(const Args& a,
+                                               const ChainList& c,
+                                               const Scratch& s, Z z, G g,
+                                               G x, int lane) {
+  const int d = a.d, n = x.count(a);
+  float ladj = 0.0f;
+#pragma unroll
+  for (int j = 0; j < n; ++j) x[j] = z[j];
+  // sweep 1: the inverse chain, last module first; keep each input
+  for (int k = c.n_mods - 1; k >= 0; --k) {
+#pragma unroll
+    for (int j = 0; j < n; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
+    ladj += module_inverse(a, c.mods + kModInts * k,
+                           c.forms + kFormInts * k, s, x, lane);
+  }
+  const float lp =
+      row_target_logp_grad(a, read_only(x), g, lane) + warp_sum(ladj);
+  // sweep 2: first module first; its conditioner ran last in sweep 1
+  bool live = true;
+  for (int k = 0; k < c.n_mods; ++k)
+    module_vjp(a, c.mods + kModInts * k, c.forms + kFormInts * k, s,
+               s.bounds + k * d, live, g, lane);
+  return lp;
+}
+
+// the same on a row in registers (the per-warp kernels)
 template <int DPL>
 __device__ float chain_logp_grad(const Args& a, const ChainList& c,
                                  float* sm, const float (&z)[DPL],
                                  float (&g)[DPL], int lane) {
-  const int d = a.d;
-  const Scratch s = scratch_at(a, c, sm);
   float x[DPL];
-  float ladj = 0.0f;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) x[j] = z[j];
-  // sweep 1: the inverse chain, last module first; keep each input
-  for (int k = c.n_mods - 1; k >= 0; --k) {
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) s.bounds[k * d + lane + 32 * j] = x[j];
-    ladj += module_inverse<DPL>(a, c.mods + kModInts * k,
-                                c.forms + kFormInts * k, s, x, lane);
-  }
-  const float lp = target_logp_grad<DPL>(a, x, g, lane) + warp_sum(ladj);
-  // sweep 2: first module first; its conditioner ran last in sweep 1
-  bool live = true;
-  for (int k = 0; k < c.n_mods; ++k)
-    module_vjp<DPL>(a, c.mods + kModInts * k, c.forms + kFormInts * k, s,
-                    s.bounds + k * d, live, g, lane);
-  return lp;
+  return row_logp_grad(a, c, scratch_at(a, c, sm),
+                       InRegs<DPL, const float>{z}, InRegs<DPL>{g},
+                       InRegs<DPL>{x}, lane);
 }
 
 }  // namespace

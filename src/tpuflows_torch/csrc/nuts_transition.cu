@@ -5,11 +5,12 @@
 // `fused_nuts_for_flow` (:924), over any closed-form target of the port
 // (targets.cuh, on Args::kind) at any width d <= 256: the flow is packed
 // at the lane width _pad32(d), and lanes at or past d load zeros and store
-// nothing (nuts_tree_body.inc). It computes what
-// `_transition_math` (nuts_pallas.py:83-300) computes, under the same
-// precomputed-randomness contract: momenta p0, direction signs, acceptance
-// uniforms and one uniform per potential leaf come in as inputs, so the
-// kernel is deterministic. The plain PyTorch version is
+// nothing (nuts_tree_body.inc); a wider flow, a deeper tree or a row past
+// shared memory runs K1's wide unit instead (nuts_transition_wide.cu). It
+// computes what `_transition_math` (nuts_pallas.py:83-300) computes, under
+// the same precomputed-randomness contract: momenta p0, direction signs,
+// acceptance uniforms and one uniform per potential leaf come in as
+// inputs, so the kernel is deterministic. The plain PyTorch version is
 // `transition_math_torch` in kernels/nuts_cuda.py.
 //
 // Two kernels share the tree code (nuts_tree_body.inc); the gradients
@@ -225,6 +226,9 @@ template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
 
 namespace {
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+// a hidden width: any multiple of 32 up to 4096 (kernels/nuts_cuda.py
+// MAX_HIDDEN); the launch checks that the rows fit beside the ring
+bool hidden_ok(int w) { return w >= 32 && w <= 4096 && w % 32 == 0; }
 // a target of width dim on lanes of width d (targets.cuh)
 bool target_ok(int d, int dim, int kind) {
   return dim >= 1 && dim <= d && d - dim < 32 && kind >= 0 &&
@@ -238,7 +242,7 @@ bool chain_ok(int n, int d, int dim, int kind, int n_mods, int hmax,
               int nhid, int head, int depth) {
   using namespace tpuflows_nuts;
   return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
-         n_mods <= kMaxModules && (hmax == 0 || width_ok(hmax)) &&
+         n_mods <= kMaxModules && (hmax == 0 || hidden_ok(hmax)) &&
          nhid >= 0 && nhid < kMaxLayers && head >= 0 && head % 32 == 0 &&
          depth >= 1 && depth <= kMaxDepth;
 }

@@ -4,7 +4,8 @@
 // Replaces the Pallas kernel `make_fused_nuts_window`
 // (src/tpuflows/kernels/nuts_pallas.py:744, pallas_call at :831), built by
 // `fused_nuts_window_for_flow` (:883), over the targets and widths K1
-// takes (targets.cuh; lanes past the width masked). It computes the S
+// takes (targets.cuh; lanes past the width masked; past K1's tile kernel's
+// reach, K2's wide unit nuts_window_wide.cu). It computes the S
 // transitions that `_window_math` (nuts_pallas.py:463-741) computes, under
 // the same precomputed-randomness contract: per chain, slot s takes its
 // momenta from p0c columns s d .., its direction signs and acceptance
@@ -287,6 +288,9 @@ template cudaError_t launch_tile<NUTS_DPL>(const Args&, const ChainList&,
 namespace {
 
 bool width_ok(int w) { return w >= 32 && w <= 256 && w % 32 == 0; }
+// a hidden width: any multiple of 32 up to 4096 (kernels/nuts_cuda.py
+// MAX_HIDDEN); the launch checks that the rows fit beside the ring
+bool hidden_ok(int w) { return w >= 32 && w <= 4096 && w % 32 == 0; }
 // a target of width dim on lanes of width d (targets.cuh)
 bool target_ok(int d, int dim, int kind) {
   return dim >= 1 && dim <= d && d - dim < 32 && kind >= 0 &&
@@ -327,7 +331,7 @@ bool chain_window_ok(int n, int d, int dim, int kind, int n_mods,
   using namespace tpuflows_window;
   return n >= 1 && width_ok(d) && target_ok(d, dim, kind) && n_mods >= 0 &&
          n_mods <= tpuflows_nuts::kMaxModules &&
-         (hmax == 0 || width_ok(hmax)) && nhid >= 0 &&
+         (hmax == 0 || hidden_ok(hmax)) && nhid >= 0 &&
          nhid < tpuflows_nuts::kMaxLayers && head >= 0 && head % 32 == 0 &&
          depth >= 1 && depth <= kMaxDepth && window >= 1 &&
          (long long)n * window <= (1 << 30);

@@ -2,7 +2,12 @@
 
 `resample_sharded`, `optimize_flow_dp` and `run_nuts_sharded` sit above
 the samplers and the trainer, which import this package's collectives, so
-they load on first use."""
+they load on first use.
+
+Left out of the port: `replicated` and `row_sharded`, the JAX package's
+sharding helpers (a `NamedSharding` over a device mesh, for `jit` to lay
+out): `row_block` (a rank's block of rows) and `replicate` (a value every
+rank holds whole) stand for them over a process group."""
 from tpuflows_torch.dist.failures import (EXIT_PEER_LOSS, CollectiveTimeout,
                                           FailurePolicy, heartbeat,
                                           run_with_timeout)

@@ -21,15 +21,20 @@ g (n, d)) with
     path: `chip_smoke.py`'s oracle and yardstick for the tile kernel;
   * the wrapper (`FusedLatentLogpAndGrad.__call__`): a CPU tensor runs the
     plain version; a CUDA tensor launches the kernel, or the wrapper
-    raises. `LAUNCHES` counts the kernel's launches.
+    raises. `LAUNCHES` counts the kernel's launches. Past the tile
+    kernel's reach (`nuts_cuda.wide_path`: d > 256, a row too wide for
+    shared memory) a CUDA tensor launches K3's wide unit
+    `csrc/fused_logp_wide.cu` (one warp a row, its vectors in a per-launch
+    work buffer); `WIDE_LAUNCHES` counts its launches.
 
 A hand-written kernel cannot trace an arbitrary log density into its body
 as the JAX package's does, so this takes what K1 takes (`nuts_cuda.
 pack_flow`): any closed-form target of the port (`nuts_cuda.pack_target`,
 its log density and gradient written out in `csrc/targets.cuh`) of the
-flow's width d <= 256, and a Chain of Standardize, Whiten, AffineCoupling
-and RQSCouplingBlock modules whose conditioners are MLPs of 1 to 8 layers
-with any activation of `flows/nets.py` and float32 or bf16 operands, as
+flow's width d <= nuts_cuda.MAX_DIM, and a Chain of Standardize, Whiten,
+AffineCoupling and RQSCouplingBlock modules whose conditioners are MLPs of
+1 to 8 layers of any hidden widths up to nuts_cuda.MAX_HIDDEN with any
+activation of `flows/nets.py` and float32 or bf16 operands, as
 the JAX package's in-kernel flow math takes them, or no flow; it raises on
 anything else (Identity and ScannedRepeat, which that math refuses too). The JAX package's generic tile kernel
 `make_fused_logp_and_grad`, whose body is whatever JAX code it is given,
@@ -49,21 +54,24 @@ from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.kernels import nuts_cuda
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use):
+# the tile kernel's, and the wide unit's
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 # one translation unit per instantiation (d / 32 dims per lane) plus the C
 # entry points, compiled in parallel; per DPL a unit of every target and
 # one of the funnel's alone (its tile kernel, which the entry point
 # launches for a funnel: csrc/targets.cuh)
 _UNITS = [("entry", [])] + [
     (f"dpl{k}{f}", [f"-DLATENT_DPL={k}", *flag])
-    for k in range(1, nuts_cuda.MAX_DIM // 32 + 1)
+    for k in range(1, nuts_cuda.TILE_MAX_DIM // 32 + 1)
     for f, flag in (("", []), ("f", ["-DTARGETS_FUNNEL_ONLY"]))]
 
 
 def reset_launches():
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     LAUNCHES = 0
+    WIDE_LAUNCHES = 0
 
 
 def _bind(lib):
@@ -82,10 +90,24 @@ LIBRARY = CudaLibrary("fused_logp", "fused_logp.cu", _UNITS,
                        "rqs_math.cuh"], _bind)
 
 
-def _call(name, z, args):
-    """Entry point `name` of the library with `args` and z's stream, on
-    z's card; raises if the launch failed."""
-    lib = LIBRARY.load()
+def _bind_wide(lib):
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ml = [p] * 2 + [i32] * 7 + [p] + [i32] * 2  # module_list_args
+    fn = lib.fused_logp_wide_f32
+    fn.argtypes = [p] * 2 + ml + [p] * 3 + [i64, p]
+    fn.restype = i32
+
+
+# K3's wide unit (csrc/fused_logp_wide.cu), one translation unit, built on
+# the first launch that needs it (`nuts_cuda.wide_path`)
+WIDE_LIBRARY = CudaLibrary("fused_logp_wide", "fused_logp_wide.cu",
+                           [("wide", [])], nuts_cuda.WIDE_DEPS, _bind_wide)
+
+
+def _call(name, z, args, library=None):
+    """Entry point `name` of the library (LIBRARY, or `library`) with
+    `args` and z's stream, on z's card; raises if the launch failed."""
+    lib = (library or LIBRARY).load()
     with torch.cuda.device(z.device):
         rc = getattr(lib, name)(
             *args, torch.cuda.current_stream(z.device).cuda_stream)
@@ -93,19 +115,33 @@ def _call(name, z, args):
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
-def _launch(z, model: nuts_cuda.PackedFlow, rows=None, resident=None):
+def _launch(z, model: nuts_cuda.PackedFlow, rows=None, resident=None,
+            wide=None):
     """K3 on the card: the tile kernel on every flow, on tiles of `rows`
     rows, its weights resident where they fit, K1's and K2's rule (the
     wrapper's `tile_rows(model)` and `launch_resident`; `chip_smoke.py`
     times other R and the ring). At the ceiling's post-warmup state R = 8
     with resident weights is K3's fastest mode too (PERF.md §6), though a
-    K3 launch serves one gradient a row."""
-    global LAUNCHES
+    K3 launch serves one gradient a row. Where `nuts_cuda.wide_path` says
+    so and no `rows` is asked for: the wide unit (one warp a row, its
+    vectors in a per-launch work buffer; WIDE_LIBRARY, built on its first
+    launch; `wide` True asks for it on any flow)."""
+    global LAUNCHES, WIDE_LAUNCHES
     _check(z, model)
-    rows = nuts_cuda.launch_rows(model, rows)
     n, d = z.shape
     lp = torch.empty(n, device=z.device, dtype=torch.float32)
     g = torch.empty_like(z)
+    if wide or (wide is None and rows is None and resident is None
+                and nuts_cuda.wide_path(model)):
+        work = nuts_cuda.wide_work(z, model, 0)
+        _call("fused_logp_wide_f32", z, [
+            z.data_ptr(), model.params.data_ptr(),
+            *nuts_cuda.module_list_args(model, n), lp.data_ptr(),
+            g.data_ptr(), work.data_ptr(), work.numel()],
+            library=WIDE_LIBRARY)
+        WIDE_LAUNCHES += 1
+        return lp, g
+    rows = nuts_cuda.launch_rows(model, rows)
     _call("fused_logp_chain_f32", z, [
         z.data_ptr(), model.params.data_ptr(),
         *nuts_cuda.module_list_args(model, n), lp.data_ptr(), g.data_ptr(),
@@ -147,7 +183,8 @@ def chain_logp_grad_warp(z, model: nuts_cuda.PackedFlow):
 class FusedLatentLogpAndGrad:
     """The hook z (n, d) -> (lp (n,), g (n, d)) of a flow over a target
     (`nuts_cuda.pack_flow`: any closed-form target of the port, any d <=
-    256; flow None: the target alone, its packed parameters on `device`).
+    nuts_cuda.MAX_DIM; flow None: the target alone, its packed parameters
+    on `device`).
     The flow is packed for the kernel when this is constructed, so build it
     after the flow is trained."""
 

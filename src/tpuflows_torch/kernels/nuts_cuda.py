@@ -16,9 +16,12 @@ Three pieces:
     `csrc/nuts_transition.cu` (the flow as a module list on tiles of
     `tile_rows(model)` chains in lockstep, `csrc/tile_grad.cuh`, its
     weights through a ring or, for a small flow, resident in shared
-    memory: `launch_resident`), or the wrapper raises. There is no
-    fallback from one to the other. `LAUNCHES` counts the kernel's
-    launches;
+    memory: `launch_resident`) or, past the tile kernels' reach
+    (`wide_path`: d > 256, max_depth > 10, a row too wide for shared
+    memory), to K1's wide unit `csrc/nuts_transition_wide.cu` (one warp a
+    chain, its vectors in a per-launch work buffer), or the wrapper
+    raises. There is no fallback from one to the other. `LAUNCHES` counts
+    the tile kernel's launches, `WIDE_LAUNCHES` the wide unit's;
   * `FusedNUTS` / `fused_nuts_for_flow` — the batched transition that
     `NUTSDriver(transition=...)` calls: it draws the randomness (momenta,
     direction signs, acceptance uniforms, one uniform per potential leaf)
@@ -27,19 +30,23 @@ Three pieces:
 
 `pack_flow` checks a flow and packs its leaves for the kernel: any Chain
 of Standardize, Whiten, AffineCoupling and RQSCouplingBlock modules whose
-conditioners are MLPs of 1 to 8 layers with any activation of
-`flows/nets.py` and float32 or bf16 operands, as the JAX package's
-in-kernel flow math takes them (or none: the flow-less transition), goes
-to `nuts_chain_tile_kernel` as a module list, padded once to the lane
-width `_pad32(d)`, over any closed-form target of the port (`pack_target`:
+conditioners are MLPs of 1 to 8 layers of any hidden widths up to
+MAX_HIDDEN with any activation of `flows/nets.py` and float32 or bf16
+operands, as the JAX package's in-kernel flow math takes them (or none:
+the flow-less transition), goes to the kernels as a module list, padded
+once to the lane width `_pad32(d)` and each hidden width to a multiple of
+32, over any closed-form target of the port (`pack_target`:
 `csrc/targets.cuh` on the card, its mirror `packed_log_density` in the
-plain version), at any d <= 256.
+plain version), at any d <= MAX_DIM = 1024, for trees of max_depth up to
+MAX_DEPTH = 16. What it packs, the kernels launch; what they do not take
+it refuses.
 `chain_transition_warp` runs the per-warp module-list kernel
 (`nuts_chain_kernel`), on no path: `chip_smoke.py`'s oracle and
 yardstick for the tile kernel.
 The library is built with nvcc into `build/kernels/` at the repository
-root on first use (`cuda_build`); nothing is compiled or loaded at
-import time.
+root on first use (`cuda_build`), the wide unit (WIDE_LIBRARY) on the
+first launch that needs it; nothing is compiled or loaded at import
+time.
 """
 from __future__ import annotations
 
@@ -66,11 +73,21 @@ from tpuflows_torch.targets import (Banana, CorrelatedGaussian, DiagNormal,
                                     MultimodalCauchy, NealsFunnel,
                                     Rosenbrock, StandardNormal)
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use):
+# the tile kernel's, and the wide unit's
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
-MAX_DIM = 256
-MAX_DEPTH = 10
+# the widest flow (d), the deepest tree and the widest hidden layer that K1,
+# K2 and K3 take (the wide units', csrc/wide_grad.cuh kWideMaxDim,
+# kWideMaxDepth, kMaxHidden); the register units of the tile kernels take d
+# up to TILE_MAX_DIM and max_depth up to TILE_MAX_DEPTH, and the wide units
+# the rest (`wide_path`)
+MAX_DIM = 1024
+MAX_DEPTH = 16
+MAX_HIDDEN = 4096
+TILE_MAX_DIM = 256
+TILE_MAX_DEPTH = 10
 MAX_MODULES = 16
 MOD_INTS = 8  # ints per module in the kernel's module list
 # ints per module of its conditioner's form: layers, activation, flags, and
@@ -108,8 +125,14 @@ _LOG2PI = math.log(2.0 * math.pi)
 # launches for a funnel: csrc/targets.cuh)
 _UNITS = [("entry", [])] + [
     (f"dpl{k}{f}", [f"-DNUTS_DPL={k}", *flag])
-    for k in range(1, MAX_DIM // 32 + 1)
+    for k in range(1, TILE_MAX_DIM // 32 + 1)
     for f, flag in (("", []), ("f", ["-DTARGETS_FUNNEL_ONLY"]))]
+# the headers of the wide units (csrc/wide_grad.cuh), K1's, K2's and K3's
+WIDE_DEPS = ["wide_grad.cuh", "latent_grad.cuh", "targets.cuh",
+             "rqs_math.cuh"]
+# d-wide vectors of a row of the wide units' work buffer before its
+# checkpoints (csrc/wide_grad.cuh kWideVectors)
+WIDE_VECTORS = 23
 
 
 def _bind(lib):
@@ -127,6 +150,23 @@ LIBRARY = CudaLibrary("nuts_transition", "nuts_transition.cu", _UNITS,
                       ["latent_grad.cuh", "targets.cuh", "tile_grad.cuh",
                        "nuts_tree.cuh", "nuts_tree_body.inc",
                        "rqs_math.cuh"], _bind)
+
+
+def _bind_wide(lib):
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float)
+    ml = [p] * 2 + [i32] * 7 + [p] + [i32] * 2  # module_list_args
+    fn = lib.nuts_wide_transition_f32
+    fn.argtypes = [p] * 8 + ml + [i32, f32] + [p] * 3 + [i64, p]
+    fn.restype = i32
+
+
+# K1's wide unit (csrc/nuts_transition_wide.cu), one translation unit,
+# built on the first launch that needs it (`wide_path`)
+WIDE_LIBRARY = CudaLibrary("nuts_transition_wide", "nuts_transition_wide.cu",
+                           [("wide", [])],
+                           [*WIDE_DEPS, "nuts_wide_tree.cuh", "nuts_tree.cuh"],
+                           _bind_wide)
 
 
 def _float_bits(x: float) -> int:
@@ -398,26 +438,33 @@ def _form_row(t, widths, general):
 
 def _main_form(t) -> bool:
     """Whether a module has the main paths' form: a coupling with a 3-layer
-    float32 silu conditioner, or a Standardize. A flow of such modules
-    alone runs the 3-layer code with float32 sums (the funnel's own units
-    of K1 and K3 compute only those: csrc/tile_grad.cuh `main_form`); any
-    other flow runs the general path in every coupling."""
+    float32 silu conditioner of hidden widths up to TILE_MAX_DIM, or a
+    Standardize. A flow of such modules alone runs the 3-layer code with
+    float32 sums (the funnel's own units of K1 and K3 compute only those:
+    csrc/tile_grad.cuh `main_form`); any other flow runs the general path,
+    summed in double, in every coupling (at hidden widths of 512 float32
+    sums in the main paths' order missed the bar of float64 on 1.7x as many
+    gradient values as cuBLAS's float32 products: PERF.md §6)."""
     if isinstance(t, Standardize):
         return True
     if isinstance(t, Whiten):
         return False
     return (len(t.net.weights) == 3 and t.net.activation == "silu"
-            and t.net.compute_dtype == "f32")
+            and t.net.compute_dtype == "f32"
+            and all(w.shape[1] <= TILE_MAX_DIM for w in t.net.weights[:-1]))
 
 
 @torch.no_grad()
 def _pad_module(t, d: int, dp: int):
-    """Module t of a flow of width d at the lane width dp: a padded dim
+    """Module t of a flow of width d at the lane width dp, each hidden
+    width of its conditioner rounded up to a multiple of 32: a padded dim
     has Standardize loc 0 and log scale 0, Whiten loc 0 and the identity's
     row and column in chol and its inverse (log 1 = 0 to the ladj), mask 1
     (it passes through every coupling), a zero row of the first layer's
     weight and zero head columns at any depth, so that it holds exact
-    zeros throughout."""
+    zeros throughout; a padded hidden unit has zero weights in and out and
+    a zero bias, so that it holds act(0) = 0 (silu, tanh, relu and gelu
+    alike) and adds exact zeros to every sum."""
     if isinstance(t, Standardize):
         return Standardize(_padded(t.loc, dp, 0.0).float(),
                            _padded(t.log_scale, dp, 0.0).float()).to(
@@ -445,9 +492,18 @@ def _pad_module(t, d: int, dp: int):
         out[..., :d, :] = v.reshape(*lead, d, P)
         return out.reshape(*lead, dp * P)
 
-    w1 = ws[0].new_zeros((dp, ws[0].shape[1]))
-    w1[:d] = ws[0]
-    ws[0] = w1
+    # each layer's input at its padded width (dp, then each hidden width
+    # rounded up to 32: zero units, zero bias, zero weights either side, so
+    # that an added unit's activation is act(0) = 0 and its cotangent 0)
+    ins = [dp] + [_pad32(w.shape[1]) for w in ws[:-1]]
+    for k, (w, b) in enumerate(zip(ws, bs)):
+        hidden = k < len(ws) - 1
+        out = w.new_zeros((ins[k], ins[k + 1] if hidden else w.shape[1]))
+        out[:w.shape[0], :w.shape[1]] = w
+        ws[k] = out
+        if hidden:
+            bs[k] = b.new_zeros(ins[k + 1])
+            bs[k][:b.numel()] = b
     ws[-1], bs[-1] = head(ws[-1]), head(bs[-1])
     net = MLP(ws, bs, activation=t.net.activation,
               compute_dtype=t.net.compute_dtype)
@@ -457,6 +513,13 @@ def _pad_module(t, d: int, dp: int):
     return RQSCouplingBlock(mask, net, knots=t.knots,
                             range_limit=t.range_limit,
                             use_pallas=t.use_pallas)
+
+
+def _needs_pad(t, d: int, dp: int) -> bool:
+    """Whether module t of a flow of width d changes at the lane width dp:
+    a padded dim, or a hidden width that is not a multiple of 32."""
+    return dp != d or any(int(w.shape[1]) % 32 for w in getattr(
+        getattr(t, "net", None), "weights", ())[:-1])
 
 
 def _compact_leaves(t, d, w_first, w_last, b_last, dim):
@@ -520,21 +583,24 @@ def _flow_width(ts, target) -> int:
 
 
 def pack_flow(flow: Chain | None, target, device=None) -> PackedFlow:
-    """Check that K1 computes `flow` over `target` and pack both. `flow`:
-    a Chain of Standardize, Whiten, AffineCoupling and RQSCouplingBlock
-    modules whose conditioners are MLPs of 1 to MAX_LAYERS layers, each
-    hidden width a multiple of 32 up to 256 (`check_widths`), with a
-    silu, tanh, relu or gelu activation and float32 or bf16 operands, as
-    the JAX package's in-kernel flow math takes them (Identity and
-    ScannedRepeat, which that math refuses too, and any other module raise
-    ValueError naming it; so do more layers), or None for the flow-less
-    transition (an empty module list); `target`: any target that
-    `pack_target` packs, of the flow's width d <= 256 (else ValueError,
-    naming it). The flow is padded once to the lane width d_pad =
-    `_pad32(d)` (`_pad_module`) and its leaves packed at d_pad in chain
-    order: Standardize loc, log_scale; Whiten loc, chol^T, chol, its
-    constant ladj sum(log diag chol) (as `Whiten.inverse_and_ladj`
-    computes it, at the true width) in the bits of its row's column 5; a
+    """Check that K1, K2 and K3 compute `flow` over `target` and pack
+    both. `flow`: a Chain of Standardize, Whiten, AffineCoupling and
+    RQSCouplingBlock modules whose conditioners are MLPs of 1 to
+    MAX_LAYERS layers of any hidden widths up to MAX_HIDDEN, with a silu,
+    tanh, relu or gelu activation and float32 or bf16 operands, as the JAX
+    package's in-kernel flow math takes them (Identity and ScannedRepeat,
+    which that math refuses too, and any other module raise ValueError
+    naming it; so do more layers and wider ones), or None for the
+    flow-less transition (an empty module list); `target`: any target that
+    `pack_target` packs, of the flow's width d <= MAX_DIM (else
+    ValueError, naming it). This is where the kernels refuse a flow: a
+    flow that packs launches (`wide_path` sends what the tile kernels do
+    not take to the wide units). The flow is padded once to the lane width
+    d_pad = `_pad32(d)`, each hidden width to a multiple of 32
+    (`_pad_module`), and its leaves packed at d_pad in chain order:
+    Standardize loc, log_scale; Whiten loc, chol^T, chol, its constant
+    ladj sum(log diag chol) (as `Whiten.inverse_and_ladj` computes it, at
+    the true width) in the bits of its row's column 5; a
     coupling's mask, W_1, b_1, ..., W_L, b_L, W_1^T, ..., W_L^T
     (`_coupling_leaves`), a spline's last layer in p-major columns, a
     bf16 conditioner's weights rounded; each coupling's leaves are
@@ -575,8 +641,12 @@ def pack_flow(flow: Chain | None, target, device=None) -> PackedFlow:
                 raise _unsupported(f"a {type(t).__name__} of width {width} "
                                    f"in a flow of width {d}")
         else:
-            _coupling_leaves(t, d)  # checks the conditioner at width d
-    padded = [_pad_module(t, d, dp) for t in ts] if dp != d else ts
+            _, w = _coupling_leaves(t, d)  # checks the conditioner at d
+            if any(_pad32(h) > MAX_HIDDEN for h in w[1:-1]):
+                raise _unsupported(f"hidden widths {w[1:-1]} (each at most "
+                                   f"{MAX_HIDDEN})")
+    padded = [_pad_module(t, d, dp) if _needs_pad(t, d, dp) else t
+              for t in ts]
     general = not all(_main_form(t) for t in ts)
     parts, rows, forms, widths, resident, off = [], [], [], [], [], 0
     head = 0
@@ -663,15 +733,22 @@ def transition_math_torch(q, p0, dirs, u_acc, u_take, eps, inv_mass,
                                 zero_nonfinite=True)
 
 
+def check_depth(max_depth: int):
+    """Raises unless K1 and K2 take trees of `max_depth` doublings: 1 to
+    MAX_DEPTH (the tile kernels up to TILE_MAX_DEPTH, the wide units the
+    rest). The transitions call it when they are built."""
+    if not 1 <= max_depth <= MAX_DEPTH:
+        raise ValueError(f"the fused NUTS kernels take max_depth in [1, "
+                         f"{MAX_DEPTH}], got {max_depth}")
+
+
 def check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth, window=1, out=None):
     """Shapes, dtypes and devices of K1's inputs, and of K2's for a
     window of `window` slots: then p0, dirs, u_acc and u_take are `window`
     times as wide (slot-major in each row) and the draws go to `out`
     (window, n, d) when it is given."""
-    if not 1 <= max_depth <= MAX_DEPTH:
-        raise ValueError(f"max_depth must be in [1, {MAX_DEPTH}], got "
-                         f"{max_depth}")
+    check_depth(max_depth)
     if window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if q.ndim != 2:
@@ -828,23 +905,46 @@ def lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
 
 
 def check_widths(model: PackedFlow):
-    """Raises unless the warp-per-row device code (K1's, and K3's, which
-    shares its gradient) takes the packed flow's widths: any d up to
-    MAX_DIM (packed at the lane width `_pad32(d)`), every hidden width of
-    every conditioner a multiple of 32 up to MAX_DIM, and one row's
-    scratch within SMEM_LIMIT."""
+    """Raises unless K1's, K2's and K3's device code takes the packed
+    flow's widths, as `pack_flow` leaves them: any d up to MAX_DIM packed
+    at the lane width `_pad32(d)`, every hidden width a multiple of 32 up
+    to MAX_HIDDEN (`pack_flow` pads each to one). The launches assert it;
+    a flow that packs passes. A row too wide for the tile kernels' shared
+    memory runs the wide units (`wide_path`)."""
     if not 1 <= model.d <= MAX_DIM or model.d_pad != _pad32(model.d):
         raise ValueError(f"the kernel takes d <= {MAX_DIM} packed at "
                          f"{_pad32(model.d)} lanes, got d={model.d} at "
                          f"{model.d_pad}")
     for w in model.hidden:
-        if w > MAX_DIM or w % 32:
+        if w > MAX_HIDDEN or w % 32:
             raise ValueError(f"the kernel takes hidden widths % 32 == 0 and "
-                             f"<= {MAX_DIM}, got {w}")
-    if smem_bytes(model) > SMEM_LIMIT:
-        raise ValueError(f"the flow needs {smem_bytes(model)} bytes of "
-                         f"shared memory per chain, over the limit of "
-                         f"{SMEM_LIMIT}")
+                             f"<= {MAX_HIDDEN}, got {w}")
+
+
+def wide_path(model: PackedFlow, max_depth: int = 1) -> bool:
+    """Whether a launch of K1, K2 (trees of `max_depth`) or K3 (depth 1)
+    runs the kernel's wide unit (csrc/nuts_transition_wide.cu,
+    nuts_window_wide.cu, fused_logp_wide.cu) rather than its tile kernel:
+    a lane width past TILE_MAX_DIM, a depth past TILE_MAX_DEPTH, or a row
+    whose scratch leaves no room for a weight ring in shared memory at a
+    tile of one row (`ring_stage_floats`)."""
+    return (model.d_pad > TILE_MAX_DIM or max_depth > TILE_MAX_DEPTH
+            or ring_stage_floats(model, 1) == 0)
+
+
+def wide_row_floats(model: PackedFlow, max_depth: int) -> int:
+    """Floats of one row's slice of a wide unit's work buffer
+    (csrc/wide_grad.cuh `wide_row_floats`): WIDE_VECTORS d_pad-wide
+    vectors, 2 max_depth checkpoints (K3: depth 0) and one row's gradient
+    scratch (`smem_bytes`)."""
+    return ((WIDE_VECTORS + 2 * max_depth) * model.d_pad
+            + smem_bytes(model) // 4)
+
+
+def wide_work(q, model: PackedFlow, max_depth: int) -> torch.Tensor:
+    """A wide unit's work buffer for q's n rows, on q's device."""
+    return torch.empty(q.shape[0] * wide_row_floats(model, max_depth),
+                       device=q.device, dtype=torch.float32)
 
 
 def module_list_args(model: PackedFlow, n: int) -> list:
@@ -859,10 +959,10 @@ def module_list_args(model: PackedFlow, n: int) -> list:
             model.forms.data_ptr(), model.nhid, int(model.general)]
 
 
-def _call(name, q, args):
-    """Entry point `name` of the library with `args` and q's stream, on
-    q's card; raises if the launch failed."""
-    lib = LIBRARY.load()
+def _call(name, q, args, library=None):
+    """Entry point `name` of the library (LIBRARY, or `library`) with
+    `args` and q's stream, on q's card; raises if the launch failed."""
+    lib = (library or LIBRARY).load()
     with torch.cuda.device(q.device):
         rc = getattr(lib, name)(
             *args, torch.cuda.current_stream(q.device).cuda_stream)
@@ -881,20 +981,40 @@ def _outputs(q, model, ins):
 
 
 def _launch(q, p0, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
-            rows=None, resident=None):
+            rows=None, resident=None, wide=None):
     """K1 on the card: the tile kernel on tiles of `rows` chains, its
     weights resident where they fit (the wrapper's `tile_rows(model)` and
-    `launch_resident`; `chip_smoke.py` times other R and the ring)."""
+    `launch_resident`; `chip_smoke.py` times other R and the ring), or,
+    where `wide_path` says so and no `rows` is asked for, the wide unit
+    (`wide` True asks for it on any flow: `chip_smoke.py` holds it to the
+    per-warp kernel)."""
     global LAUNCHES
     n, d = q.shape
     ins = (q, p0, dirs, u_acc, u_take, eps, inv_mass, model.params)
     q_out, info, ptrs = _outputs(q, model, ins)
+    if wide or (wide is None and rows is None and resident is None
+                and wide_path(model, max_depth)):
+        return _launch_wide(q, model, max_depth, q_out, info, ptrs)
     rows = launch_rows(model, rows)
     _call("nuts_chain_transition_f32", q, [
         *ptrs, *module_list_args(model, n), max_depth, MAX_DELTA_ENERGY,
         q_out.data_ptr(), info.data_ptr(), rows,
         launch_resident(model, rows, resident)])
     LAUNCHES += 1
+    return (q_out, *info.unbind(0))
+
+
+def _launch_wide(q, model, max_depth, q_out, info, ptrs):
+    """K1's wide unit on the card (`wide_path`): one warp per chain, its
+    vectors in a per-launch work buffer (`wide_work`). Built on its first
+    launch (WIDE_LIBRARY). Same returns as `_launch`."""
+    global WIDE_LAUNCHES
+    work = wide_work(q, model, max_depth)
+    _call("nuts_wide_transition_f32", q, [
+        *ptrs, *module_list_args(model, q.shape[0]), max_depth,
+        MAX_DELTA_ENERGY, q_out.data_ptr(), info.data_ptr(), work.data_ptr(),
+        work.numel()], library=WIDE_LIBRARY)
+    WIDE_LAUNCHES += 1
     return (q_out, *info.unbind(0))
 
 
@@ -954,7 +1074,8 @@ def nuts_transition(q, p0, dirs, u_acc, u_take, eps, inv_mass,
 
     A CPU tensor runs `transition_math_torch` with `plain_logp_grad`; a
     CUDA tensor launches K1's tile kernel on tiles of `tile_rows(model)`
-    chains, the weights resident where they fit (`launch_resident`). Same
+    chains, the weights resident where they fit (`launch_resident`), or
+    K1's wide unit where `wide_path(model, max_depth)` says so. Same
     returns as `transition_math_torch`."""
     check_inputs(q, p0, dirs, u_acc, u_take, eps, inv_mass, model,
                   max_depth)
@@ -976,10 +1097,13 @@ class FusedNUTS:
     list, its packed target on `device`).
 
     The flow's parameters are packed for K1 when this is constructed, so
-    build it after the flow is trained."""
+    build it after the flow is trained; a flow, a target or a depth that
+    K1 does not take is refused then (`pack_flow`, `check_depth`), not at
+    a launch."""
 
     def __init__(self, target, flow: Chain | None = None,
                  max_depth: int = 8, device=None):
+        check_depth(max_depth)
         self.model = pack_flow(flow, target, device=device)
         self.max_depth = max_depth
 
@@ -997,6 +1121,9 @@ class FusedNUTS:
 def fused_nuts_for_flow(target, flow: Chain | None,
                         max_depth: int = 8) -> FusedNUTS:
     """The fused transition for flow-preconditioned NUTS on `target`, any
-    closed-form target of the port (`pack_target`) at any d <= 256 (the
-    north-star path); drop into `NUTSDriver(transition=...)`."""
+    closed-form target of the port (`pack_target`) at any d <= MAX_DIM,
+    under any flow `pack_flow` takes (hidden widths up to MAX_HIDDEN), at
+    any max_depth up to MAX_DEPTH (the north-star path); drop into
+    `NUTSDriver(transition=...)`. Raises ValueError, naming the limit,
+    for anything else."""
     return FusedNUTS(target, flow, max_depth=max_depth)

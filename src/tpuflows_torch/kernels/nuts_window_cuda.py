@@ -22,9 +22,11 @@ Four pieces:
     `nuts_cuda.tile_rows(model)` chains in K1's tile lockstep, every
     gradient through the tile gradient `csrc/tile_grad.cuh`, the weights
     resident in shared memory for the whole window where they fit:
-    `nuts_cuda.launch_resident`), or the wrapper raises. There is no
-    fallback from one to the other. `LAUNCHES` counts the kernel's
-    launches. `chain_window_warp` runs the per-warp module-list window
+    `nuts_cuda.launch_resident`) or, past the tile kernels' reach
+    (`nuts_cuda.wide_path`), to K2's wide unit `csrc/nuts_window_wide.cu`,
+    or the wrapper raises. There is no fallback from one to the other.
+    `LAUNCHES` counts the tile kernel's launches, `WIDE_LAUNCHES` the wide
+    unit's. `chain_window_warp` runs the per-warp module-list window
     (`nuts_window_chain_kernel`), on no path: `chip_smoke.py`'s oracle
     and yardstick for the tile kernel;
   * `chain_slots` — S chained per-transition calls on the slot columns
@@ -52,19 +54,24 @@ import torch
 
 from tpuflows_torch.flows.core import Chain
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
-from tpuflows_torch.kernels.nuts_cuda import (_UNITS, MAX_DELTA_ENERGY,
-                                              PackedFlow, check_inputs,
+from tpuflows_torch.kernels.nuts_cuda import (MAX_DELTA_ENERGY,
+                                              TILE_MAX_DIM, WIDE_DEPS,
+                                              PackedFlow,
+                                              check_depth, check_inputs,
                                               check_launch,
                                               launch_resident, launch_rows,
                                               lockstep_gradients,
                                               module_list_args, pack_flow,
-                                              plain_logp_grad)
+                                              plain_logp_grad, wide_path,
+                                              wide_work)
 from tpuflows_torch.mcmc.nuts import (NUTSInfo, _popcount32,
                                       _trailing_zeros32,
                                       draw_window_randomness)
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use):
+# the tile kernel's, and the wide unit's
 LAUNCHES = 0
+WIDE_LAUNCHES = 0
 
 
 def _bind(lib):
@@ -79,11 +86,33 @@ def _bind(lib):
 
 
 # one translation unit per instantiation (d / 32 dims per lane) plus the C
-# entry points, as K1's
+# entry points, as K1's, but no funnel-only units: K2's entry point
+# launches one tile kernel for every target (nuts_window.cu has no
+# `launch_tile_funnel`), and a funnel-only unit's weak instantiation of
+# `launch_tile` was never the one linked
+_UNITS = [("entry", [])] + [(f"dpl{k}", [f"-DNUTS_DPL={k}"])
+                            for k in range(1, TILE_MAX_DIM // 32 + 1)]
 LIBRARY = CudaLibrary("nuts_window", "nuts_window.cu", _UNITS,
                       ["latent_grad.cuh", "targets.cuh", "tile_grad.cuh",
                        "nuts_tree.cuh", "nuts_tree_body.inc",
                        "rqs_math.cuh"], _bind)
+
+
+def _bind_wide(lib):
+    p, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                        ctypes.c_float)
+    ml = [p] * 2 + [i32] * 7 + [p] + [i32] * 2  # module_list_args
+    fn = lib.nuts_wide_window_f32
+    fn.argtypes = [p] * 8 + ml + [i32] * 2 + [f32] + [p] * 3 + [i64, p]
+    fn.restype = i32
+
+
+# K2's wide unit (csrc/nuts_window_wide.cu), one translation unit, built on
+# the first launch that needs it (`nuts_cuda.wide_path`)
+WIDE_LIBRARY = CudaLibrary("nuts_window_wide", "nuts_window_wide.cu",
+                           [("wide", [])],
+                           [*WIDE_DEPS, "nuts_wide_tree.cuh", "nuts_tree.cuh"],
+                           _bind_wide)
 
 
 def window_math_torch(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
@@ -350,14 +379,14 @@ def window_lockstep_gradients(n_steps: torch.Tensor, rows: int) -> int:
 
 
 def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
-          max_depth, window, out, extra=()):
-    """One entry point of the library on CUDA tensors, with the module
-    list's arguments; `extra` goes between info and the stream. Returns
-    `nuts_window`'s outputs."""
+          max_depth, window, out, extra=(), library=None):
+    """One entry point of the library (LIBRARY, or `library`) on CUDA
+    tensors, with the module list's arguments; `extra` goes between info
+    and the stream. Returns `nuts_window`'s outputs."""
     n, d = q.shape
     ins = (q, p0c, dirs, u_acc, u_take, eps, inv_mass, model.params)
     check_launch(q, (*ins, *(() if out is None else (out,))), model)
-    lib = LIBRARY.load()
+    lib = (library or LIBRARY).load()
     draws = (torch.empty((window, n, d), device=q.device, dtype=q.dtype)
              if out is None else out)
     info = torch.empty((7, window, n), device=q.device, dtype=torch.float32)
@@ -376,12 +405,24 @@ def _call(name, q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
 
 
 def _launch(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model, max_depth,
-            window, out, rows=None, resident=None):
+            window, out, rows=None, resident=None, wide=None):
     """K2 on the card: the tile kernel on tiles of `rows` chains, its
     weights resident where they fit (the wrapper's `tile_rows(model)` and
     `nuts_cuda.launch_resident`; `chip_smoke.py` times other R and the
-    ring)."""
-    global LAUNCHES
+    ring), or, where `nuts_cuda.wide_path` says so and no `rows` is asked
+    for, the wide unit (one warp a chain, its vectors in a per-launch work
+    buffer; WIDE_LIBRARY, built on its first launch; `wide` True asks for
+    it on any flow)."""
+    global LAUNCHES, WIDE_LAUNCHES
+    if wide or (wide is None and rows is None and resident is None
+                and wide_path(model, max_depth)):
+        work = wide_work(q, model, max_depth)
+        res = _call("nuts_wide_window_f32", q, p0c, dirs, u_acc, u_take, eps,
+                    inv_mass, model, max_depth, window, out,
+                    extra=(work.data_ptr(), work.numel()),
+                    library=WIDE_LIBRARY)
+        WIDE_LAUNCHES += 1
+        return res
     rows = launch_rows(model, rows)
     res = _call("nuts_chain_window_f32", q, p0c, dirs, u_acc, u_take, eps,
                 inv_mass, model, max_depth, window, out,
@@ -412,7 +453,8 @@ def nuts_window(q, p0c, dirs, u_acc, u_take, eps, inv_mass,
 
     A CPU tensor runs `window_math_torch` with `plain_logp_grad`; a CUDA
     tensor launches K2's tile kernel on tiles of `tile_rows(model)`
-    chains, the weights resident where they fit. Same returns as
+    chains, the weights resident where they fit, or K2's wide unit where
+    `nuts_cuda.wide_path(model, max_depth)` says so. Same returns as
     `window_math_torch`; the draws are written into `out` (S, n, d) when
     it is given."""
     check_inputs(q, p0c, dirs, u_acc, u_take, eps, inv_mass, model,
@@ -437,12 +479,14 @@ class FusedNUTSWindow:
     by passing `draws[-1]` back as q.
 
     The flow's parameters are packed for K2 when this is constructed, so
-    build it after the flow is trained."""
+    build it after the flow is trained; what K2 does not take is refused
+    then, as K1's `FusedNUTS` refuses it."""
 
     def __init__(self, target, flow: Chain | None, window: int = 32,
                  max_depth: int = 8, device=None):
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
+        check_depth(max_depth)
         self.model = pack_flow(flow, target, device=device)
         self.window = window
         self.max_depth = max_depth
@@ -465,8 +509,9 @@ def fused_nuts_window_for_flow(target, flow: Chain | None,
                                window: int = 32,
                                max_depth: int = 8) -> FusedNUTSWindow:
     """The streaming draw window for flow-preconditioned NUTS on `target`,
-    for the targets and flows `fused_nuts_for_flow` takes (spline flows
-    through the p-major relayout and the streamed per-block gradient, any
-    closed-form target at any d <= 256); pass it to
+    for the targets, flows and depths `fused_nuts_for_flow` takes (spline
+    flows through the p-major relayout and the streamed per-block
+    gradient, any closed-form target at any d <= nuts_cuda.MAX_DIM, any
+    max_depth up to nuts_cuda.MAX_DEPTH); pass it to
     `NUTSDriver(window_transition=...)`."""
     return FusedNUTSWindow(target, flow, window=window, max_depth=max_depth)

@@ -15,7 +15,8 @@ from tpuflows_torch.mcmc.dual_averaging import (
 from tpuflows_torch.mcmc.sample import (MCMCResult, NUTSDriver, NUTSState,
                                         nuts_draws, nuts_warmup, run_nuts,
                                         stan_window_closes)
-from tpuflows_torch.mcmc.preconditioned import flow_reparameterized, to_data_space
+from tpuflows_torch.mcmc.preconditioned import (flow_reparameterized,
+                                               to_data_space, to_latent_space)
 from tpuflows_torch.mcmc.mh import (MHInfo, MHResult, make_flow_imh_kernel,
                                     make_rwmh_kernel, run_flow_imh, run_rwmh)
 from tpuflows_torch.mcmc.ensemble import EnsembleResult, run_ensemble
@@ -31,7 +32,7 @@ __all__ = [
     "welford_variance",
     "MCMCResult", "NUTSDriver", "NUTSState", "nuts_draws", "nuts_warmup",
     "run_nuts", "stan_window_closes",
-    "flow_reparameterized", "to_data_space",
+    "flow_reparameterized", "to_data_space", "to_latent_space",
     "MHInfo", "MHResult", "make_flow_imh_kernel", "make_rwmh_kernel",
     "run_flow_imh", "run_rwmh",
     "EnsembleResult", "run_ensemble",

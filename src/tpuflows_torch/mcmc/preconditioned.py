@@ -2,6 +2,8 @@
 `tpuflows/mcmc/preconditioned.py`).
 
     logp~(z) = logp(f^-1(z)) + log|det d f^-1 / dz|
+
+`to_data_space` and `to_latent_space` map draws between the two spaces.
 """
 from __future__ import annotations
 
@@ -34,3 +36,9 @@ def to_data_space(flow: Bijector, z_samples: torch.Tensor) -> torch.Tensor:
     out = torch.cat([flow.inverse(flat[lo:lo + _CHUNK])
                      for lo in range(0, flat.shape[0], _CHUNK)])
     return out.reshape(z_samples.shape)
+
+
+def to_latent_space(flow: Bijector, x_samples: torch.Tensor) -> torch.Tensor:
+    """z = f(x) for (..., d) data-space points: latent start points for a
+    sampler that runs in the flow's latent space."""
+    return flow.forward(x_samples)

@@ -95,17 +95,23 @@ def _flow_from_spec(samples, generator, spec, device):
 
 def _nuts_transition(cfg, target, flow):
     """The transition `nuts.fused_kernel` asks for: K1 ("on", or "auto"
-    where `pack_flow` accepts the flow and target), else None (the
-    portable NUTS). `pack_flow` takes every target the runner builds
-    (std_normal, diag_normal, correlated, mixture, funnel, hierarchical,
-    banana, rosenbrock) at the config's own width up to 256, under an
-    affine, rqs or arqs flow of any `hidden` (MLPs of 1 to 8 layers, each
-    width a multiple of 32 up to 256), as the JAX runner hands any target
-    to its fused transition; it refuses a target with no device
-    form (a Posterior, a user Target). The choice depends on `pack_flow`
-    alone, not on the device: on a CUDA tensor K1 launches, and its launch
-    checks (hidden widths, tile) raise where it cannot take the packed
-    flow; on the CPU K1's plain version runs, as every kernel tier does."""
+    where K1 takes the flow, the target and the depth), else None (the
+    portable NUTS). K1 takes every target the runner builds (std_normal,
+    diag_normal, correlated, mixture, funnel, hierarchical, banana,
+    rosenbrock) at the config's own width up to `nuts_cuda.MAX_DIM` =
+    1024, under an affine, rqs or arqs flow of any `hidden` (MLPs of 1 to
+    8 layers, each width up to `nuts_cuda.MAX_HIDDEN` = 4096, padded to a
+    multiple of 32), at any max_depth up to `nuts_cuda.MAX_DEPTH` = 16,
+    as the JAX runner hands any target to its fused transition; past
+    d = 256 or depth 10 it runs K1's wide unit (`nuts_cuda.wide_path`).
+    Everything else is refused when the transition is built
+    (`fused_nuts_for_flow`: `pack_flow`, `check_depth`), never at a
+    launch: a target with no device form (a Posterior, a user Target), a
+    width, hidden width or depth past those limits. "auto" then runs the
+    portable NUTS, as the JAX runner does where it has no kernel, and
+    "on" raises naming the limit. The choice does not depend on the
+    device: on the CPU K1's plain version runs, as every kernel tier
+    does."""
     from tpuflows_torch.kernels import nuts_cuda
 
     fk = cfg.nuts.fused_kernel
@@ -117,10 +123,6 @@ def _nuts_transition(cfg, target, flow):
             "(the fused transition runs in a flow's latent space)")
     if fk == "off" or flow is None:
         return None
-    if not 1 <= cfg.nuts.max_depth <= nuts_cuda.MAX_DEPTH:
-        raise ValueError(f"nuts.fused_kernel={fk!r}: the fused NUTS kernel "
-                         f"takes max_depth in [1, {nuts_cuda.MAX_DEPTH}], "
-                         f"got {cfg.nuts.max_depth}")
     try:
         return nuts_cuda.fused_nuts_for_flow(target, flow,
                                              max_depth=cfg.nuts.max_depth)

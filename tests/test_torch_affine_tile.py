@@ -94,12 +94,23 @@ def _net_only(tf):
     return torch.cat([p.detach().float().reshape(-1) for p in parts])
 
 
+def _as_packed(tf, model):
+    """`tf` as `pack_flow` packs it: each module at the lane width, each
+    hidden width a multiple of 32 (`_pad_module`; (16, 32) packs as (32,
+    32))."""
+    return type(tf)([nuts_cuda._pad_module(t, model.d, model.d_pad)
+                     if nuts_cuda._needs_pad(t, model.d, model.d_pad)
+                     else t for t in tf.transforms])
+
+
 @pytest.mark.parametrize("d,hidden,mask,seed", AFFINE_FLOWS)
 def test_net_prefix_is_unchanged_and_the_compact_layers_follow(d, hidden,
                                                                mask, seed):
     _, tf, model = _flows(d, hidden, mask, seed)
     assert model.mods[:, 0].tolist() == [0, 1]  # Standardize + affine
-    net = _net_only(tf)
+    assert model.hidden == tuple(-(-h // 32) * 32 for h in hidden)
+    hidden = model.hidden
+    net = _net_only(_as_packed(tf, model))
     p = model.params
     torch.testing.assert_close(p[:net.numel()], net, rtol=0, atol=0)
     assert model.mods[:, 6:].tolist() == [[0, 0], [net.numel(),

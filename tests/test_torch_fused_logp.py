@@ -50,6 +50,17 @@ from test_torch_nuts import flow_leaves, jax_flow, torch_flow
 from test_torch_nuts_spline import kernel_chain_logp_grad
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small ops: one intra-op thread per test worker keeps parallel
+    workers from oversubscribing the cores (under the suite's 6 workers
+    this file's `NUTSDriver` runs took up to 20x their time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _z(seed, n, d, scale=0.8):
     rng = np.random.default_rng(seed)
     return (scale * rng.normal(size=(n, d))).astype(np.float32)

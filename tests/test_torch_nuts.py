@@ -318,17 +318,21 @@ def test_packed_layout_matches_kernel_order():
     model = _model()
     std, cp = model.flow.transforms
     # the leaves at the lane width d (the flow's D_MODEL dims padded to 32:
-    # zero W1 rows and zero head columns past them)
+    # zero W1 rows and zero head columns past them), each hidden width
+    # padded to a multiple of 32 with zero units (16 -> 32)
     d, (h1, h2) = model.d_pad, model.hidden
+    t1, t2 = (w.shape[1] for w in cp.net.weights[:2])
+    assert (h1, h2) == (-(-t1 // 32) * 32, -(-t2 // 32) * 32)
     p = model.params
     off = 3 * d
     w1 = p[off:off + d * h1].reshape(d, h1)
-    torch.testing.assert_close(w1[:D_MODEL], cp.net.weights[0].detach())
-    assert not w1[D_MODEL:].any()
+    torch.testing.assert_close(w1[:D_MODEL, :t1], cp.net.weights[0].detach())
+    assert not w1[D_MODEL:].any() and not w1[:, t1:].any()
     net = 3 * d + 2 * (d * h1 + h1 * h2 + h2 * 2 * d) + h1 + h2 + 2 * d
     w3t = p[net - 2 * d * h2:net].reshape(2, d, h2)[:, :D_MODEL]
-    torch.testing.assert_close(w3t.reshape(2 * D_MODEL, h2),
+    torch.testing.assert_close(w3t.reshape(2 * D_MODEL, h2)[:, :t2],
                                cp.net.weights[2].detach().t())
+    assert not w3t[..., t2:].any()
     # the compact tail: W1, W1^T over the pass-through dims, W3, b3, W3^T
     # over the transformed dims' head columns, widths padded to 32
     n_p = int(sum(cp.mask))
@@ -337,4 +341,5 @@ def test_packed_layout_matches_kernel_order():
     assert p.numel() == net + 2 * n_in * h1 + 2 * h2 * n_head + n_head
     keep = torch.tensor(cp.mask).bool()
     cw1 = p[net:net + n_in * h1].reshape(n_in, h1)
-    torch.testing.assert_close(cw1[:n_p], cp.net.weights[0].detach()[keep])
+    torch.testing.assert_close(cw1[:n_p, :t1],
+                               cp.net.weights[0].detach()[keep])

@@ -55,6 +55,7 @@ from tpuflows_torch.targets import NealsFunnel
 
 from test_torch_coupling import carry, jax_arqs_flow
 from test_torch_rqs import mirror_vjp
+from test_torch_nuts_window import jit_optimized
 
 D, DEPTH = 8, 4
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -104,7 +105,8 @@ def test_streamed_gradient_matches_jax(seed):
 def test_packer_relayout_matches_permute_for_tiles():
     """Module k's leaves start at mods[k][1]; a spline's last layer W3
     (h2, P d) and b3 are JAX's p-major relayout, followed by W1^T, W2^T
-    and W3^T."""
+    and W3^T; the hidden widths as packed, 16 padded to 32 with zero
+    units (W3's rows past 16 zero)."""
     jf, tf = _flows(4)
     jp = j_permute(jf)
     model = nuts_cuda.pack_flow(tf, NealsFunnel(dim=D))
@@ -128,8 +130,11 @@ def test_packer_relayout_matches_permute_for_tiles():
         w3 = p[o:o + h2 * n_out].reshape(h2, n_par, dp)
         b3 = p[o + h2 * n_out:o + h2 * n_out + n_out].reshape(n_par, dp)
         # each parameter's columns over the flow's D dims, zeros past them
-        np.testing.assert_array_equal(w3[..., :D].reshape(h2, -1).numpy(),
-                                      np.asarray(jt.net.weights[-1]))
+        jh2 = jt.net.weights[-1].shape[0]
+        np.testing.assert_array_equal(
+            w3[:jh2, :, :D].reshape(jh2, -1).numpy(),
+            np.asarray(jt.net.weights[-1]))
+        assert not w3[jh2:].any()
         np.testing.assert_array_equal(b3[:, :D].reshape(-1).numpy(),
                                       np.asarray(jt.net.biases[-1]))
         assert not w3[..., D:].any() and not b3[:, D:].any()
@@ -137,7 +142,7 @@ def test_packer_relayout_matches_permute_for_tiles():
         np.testing.assert_array_equal(
             p[t_end:t_end + n_out * h2].reshape(n_out, h2).numpy(),
             w3.reshape(h2, n_out).numpy().T)
-    assert model.head == (3 * 4 - 1) * dp and model.hmax == 16
+    assert model.head == (3 * 4 - 1) * dp and model.hmax == 32
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +287,8 @@ def test_transition_matches_jax_fused_interpret(seed, eps):
     keys = jax.random.split(jax.random.key(10 + seed), n)
     trans = j_fused(JFunnel(dim=D).log_density, jf, max_depth=DEPTH,
                     tile_b=32, interpret=True)
-    jq, info = jax.jit(trans)(keys, jnp.asarray(q), jnp.asarray(eps),
-                              jnp.asarray(im))
+    jq, info = jit_optimized(trans)(keys, jnp.asarray(q), jnp.asarray(eps),
+                                    jnp.asarray(im))
     rnd = _jax_keys_randomness(keys, D, DEPTH, jnp.asarray(im))
     model = nuts_cuda.pack_flow(tf, NealsFunnel(dim=D))
     tq, lp, acc, steps, depth, div, turn, h0 = nuts_cuda.nuts_transition(

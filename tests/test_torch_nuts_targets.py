@@ -31,7 +31,9 @@ the plain versions against the JAX package's fused math, on the CPU.
     1e-5, atol 1e-4: the sums over d and d_pad round apart) and leaves the
     pads 0;
   * (f) `pack_flow` refuses a `Posterior` and a `Target` subclass with a
-    ValueError that names it; K1's width checks take any d <= 256.
+    ValueError that names it; K1's width checks take any d <= 256 on the
+    tile kernels and d = 257 on the wide units (`wide_path`), and
+    `pack_flow` refuses d past MAX_DIM.
 """
 import functools
 import math
@@ -446,13 +448,15 @@ def test_padded_transition_equals_the_true_width(kind, flow_kind, d):
 
 def test_compact_layers_leave_the_pads_out():
     """The tile kernels' pass-through count (module list column 7) counts
-    the dims below d only; the resident floats follow it."""
+    the dims below d only; the resident floats follow it, at the hidden
+    widths as packed (16 padded to 32)."""
     _, tt = targets("banana", 2)
     tf = carry(jax_flow("affine", 2), use_pallas="auto")
     model = nuts_cuda.pack_flow(tf, tt)
     n_p = sum(tf.transforms[1].mask)
     assert model.mods[1, 7].item() == n_p == 1
-    assert model.resident_floats == nuts_cuda._resident_floats(32, 16, 16,
+    assert model.hidden == (32, 32)
+    assert model.resident_floats == nuts_cuda._resident_floats(32, 32, 32,
                                                                32)
 
 
@@ -483,8 +487,16 @@ def test_pack_flow_refuses_targets_with_no_device_form():
 
 @pytest.mark.parametrize("d", [1, 2, 31, 33, 255, 256])
 def test_width_checks_take_any_d_up_to_256(d):
+    """Any d up to 256 packs for the tile kernels; past it, up to MAX_DIM,
+    the wide units take it (`wide_path`), and past that `pack_flow`
+    refuses it."""
     model = nuts_cuda.pack_flow(None, T.StandardNormal(d))
     nuts_cuda.check_widths(model)
     assert model.d == d and model.d_pad == 32 * math.ceil(d / 32)
-    with pytest.raises(ValueError, match="width 257"):
-        nuts_cuda.pack_flow(None, T.StandardNormal(257))
+    assert not nuts_cuda.wide_path(model)
+    wide = nuts_cuda.pack_flow(None, T.StandardNormal(257))
+    nuts_cuda.check_widths(wide)
+    assert wide.d_pad == 288 and nuts_cuda.wide_path(wide)
+    with pytest.raises(ValueError,
+                       match=f"width {nuts_cuda.MAX_DIM + 1}"):
+        nuts_cuda.pack_flow(None, T.StandardNormal(nuts_cuda.MAX_DIM + 1))

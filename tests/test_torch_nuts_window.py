@@ -167,8 +167,25 @@ def window_inputs(seed, d, window, depth, n=N, q_scale=1.0):
 KEYS = ("q", "p0c", "dirs", "u_acc", "u_take")
 
 
+def jit_optimized(fn):
+    """`jax.jit(fn)`, compiled once per shape of its arguments with XLA's
+    CPU optimizations on: the suite's conftest turns them off for compile
+    time, and a window's while loop then runs many times longer than it
+    compiles."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        key = tuple((a.shape, a.dtype) for a in args)
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(
+                compiler_options={"xla_backend_optimization_level": 2})
+        return compiled[key](*args)
+
+    return call
+
+
 def run_jax_math(jgrad, inp, eps, im, window, depth):
-    fn = jax.jit(lambda q, p0c, dd, ua, ut, e, m: _window_math(
+    fn = jit_optimized(lambda q, p0c, dd, ua, ut, e, m: _window_math(
         q, p0c, dd, ua, ut, e, m, jgrad, window, depth, 1000.0))
     out = fn(*(jnp.asarray(inp[k]) for k in KEYS),
              jnp.asarray(eps, jnp.float32), jnp.asarray(im).reshape(1, -1))

@@ -154,8 +154,9 @@ def test_unported_tasks_name_their_items(name, monkeypatch):
     """No task is left unported: c5 (the `smc` task, the last one) parses
     and runs at reduced size through both runners (d = 18, 1,024
     particles, a 2,048-draw and 20-epoch pretrain, 2 equilibration
-    stages, unsharded: the JAX runner's mesh is the multi-process path
-    the port leaves to ROADMAP Queue 1 item 11): the same record keys, both at beta = 1, log Z within 0.35 of
+    stages, unsharded: the sharded run goes over a process group of its
+    own, tests/test_torch_dist_runs.py): the same record keys, both at
+    beta = 1, log Z within 0.35 of
     each other (4 of the difference's standard deviations at the sigma
     such runs report, 0.04-0.06 each, + 0.05) and of the quadrature
     truth, mean acceptances within 0.05 (both adapt to 0.65). An unknown
@@ -454,10 +455,18 @@ def test_on_requires_a_preconditioned_run():
         trun.run(cfg, device="cpu")
     with pytest.raises(ValueError, match="unknown nuts.fused_kernel"):
         trun._nuts_transition(_nuts_cfg("maybe"), None, None)
-    deep = _nuts_cfg("auto")
-    deep = dc.replace(deep, nuts=dc.replace(deep.nuts, max_depth=11))
-    with pytest.raises(ValueError, match="max_depth in"):
-        trun._nuts_transition(deep, deep.target.build("cpu"), _flow(deep))
+    # past K1's deepest tree "on" raises naming the limit, as the
+    # transition is built; "auto" runs the portable NUTS
+    for fk in ("on", "auto"):
+        deep = _nuts_cfg(fk)
+        deep = dc.replace(deep, nuts=dc.replace(
+            deep.nuts, max_depth=nuts_cuda.MAX_DEPTH + 1))
+        args = (deep, deep.target.build("cpu"), _flow(deep))
+        if fk == "auto":
+            assert trun._nuts_transition(*args) is None
+            continue
+        with pytest.raises(ValueError, match="max_depth in"):
+            trun._nuts_transition(*args)
 
 
 def test_nuts_task_without_preconditioning_runs_portable(capsys):

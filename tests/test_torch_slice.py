@@ -21,8 +21,11 @@ path the chip run drives at full width), through the port's entry points.
     kernel's side is the plain version too.
 
 On the CPU every transition and every spline runs its plain version, so
-the launch counters of K1, K2, K3, K4, K5, K6 and K7 stay 0.
+the launch counters of K1, K2, K3, K4, K5, K6 and K7 stay 0. The ceiling
+and generic main paths run once each for the module (`main_path_once`).
+About 3 minutes of CPU on one worker.
 """
+import copy
 import math
 import subprocess
 import sys
@@ -36,13 +39,43 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 
+CEILING = dict(dim=8, n_chains=64, hidden=(16, 16), train_steps=200,
+               train_batch=256, num_warmup=64, window=64, max_windows=1,
+               ess_gate=100.0)
+GENERIC = dict(variant="generic", dim=4, n_chains=32, hidden=(8, 8),
+               train_steps=200, train_batch=256, num_warmup=32, window=32,
+               max_windows=1, ess_gate=50.0, knots=4)
+_MAIN_PATHS = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small ops: one intra-op thread per test worker keeps parallel
+    workers from oversubscribing the cores (under the suite's 6 workers
+    this file's main paths ran up to 20x their time alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def main_path_once(**kw):
+    """`chip_smoke.main_path("cpu", **kw)` after `torch.manual_seed(0)`,
+    run once per module for each set of arguments: a deep copy of its
+    (res, flow, warm_state), with torch's global generator set where the
+    run left it, so that a test goes on exactly as after its own run."""
+    key = repr(sorted(kw.items()))
+    if key not in _MAIN_PATHS:
+        torch.manual_seed(0)
+        out = chip_smoke.main_path("cpu", **kw)
+        _MAIN_PATHS[key] = (out, torch.get_rng_state())
+    out, rng = _MAIN_PATHS[key]
+    torch.set_rng_state(rng)
+    return copy.deepcopy(out)
+
 
 def test_slice_runs_end_to_end_on_the_cpu():
-    torch.manual_seed(0)
-    res, flow, warm_state = chip_smoke.main_path(
-        "cpu", dim=8, n_chains=64, hidden=(16, 16), train_steps=200,
-        train_batch=256, num_warmup=64, window=64, max_windows=1,
-        ess_gate=100.0)
+    res, flow, warm_state = main_path_once(**CEILING)
     assert res["launches"] == 0
     assert res["transitions"] == 128 and res["n_draws"] == 64
     assert res["converged"], res
@@ -55,11 +88,7 @@ def test_slice_runs_end_to_end_on_the_cpu():
 
 
 def test_generic_slice_runs_end_to_end_on_the_cpu():
-    torch.manual_seed(0)
-    res, flow, warm_state = chip_smoke.main_path(
-        "cpu", variant="generic", dim=4, n_chains=32, hidden=(8, 8),
-        train_steps=200, train_batch=256, num_warmup=32, window=32,
-        max_windows=1, ess_gate=50.0, knots=4)
+    res, flow, warm_state = main_path_once(**GENERIC)
     assert res["modules"] == 7 and res["launches"] == 0
     assert res["rqs_launches"] == res["rqs_launches_expected"] == {
         "k4_forward": 0, "k4_inverse": 0, "k5_forward": 0, "k5_inverse": 0}
@@ -101,11 +130,7 @@ def test_portable_slice_runs_end_to_end_on_the_cpu():
     route with K3's hook (its plain version here): the gates, the hook's
     call count, no K1 launch; and the chip run's comparisons at the
     post-warmup state, where kernel and plain are the same code."""
-    torch.manual_seed(0)
-    _, flow, warm_state = chip_smoke.main_path(
-        "cpu", dim=8, n_chains=64, hidden=(16, 16), train_steps=200,
-        train_batch=256, num_warmup=64, window=64, max_windows=1,
-        ess_gate=100.0)
+    _, flow, warm_state = main_path_once(**CEILING)
     res = chip_smoke.main_path_portable(
         "cpu", "ceiling", flow, n_chains=64, num_warmup=64, window=64,
         max_windows=1, ess_gate=100.0)
@@ -139,11 +164,7 @@ def test_window_slice_runs_end_to_end_on_the_cpu():
     lp belongs to a point one rounding away from the draw, and a
     multinomial choice on a knife edge can part), and "K1" (on the CPU its
     plain version) against the latter."""
-    torch.manual_seed(0)
-    _, flow, warm_state = chip_smoke.main_path(
-        "cpu", dim=8, n_chains=64, hidden=(16, 16), train_steps=200,
-        train_batch=256, num_warmup=64, window=64, max_windows=1,
-        ess_gate=100.0)
+    _, flow, warm_state = main_path_once(**CEILING)
     res = chip_smoke.main_path_window(
         "cpu", "ceiling", flow, n_chains=64, num_warmup=64, window=64,
         max_windows=3, ess_gate=100.0, slots=16)
@@ -218,11 +239,7 @@ def test_generic_portable_slice_runs_on_the_cpu():
     portable route on its spline flow: the pipeline and its launch
     bookkeeping (at this size the gates need more draws than a CPU test
     affords, as for the generic main path)."""
-    torch.manual_seed(0)
-    _, flow, _ = chip_smoke.main_path(
-        "cpu", variant="generic", dim=4, n_chains=32, hidden=(8, 8),
-        train_steps=200, train_batch=256, num_warmup=32, window=32,
-        max_windows=1, ess_gate=50.0, knots=4)
+    _, flow, _ = main_path_once(**GENERIC)
     res = chip_smoke.main_path_portable(
         "cpu", "generic", flow, n_chains=32, num_warmup=32, window=32,
         max_windows=1, ess_gate=50.0)

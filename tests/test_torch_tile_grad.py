@@ -427,7 +427,9 @@ def test_affine_only_flow_packs_no_compact_layers():
     number of pass-through dims in columns 6-7 (Standardize's stay 0)."""
     model = _model(_affine(D, (16, 16)))
     assert model.mods[:, 0].tolist() == [0, 1]  # Standardize + affine
-    d, h1, h2 = model.d_pad, 16, 16  # the leaves at the lane width
+    # the leaves at the lane width, the hidden widths padded to 32
+    d, h1, h2 = model.d_pad, 32, 32
+    assert model.hidden == (h1, h2)
     n = 2 * d + d + d * h1 + h1 + h1 * h2 + h2 + h2 * 2 * d + 2 * d + \
         h1 * d + h2 * h1 + 2 * d * h2
     n_p = int(sum(model.flow.transforms[1].mask))

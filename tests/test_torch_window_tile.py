@@ -49,7 +49,7 @@ from tpuflows_torch.kernels import nuts_window_cuda as nw
 from tpuflows_torch.targets import NealsFunnel
 
 from test_torch_coupling import carry, jax_arqs_flow
-from test_torch_nuts_window import KEYS, window_inputs
+from test_torch_nuts_window import KEYS, jit_optimized, window_inputs
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -278,7 +278,7 @@ def test_module_list_window_chains_are_independent(side):
         def jgrad(z):
             return j_streamed(jp, z, jtarget.log_density)
 
-        fn = jax.jit(lambda q, p0c, dd, ua, ut: _window_math(
+        fn = jit_optimized(lambda q, p0c, dd, ua, ut: _window_math(
             q, p0c, dd, ua, ut, jnp.asarray(eps, jnp.float32),
             jnp.asarray(im).reshape(1, -1), jgrad, S, depth, 1000.0))
 
