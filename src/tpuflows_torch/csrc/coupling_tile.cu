@@ -19,7 +19,10 @@
 // K7 does about three times that. Float32 on the FMA pipes: TF32 on the
 // tensor cores keeps too few digits for the spline's bars.
 //
-// Conditioners: 1 to 8 layers, silu, tanh, relu or gelu (jax.nn.gelu's
+// Conditioners: 1 to 8 layers (kernels/coupling_cuda.py `tile_plan` sends
+// a block of more, or one whose tile does not fit the shared memory, to
+// the wide unit of coupling_wide.cu), any K, silu, tanh, relu or gelu
+// (jax.nn.gelu's
 // tanh approximation), float32 or bf16 operands. A bf16 conditioner rounds
 // where the JAX package's `MLP` and the plain `block_math` round and
 // nowhere else: the wrapper passes the weights rounded to bf16
@@ -64,7 +67,7 @@
 //    `product_direct`: each weight read from L2 where it is used, the
 //    same order of sums), so that it takes every shape the earlier
 //    layout took; K7's plans keep the ring (where K7 has no room for it,
-//    the earlier K7 had none for its own layout either).
+//    the block goes to the wide unit, coupling_wide.cu).
 //  * Only the spline dims (mask 0) are evaluated. They are split over the
 //    cluster and walked in chunks of dc: the chunk's P dc raw values per row
 //    (P = 3K-1) are computed into shared memory and read by the spline at
@@ -98,27 +101,22 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "coupling_ops.cuh"
 #include "rqs_math.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+using namespace tpuflows_coupling;
 using namespace tpuflows_rqs;
 
 constexpr int kMaxLayers = 8;
 constexpr int kThreads = 256;
-constexpr int kCluster = 2;         // CTAs of a cluster, over a tile
 constexpr int kStages = 4;          // weight ring
-constexpr int kSumBlock = 16;       // terms of a partial sum
 constexpr int kMaxSmem = 232448;    // bytes a block may opt in to
 constexpr int kWTile = 64;          // pass 2's output tile edge
 constexpr int kWRows = 32;          // pass 2's rows per step
 constexpr int kWPitch = kWTile + 4;
-
-enum Activation { kSilu = 0, kTanh = 1, kRelu = 2, kGelu = 3 };
-// jax.nn.gelu's default, the tanh approximation
-constexpr float kGeluK0 = 0.7978845608028654f;  // sqrt(2 / pi)
-constexpr float kGeluK1 = 0.044715f;
 
 // -DCOUPLING_TILE_PROFILE: thread 0 of each CTA stamps clock64() at the
 // phase marks below (coupling_tile_profile reads them back); a
@@ -167,9 +165,6 @@ struct Scratch {
 };
 
 __host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
-__host__ __device__ inline int slice_width(int w) {
-  return (w + kCluster - 1) / kCluster;
-}
 
 // Column groups of a block: 256 threads over R / 4 groups of rows.
 __host__ __device__ constexpr int col_groups(int R) {
@@ -242,46 +237,6 @@ __host__ __device__ inline Layout make_layout(const int* width, int n, int P,
   o += kStages * stage;
   s.total = o;
   return s;
-}
-
-__device__ __forceinline__ float activate(float a, int act) {
-  if (act == kSilu) return a / (1.0f + expf(-a));
-  if (act == kTanh) return tanhf(a);
-  if (act == kGelu)
-    return 0.5f * a * (1.0f + tanhf(kGeluK0 * (a + kGeluK1 * a * a * a)));
-  return a > 0.0f ? a : 0.0f;
-}
-
-// d act / da, as torch's (and jax.grad's) silu, tanh, relu and gelu give it
-__device__ __forceinline__ float activate_grad(float a, int act) {
-  if (act == kSilu) {
-    const float s = 1.0f / (1.0f + expf(-a));
-    return s * (1.0f + a * (1.0f - s));
-  }
-  if (act == kTanh) {
-    const float t = tanhf(a);
-    return 1.0f - t * t;
-  }
-  if (act == kGelu) {
-    const float t = tanhf(kGeluK0 * (a + kGeluK1 * a * a * a));
-    return 0.5f * (1.0f + t) + 0.5f * a * (1.0f - t * t) * kGeluK0 *
-                                   (1.0f + 3.0f * kGeluK1 * a * a);
-  }
-  return a > 0.0f ? 1.0f : 0.0f;
-}
-
-// x rounded to the nearest bfloat16 (ties to even), held as a float
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// a layer input (or an input's cotangent) as a bf16 conditioner rounds
-// it; K6 and K7's pass 1 take kBf16 as a template argument, so that their
-// float32 instantiations hold none of the rounding
-template <bool kBf16>
-__device__ __forceinline__ float operand(float x) {
-  if constexpr (kBf16) return bf16_round(x);
-  return x;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -937,7 +892,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // Pass 2 of K7: tile (i0.., c0..) of dW_l = H_l^T G_l, with row in_l the
 // bias (a row of ones appended to H_l^T), over this CTA's slice of the
-// rows; the cluster's S slices are added in rank order.
+// rows; the cluster's S slices are added in rank order. One launch takes
+// up to kMaxLayers layers (the entry point launches once per group of
+// them); `last` is the block's last layer's index in the group, or -1.
 struct WeightGrad {
   const float* H[kMaxLayers];
   const float* G[kMaxLayers];
@@ -945,7 +902,7 @@ struct WeightGrad {
   float* db[kMaxLayers];
   int n_in[kMaxLayers], n_out[kMaxLayers], tiles_c[kMaxLayers];
   int first[kMaxLayers + 1];
-  int n, N, d, nt, S;
+  int n, last, N, d, nt, S;
   int bf16;  // 1: each weight's cotangent rounded once (not the biases')
   const int* idx;
 };
@@ -1034,7 +991,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   cl.sync();
   const int share = kWTile * kWTile / a.S;
-  const bool is_last = l == a.n - 1;
+  const bool is_last = l == a.last;
   const int ldw = is_last ? (n_out / a.nt) * a.d : n_out;
   for (int e = rank * share + threadIdx.x; e < (rank + 1) * share;
        e += kThreads) {
@@ -1093,7 +1050,7 @@ bool block_of(const void* x, const void* mask, const void* idx,
               long long N, int d, int nt, int knots, float B, int act,
               int bf16, int R, int dc, int stage, bool grad, Block& bk) {
   if (N < 0 || N > (1LL << 30) || d <= 0 || nt < 0 || nt > d) return false;
-  if (knots < 2 || knots > kMaxKnots || !(B > 0.0f)) return false;
+  if (knots < 2 || !(B > 0.0f)) return false;
   if (act < kSilu || act > kGelu || (bf16 != 0 && bf16 != 1) ||
       !plan_ok(R, dc, stage, grad))
     return false;
@@ -1283,45 +1240,55 @@ extern "C" int coupling_tile_bwd_f32(
                              dxp);
 }
 
-// K7, pass 2: dW_l = H_l^T G_l and db_l = sum_rows G_l for every layer,
-// the rows split over clusters of `slices` CTAs; the last layer's written
-// to the columns p d + idx[t] of its p-major dW and db (the wrapper zeroes
-// the others: pass-through dims get no cotangent); bf16 1 rounds each
-// weight's cotangent once.
+// K7, pass 2: dW_l = H_l^T G_l and db_l = sum_rows G_l for every layer
+// (any number of them: one launch per kMaxLayers), the rows split over
+// clusters of `slices` CTAs; the last layer's written to the columns
+// p d + idx[t] of its p-major dW and db (the wrapper zeroes the others:
+// pass-through dims get no cotangent); bf16 1 rounds each weight's
+// cotangent once. K7's wide unit (coupling_wide.cu) runs it too. Adds the
+// kernels it launched to *launches.
 extern "C" int coupling_tile_wgrad_f32(
     void* const* Hs, void* const* Gs, void* const* dWs, void* const* dbs,
     const int* widths, int n_layers, long long N, int d, int nt, int knots,
-    const void* idx, int slices, int bf16, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || N < 0 || N > (1LL << 30) ||
-      nt < 0 || nt > d || knots < 2 ||
-      widths[n_layers] != (3 * knots - 1) * d ||
+    const void* idx, int slices, int bf16, void* stream, int* launches) {
+  if (n_layers < 1 || N < 0 || N > (1LL << 30) || nt < 0 || nt > d ||
+      knots < 2 || widths[n_layers] != (3 * knots - 1) * d ||
       !(slices == 1 || slices == 2 || slices == 4 || slices == 8) ||
       (bf16 != 0 && bf16 != 1))
     return (int)cudaErrorInvalidValue;
-  WeightGrad a;
-  a.n = n_layers;
-  a.bf16 = bf16;
-  a.N = (int)N;
-  a.d = d;
-  a.nt = nt;
-  a.S = slices;
-  a.idx = static_cast<const int*>(idx);
-  a.first[0] = 0;
-  for (int l = 0; l < kMaxLayers; ++l) {
-    const bool on = l < n_layers;
-    a.H[l] = on ? static_cast<const float*>(Hs[l]) : nullptr;
-    a.G[l] = on ? static_cast<const float*>(Gs[l]) : nullptr;
-    a.dW[l] = on ? static_cast<float*>(dWs[l]) : nullptr;
-    a.db[l] = on ? static_cast<float*>(dbs[l]) : nullptr;
-    a.n_in[l] = on ? widths[l] : 0;
-    a.n_out[l] =
-        on ? (l == n_layers - 1 ? (3 * knots - 1) * nt : widths[l + 1]) : 0;
-    a.tiles_c[l] = (a.n_out[l] + kWTile - 1) / kWTile;
-    const int tiles_i = on ? (a.n_in[l] + 1 + kWTile - 1) / kWTile : 0;
-    a.first[l + 1] = a.first[l] + tiles_i * a.tiles_c[l];
+  for (int g0 = 0; g0 < n_layers; g0 += kMaxLayers) {
+    WeightGrad a;
+    a.n = n_layers - g0 < kMaxLayers ? n_layers - g0 : kMaxLayers;
+    a.last = n_layers - 1 - g0 < a.n ? n_layers - 1 - g0 : -1;
+    a.bf16 = bf16;
+    a.N = (int)N;
+    a.d = d;
+    a.nt = nt;
+    a.S = slices;
+    a.idx = static_cast<const int*>(idx);
+    a.first[0] = 0;
+    for (int l = 0; l < kMaxLayers; ++l) {
+      const int g = g0 + l;
+      const bool on = l < a.n;
+      a.H[l] = on ? static_cast<const float*>(Hs[g]) : nullptr;
+      a.G[l] = on ? static_cast<const float*>(Gs[g]) : nullptr;
+      a.dW[l] = on ? static_cast<float*>(dWs[g]) : nullptr;
+      a.db[l] = on ? static_cast<float*>(dbs[g]) : nullptr;
+      a.n_in[l] = on ? widths[g] : 0;
+      a.n_out[l] = on ? (g == n_layers - 1 ? (3 * knots - 1) * nt
+                                           : widths[g + 1])
+                      : 0;
+      a.tiles_c[l] = (a.n_out[l] + kWTile - 1) / kWTile;
+      const int tiles_i = on ? (a.n_in[l] + 1 + kWTile - 1) / kWTile : 0;
+      a.first[l + 1] = a.first[l] + tiles_i * a.tiles_c[l];
+    }
+    const int tiles = a.first[a.n];
+    if (N == 0 || tiles == 0) continue;
+    const cudaError_t err =
+        launch(coupling_tile_wgrad_kernel, (unsigned)(tiles * slices),
+               slices, 0, static_cast<cudaStream_t>(stream), a);
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
   }
-  const int tiles = a.first[n_layers];
-  if (N == 0 || tiles == 0) return 0;
-  return (int)launch(coupling_tile_wgrad_kernel, (unsigned)(tiles * slices),
-                     slices, 0, static_cast<cudaStream_t>(stream), a);
+  return 0;
 }

@@ -6,9 +6,15 @@
 // share, is left as it is.
 //
 // Layout. A block of kLaneThreads threads takes E = kLaneThreads / L
-// consecutive elements (E is a multiple of 4). Their raw values are one
+// consecutive elements (E is a multiple of 4), but at 32 lanes an element
+// E is the most of 8, 4, 2 and 1 whose block fits the 227 KB of shared
+// memory a block may have (`plan_elements`: K5 takes 8 elements a block
+// up to K = 1,208 and one up to K = 9,684, K4 8 up to K = 1,452 and one up
+// to K = 11,620; past that the kernels refuse the launch), the block then
+// L E threads. Their raw values are one
 // contiguous span of the (N, d, 3K-1) layout, E (3K-1) floats whose size
-// is a multiple of 16 bytes, copied into shared memory with 16-byte
+// is a multiple of 16 bytes where E is a multiple of 4, copied into shared
+// memory with 16-byte
 // cp.async (4-byte copies where a pointer is not 16-byte aligned, such as
 // a view at an offset): by the whole block in K5, with x, gy and gl; in
 // K4 each warp copies its own 32 / L elements' part and x and starts as
@@ -19,14 +25,17 @@
 // exponentials of its widths and of its heights and the derivatives at
 // knots 1..K), K4 at L > 1 two (the exponentials) in `eval_stride`
 // floats; either way 8 consecutive elements' rows start in 8 different
-// groups of banks. The last block may hold fewer than E elements; its
+// groups of banks. Each region starts at a whole 16-byte word
+// (`rows_offset`). The last block may hold fewer than E elements; its
 // other groups idle.
 //
 // Lanes. Element e of the block is lanes [L e, L e + L) of it; L is the
 // least power of two with L kBinsPerLane >= K, at most 32 (`lanes_for`):
 // 2 at the fit's K = 8, 16 at K = 64; K4 takes its own, with
 // kEvalBinsPerLane bins a lane (`eval_lanes_for`: 1 at K = 8, 8 at K =
-// 64). Lane l holds bins k = l, l + L, ...: bin k's width and height and
+// 64; past K = 32 kBinsPerLane, resp. 32 kEvalBinsPerLane, 32 lanes that
+// hold ceil(K / 32) bins each). Lane l holds bins k = l, l + L, ...: bin
+// k's width and height and
 // (K5) the interior derivative at its left knot (k >= 1), so every raw
 // value has one owner. The group's maxima come from xor shuffles
 // (`group_maxima`); each lane writes the exponentials of its own widths
@@ -86,6 +95,8 @@ constexpr int kLaneThreads = 256;
 // the bins a lane holds up to 32 lanes an element: K5's, K4's
 constexpr int kBinsPerLane = 4;
 constexpr int kEvalBinsPerLane = 8;
+// bytes of shared memory a block may opt in to
+constexpr int kMaxSmem = 232448;
 
 // lanes per element: the least power of two L with L bins >= K, at most
 // 32
@@ -101,19 +112,12 @@ __host__ __device__ constexpr int eval_lanes_for(int K) {
   return lanes_for(K, kEvalBinsPerLane);
 }
 
-// elements a block takes
+// elements a block of kLaneThreads threads takes
 __host__ __device__ constexpr int block_elements(int L) {
   return kLaneThreads / L;
 }
 
-// whether some K <= kMaxKnots takes L lanes at `bins` bins a lane (the
-// instantiations to build)
-__host__ __device__ constexpr bool lanes_used(int L,
-                                              int bins = kBinsPerLane) {
-  for (int K = 2; K <= kMaxKnots; ++K)
-    if (lanes_for(K, bins) == L) return true;
-  return false;
-}
+__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
 
 // floats between two elements' rows of exponentials and derivatives: K
 // rounded up to a multiple of 4 (16-byte loads), and an odd number of
@@ -122,11 +126,19 @@ __host__ __device__ constexpr int row_stride(int K) {
   return ((K + 3) / 4) % 2 == 1 ? (K + 3) / 4 * 4 : (K + 3) / 4 * 4 + 4;
 }
 
-// floats of a block's dynamic shared memory: the raw span, x, gy, gl,
-// and three rows an element (exponentials of widths and heights, the
-// derivatives at knots 1..K)
-__host__ __device__ constexpr int block_floats(int K) {
-  return block_elements(lanes_for(K)) * (3 * K - 1 + 3 + 3 * row_stride(K));
+// floats of a block of E elements before its rows: the raw span (3K - 1
+// an element) and `extra` floats an element (x; K5 also gy and gl), each
+// region rounded up to whole 16-byte words (where E is a multiple of 4
+// they are whole words already)
+__host__ __device__ constexpr int rows_offset(int K, int E, int extra) {
+  return up4(up4(E * (3 * K - 1)) + extra * E);
+}
+
+// floats of a K5 block's dynamic shared memory at E elements: the raw
+// span, x, gy, gl, and three rows an element (exponentials of widths and
+// heights, the derivatives at knots 1..K)
+__host__ __device__ constexpr int block_floats(int K, int E) {
+  return rows_offset(K, E, 3) + E * 3 * row_stride(K);
 }
 
 // K4: floats between two elements' rows, the exponentials of widths and
@@ -136,12 +148,28 @@ __host__ __device__ constexpr int eval_stride(int K) {
   return 4 * (2 * ((K + 3) / 4) + 1);
 }
 
-// K4: floats of a block's dynamic shared memory: the raw span (3K - 1
-// an element), x, and each element's rows where it has lanes to share
-// them (at one lane its exponentials stay in registers)
-__host__ __device__ constexpr int eval_block_floats(int K) {
-  return block_elements(eval_lanes_for(K)) *
-         (3 * K + (eval_lanes_for(K) == 1 ? 0 : eval_stride(K)));
+// K4: floats of a block's dynamic shared memory at E elements: the raw
+// span, x, and each element's rows where it has lanes to share them (at
+// one lane its exponentials stay in registers)
+__host__ __device__ constexpr int eval_block_floats(int K, int E) {
+  return rows_offset(K, E, 1) +
+         (eval_lanes_for(K) == 1 ? 0 : E * eval_stride(K));
+}
+
+// Elements a block (of L E threads) takes: 256 / L below 32 lanes, where
+// every block up to that lane count's largest K fits; at 32 lanes the
+// most of 8, 4, 2 and 1 whose block fits the shared memory; 0 where not
+// even one element's does. K5's (grad) or K4's; kernels/rqs_cuda.py
+// `spline_plan` is the host's copy.
+__host__ __device__ constexpr int plan_elements(int K, bool grad) {
+  const int L = grad ? lanes_for(K) : eval_lanes_for(K);
+  if (L < 32) return block_elements(L);
+  for (int E = block_elements(32); E >= 1; E /= 2) {
+    const long long floats = grad ? block_floats(K, E)
+                                  : eval_block_floats(K, E);
+    if (4 * floats <= kMaxSmem) return E;
+  }
+  return 0;
 }
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -177,17 +205,19 @@ __device__ __forceinline__ void stage_in(float* dst, const float* src,
     cp_async4(dst + i, src + i);
 }
 
-// `count` floats from shared `src` (16-byte aligned) to global `dst`
+// `count` floats from shared `src` (16-byte aligned) to global `dst` by
+// kThreads threads
+template <int kThreads = kLaneThreads>
 __device__ __forceinline__ void store_out(float* dst, const float* src,
                                           int count, int tid) {
   int done = 0;
   if (aligned16(dst)) {
     done = count & ~3;
-    for (int i = 4 * tid; i < done; i += 4 * kLaneThreads)
+    for (int i = 4 * tid; i < done; i += 4 * kThreads)
       *reinterpret_cast<float4*>(dst + i) =
           *reinterpret_cast<const float4*>(src + i);
   }
-  for (int i = done + tid; i < count; i += kLaneThreads) dst[i] = src[i];
+  for (int i = done + tid; i < count; i += kThreads) dst[i] = src[i];
 }
 
 // The cotangents of the bin's parameters and of t that the local
@@ -594,13 +624,13 @@ __device__ __forceinline__ void inverse_eval(float y, const Bin& bn,
 // element i at y[i], its ladj at ladj[i]. Each warp stages its own
 // elements' span and x, so that it starts as soon as they have arrived;
 // at one lane an element the exponentials stay in registers (`walk_own`).
-// `smem`: eval_block_floats(K) floats, 16-byte aligned.
-template <bool kInverse, int L>
+// A block is E elements (L E threads). `smem`: eval_block_floats(K, E)
+// floats, 16-byte aligned.
+template <bool kInverse, int L, int E>
 __device__ __forceinline__ void eval_lanes(
     const float* __restrict__ x, const float* __restrict__ raw,
     float* __restrict__ y, float* __restrict__ ladj, long long n, int K,
     float B, float* smem) {
-  constexpr int E = block_elements(L);
   constexpr int EW = 32 / L;  // elements a warp
   const int P = 3 * K - 1;
   const int tid = threadIdx.x;
@@ -611,7 +641,8 @@ __device__ __forceinline__ void eval_lanes(
   const int nw = (int)(n - w0 < EW ? n - w0 : EW);
   const int ew0 = (int)(w0 - e0);
   float* s_raw = smem;
-  float* s_x = smem + E * P;  // E P is a multiple of 4
+  float* s_x = smem + up4(E * P);
+  float* s_rows = smem + rows_offset(K, E, 1);
   stage_in<32>(s_raw + ew0 * P, raw + w0 * P, nw * P, lane);
   stage_in<32>(s_x + ew0, x + w0, nw, lane);
   asm volatile("cp.async.wait_all;" ::: "memory");
@@ -630,7 +661,7 @@ __device__ __forceinline__ void eval_lanes(
     } else {
       const unsigned group = group_mask<L>(tid);
       const int W = (K + 3) / 4 * 4;  // a row: K floats in 16-byte words
-      float* ew = s_x + E + e * eval_stride(K);  // exp(width raw - max)
+      float* ew = s_rows + e * eval_stride(K);  // exp(width raw - max)
       float* eh = ew + W;                        // exp(height raw - max)
       float mw, mh;
       group_maxima<L>(r, K, l, group, mw, mh);
@@ -675,28 +706,29 @@ __device__ __forceinline__ void eval_lanes(
 
 // The pullback of the block's elements (see the top of this file): dx of
 // element i at dx[i], its 3K-1 raw cotangents at draw[i (3K-1) + p].
-// `smem`: block_floats(K) floats, 16-byte aligned.
-template <bool kInverse, int L>
+// A block is E elements (L E threads). `smem`: block_floats(K, E) floats,
+// 16-byte aligned.
+template <bool kInverse, int L, int E>
 __device__ __forceinline__ void grad_lanes(
     const float* __restrict__ x, const float* __restrict__ raw,
     const float* __restrict__ gy, const float* __restrict__ gl,
     float* __restrict__ dx, float* __restrict__ draw, long long n, int K,
     float B, float* smem) {
-  constexpr int E = block_elements(L);
+  constexpr int kThreads = L * E;
   const int P = 3 * K - 1;
   const int S = row_stride(K);
   const int tid = threadIdx.x;
   const long long e0 = (long long)blockIdx.x * E;
   const int ne = (int)(n - e0 < E ? n - e0 : E);
   float* s_raw = smem;
-  float* s_x = smem + E * P;  // E P is a multiple of 4
+  float* s_x = smem + up4(E * P);
   float* s_gy = s_x + E;
   float* s_gl = s_gy + E;
-  float* s_rows = s_gl + E;
-  stage_in(s_raw, raw + e0 * P, ne * P, tid);
-  stage_in(s_x, x + e0, ne, tid);
-  stage_in(s_gy, gy + e0, ne, tid);
-  stage_in(s_gl, gl + e0, ne, tid);
+  float* s_rows = smem + rows_offset(K, E, 3);
+  stage_in<kThreads>(s_raw, raw + e0 * P, ne * P, tid);
+  stage_in<kThreads>(s_x, x + e0, ne, tid);
+  stage_in<kThreads>(s_gy, gy + e0, ne, tid);
+  stage_in<kThreads>(s_gl, gl + e0, ne, tid);
   asm volatile("cp.async.wait_all;" ::: "memory");
   __syncthreads();
 
@@ -783,7 +815,7 @@ __device__ __forceinline__ void grad_lanes(
     if (l == 0) dx[e0 + e] = inside ? g.dt : gyv;
   }
   __syncthreads();
-  store_out(draw + e0 * P, s_raw, ne * P, tid);
+  store_out<kThreads>(draw + e0 * P, s_raw, ne * P, tid);
 }
 
 }  // namespace tpuflows_rqs_lanes

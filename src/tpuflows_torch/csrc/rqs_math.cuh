@@ -28,6 +28,8 @@
 
 namespace tpuflows_rqs {
 
+// the knots the earlier K6/K7 take (coupling_block.cu); every other
+// kernel takes any K
 constexpr int kMaxKnots = 64;
 constexpr float kMinBin = 1e-3f;
 constexpr float kMinDeriv = 1e-3f;

@@ -81,8 +81,8 @@ __global__ void __launch_bounds__(kThreads)
   dx[i] = d;
 }
 
-template <bool kInverse, int L>
-__global__ void __launch_bounds__(tpuflows_rqs_lanes::kLaneThreads)
+template <bool kInverse, int L, int E>
+__global__ void __launch_bounds__(L * E)
     rqs_grad_lanes_kernel(const float* __restrict__ x,
                           const float* __restrict__ raw,
                           const float* __restrict__ gy,
@@ -90,36 +90,35 @@ __global__ void __launch_bounds__(tpuflows_rqs_lanes::kLaneThreads)
                           float* __restrict__ dx, float* __restrict__ draw,
                           long long n, int K, float B) {
   extern __shared__ float4 smem4[];
-  tpuflows_rqs_lanes::grad_lanes<kInverse, L>(
+  tpuflows_rqs_lanes::grad_lanes<kInverse, L, E>(
       x, raw, gy, gl, dx, draw, n, K, B, reinterpret_cast<float*>(smem4));
 }
 
-template <bool kInverse, int L>
-__global__ void __launch_bounds__(tpuflows_rqs_lanes::kLaneThreads)
+template <bool kInverse, int L, int E>
+__global__ void __launch_bounds__(L * E)
     rqs_eval_lanes_kernel(const float* __restrict__ x,
                           const float* __restrict__ raw,
                           float* __restrict__ y, float* __restrict__ ladj,
                           long long n, int K, float B) {
   extern __shared__ float4 smem4[];
-  tpuflows_rqs_lanes::eval_lanes<kInverse, L>(
+  tpuflows_rqs_lanes::eval_lanes<kInverse, L, E>(
       x, raw, y, ladj, n, K, B, reinterpret_cast<float*>(smem4));
 }
 
 bool args_ok(long long n, int knots, float range_limit) {
-  return n >= 0 && knots >= 2 && knots <= kMaxKnots && range_limit > 0.0f;
+  return n >= 0 && knots >= 2 && range_limit > 0.0f;
 }
 
 unsigned blocks(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-// One launch of a group kernel with L lanes an element over n elements,
-// `floats` floats of dynamic shared memory a block (asked for above 48 KB).
-template <int L, class... P, class... A>
+// One launch of a group kernel with L lanes an element and E elements a
+// block over n elements, `floats` floats of dynamic shared memory a block
+// (asked for above 48 KB).
+template <int L, int E, class... P, class... A>
 cudaError_t launch_groups(void (*kernel)(P...), int floats, long long n,
                           cudaStream_t s, A... args) {
-  using namespace tpuflows_rqs_lanes;
-  constexpr int E = block_elements(L);
   const long long nb = (n + E - 1) / E;
   if (nb >= (1LL << 31)) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * floats;
@@ -128,27 +127,34 @@ cudaError_t launch_groups(void (*kernel)(P...), int floats, long long n,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<(unsigned)nb, kLaneThreads, smem, s>>>(args...);
+  kernel<<<(unsigned)nb, L * E, smem, s>>>(args...);
   return cudaGetLastError();
 }
 
-// a lane count as a type, for a generic lambda
-template <int L>
-struct Lanes {
-  static constexpr int value = L;
+// a lane count and a block's elements as a type, for a generic lambda
+template <int L, int E>
+struct Group {
+  static constexpr int lanes = L, elements = E;
 };
 
-// f(Lanes<L>()) for L = lanes, among the lane counts that some K takes at
-// kBins bins a lane (only those are built)
-template <int kBins, int L = 1, class F>
-cudaError_t with_lanes(int lanes, F f) {
-  if constexpr (L > 32) {
-    return cudaErrorInvalidValue;
+// f(Group<L, E>()) for the plan of K knots (`plan_elements`: 256 / L
+// elements a block below 32 lanes, 8, 4, 2 or 1 at 32), K5's where grad,
+// else K4's; cudaErrorInvalidValue where no block fits the shared memory
+template <int L = 1, class F>
+cudaError_t with_plan(int K, bool grad, F f) {
+  using namespace tpuflows_rqs_lanes;
+  if constexpr (L < 32) {
+    if ((grad ? lanes_for(K) : eval_lanes_for(K)) == L)
+      return f(Group<L, block_elements(L)>());
+    return with_plan<2 * L>(K, grad, f);
   } else {
-    if constexpr (tpuflows_rqs_lanes::lanes_used(L, kBins)) {
-      if (lanes == L) return f(Lanes<L>());
+    switch (plan_elements(K, grad)) {
+      case 8: return f(Group<32, 8>());
+      case 4: return f(Group<32, 4>());
+      case 2: return f(Group<32, 2>());
+      case 1: return f(Group<32, 1>());
+      default: return cudaErrorInvalidValue;
     }
-    return with_lanes<kBins, 2 * L>(lanes, f);
   }
 }
 
@@ -172,17 +178,16 @@ extern "C" int rqs_eval_f32(const void* x, const void* raw, void* y,
   float* lp = static_cast<float*>(ladj);
   // L = eval_lanes_for(K): one lane only where K <= kEvalBinsPerLane,
   // the bins `walk_own` holds
-  const int floats = tpuflows_rqs_lanes::eval_block_floats(knots);
-  return (int)with_lanes<tpuflows_rqs_lanes::kEvalBinsPerLane>(
-      tpuflows_rqs_lanes::eval_lanes_for(knots), [&](auto lanes) {
-        constexpr int L = decltype(lanes)::value;
-        return inverse ? launch_groups<L>(rqs_eval_lanes_kernel<true, L>,
-                                          floats, n, s, xp, rp, yp, lp, n,
-                                          knots, range_limit)
-                       : launch_groups<L>(rqs_eval_lanes_kernel<false, L>,
-                                          floats, n, s, xp, rp, yp, lp, n,
-                                          knots, range_limit);
-      });
+  return (int)with_plan(knots, false, [&](auto group) {
+    constexpr int L = decltype(group)::lanes, E = decltype(group)::elements;
+    const int floats = tpuflows_rqs_lanes::eval_block_floats(knots, E);
+    return inverse ? launch_groups<L, E>(rqs_eval_lanes_kernel<true, L, E>,
+                                         floats, n, s, xp, rp, yp, lp, n,
+                                         knots, range_limit)
+                   : launch_groups<L, E>(rqs_eval_lanes_kernel<false, L, E>,
+                                         floats, n, s, xp, rp, yp, lp, n,
+                                         knots, range_limit);
+  });
 }
 
 // The one-thread K4 (`rqs_eval_kernel`) that the group kernel replaced:
@@ -222,17 +227,16 @@ extern "C" int rqs_grad_f32(const void* x, const void* raw, const void* gy,
   const float* glp = static_cast<const float*>(gl);
   float* dxp = static_cast<float*>(dx);
   float* drp = static_cast<float*>(draw);
-  const int floats = tpuflows_rqs_lanes::block_floats(knots);
-  return (int)with_lanes<tpuflows_rqs_lanes::kBinsPerLane>(
-      tpuflows_rqs_lanes::lanes_for(knots), [&](auto lanes) {
-        constexpr int L = decltype(lanes)::value;
-        return inverse ? launch_groups<L>(rqs_grad_lanes_kernel<true, L>,
-                                          floats, n, s, xp, rp, gyp, glp,
-                                          dxp, drp, n, knots, range_limit)
-                       : launch_groups<L>(rqs_grad_lanes_kernel<false, L>,
-                                          floats, n, s, xp, rp, gyp, glp,
-                                          dxp, drp, n, knots, range_limit);
-      });
+  return (int)with_plan(knots, true, [&](auto group) {
+    constexpr int L = decltype(group)::lanes, E = decltype(group)::elements;
+    const int floats = tpuflows_rqs_lanes::block_floats(knots, E);
+    return inverse ? launch_groups<L, E>(rqs_grad_lanes_kernel<true, L, E>,
+                                         floats, n, s, xp, rp, gyp, glp,
+                                         dxp, drp, n, knots, range_limit)
+                   : launch_groups<L, E>(rqs_grad_lanes_kernel<false, L, E>,
+                                         floats, n, s, xp, rp, gyp, glp,
+                                         dxp, drp, n, knots, range_limit);
+  });
 }
 
 // The one-thread pullback (`rqs_grad_kernel`) that K5's group kernel

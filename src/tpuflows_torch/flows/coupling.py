@@ -21,7 +21,10 @@ port's tiers:
 For the kernel tiers a CUDA tensor launches the kernels or raises, and a
 CPU tensor runs their plain version in its own dtype. As in the JAX
 package, a single vector (x.ndim == 1) under "auto" or "fused" takes the
-oracle.
+oracle. Every tier takes any K; K4/K5's blocks must fit the shared
+memory, which sets their one limit (`rqs_cuda.spline_plan`: 11,620 knots
+for K4, 9,684 for K5), checked when a block is built on a CUDA device
+under True or "auto".
 """
 from __future__ import annotations
 
@@ -60,6 +63,11 @@ class RQSCouplingBlock(Bijector):
         self.range_limit = float(range_limit)
         self.use_pallas = use_pallas
         device = net.weights[0].device
+        if device.type == "cuda" and use_pallas in (True, "auto"):
+            from tpuflows_torch.kernels import rqs_cuda
+
+            for grad in (False, True):  # K4's and K5's shared memory
+                rqs_cuda.spline_plan(self.knots, grad)
         self.register_buffer("mask_f", mask_array(self.mask, device=device),
                              persistent=False)
 

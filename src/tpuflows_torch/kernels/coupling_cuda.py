@@ -11,9 +11,16 @@ its pullback (port of `tpuflows/kernels/coupling_pallas.py`).
     on tiles of rows whose cluster of CTAs shares every weight read; its
     pullback in two launches, per-row cotangents, then the weights'
     cotangents, a GEMM over the rows summed in a fixed order;
+  * the wide unit (`csrc/coupling_wide.cu`, its own library, built on
+    its first launch): K6 and K7's first pass for a block the tile kernels
+    do not take, more than 8 layers or a tile that does not fit the
+    shared memory, with what the tile kernels keep in shared memory in a
+    per-launch work buffer in device memory; K7's second pass is the tile
+    kernels'; `WIDE_LAUNCHES` counts its launches;
   * `tile_plan`, the launch plan (rows per tile, spline dims per chunk,
-    the weight ring's stage, shared memory, pass 2's row slices), in
-    Python so that the CPU tests reach it, made once per shapes;
+    the weight ring's stage, shared memory, pass 2's row slices, or the
+    wide unit's), in Python so that the CPU tests reach it, made once per
+    shapes;
   * `block_eval` / `block_grad`, the wrappers: a CPU tensor runs the plain
     version (in its own dtype), a CUDA tensor launches the kernel or the
     wrapper raises; `LAUNCHES` counts the kernels' launches (K7's second
@@ -48,26 +55,27 @@ from tpuflows_torch.flows.rqs_ref import (
     DEFAULT_RANGE,
 )
 from tpuflows_torch.kernels.cuda_build import CudaLibrary
-from tpuflows_torch.kernels.rqs_cuda import (
-    MAX_KNOTS,
-    _fwd_tile_math,
-    _inv_tile_math,
-)
+from tpuflows_torch.kernels.rqs_cuda import _fwd_tile_math, _inv_tile_math
 from tpuflows_torch.kernels.tile_flow import p_major
 
 # kernel launches since the last reset, by kernel and direction
 LAUNCHES = {"k6_forward": 0, "k6_inverse": 0, "k7_forward": 0,
             "k7_inverse": 0}
-# launches of the earlier kernels (the yardstick), by the same keys
+# launches of the earlier kernels (the yardstick), and of the wide unit
+# (K7's pass 2 on a wide plan counted there too), by the same keys
 EARLIER_LAUNCHES = dict(LAUNCHES)
-# K7's launches per call: pass 1, and pass 2 when a weight needs its
-# cotangent
+WIDE_LAUNCHES = dict(LAUNCHES)
+# K7's launches per call of a block of at most TILE_MAX_LAYERS layers:
+# pass 1, and pass 2 when a weight needs its cotangent (pass 2 launches
+# once per TILE_MAX_LAYERS layers)
 K7_LAUNCHES = {False: 1, True: 2}
-MAX_LAYERS = 8
+TILE_MAX_LAYERS = 8  # layers the tile kernels take (csrc kMaxLayers)
 MAX_SMEM = 232448  # bytes of shared memory a block may opt in to
 ACTIVATION_CODES = {"silu": 0, "tanh": 1, "relu": 2, "gelu": 3}
-# the earlier kernels' activations: float32 only
+# the earlier kernels' activations (float32 only), knots and layers
 EARLIER_ACTIVATIONS = ("silu", "tanh", "relu")
+EARLIER_MAX_KNOTS = 64
+EARLIER_MAX_LAYERS = 8
 
 
 def _bind(lib):
@@ -85,8 +93,23 @@ def _bind(lib):
     lib.coupling_tile_bwd_f32.argtypes = block + [p] * 6
     lib.coupling_tile_bwd_f32.restype = i32
     lib.coupling_tile_wgrad_f32.argtypes = [p] * 5 + [i32, i64, i32, i32,
-                                                      i32, p, i32, i32, p]
+                                                      i32, p, i32, i32, p, p]
     lib.coupling_tile_wgrad_f32.restype = i32
+
+
+def _bind_wide(lib):
+    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_float)
+    lib.coupling_wide_floats.argtypes = [p, i32, i32, i32, i32, i64]
+    lib.coupling_wide_floats.restype = i64
+    # x, mask, idx, table, widths, n_layers, N, d, nt, knots, range_limit,
+    # activation, bf16, inverse, dc, work, work_floats
+    block = [p, p, p, p, p, i32, i64, i32, i32, i32, f32, i32, i32, i32,
+             i32, p, i64]
+    lib.coupling_wide_fwd_f32.argtypes = block + [p, p, p]
+    lib.coupling_wide_fwd_f32.restype = i32
+    lib.coupling_wide_bwd_f32.argtypes = block + [p] * 6
+    lib.coupling_wide_bwd_f32.restype = i32
 
 
 def _bind_earlier(lib):
@@ -105,7 +128,11 @@ def _bind_earlier(lib):
 
 
 LIBRARY = CudaLibrary("coupling_tile", "coupling_tile.cu",
-                      [("coupling_tile", [])], ["rqs_math.cuh"], _bind)
+                      [("coupling_tile", [])],
+                      ["rqs_math.cuh", "coupling_ops.cuh"], _bind)
+WIDE_LIBRARY = CudaLibrary("coupling_wide", "coupling_wide.cu",
+                           [("coupling_wide", [])],
+                           ["rqs_math.cuh", "coupling_ops.cuh"], _bind_wide)
 EARLIER = CudaLibrary("coupling_rows8", "coupling_block.cu",
                       [("coupling_block", [])], ["rqs_math.cuh"],
                       _bind_earlier)
@@ -115,6 +142,7 @@ def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         EARLIER_LAUNCHES[k] = 0
+        WIDE_LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -252,19 +280,19 @@ def _mask_tensors(mask, device, dtype):
 
 def _check(x2d, params, spec, *cots):
     """Shapes, devices and dtypes of a call (one floating dtype for all),
-    for the plain version and the kernels alike; returns the layer
-    widths."""
+    for the plain version and the kernels alike: any K >= 2, any number of
+    layers and any widths; returns the layer widths."""
     if x2d.dim() != 2:
         raise ValueError(f"x must be (N, d), got {tuple(x2d.shape)}")
     N, d = x2d.shape
     K = spec.knots
     if len(spec.mask) != d:
         raise ValueError(f"mask of {len(spec.mask)} dims for x of {d}")
-    if not 2 <= K <= MAX_KNOTS:
-        raise ValueError(f"the kernels take 2..{MAX_KNOTS} knots, got {K}")
-    if len(params) % 2 or not 2 <= len(params) <= 2 * MAX_LAYERS:
-        raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers as (w, "
-                         f"b) pairs, got {len(params)} tensors")
+    if K < 2:
+        raise ValueError(f"a spline takes at least 2 knots, got {K}")
+    if len(params) % 2 or not params:
+        raise ValueError(f"the conditioner's layers come as (w, b) pairs, "
+                         f"got {len(params)} tensors")
     widths = [d]
     for w, b in zip(params[0::2], params[1::2]):
         if w.dim() != 2 or w.shape[0] != widths[-1]:
@@ -329,12 +357,19 @@ WGRAD_SLICES = (1, 2, 4, 8)
 CARD_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
+# the wide unit (csrc/coupling_wide.cu kRows, kMaxClusters): rows of a
+# tile, and the most clusters of a launch, which walk the tiles
+WIDE_ROWS = 16
+WIDE_CLUSTERS = CARD_SMS // CLUSTER
+
+
 class TilePlan(NamedTuple):
     rows: int  # rows of a tile
     dc: int  # spline dims per chunk of the last layer
     stage: int  # floats of a weight-ring stage, 0 without a ring
     smem: int  # bytes of dynamic shared memory a CTA takes
     slices: int  # pass 2: CTAs of a cluster over the rows
+    wide: bool = False  # the wide unit's plan (stage and smem 0)
 
 
 def _up4(n):
@@ -403,22 +438,47 @@ def wgrad_slices(widths, knots, nt, n_rows):
     return S
 
 
-def tile_plan(widths, knots, nt, n_rows, grad):
+def tile_plan(widths, knots, nt, n_rows, grad, wide=False):
     """The launch plan of K6 (grad False) or K7 (grad True) for a block of
     layer widths `widths` with nt spline dims on n_rows rows, made once
-    per shapes (`_tile_plan`). Raises where nothing fits."""
-    return _tile_plan(tuple(widths), knots, nt, n_rows, bool(grad))
+    per shapes (`_tile_plan`): the tile kernels' where they take the
+    block, else, or where `wide` asks for it, the wide unit's."""
+    return _tile_plan(tuple(widths), knots, nt, n_rows, bool(grad),
+                      bool(wide))
+
+
+def _first_dc(nt):
+    """Spline dims of a chunk before any halving: at most 32 and at most a
+    CTA's share."""
+    return min(32, max(1, -(-nt // CLUSTER)))
 
 
 @functools.lru_cache(maxsize=256)
-def _tile_plan(widths, knots, nt, n_rows, grad):
-    """The first plan whose shared memory fits: 16 rows a tile, else 8;
-    the spline dims of a chunk at most 32 and at most a CTA's share; the
-    largest ring stage with which the chunk keeps at least 8 dims (or all
-    of a smaller share), else the chunk halved down to 1 dim with the
-    smallest stage. K6 then drops the ring (stage 0: its weights read from
-    L2), which takes every shape the earlier 8-row layout took."""
-    dc0 = min(32, max(1, -(-nt // CLUSTER)))
+def _tile_plan(widths, knots, nt, n_rows, grad, wide):
+    """The tile kernels' plan (`_tile_fit`) where they take the block and
+    `wide` does not ask for the wide unit; else the wide unit's: WIDE_ROWS
+    rows a tile, no ring, no dynamic shared memory, and the chunk of the
+    tile plan where there is one (so that both take their sums in one
+    order), else `_first_dc`. Pass 2's row slices are the same either
+    way."""
+    slices = wgrad_slices(widths, knots, nt, n_rows)
+    fit = (_tile_fit(widths, knots, nt, grad)
+           if len(widths) - 1 <= TILE_MAX_LAYERS else None)
+    if fit is not None and not wide:
+        return TilePlan(*fit, slices)
+    dc = fit[1] if fit is not None else _first_dc(nt)
+    return TilePlan(WIDE_ROWS, dc, 0, 0, slices, True)
+
+
+def _tile_fit(widths, knots, nt, grad):
+    """(rows, dc, stage, smem) of the first tile whose shared memory fits,
+    or None: 16 rows a tile, else 8; the spline dims of a chunk at most 32
+    and at most a CTA's share; the largest ring stage with which the chunk
+    keeps at least 8 dims (or all of a smaller share), else the chunk
+    halved down to 1 dim with the smallest stage. K6 then drops the ring
+    (stage 0: its weights read from L2), which takes every shape the
+    earlier 8-row layout took."""
+    dc0 = _first_dc(nt)
     dcs = [dc0]
     while dcs[-1] > 1:
         dcs.append((dcs[-1] + 1) // 2)
@@ -433,21 +493,34 @@ def _tile_plan(widths, knots, nt, n_rows, grad):
     for R, stage, dc in tries:
         smem = tile_smem(widths, knots, R, dc, stage, grad)
         if smem <= MAX_SMEM:
-            return TilePlan(R, dc, stage, smem,
-                            wgrad_slices(widths, knots, nt, n_rows))
-    raise ValueError(f"a coupling block of widths {list(widths)} needs more "
-                     f"than {MAX_SMEM} bytes of shared memory per CTA at "
-                     f"every tile of {TILE_ROWS} rows")
+            return R, dc, stage, smem
+    return None
+
+
+def wide_floats(widths, knots, dc, grad, n_rows):
+    """Floats of the wide unit's work buffer for a launch on n_rows rows
+    (csrc/coupling_wide.cu `sizes_of`, `coupling_wide_floats`): per
+    cluster, two activation buffers of WIDE_ROWS x the widest layer input,
+    K7's act'(a) of every hidden layer, and for each of its CTAs the
+    chunk's raw values, their column map, and K6's ladj slots and row sums
+    or K7's partial cotangent of the last hidden layer; one cluster a tile
+    of WIDE_ROWS rows, at most WIDE_CLUSTERS."""
+    n, R, P = len(widths) - 1, WIDE_ROWS, 3 * knots - 1
+    base = 2 * R * max(widths[:-1]) + (R * sum(widths[1:-1]) if grad else 0)
+    region = R * P * dc + _up4(P * dc) + (R * widths[-2] if grad
+                                          else R * dc + R)
+    clusters = min(-(-n_rows // R), WIDE_CLUSTERS)
+    return clusters * (base + CLUSTER * region) if n else 0
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launched(rc, name, key, counts=LAUNCHES):
+def _launched(rc, name, key, counts=LAUNCHES, launches=1):
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    counts[key] += 1
+    counts[key] += launches
 
 
 def _common(x2d, params, spec, widths, earlier=False):
@@ -467,17 +540,73 @@ def _spline_dims(spec, device):
     return _mask_tensors(spec.mask, device, torch.float32)[1].numel()
 
 
-def _launch_eval(x2d, params, spec, widths):
+_WIDE_TABLES = {}
+
+
+def _wide_table(params, widths, device):
+    """The layers as the wide unit reads them, int64 on `device`: the
+    weight pointers, the bias pointers, the widths, and per layer l the
+    units of the layers' outputs before its output (sum of widths[1:l +
+    1]) and of their inputs before its input (sum of widths[:l]). Made
+    once per parameter tensors and widths (a graph that captures a launch
+    finds it made by the launches before), at most 64 kept."""
+    key = (tuple(p.data_ptr() for p in params), tuple(widths), str(device))
+    if key not in _WIDE_TABLES:
+        if len(_WIDE_TABLES) >= 64:
+            _WIDE_TABLES.clear()
+        n = len(widths) - 1
+        vals = [p.data_ptr() for p in (*params[0::2], *params[1::2])]
+        vals += list(widths)
+        vals += [sum(widths[1:l + 1]) for l in range(n)]
+        vals += [sum(widths[:l]) for l in range(n)]
+        _WIDE_TABLES[key] = torch.tensor(vals, dtype=torch.int64,
+                                         device=device)
+    return _WIDE_TABLES[key]
+
+
+def _wide_common(x2d, params, spec, widths, plan, grad):
+    """The leading arguments of the wide unit's K6 and K7 pass 1, its work
+    buffer allocated here."""
+    N, d = x2d.shape
+    mask, idx = _mask_tensors(spec.mask, x2d.device, torch.float32)
+    work = torch.empty(wide_floats(widths, spec.knots, plan.dc, grad, N),
+                       dtype=torch.float32, device=x2d.device)
+    table = _wide_table(params, widths, x2d.device)
+    return [x2d.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+            table.data_ptr(), _ints(widths), len(widths) - 1, N, d,
+            idx.numel(), spec.knots, float(spec.range_limit),
+            ACTIVATION_CODES[spec.activation],
+            int(spec.compute_dtype == "bf16"), int(spec.inverse), plan.dc,
+            work.data_ptr(), work.numel()], work
+
+
+def _wide_eval(x2d, params, spec, widths, plan, z, ladj):
+    """K6 on the wide unit (the caller's parameters: a bf16 conditioner's
+    weights are rounded as the kernel loads them)."""
+    args, work = _wide_common(x2d, params, spec, widths, plan, False)
+    lib = WIDE_LIBRARY.load()
+    with torch.cuda.device(x2d.device):
+        rc = lib.coupling_wide_fwd_f32(*args, z.data_ptr(), ladj.data_ptr(),
+                                       _stream(x2d))
+    _launched(rc, "coupling_wide_fwd_f32 (K6, wide)",
+              "k6_inverse" if spec.inverse else "k6_forward", WIDE_LAUNCHES)
+    return z, ladj
+
+
+def _launch_eval(x2d, params, spec, widths, wide=False):
+    """K6 on the plan `tile_plan` makes (the wide unit's where `wide`)."""
     check_kernel_spec(spec)
     _check_kernel(x2d, params)
-    params = kernel_params(params, spec)
     z = torch.empty_like(x2d)
     ladj = torch.empty(x2d.shape[0], dtype=x2d.dtype, device=x2d.device)
     N = x2d.shape[0]
     if N == 0:
         return z, ladj
     plan = tile_plan(widths, spec.knots, _spline_dims(spec, x2d.device), N,
-                     False)
+                     False, wide)
+    if plan.wide:
+        return _wide_eval(x2d, params, spec, widths, plan, z, ladj)
+    params = kernel_params(params, spec)
     lib = LIBRARY.load()
     with torch.cuda.device(x2d.device):
         rc = lib.coupling_tile_fwd_f32(
@@ -519,35 +648,77 @@ def _pass1(x2d, params, spec, widths, gz, gladj, plan, need_params):
     return dx, Hs, Gs
 
 
-def _pass2(x2d, params, spec, widths, plan, Hs, Gs):
+def _wide_pass1(x2d, params, spec, widths, gz, gladj, plan, need_params):
+    """K7's first launch on the wide unit: dx and, when `need_params`,
+    pass 2's scratch, each layer's in one buffer (`_wide_table`'s
+    offsets); returns it as `_pass1` does, one view a layer."""
+    N = x2d.shape[0]
+    nt = _spline_dims(spec, x2d.device)
+    dx = torch.empty_like(x2d)
+    Hs = Gs = None
+    hbuf = gbuf = None
+    if need_params:
+        outs = [*widths[1:-1], (3 * spec.knots - 1) * nt]
+        hbuf = torch.empty(sum(widths[:-1]) * N, dtype=x2d.dtype,
+                           device=x2d.device)
+        gbuf = torch.empty(sum(outs) * N, dtype=x2d.dtype, device=x2d.device)
+        Hs = [hbuf[sum(widths[:l]) * N:sum(widths[:l + 1]) * N].view(w, N)
+              for l, w in enumerate(widths[:-1])]
+        Gs = [gbuf[sum(outs[:l]) * N:sum(outs[:l + 1]) * N].view(w, N)
+              for l, w in enumerate(outs)]
+    args, work = _wide_common(x2d, params, spec, widths, plan, True)
+    lib = WIDE_LIBRARY.load()
+    with torch.cuda.device(x2d.device):
+        rc = lib.coupling_wide_bwd_f32(
+            *args, gz.data_ptr(), gladj.data_ptr(), dx.data_ptr(),
+            hbuf.data_ptr() if need_params else None,
+            gbuf.data_ptr() if need_params else None, _stream(x2d))
+    _launched(rc, "coupling_wide_bwd_f32 (K7, wide, pass 1)", _k7_key(spec),
+              WIDE_LAUNCHES)
+    return dx, Hs, Gs
+
+
+def _pass2(x2d, params, spec, widths, plan, Hs, Gs, counts=LAUNCHES):
     """K7's second launch: every weight's and bias's cotangent from pass
-    1's scratch, the last layer's pass-through columns 0."""
+    1's scratch, the last layer's pass-through columns 0; counted in
+    `counts` (the wide unit's WIDE_LAUNCHES after its pass 1)."""
     N, d = x2d.shape
     _, idx = _mask_tensors(spec.mask, x2d.device, torch.float32)
     dps = [torch.empty_like(p) for p in params[:-2]]
     dps += [torch.zeros_like(params[-2]), torch.zeros_like(params[-1])]
     lib = LIBRARY.load()
+    launches = ctypes.c_int(0)  # one kernel per 8 layers
     with torch.cuda.device(x2d.device):
         rc = lib.coupling_tile_wgrad_f32(
             _ptrs(Hs), _ptrs(Gs), _ptrs(dps[0::2]), _ptrs(dps[1::2]),
             _ints(widths), len(Hs), N, d, idx.numel(), spec.knots,
             idx.data_ptr(), plan.slices, int(spec.compute_dtype == "bf16"),
-            _stream(x2d))
-    _launched(rc, "coupling_tile_wgrad_f32 (K7, pass 2)", _k7_key(spec))
+            _stream(x2d), ctypes.byref(launches))
+    _launched(rc, "coupling_tile_wgrad_f32 (K7, pass 2)", _k7_key(spec),
+              counts, launches.value)
     return tuple(dps)
 
 
-def _launch_grad(x2d, params, spec, widths, gz, gladj, need_params):
+def _launch_grad(x2d, params, spec, widths, gz, gladj, need_params,
+                 wide=False):
+    """K7 on the plan `tile_plan` makes (the wide unit's where `wide`)."""
     check_kernel_spec(spec)
     _check_kernel(x2d, params, gz, gladj)
-    params = kernel_params(params, spec)
     N = x2d.shape[0]
     if N == 0:
         return (torch.empty_like(x2d),
                 tuple(torch.zeros_like(p) for p in params)
                 if need_params else None)
     plan = tile_plan(widths, spec.knots, _spline_dims(spec, x2d.device), N,
-                     True)
+                     True, wide)
+    if plan.wide:
+        dx, Hs, Gs = _wide_pass1(x2d, params, spec, widths, gz, gladj, plan,
+                                 need_params)
+        if not need_params:
+            return dx, None
+        return dx, _pass2(x2d, params, spec, widths, plan, Hs, Gs,
+                          WIDE_LAUNCHES)
+    params = kernel_params(params, spec)
     dx, Hs, Gs = _pass1(x2d, params, spec, widths, gz, gladj, plan,
                         need_params)
     if not need_params:
@@ -576,6 +747,11 @@ def _rows8_dc(lib, widths, d, K, grad):
 
 def _earlier_check(x2d, params, spec, *cots):
     widths = _check(x2d, params, spec, *cots)
+    if (spec.knots > EARLIER_MAX_KNOTS
+            or len(widths) - 1 > EARLIER_MAX_LAYERS):
+        raise ValueError(
+            f"the earlier coupling-block kernels take at most "
+            f"{EARLIER_MAX_KNOTS} knots and {EARLIER_MAX_LAYERS} layers")
     if (spec.activation not in EARLIER_ACTIVATIONS
             or spec.compute_dtype != "f32"):
         raise ValueError(

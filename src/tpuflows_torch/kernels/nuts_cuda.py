@@ -97,7 +97,7 @@ MOD_INTS = 8  # ints per module in the kernel's module list
 FORM_INTS = 10
 FORM_BF16 = 1
 FORM_GENERAL = 2
-MAX_LAYERS = 8  # layers of a conditioner (K6/K7's MAX_LAYERS)
+MAX_LAYERS = 8  # layers of a conditioner (K6/K7 tiles: TILE_MAX_LAYERS)
 KIND = {Standardize: 0, AffineCoupling: 1, RQSCouplingBlock: 2, Whiten: 3}
 # csrc/latent_grad.cuh Activation (coupling_cuda.ACTIVATION_CODES)
 ACTIVATION_CODES = {"silu": 0, "tanh": 1, "relu": 2, "gelu": 3}

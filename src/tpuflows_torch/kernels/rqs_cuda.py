@@ -26,6 +26,7 @@ first launch (`cuda_build`); importing this module compiles nothing.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +43,6 @@ from tpuflows_torch.kernels.cuda_build import CudaLibrary
 # kernel launches since the last reset, by kernel and direction
 LAUNCHES = {"k4_forward": 0, "k4_inverse": 0, "k5_forward": 0,
             "k5_inverse": 0}
-MAX_KNOTS = 64
 
 
 def _bind(lib):
@@ -62,10 +62,12 @@ LIBRARY = CudaLibrary("rqs_spline", "rqs_spline.cu", [("rqs_spline", [])],
 
 # threads of a block of the group kernels and the bins a lane holds up to
 # 32 lanes an element, K5's and K4's (csrc/rqs_lanes.cuh kLaneThreads,
-# kBinsPerLane, kEvalBinsPerLane)
+# kBinsPerLane, kEvalBinsPerLane), and the bytes of shared memory a block
+# may opt in to (kMaxSmem)
 LANE_THREADS = 256
 LANE_BINS = 4
 EVAL_LANE_BINS = 8
+MAX_SMEM = 232448
 
 
 def lane_layout(K: int, bins: int = LANE_BINS) -> tuple[int, int, int]:
@@ -79,6 +81,60 @@ def lane_layout(K: int, bins: int = LANE_BINS) -> tuple[int, int, int]:
     while L < 32 and L * bins < K:
         L *= 2
     return L, -(-K // L), LANE_THREADS // L
+
+
+def _up4(n):
+    return (n + 3) & ~3
+
+
+def row_stride(K: int) -> int:
+    """csrc/rqs_lanes.cuh `row_stride`: K5's floats between two elements'
+    rows, K rounded up to whole 16-byte words, an odd number of them."""
+    words = (K + 3) // 4
+    return 4 * words if words % 2 else 4 * words + 4
+
+
+def eval_stride(K: int) -> int:
+    """csrc/rqs_lanes.cuh `eval_stride`: K4's two rows, each K rounded up
+    to whole 16-byte words, and one word more."""
+    return 4 * (2 * ((K + 3) // 4) + 1)
+
+
+def block_floats(K: int, E: int, grad: bool) -> int:
+    """Floats of a K5 (grad) or K4 block's dynamic shared memory at E
+    elements (csrc/rqs_lanes.cuh `block_floats`, `eval_block_floats`): the
+    raw span and x (K5: gy, gl), each region in whole 16-byte words
+    (`rows_offset`), then each element's rows (K4 at one lane none)."""
+    extra = 3 if grad else 1
+    head = _up4(_up4(E * (3 * K - 1)) + extra * E)
+    if grad:
+        return head + E * 3 * row_stride(K)
+    L = lane_layout(K, EVAL_LANE_BINS)[0]
+    return head + (0 if L == 1 else E * eval_stride(K))
+
+
+class SplinePlan(NamedTuple):
+    lanes: int  # L, lanes an element
+    elements: int  # E, elements a block of L E threads
+    smem: int  # bytes of dynamic shared memory a block takes
+
+
+def spline_plan(K: int, grad: bool) -> SplinePlan:
+    """K5's (grad) or K4's launch plan at K knots, the host's copy of
+    csrc/rqs_lanes.cuh `plan_elements`: 256 / L elements a block below 32
+    lanes an element; at 32 lanes the most of 8, 4, 2 and 1 whose block
+    fits MAX_SMEM. Raises ValueError, naming the shared memory, where not
+    even one element's block fits: the kernels' only limit on K (the plain
+    versions take any K)."""
+    L, _, E = lane_layout(K, LANE_BINS if grad else EVAL_LANE_BINS)
+    for e in (E, E // 2, E // 4, E // 8) if L == 32 else (E,):
+        smem = 4 * block_floats(K, e, grad)
+        if smem <= MAX_SMEM:
+            return SplinePlan(L, e, smem)
+    raise ValueError(
+        f"{'K5' if grad else 'K4'} cannot take {K} knots: one element's "
+        f"block needs {smem} bytes of shared memory, above the {MAX_SMEM} "
+        f"a block may have")
 
 
 def reset_launches():
@@ -219,10 +275,8 @@ def plain_grad(x, raw, gy, gl, range_limit=DEFAULT_RANGE, inverse=False):
 # ---------------------------------------------------------------------------
 def _check(x, raw, *cots):
     """Shapes, devices and dtypes of a call, for the plain version and the
-    kernels alike (one floating dtype for all); returns K."""
+    kernels alike (one floating dtype for all; any K >= 2); returns K."""
     K = _knots_of(raw)
-    if K > MAX_KNOTS:
-        raise ValueError(f"the kernels take at most {MAX_KNOTS} knots")
     if tuple(raw.shape[:-1]) != tuple(x.shape):
         raise ValueError(f"raw {tuple(raw.shape)} does not match x "
                          f"{tuple(x.shape)}")
@@ -258,6 +312,7 @@ def _eval_call(entry, x, raw, range_limit, inverse):
     """Entry point `entry` of K4's library: (y, ladj)."""
     K = _check(x, raw)
     _check_kernel("K4", x, raw)
+    spline_plan(K, False)
     lib = LIBRARY.load()
     y = torch.empty_like(x)
     ladj = torch.empty_like(x)
@@ -292,6 +347,7 @@ def _grad_call(entry, x, raw, gy, gl, range_limit, inverse, draw):
     passes a view at an offset), else into a new tensor."""
     K = _check(x, raw, gy, gl)
     _check_kernel("K5", x, raw, gy, gl)
+    spline_plan(K, True)
     if draw is None:
         draw = torch.empty_like(raw)
     else:

@@ -15,8 +15,8 @@ its thread layouts.
     COUPLING_TIMING_SHAPES: within the 232,448 bytes a CTA may take, its
     bytes counted independently here; and its reach against the earlier
     8-row layout's (csrc/coupling_block.cu `make_plan`) over a grid of
-    widths, depths, knots and masks: no block that layout took is
-    refused;
+    widths, depths, knots and masks: no block that layout took goes to
+    the wide unit; where no tile fits, the plan is the wide unit's;
   * the thread layout of a product (`thread_tile`, the columns per thread
     `ct_of`) and of the weight copies, written out from the CUDA source:
     each output and each staged weight exactly once;
@@ -339,11 +339,10 @@ def _earlier_takes(widths, K, grad):
 
 
 def _plan_or_none(widths, K, nt, n, grad):
-    try:
-        return cc.tile_plan(widths, K, nt, n, grad)
-    except ValueError as e:
-        assert "shared memory" in str(e)
-        return None
+    """The tile kernels' plan, or None where the block goes to the wide
+    unit."""
+    plan = cc.tile_plan(widths, K, nt, n, grad)
+    return None if plan.wide else plan
 
 
 @pytest.mark.parametrize("shape", _shape_rows(), ids=str)
@@ -353,7 +352,7 @@ def test_tile_plan_fits_every_chip_shape(shape, grad):
     nt = sum(1 for m in chip_smoke.coupling_mask(mask_name, d) if m == 0)
     widths = [d, *hidden, (3 * K - 1) * d]
     plan = _plan_or_none(widths, K, nt, n, grad)
-    if plan is None:  # refused only where the earlier kernels refused
+    if plan is None:  # wide only where the earlier kernels refused
         assert grad and not _earlier_takes(widths, K, grad)
         return
     assert plan.rows in cc.TILE_ROWS
@@ -411,8 +410,10 @@ def test_tile_plan_at_the_fits_shape():
 def test_tile_plan_falls_back_and_refuses():
     """Wide layers take fewer rows and a smaller ring; K6 where no ring
     fits beside its activations drops it (stage 0), as chip_smoke's row of
-    a 3200-unit hidden layer does, where K7 refuses, as the earlier K7
-    did; a block that fits nowhere raises, naming shared memory."""
+    a 3200-unit hidden layer does, where K7, as the earlier K7 did, has no
+    tile: its plan, and that of a block that fits no tile, is the wide
+    unit's (16 rows, no ring, no shared memory; the earlier kernels
+    refuse both)."""
     widths = [64, 1536, 23 * 64]
     plan = cc.tile_plan(widths, 8, 32, 1024, True)
     assert plan.rows == 8 and plan.stage > 0 and plan.smem <= MAX_SMEM
@@ -420,11 +421,12 @@ def test_tile_plan_falls_back_and_refuses():
     plan = cc.tile_plan(wide, 8, 32, 45, False)
     assert plan[:3] == (8, 16, 0) and plan.smem <= MAX_SMEM
     assert _earlier_takes(wide, 8, False)
-    with pytest.raises(ValueError, match="shared memory"):
-        cc.tile_plan(wide, 8, 32, 45, True)
+    plan = cc.tile_plan(wide, 8, 32, 45, True)
+    assert plan.wide and plan[:4] == (cc.WIDE_ROWS, 16, 0, 0)
     assert not _earlier_takes(wide, 8, True)
-    with pytest.raises(ValueError, match="shared memory"):
-        cc.tile_plan([64, 8192, 23 * 64], 8, 32, 1024, False)
+    plan = cc.tile_plan([64, 8192, 23 * 64], 8, 32, 1024, False)
+    assert plan.wide and plan[:4] == (cc.WIDE_ROWS, 16, 0, 0)
+    assert not _earlier_takes([64, 8192, 23 * 64], 8, False)
 
 
 # ---------------------------------------------------------------------------

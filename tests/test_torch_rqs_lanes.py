@@ -53,6 +53,10 @@ from test_torch_rqs import (JAX_BAR, _forward_local, _inputs,
                             mirror_vjp)
 
 B = 4.0
+# the knots whose block layouts are checked one by one: 2..64, every lane
+# count below 32 (tests/test_torch_spline_reach.py checks the plans past
+# them)
+LAYOUT_KNOTS = range(2, 65)
 
 
 def _bits(t):
@@ -421,7 +425,7 @@ def row_stride(K):
     return 4 * words if words % 2 else 4 * words + 4
 
 
-@pytest.mark.parametrize("K", range(2, rqs_cuda.MAX_KNOTS + 1))
+@pytest.mark.parametrize("K", LAYOUT_KNOTS)
 def test_lanes_and_bins_per_lane_against_K(K):
     L, NB, E = rqs_cuda.lane_layout(K)
     T = rqs_cuda.LANE_BINS
@@ -440,7 +444,7 @@ def test_lanes_and_bins_per_lane_against_K(K):
     assert sorted(owned) == list(range(P))
 
 
-@pytest.mark.parametrize("K", range(2, rqs_cuda.MAX_KNOTS + 1))
+@pytest.mark.parametrize("K", LAYOUT_KNOTS)
 def test_block_spans_and_rows_are_aligned(K):
     """Each block's span of raw values (and of x, gy, gl, dx) starts at a
     multiple of 16 bytes from an aligned base; the arrays behind the span
@@ -486,7 +490,7 @@ def eval_stride(K):
     return 4 * (2 * ((K + 3) // 4) + 1)
 
 
-@pytest.mark.parametrize("K", range(2, rqs_cuda.MAX_KNOTS + 1))
+@pytest.mark.parametrize("K", LAYOUT_KNOTS)
 def test_eval_block_layout(K):
     """K4's block: L and the bins a lane holds; each warp's span of raw
     values (and of x, y, ladj; a warp stages its own) starts at a multiple

@@ -541,10 +541,12 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     quadrature truth and its moment gate included, and launches no
     kernel. The nuts variants (K1 over c2's, c5's and c1's targets, at
     their widths cut to 8 at most) run 8
-    chains of 10 + 20 transitions at depth 4: their reference windows,
-    R-hat and moment gates, set for the card's depth, may refuse so short
-    a run. No config may fail a gate on its record's keys, its phases, a
-    non-finite result or its launches."""
+    chains of 10 + 20 transitions at depth 4 (the one at 96 knots 5 + 10
+    at depth 2: K1's plain version takes ~0.2 s a gradient call there):
+    their reference windows (none for the 96-knot variant), R-hat and
+    moment gates, set for the card's depth, may refuse so short a run. No
+    config may fail a gate on its record's keys, its phases, a non-finite
+    result or its launches."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
@@ -575,12 +577,15 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
                                     train_epochs=2,
                                     ess_threshold=threshold))
         if name in chip_smoke.RUN_RHAT_VARIANTS:  # K1 over other targets
+            many = cfg.flow.knots > 8
             return dc.replace(
                 cfg, target=dc.replace(cfg.target,
                                        dim=min(cfg.target.dim, 8)),
                 train=dc.replace(cfg.train, nsteps=10, batch_size=64),
-                nuts=dc.replace(cfg.nuts, n_chains=8, num_warmup=10,
-                                num_samples=20, max_depth=4))
+                nuts=dc.replace(cfg.nuts, n_chains=8,
+                                num_warmup=5 if many else 10,
+                                num_samples=10 if many else 20,
+                                max_depth=2 if many else 4))
         return dc.replace(
             cfg, target=dc.replace(cfg.target, dim=8),
             train=dc.replace(cfg.train, nsteps=100, batch_size=128),
@@ -630,7 +635,7 @@ def test_chip_smoke_runner_phase_rehearses_on_the_cpu():
     for name in chip_smoke.RUN_RHAT_VARIANTS:  # K1's plain version ran
         assert rows[name]["record"]["transition"] == "fused"
         assert set(rows[name]["reference"]) == set(
-            chip_smoke.RUN_REFERENCE[name])
+            chip_smoke.RUN_REFERENCE.get(name, {}))
 
 
 def test_adaptive_launches_follow_the_path():
